@@ -1,0 +1,186 @@
+"""The port's generation against the JAX ``Generator``, on the CPU.
+
+Same weights (a seeded JAX init, gates opened, loaded through numpy),
+same prompts and item latents: the beam search must return the same
+tokens for both length conventions, greedy the same tokens, and a short
+prompt must decode the same alone as batched with a longer one.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from unimp_tpu.decode import GenerationConfig as JGenerationConfig
+from unimp_tpu.decode import Generator as JGenerator
+from unimp_tpu.models import UniMPModel as JModel
+from unimp_tpu.models import compute_q_media as j_compute_q_media
+from unimp_tpu.models import get_config as j_get_config
+from unimp_tpu_torch.decode import GenerationConfig, Generator
+from unimp_tpu_torch.decode.sampler import left_align, top_k
+from unimp_tpu_torch.evals.metrics import rank_metrics_for_hits
+from unimp_tpu_torch.models import UniMPModel, get_config
+from unimp_tpu_torch.tools.from_flax import flatten_tree, load_flax_params
+
+torch.set_num_threads(2)  # six test workers share the cores
+MEDIA_ID = 7
+
+
+@pytest.fixture(scope="module")
+def models():
+    jcfg = j_get_config("debug", dtype="float32")
+    jmodel = JModel(jcfg)
+    ids = jnp.ones((1, 8), jnp.int32).at[0, 1].set(MEDIA_ID)
+    img = jcfg.vision.image_size
+    params = jmodel.init(jax.random.PRNGKey(0), ids,
+                         vision_x=jnp.zeros((1, 1, img, img, 3), jnp.float32),
+                         q_media=j_compute_q_media(ids, MEDIA_ID))["params"]
+    params = jax.tree_util.tree_map(lambda x: x, params)
+    for key in params:
+        if key.startswith("xattn_"):
+            params[key]["attn_gate"] = jnp.asarray(1.0)
+            params[key]["ff_gate"] = jnp.asarray(1.0)
+    tmodel = UniMPModel(get_config("debug", dtype="float32"))
+    load_flax_params(tmodel, {k: np.asarray(v) for k, v in flatten_tree(params).items()})
+    return jmodel, params, tmodel.eval()
+
+
+def _prompts(cfg, b=3, t=16, m=2, seed=0):
+    """Right-padded prompts with m media tokens each, ragged lengths."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(10, cfg.lm.vocab_size, size=(b, t)).astype(np.int32)
+    seq_len = np.array([t, t - 5, t - 3][:b], np.int32)
+    ids[:, 1] = MEDIA_ID
+    ids[:, 5] = MEDIA_ID
+    for r in range(b):
+        ids[r, seq_len[r]:] = 0
+    img = cfg.vision.image_size
+    vision = rng.normal(size=(b, m, img, img, 3)).astype(np.float32)
+    return ids, seq_len, vision
+
+
+def _run_both(models, gen_kw, multimodal=True):
+    jmodel, params, tmodel = models
+    ids, seq_len, vision = _prompts(jmodel.cfg)
+    jlat = tlat = None
+    if multimodal:
+        jlat = jmodel.apply({"params": params}, jnp.asarray(vision), method=JModel.encode_vision)
+        with torch.no_grad():
+            tlat = tmodel.encode_vision(torch.from_numpy(vision))
+    jgen = JGenerator(jmodel, JGenerationConfig(**gen_kw), media_id=MEDIA_ID)
+    jtok, jscores = jgen.generate(params, jnp.asarray(ids), jnp.asarray(seq_len), jlat)
+    tgen = Generator(tmodel, GenerationConfig(**gen_kw), media_id=MEDIA_ID)
+    ttok, tscores = tgen.generate(torch.from_numpy(ids).long(),
+                                  torch.from_numpy(seq_len).long(), tlat)
+    return (np.asarray(jtok), np.asarray(jscores)), (ttok.numpy(), tscores.numpy())
+
+
+@pytest.mark.parametrize("length_norm,early", [("full", True), ("generated", True),
+                                               ("full", False)])
+def test_beam_tokens_match_jax(models, length_norm, early):
+    gen_kw = dict(max_new_tokens=6, eos_id=3, pad_id=0, num_beams=4,
+                  num_return_sequences=4, length_norm=length_norm, early_stopping=early)
+    (jtok, jscores), (ttok, tscores) = _run_both(models, gen_kw)
+    np.testing.assert_array_equal(ttok, jtok)
+    np.testing.assert_allclose(tscores, jscores, atol=1e-4, rtol=1e-4)
+
+
+def test_beam_with_frequent_eos_matches_jax(models):
+    """An eos the model picks often exercises the finished-set banking."""
+    jmodel, params, tmodel = models
+    ids, seq_len, _ = _prompts(jmodel.cfg)
+    probe = JGenerator(jmodel, JGenerationConfig(max_new_tokens=3, eos_id=1, pad_id=0),
+                       media_id=MEDIA_ID)
+    eos = int(np.asarray(probe.generate(params, jnp.asarray(ids),
+                                        jnp.asarray(seq_len))[0])[0, 0, 1])
+    gen_kw = dict(max_new_tokens=5, eos_id=eos, pad_id=0, num_beams=3,
+                  num_return_sequences=3)
+    (jtok, jscores), (ttok, tscores) = _run_both(models, gen_kw, multimodal=False)
+    np.testing.assert_array_equal(ttok, jtok)
+    np.testing.assert_allclose(tscores, jscores, atol=1e-4, rtol=1e-4)
+
+
+def test_greedy_tokens_match_jax(models):
+    gen_kw = dict(max_new_tokens=6, eos_id=3, pad_id=0)
+    (jtok, jscores), (ttok, tscores) = _run_both(models, gen_kw)
+    np.testing.assert_array_equal(ttok, jtok)
+    np.testing.assert_allclose(tscores, jscores, atol=1e-4, rtol=1e-4)
+
+
+def test_rec_eval_path_matches_jax(models):
+    """The rec-eval path end to end: item latents through both ItemLatentCaches
+    (uint8 images, CLIP normalize, chunked encode, gather), then a 3-beam
+    search over them (the metrics: ``test_rank_metrics_match_jax``)."""
+    from unimp_tpu.evals.latent_cache import ItemLatentCache as JItemLatentCache
+    from unimp_tpu_torch.evals.latent_cache import ItemLatentCache
+
+    jmodel, params, tmodel = models
+    rng = np.random.default_rng(5)
+    img = jmodel.cfg.vision.image_size
+    images = rng.integers(0, 256, size=(7, img, img, 3), dtype=np.uint8)
+    image_ids = np.array([[0, 5], [3, 3], [6, 1]])
+    jcache = JItemLatentCache(jmodel, params, lambda i: images[i], 7, chunk=4)
+    tcache = ItemLatentCache(tmodel, lambda i: images[i], 7, chunk=4, device="cpu")
+    jlat, tlat = jcache.gather(image_ids), tcache.gather(image_ids)
+    np.testing.assert_allclose(tlat.numpy(), np.asarray(jlat), atol=1e-4, rtol=1e-4)
+
+    ids, seq_len, _ = _prompts(jmodel.cfg, seed=4)
+    gen_kw = dict(max_new_tokens=4, eos_id=3, pad_id=0, num_beams=3, num_return_sequences=3)
+    jtok, _ = JGenerator(jmodel, JGenerationConfig(**gen_kw), media_id=MEDIA_ID).generate(
+        params, jnp.asarray(ids), jnp.asarray(seq_len), jlat)
+    ttok, _ = Generator(tmodel, GenerationConfig(**gen_kw), media_id=MEDIA_ID).generate(
+        torch.from_numpy(ids).long(), torch.from_numpy(seq_len).long(), tlat)
+    np.testing.assert_array_equal(ttok.numpy(), np.asarray(jtok))
+
+
+def test_padding_invariance(models):
+    """A short prompt decoded alone == the same prompt batched with a
+    longer one (as tests/test_decode.py checks for the JAX package)."""
+    _, _, tmodel = models
+    rng = np.random.default_rng(2)
+    short = rng.integers(10, 512, size=8)
+    long_ = rng.integers(10, 512, size=16)
+    gen = Generator(tmodel, GenerationConfig(max_new_tokens=4, eos_id=3, pad_id=0,
+                                             num_beams=3, num_return_sequences=3),
+                    media_id=999)
+    ids = np.zeros((2, 16), np.int64)
+    ids[0, :8] = short
+    ids[1] = long_
+    tok_b, sc_b = gen.generate(torch.from_numpy(ids), torch.tensor([8, 16]))
+    tok_s, sc_s = gen.generate(torch.from_numpy(short[None]), torch.tensor([8]))
+    assert torch.equal(tok_b[0], tok_s[0])
+    torch.testing.assert_close(sc_b[0], sc_s[0], atol=2e-4, rtol=2e-4)
+
+
+def test_left_align_matches_jax():
+    from unimp_tpu.decode.sampler import left_align as j_left_align
+
+    ids = np.arange(1, 25, dtype=np.int32).reshape(3, 8)
+    seq_len = np.array([8, 3, 5], np.int32)
+    want_ids, want_start = j_left_align(jnp.asarray(ids), jnp.asarray(seq_len), 0)
+    got_ids, got_start = left_align(torch.from_numpy(ids), torch.from_numpy(seq_len), 0)
+    np.testing.assert_array_equal(got_ids.numpy(), np.asarray(want_ids))
+    np.testing.assert_array_equal(got_start.numpy(), np.asarray(want_start))
+
+
+def test_top_k_breaks_ties_like_jax():
+    x = np.array([[1.0, 3.0, 3.0, -1e9, 3.0, 2.0, -1e9, -1e9],
+                  [-1e9] * 8], np.float32)
+    for k in (1, 2, 3, 5):
+        want_v, want_i = jax.lax.top_k(jnp.asarray(x), k)
+        got_v, got_i = top_k(torch.from_numpy(x), k)
+        np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+        np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
+
+
+def test_rank_metrics_match_jax():
+    from unimp_tpu.evals import metrics as jm
+    from unimp_tpu_torch.evals import metrics as tm
+
+    for hits in ([0] * 10, [0, 0, 1] + [0] * 7, [1] + [0] * 9, [0] * 6 + [1, 1, 0, 0]):
+        assert rank_metrics_for_hits(np.array(hits)) == jm.rank_metrics_for_hits(np.array(hits))
+        for k in (3, 10):
+            p, r = tm.precision_at_k(hits, k), tm.recall_at_k(hits, k, 2)
+            assert (p, r) == (jm.precision_at_k(hits, k), jm.recall_at_k(hits, k, 2))
+            assert tm.f1_score(p, r) == jm.f1_score(p, r)

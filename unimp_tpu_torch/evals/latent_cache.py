@@ -1,0 +1,69 @@
+"""Device-resident item-image latent cache for evaluation.
+
+Counterpart of ``unimp_tpu/evals/latent_cache.py``. At eval time every
+item image is static, so each unique item is encoded (CLIP tower +
+perceiver) exactly once, in fixed-size chunks, and every batch is served
+by a gather on the device: a batch carries a [B, M] array of item ids
+instead of B * M images.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import numpy as np
+import torch
+
+from unimp_tpu_torch.device import resolve_device
+
+# CLIP normalization (the reference's FLAMINGO mean / std)
+FLAMINGO_MEAN = (0.48145466, 0.4578275, 0.40821073)
+FLAMINGO_STD = (0.26862954, 0.26130258, 0.27577711)
+# refuse a cache larger than this (n_items x latents x width x dtype size)
+MAX_BYTES = 6 << 30
+
+
+def normalize(x: torch.Tensor) -> torch.Tensor:
+    """uint8 [..., H, W, 3] -> CLIP-normalized float32, on x's device."""
+    mean = torch.tensor(FLAMINGO_MEAN, device=x.device)
+    std = torch.tensor(FLAMINGO_STD, device=x.device)
+    return (x.float() / 255.0 - mean) / std
+
+
+class ItemLatentCache:
+    def __init__(self, model, get_image: Callable[[int], np.ndarray], n_items: int,
+                 *, chunk: int = 64, device="cuda"):
+        self.model = model
+        self.get_image = get_image
+        self.n_items = int(n_items)
+        self.chunk = chunk
+        self.device = resolve_device(device)
+        self._cached = np.zeros(self.n_items, bool)
+        self._cache = None  # [n_items, L, D] on the device
+
+    @torch.no_grad()
+    def _ensure(self, ids: np.ndarray) -> None:
+        ids = ids[(ids >= 0) & (ids < self.n_items)]
+        new = np.unique(ids[~self._cached[ids]])
+        for off in range(0, new.size, self.chunk):
+            part = new[off : off + self.chunk]
+            # pad to the fixed chunk shape (repeat the last id)
+            pad = np.concatenate([part, np.full(self.chunk - part.size, part[-1], part.dtype)])
+            imgs = torch.from_numpy(np.stack([self.get_image(int(i)) for i in pad]))
+            imgs = imgs.to(self.device)[:, None]
+            lat = self.model.encode_vision(normalize(imgs))[:, 0]  # [chunk, L, D]
+            if self._cache is None:
+                nbytes = self.n_items * lat[0].numel() * lat.element_size()
+                if nbytes > MAX_BYTES:
+                    raise MemoryError(f"latent cache would need {nbytes / 2**30:.1f} GiB "
+                                      f"(> {MAX_BYTES / 2**30:.1f})")
+                self._cache = torch.zeros((self.n_items,) + lat.shape[1:],
+                                          dtype=lat.dtype, device=self.device)
+            self._cache[torch.from_numpy(pad).to(self.device)] = lat
+        self._cached[new] = True
+
+    def gather(self, image_ids: np.ndarray) -> torch.Tensor:
+        """[B, M] host item ids -> latents [B, M, L, D] (encoding misses)."""
+        ids = np.asarray(image_ids)
+        self._ensure(ids.ravel())
+        return self._cache[torch.from_numpy(ids).long().to(self.device)]
