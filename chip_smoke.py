@@ -7,22 +7,32 @@ Phases (any failure exits non-zero):
   1. card check: needs CUDA; prints the card's name and power limit;
   2. build: compiles every CUDA kernel of the port from ``csrc/`` (one
      nvcc per source, all at once) and prints the build seconds;
-  3. kernels vs plain: the flash-attention forward (K1), split-cache beam
-     decode (K4) and single-query media read (K5) against their plain
-     PyTorch versions at the 4b main-path shapes and at extra shapes
-     (head dim 128 + ALiBi, causal + kv_start windows, all_previous, fully
-     masked rows, GQA, decode steps 1 / 17 / 50 with random beam_sel), in
-     bfloat16 and float32, with the tolerances below; times each kernel
-     (CUDA events) beside its plain version, its bound and the
-     ``scaled_dot_product_attention`` yardstick (which the port never calls);
-  4. the ``small`` variant's beam eval in float32, once on the card
-     (kernels) and once on the CPU (plain versions): token agreement and
-     prefill logit difference;
+  3. kernels vs plain: the flash-attention forward (K1), its backward
+     dK/dV (K2) and dQ (K3), split-cache beam decode (K4) and single-query
+     media read (K5) against their plain PyTorch versions at the 4b
+     main-path shapes (eval for K1/K4/K5, training for K2/K3) and at extra
+     shapes (head dim 128 + ALiBi, causal + kv_start windows,
+     all_previous, fully masked rows, GQA, decode steps 1 / 17 / 50 with
+     random beam_sel), in bfloat16 and float32, with the tolerances below;
+     times each kernel (CUDA events) beside its plain version, its bound
+     and the ``scaled_dot_product_attention`` yardstick (forward, or its
+     backward through autograd; the port never calls it);
+  4. the ``small`` variant in float32, once on the card (kernels) and once
+     on the CPU (plain versions): the beam eval (token agreement, prefill
+     logit difference), then one ``Trainer`` step (loss, every trainable
+     gradient, skipped flag);
   5. the ``4b-instruct`` 10-beam rec eval at full width (random seeded
      weights, gates opened): a 256-item catalogue encoded once by the item
      latent cache, two batches of 24 prompts (T=128, 4 images each), beam
      search with 10 beams / 10 returned / 50 new tokens, HR/NDCG/MRR@{3,5,10};
-     prints items/s, peak memory and each kernel's launch count.
+     prints items/s, peak memory and each kernel's launch count;
+  6. the ``4b-instruct`` rec training step at full width (random seeded
+     weights, gates opened, bf16 frozen backbone, f32 trainable masters):
+     micro-batch 3 x accum 2 of synthetic rec prompts (T=256, 6 images of
+     224 px each, one <answer> span), focal loss gamma 2 with reweight,
+     AdamW at constant lr 1e-4; 2 warm-up then 5 timed steps on one fixed
+     batch; prints samples/s, step ms, MFU, peak memory, every loss, the
+     K1/K2/K3 launches per step and a profile of one step.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -30,6 +40,7 @@ The line before the last is {"kernels": [...]}; the last line is
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -45,14 +56,29 @@ from unimp_tpu_torch.evals.metrics import rank_metrics_for_hits
 from unimp_tpu_torch.models import compute_q_media, get_config
 from unimp_tpu_torch.models.flamingo import media_allowed
 from unimp_tpu_torch.ops import kernel_lib
-from unimp_tpu_torch.ops.attention_ref import AttnMask, alibi_slopes, attention_ref, window_mask
+from unimp_tpu_torch.ops.attention_ref import (
+    AttnMask,
+    alibi_slopes,
+    attention_ref,
+    flash_bwd_dkv_ref,
+    flash_bwd_dq_ref,
+    window_mask,
+)
 from unimp_tpu_torch.ops.decode_attention import decode_attention_ref, single_query_attention_ref
 from unimp_tpu_torch.ops.decode_attention_kernels import (
     decode_attention_cuda,
     single_query_attention_cuda,
 )
-from unimp_tpu_torch.ops.flash_attention import flash_attention_cuda
+from unimp_tpu_torch.ops.flash_attention import (
+    flash_attention_cuda,
+    flash_bwd_dkv_cuda,
+    flash_bwd_dq_cuda,
+)
 from unimp_tpu_torch.tools.from_flax import build_model
+from unimp_tpu_torch.train.optimizer import make_optimizer
+from unimp_tpu_torch.train.partition import trainable_params
+from unimp_tpu_torch.train.trainer import Trainer
+from unimp_tpu_torch.utils.flops import detect_peak_flops, train_step_flops
 
 # H100 SXM published peaks (dense): memory 3.35 TB/s; bf16 tensor cores
 # 989 TFLOP/s; float32 outside the tensor cores 67 TFLOP/s
@@ -62,16 +88,39 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # by where p and the output round to 8 mantissa bits
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 LSE_TOL = 1e-3
+# K2/K3 vs plain: gradients are not O(1) like attention outputs, so bf16
+# is held relative to the gradient's size: max |kernel - plain| <=
+# 2e-2 * max |plain|, per gradient; float32 as above (atol = rtol = 1e-4)
+GRAD_REL_TOL = 2e-2
+# small training step, card vs CPU, float32: max |d| <= 5e-4 * max |g| per
+# trainable gradient. K1's online softmax gives O to about 1e-7 relative,
+# and the cross-attention q / k projections' gradients pass through
+# ds = p (dp - delta), delta = rowsum(dO * O): near-uniform attention over
+# similar latents makes that a small difference of close numbers. On the
+# CPU alone, 1e-7 relative noise on O moves those gradients (whole
+# tensors, not single entries) by up to 1.5e-4 of max |g|; the card vs the
+# CPU differ by 1.3e-4. Phase 3 holds K2 / K3 to their plain versions on
+# identical inputs at 1e-4.
+SMALL_GRAD_TOL = 5e-4
 
 MEDIA_ID = 50431          # <image>
 ITEM_BASE = 50432         # item_i tokens follow the base vocabulary
 N_ITEM_TOKENS = 4167      # beauty's item count
 EOS_ID = 0
 SMALL_MEDIA_ID = 30000    # small variant (vocab 32768): items follow it
+# synthetic placements of <answer> and <|endofchunk|> below <image>
+ANSWER_ID, EOC_ID = 50430, 50429
+SMALL_ANSWER_ID, SMALL_EOC_ID = 29999, 29998
 
+EVAL_KERNELS = ("flash_fwd", "decode_attn", "single_query_attn")
+TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
 KERNELS = {
     "flash_fwd": ("unimp_tpu_torch/csrc/flash_fwd.cu",
                   "unimp_tpu/ops/flash_attention.py:108"),
+    "flash_bwd_dkv": ("unimp_tpu_torch/csrc/flash_bwd.cu",
+                      "unimp_tpu/ops/flash_attention.py:225"),
+    "flash_bwd_dq": ("unimp_tpu_torch/csrc/flash_bwd.cu",
+                     "unimp_tpu/ops/flash_attention.py:336"),
     "decode_attn": ("unimp_tpu_torch/csrc/decode_attn.cu",
                     "unimp_tpu/ops/decode_attention_pallas.py:119"),
     "single_query_attn": ("unimp_tpu_torch/csrc/decode_attn.cu",
@@ -108,6 +157,18 @@ def nbytes(*ts) -> int:
 
 # ------------------------------------------------------------ phase 3: K1
 
+def media_index(dev, b, sq, n_media, lat, first, gap):
+    """(q_media [B, Sq], kv_media [B, n_media * lat]): an <image> every
+    ``gap`` tokens from ``first``; queries before it have q_media 0 and see
+    nothing under "immediate"."""
+    pos = torch.zeros(b, sq, dtype=torch.int32, device=dev)
+    for i in range(n_media):
+        pos[:, first + i * gap] = 1
+    qm = torch.cumsum(pos, 1, dtype=torch.int32)
+    km = torch.arange(1, n_media + 1, device=dev, dtype=torch.int32).repeat_interleave(lat)
+    return qm, km[None].expand(b, -1).contiguous()
+
+
 def flash_cases(dev):
     """(name, main_path, q, k, v, kwargs) at the 4b shapes and extras."""
     g = torch.Generator(dev).manual_seed(0)
@@ -117,12 +178,7 @@ def flash_cases(dev):
                 ((b, sq, h, d), (b, skv, hkv, d), (b, skv, hkv, d))]
 
     def media(b, sq, n_media, lat, first):
-        pos = torch.zeros(b, sq, dtype=torch.int32, device=dev)
-        for i in range(n_media):
-            pos[:, first + i * 24] = 1
-        qm = torch.cumsum(pos, 1, dtype=torch.int32)
-        km = torch.arange(1, n_media + 1, device=dev, dtype=torch.int32).repeat_interleave(lat)
-        return qm, km[None].expand(b, -1).contiguous()
+        return media_index(dev, b, sq, n_media, lat, first, 24)
 
     cases = []
     # main path (4b-instruct): ViT chunk of 64 images, perceiver, x-attn
@@ -188,6 +244,114 @@ def sdpa_args(q, k, v, kw):
     return t(q), t(k), t(v), mask
 
 
+# ------------------------------------------------------------ phase 3: K2/K3
+
+def bwd_cases(dev):
+    """(name, main_path, q, k, v, do, kwargs) at the 4b training shapes
+    (LM self-attention, cross-attention, perceiver) and extras."""
+    g = torch.Generator(dev).manual_seed(1)
+
+    def qkvo(b, sq, skv, h, hkv, d):
+        return [torch.randn(s, generator=g, device=dev) for s in
+                ((b, sq, h, d), (b, skv, hkv, d), (b, skv, hkv, d), (b, sq, h, d))]
+
+    cases = []
+    # main path (4b-instruct training, micro-batch 3, T 256, 6 images):
+    # LM causal + kv_len (right padding); x-attn over 6 x 64 latents,
+    # "immediate", text before the first <image> fully masked; perceiver
+    # over 18 images (256 patches + 64 latents)
+    kv_len = torch.randint(200, 257, (3,), generator=g, device=dev)
+    cases.append(("lm_train_3x256_d80_causal_kvlen", True, *qkvo(3, 256, 256, 32, 32, 80),
+                  dict(causal=True, kv_len=kv_len)))
+    qm, km = media_index(dev, 3, 256, 6, 64, 4, 31)
+    cases.append(("xattn_train_3x256x384_d80_immediate", True,
+                  *qkvo(3, 256, 384, 32, 32, 80),
+                  dict(q_media=qm, kv_media=km, media_mode="immediate")))
+    cases.append(("perceiver_train_18x64x320_d64", True, *qkvo(18, 64, 320, 16, 16, 64), {}))
+    # extras
+    cases.append(("mpt_256_d128_alibi_causal", False, *qkvo(2, 256, 256, 16, 16, 128),
+                  dict(causal=True, alibi_slopes=alibi_slopes(16).to(dev))))
+    qm, km = media_index(dev, 2, 128, 4, 64, 40, 24)
+    cases.append(("xattn_all_previous_d80", False, *qkvo(2, 128, 256, 8, 8, 80),
+                  dict(q_media=qm, kv_media=km, media_mode="all_previous")))
+    cases.append(("kv_start_window_d64", False, *qkvo(2, 100, 140, 4, 4, 64),
+                  dict(kv_start=torch.tensor([0, 17], device=dev),
+                       kv_len=torch.tensor([140, 121], device=dev))))
+    cases.append(("gqa_causal_window_d80", False, *qkvo(2, 100, 100, 32, 8, 80),
+                  dict(causal=True, kv_start=torch.tensor([3, 0], device=dev),
+                       kv_len=torch.tensor([100, 77], device=dev))))
+    return cases
+
+
+def bwd_plain(kernel, q, k, v, do, lse, delta, kw):
+    """The plain version of K2 ((dk, dv)) or K3 (dq)."""
+    fn = flash_bwd_dkv_ref if kernel == "flash_bwd_dkv" else flash_bwd_dq_ref
+    return fn(q, k, v, do, lse, delta, flash_mask(kw), kv_len=kw.get("kv_len"),
+              kv_start=kw.get("kv_start"), alibi=kw.get("alibi_slopes"))
+
+
+def check_grad(name, got, want, dtype, results, kernel, main):
+    """float32: atol = rtol = 1e-4; bfloat16: max |d| <= GRAD_REL_TOL *
+    max |plain|."""
+    err = (got.float() - want.float()).abs().max().item()
+    size = want.float().abs().max().item()
+    finite = bool(torch.isfinite(got.float()).all())
+    if dtype == torch.bfloat16:
+        ok, tol = err <= GRAD_REL_TOL * size, f"{GRAD_REL_TOL:g}*{size:.3g}"
+    else:
+        ok = torch.allclose(got, want, atol=TOL[dtype], rtol=TOL[dtype])
+        tol = f"{TOL[dtype]:g}"
+    ok = ok and finite
+    log(f"[check] {kernel:17s} {name:40s} {str(dtype)[6:]:8s} max_abs_err={err:.3e} "
+        f"tol={tol} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{kernel} {name} {dtype}: max_abs_err {err} (finite={finite})")
+    if main and dtype == torch.bfloat16:
+        results[kernel]["max_abs_err"] = max(results[kernel].get("max_abs_err", 0.0), err)
+
+
+def phase_bwd_kernels(dev, dtype, results, timings):
+    """K2 and K3 against their plain versions on the same (q, k, v, dO,
+    lse from K1, delta); bf16 main-path shapes are also timed."""
+    for name, main, q, k, v, do, kw in bwd_cases(dev):
+        q, k, v, do = (x.to(dtype) for x in (q, k, v, do))
+        out, lse = flash_attention_cuda(q, k, v, **kw)
+        delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+        args = (q, k, v, do, lse, delta)
+        dk, dv = flash_bwd_dkv_cuda(*args, **kw)
+        dq = flash_bwd_dq_cuda(*args, **kw)
+        want_dk, want_dv = bwd_plain("flash_bwd_dkv", *args, kw)
+        check_grad(f"{name} dk", dk, want_dk, dtype, results, "flash_bwd_dkv", main)
+        check_grad(f"{name} dv", dv, want_dv, dtype, results, "flash_bwd_dkv", main)
+        check_grad(f"{name} dq", dq, bwd_plain("flash_bwd_dq", *args, kw), dtype, results,
+                   "flash_bwd_dq", main)
+        if not (dtype == torch.bfloat16 and main):
+            continue
+        b, sq, h, d = q.shape
+        allowed = allowed_pairs(q, k, kw)
+        pairs = b * sq * k.shape[1] if allowed is None else int(allowed.sum())
+        extra = [kw.get(n) for n in ("q_media", "kv_media", "kv_start", "kv_len")]
+        read = nbytes(*args, *extra)
+        # SDPA's backward through autograd computes dq, dk and dv in one call
+        sq_, sk_, sv_, mask = sdpa_args(q, k, v, kw)
+        sq_, sk_, sv_ = (x.requires_grad_() for x in (sq_, sk_, sv_))
+        lib_out = F.scaled_dot_product_attention(sq_, sk_, sv_, attn_mask=mask)
+        lib_do = do.transpose(1, 2).contiguous()
+        library_ms = cuda_ms(lambda: torch.autograd.grad(lib_out, (sq_, sk_, sv_), lib_do,
+                                                         retain_graph=True))
+        # K2: 4 products (s, dp, dv, dk) and K3: 3 (s, dp, dq), each
+        # 2 * D flops per allowed (query, key) pair and head
+        for kernel, fn, outs, n_mm in (
+                ("flash_bwd_dkv", flash_bwd_dkv_cuda, (dk, dv), 4),
+                ("flash_bwd_dq", flash_bwd_dq_cuda, (dq,), 3)):
+            b_ms, b_by = bound(read + nbytes(*outs), n_mm * 2.0 * d * h * pairs, dtype)
+            timings.append(dict(
+                kernel=kernel, case=name,
+                ms=cuda_ms(lambda: fn(*args, **kw)),
+                plain_ms=cuda_ms(lambda: bwd_plain(kernel, *args, kw), iters=5),
+                library_ms=library_ms, bound_ms=b_ms, bound_by=b_by))
+
+
 # ------------------------------------------------------------ phase 3: K4/K5
 
 def decode_case(dev, b, kb, t, g, h, hkv, d, seed):
@@ -239,6 +403,8 @@ def phase_kernels(dev):
                     library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
                         sq_, sk_, sv_, attn_mask=mask)),
                     bound_ms=b_ms, bound_by=b_by))
+
+        phase_bwd_kernels(dev, dtype, results, timings)
 
         # K4: 4b decode (B24 K10 H32 d80 T128 G50) at three fills, + extras
         specs = [("4b_b24_k10_d80", True, (24, 10, 128, 50, 32, 32, 80), False, None),
@@ -393,6 +559,8 @@ def phase_4b(dev, gpu_line):
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
     log(f"[4b] {n_params / 1e9:.3f} B params, vocab {vocab}, init {time.perf_counter() - t0:.1f} s")
+    log(f"[4b] K6 (int8 matmul, not ported) bound per decode step: "
+        f"{k6_decode_bound_ms(model):.4f} ms (bytes)")
 
     rng = np.random.default_rng(0)
     n_items, b, t = 256, 24, 128
@@ -436,18 +604,150 @@ def phase_4b(dev, gpu_line):
         f"on {gpu_line}")
     log(f"[4b] metrics {json.dumps(metrics)}")
     log(f"[4b] launches {json.dumps(launches)}")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the main path")
+    for name in EVAL_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the eval path")
     ids, seq_len, image_ids, _ = batches[1]
-    profile_batch(lambda: gen.generate(torch.from_numpy(ids).to(dev),
-                                       torch.from_numpy(seq_len).to(dev),
-                                       cache.gather(image_ids)), batch_s[1])
+    profile_run("4b batch", lambda: gen.generate(torch.from_numpy(ids).to(dev),
+                                                 torch.from_numpy(seq_len).to(dev),
+                                                 cache.gather(image_ids)), batch_s[1])
     return launches
 
 
-def profile_batch(run, unprofiled_s: float) -> None:
-    """Where one more 4b batch spends its time (torch.profiler, after the
+# ------------------------------------------------------------ phase 6
+
+def train_batch(rng, b, t, n_media, n_items, img, min_len, media_id=MEDIA_ID,
+                item_base=ITEM_BASE, answer_id=ANSWER_ID, eoc_id=EOC_ID):
+    """Synthetic rec training prompts: ``prompts`` (text, n_media <image>
+    + item tokens, right padding) ending in "<answer> item
+    <|endofchunk|>", with uint8 images and unit task weights."""
+    ids, seq_len, _, targets = prompts(rng, b, t, n_media, n_items, min_len, media_id,
+                                       item_base)
+    ids[(ids == answer_id) | (ids == eoc_id)] = 1
+    for r in range(b):
+        n = seq_len[r]
+        ids[r, n - 3:n] = (answer_id, item_base + targets[r], eoc_id)
+    return {"input_ids": ids, "seq_len": seq_len, "weights": np.ones(b, np.float32),
+            "images": rng.integers(0, 256, size=(b, n_media, img, img, 3), dtype=np.uint8)}
+
+
+def phase_small_train(dev):
+    """small variant, f32, gates open: one Trainer step (accum 2) on the
+    card and on the CPU from the same weights and batch."""
+    cfg = get_config("small", dtype="float32")
+    batch = train_batch(np.random.default_rng(3), 4, 64, 2, 16, cfg.vision.image_size, 48,
+                        SMALL_MEDIA_ID, SMALL_MEDIA_ID + 1, SMALL_ANSWER_ID, SMALL_EOC_ID)
+    got = {}
+    for label, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        model = build_model(cfg, device="cpu", seed=1, train=True).to(device)
+        open_gates(model)
+        params = trainable_params(model)
+        trainer = Trainer(model, make_optimizer(params), media_id=SMALL_MEDIA_ID,
+                          answer_id=SMALL_ANSWER_ID, endofchunk_id=SMALL_EOC_ID,
+                          pad_id=EOS_ID, gamma=2.0, use_reweight=True, accum_steps=2,
+                          device=device)
+        loss, _ = trainer.compute_grads(batch)
+        grads = {n: p.grad.detach().cpu().clone() for n, p in params.items()}
+        metrics = trainer.train_step(batch)
+        got[label] = (float(loss), grads, float(metrics["loss"]),
+                      int(metrics["skipped_nonfinite"]))
+    (l_card, g_card, s_card, k_card), (l_cpu, g_cpu, s_cpu, k_cpu) = got["card"], got["cpu"]
+    loss_rel = max(abs(l_card - l_cpu), abs(s_card - s_cpu)) / abs(l_cpu)
+    worst, worst_name = 0.0, None
+    for name, g in g_cpu.items():
+        rel = float((g_card[name] - g).abs().max()) / max(float(g.abs().max()), 1e-30)
+        if rel > worst:
+            worst, worst_name = rel, name
+    log(f"[small-train] card vs cpu: loss {l_card:.6f} vs {l_cpu:.6f} (rel {loss_rel:.2e}, "
+        f"limit 1e-5); worst gradient {worst_name} max|d|/max|g|={worst:.2e} "
+        f"(limit {SMALL_GRAD_TOL:g}); skipped {k_card} vs {k_cpu}")
+    if not (loss_rel <= 1e-5 and worst <= SMALL_GRAD_TOL and k_card == k_cpu == 0):
+        raise AssertionError("small-variant training step on the card disagrees with the CPU")
+
+
+def phase_4b_train(dev, gpu_line):
+    """4b-instruct training at full width: micro-batch 3 x accum 2, T 256,
+    6 images of 224 px per sample; 2 warm-up and 5 timed steps."""
+    cfg = get_config("4b-instruct")
+    vocab = -(-(ITEM_BASE + N_ITEM_TOKENS) // 128) * 128
+    cfg = cfg.replace(lm=dataclasses.replace(cfg.lm, vocab_size=vocab))
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, seed=0, train=True, frozen_dtype=torch.bfloat16)
+    open_gates(model)
+    params = trainable_params(model)
+    trainer = Trainer(model, make_optimizer(params), media_id=MEDIA_ID, answer_id=ANSWER_ID,
+                      endofchunk_id=EOC_ID, pad_id=EOS_ID, gamma=2.0, use_reweight=True,
+                      accum_steps=2, device=dev)
+    torch.cuda.synchronize()
+    n_train = sum(p.numel() for p in params.values())
+    n_all = sum(p.numel() for p in model.parameters())
+    log(f"[4b-train] {n_all / 1e9:.3f} B params, {n_train / 1e9:.3f} B trainable (f32), "
+        f"frozen bf16; init {time.perf_counter() - t0:.1f} s")
+
+    b, t, n_media, warmup, timed = 6, 256, 6, 2, 5
+    batch = train_batch(np.random.default_rng(4), b, t, n_media, 256, 224, 200)
+    torch.cuda.reset_peak_memory_stats()
+    kernel_lib.reset_launches()          # the training path starts here
+    losses, norms, step_s = [], [], []
+    for step in range(warmup + timed):
+        t0 = time.perf_counter()
+        metrics = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+        if int(metrics["skipped_nonfinite"]) or not (np.isfinite(losses[-1])
+                                                     and np.isfinite(norms[-1])):
+            raise AssertionError(f"step {step}: loss {losses[-1]}, grad norm {norms[-1]}, "
+                                 f"skipped {int(metrics['skipped_nonfinite'])}")
+        log(f"[4b-train] step {step} loss={losses[-1]:.6f} grad_norm={norms[-1]:.4f} "
+            f"ce={float(metrics['ce']):.4f} answer_tokens={float(metrics['n_answer_tokens']):g} "
+            f"{step_s[-1] * 1e3:.1f} ms")
+    launches = dict(kernel_lib.LAUNCHES)  # the training path ends here
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    steps = warmup + timed
+    mean_s = float(np.mean(step_s[warmup:]))
+    flops = train_step_flops(cfg, b, t, n_media, frozen_backbone=True)
+    mfu = flops / mean_s / detect_peak_flops()
+    log(f"[4b-train] samples/s={b / mean_s:.3f} step_ms={mean_s * 1e3:.1f} "
+        f"(mean of {timed} timed steps, host clock; each step {[round(x * 1e3, 1) for x in step_s]}"
+        f" ms) MFU={100 * mfu:.2f}% ({flops / 1e12:.2f} TFLOP/step, bf16 dense peak) "
+        f"peak_mem={peak_gib:.2f} GiB on {gpu_line}")
+    log(f"[4b-train] losses {losses}")
+    log(f"[4b-train] launches over {steps} steps {json.dumps(launches)}; per step "
+        + json.dumps({k: v / steps for k, v in launches.items()}))
+    n_xattn = -(-cfg.lm.num_layers // cfg.cross_attn_every_n)
+    bwd = cfg.resampler.depth + n_xattn + cfg.lm.num_layers     # per micro-batch
+    want = {"flash_fwd": (cfg.vision.num_layers + bwd) * 2 * steps,
+            "flash_bwd_dkv": bwd * 2 * steps, "flash_bwd_dq": bwd * 2 * steps}
+    for name, n in want.items():
+        if launches[name] != n:
+            raise AssertionError(f"{name}: {launches[name]} launches on the training path, "
+                                 f"expected {n}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    profile_run("4b train step", lambda: trainer.train_step(batch), mean_s)
+    return launches
+
+
+def k6_decode_bound_ms(model) -> float:
+    """The least time of one decode step's int8 weight matmuls (K6, the
+    int8 slice): every projection the step streams (LM blocks; x-attn q, o
+    and MLP, its K/V being cached; the lm head), one byte per weight, over
+    the memory rate; the per-channel scales are left out (under 0.1%)."""
+    n = 0
+    for name, p in model.named_parameters():
+        if p.dim() < 2 or not name.endswith("kernel"):
+            continue
+        if name.startswith("block_") or name == "lm_head.kernel" or (
+                name.startswith("xattn_") and not name.endswith(("k_proj.kernel",
+                                                                 "v_proj.kernel"))):
+            n += p.numel()
+    return n / HBM_BYTES_PER_S * 1e3
+
+
+def profile_run(label: str, run, unprofiled_s: float) -> None:
+    """Where one more run spends its time (torch.profiler, after the
     launch counts are read): device busy share and the top kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -460,7 +760,9 @@ def profile_batch(run, unprofiled_s: float) -> None:
     wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = []
     for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
+        # user annotations (AdamW's "Optimizer.step") span kernels counted
+        # on their own
+        if ev.device_type != DeviceType.CUDA or getattr(ev, "is_user_annotation", False):
             continue
         dev_us = getattr(ev, "self_device_time_total", None)
         if dev_us is None:
@@ -470,13 +772,14 @@ def profile_batch(run, unprofiled_s: float) -> None:
     if busy_ms == 0:
         log("[profile] the profiler recorded no device time")
         return
-    log(f"[profile] 4b batch: wall {wall_ms:.1f} ms under the profiler, "
+    log(f"[profile] {label}: wall {wall_ms:.1f} ms under the profiler, "
         f"{unprofiled_s * 1e3:.1f} ms without; device busy {busy_ms:.1f} ms = "
         f"{100 * busy_ms / (unprofiled_s * 1e3):.1f}% of the unprofiled wall; "
         f"{sum(k[1] for k in kernels)} kernels")
     groups = {"port attention kernels": 0.0, "matmul (cuBLAS)": 0.0, "other": 0.0}
     for ms, _, name in kernels:
-        if any(k in name for k in ("flash_fwd_kernel", "decode_attn_kernel",
+        if any(k in name for k in ("flash_fwd_kernel", "flash_bwd_dkv_kernel",
+                                   "flash_bwd_dq_kernel", "decode_attn_kernel",
                                    "single_query_kernel")):
             groups["port attention kernels"] += ms
         elif any(k in name.lower() for k in ("gemm", "cutlass", "xmma", "gemv", "nvjet")):
@@ -484,7 +787,7 @@ def profile_batch(run, unprofiled_s: float) -> None:
         else:
             groups["other"] += ms
     log("[profile] device ms by group: " + ", ".join(f"{k} {v:.1f}" for k, v in groups.items()))
-    for ms, count, name in sorted(kernels, reverse=True)[:10]:
+    for ms, count, name in sorted(kernels, reverse=True)[:12]:
         log(f"[profile] {ms:9.2f} ms {count:7d}x {name[:100]}")
 
 
@@ -517,20 +820,33 @@ def main() -> int:
     log(f"[kernels] checked in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase_small(dev)
+    phase_small_train(dev)
     log(f"[small] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    launches = phase_4b(dev, gpu_line)
+    eval_launches = phase_4b(dev, gpu_line)
     log(f"[4b] done in {time.perf_counter() - t0:.1f} s")
+    gc.collect()  # the eval model is gone: give its memory back before training
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    train_launches = phase_4b_train(dev, gpu_line)
+    log(f"[4b-train] done in {time.perf_counter() - t0:.1f} s")
 
-    # one headline shape per kernel: LM prefill, decode at step 50, x-attn read
+    # one headline shape per kernel: LM prefill, the LM self-attention
+    # backward of training, decode at step 50, x-attn read
     headline = {"flash_fwd": "lm_prefill_128_d80_causal_window",
+                "flash_bwd_dkv": "lm_train_3x256_d80_causal_kvlen",
+                "flash_bwd_dq": "lm_train_3x256_d80_causal_kvlen",
                 "decode_attn": "4b_b24_k10_d80_step50",
                 "single_query_attn": "4b_b24_k10_s256_d80"}
     rows = []
     for name, (source, replaces) in KERNELS.items():
         tm = next(r for r in timings if r["kernel"] == name and r["case"] == headline[name])
+        by_path = {path: n[name] for path, n, kernels in (
+            ("eval", eval_launches, EVAL_KERNELS), ("train", train_launches, TRAIN_KERNELS))
+            if name in kernels}
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                     "launches": launches[name], "max_abs_err": results[name]["max_abs_err"],
+                     "launches": sum(by_path.values()), "launches_by_path": by_path,
+                     "max_abs_err": results[name]["max_abs_err"],
                      "ms": tm["ms"], "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
                      "bound_by": tm["bound_by"], "library_ms": tm["library_ms"],
                      "shape": headline[name]})

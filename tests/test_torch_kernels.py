@@ -5,7 +5,7 @@ the suite's conftest:
 
     python -m pytest tests/test_torch_kernels.py -m gpu -q --noconftest
 
-On the CPU the card test skips; the wrapper tests check that a kernel
+On the CPU the card tests skip; the wrapper tests check that a kernel
 wrapper given a CPU tensor raises instead of falling back.
 """
 
@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from unimp_tpu_torch.ops import AttnMask
-from unimp_tpu_torch.ops.attention_ref import attention_ref
+from unimp_tpu_torch.ops.attention_ref import attention_ref, flash_bwd_dkv_ref, flash_bwd_dq_ref
 from unimp_tpu_torch.ops.decode_attention import (
     decode_attention,
     decode_attention_ref,
@@ -25,7 +25,13 @@ from unimp_tpu_torch.ops.decode_attention_kernels import (
     decode_attention_cuda,
     single_query_attention_cuda,
 )
-from unimp_tpu_torch.ops.flash_attention import flash_attention, flash_attention_cuda
+from unimp_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_bwd_cuda,
+    flash_attention_cuda,
+    flash_bwd_dkv_cuda,
+    flash_bwd_dq_cuda,
+)
 
 torch.set_num_threads(2)  # six test workers share the cores
 # float32 kernel vs plain: the sums run in another order
@@ -73,12 +79,67 @@ def test_kernels_match_plain_on_card(cuda_device):
     assert torch.equal(got[:kb], torch.zeros_like(got[:kb]))
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["causal_gqa_window", "immediate_masked_rows",
+                                  "all_previous_d64", "alibi_d128"])
+def test_flash_backward_kernels_match_plain_on_card(cuda_device, case):
+    """K2 and K3 on the card against flash_bwd_dkv_ref / flash_bwd_dq_ref
+    (f32), and FlashAttentionFn's gradient on the card against autograd
+    through the plain forward."""
+    dev = cuda_device
+    rng = np.random.default_rng(2)
+    b, sq, skv, h, hkv, d = dict(causal_gqa_window=(2, 40, 40, 4, 2, 80),
+                                 immediate_masked_rows=(2, 37, 48, 2, 2, 80),
+                                 all_previous_d64=(2, 37, 48, 2, 2, 64),
+                                 alibi_d128=(1, 50, 50, 4, 4, 128))[case]
+    q, do = (_randn(rng, b, sq, h, d).to(dev) for _ in range(2))
+    k, v = (_randn(rng, b, skv, hkv, d).to(dev) for _ in range(2))
+    kw, mask = {}, AttnMask()
+    if case in ("causal_gqa_window", "alibi_d128"):
+        kw["causal"] = True
+        mask = AttnMask(causal=True)
+    if case == "causal_gqa_window":
+        kw.update(kv_start=torch.tensor([0, 5], device=dev), kv_len=torch.tensor([40, 33], device=dev))
+    if case == "alibi_d128":
+        kw["alibi_slopes"] = torch.linspace(0.05, 0.5, h, device=dev)
+    if case in ("immediate_masked_rows", "all_previous_d64"):
+        qm = torch.from_numpy(np.sort(rng.integers(0, 4, size=(b, sq)), 1).astype(np.int32))
+        qm[:, :5] = 0  # text before the first media: fully masked rows
+        km = torch.arange(1, 4, dtype=torch.int32).repeat_interleave(skv // 3)[None].repeat(b, 1)
+        mode = "immediate" if case.startswith("immediate") else "all_previous"
+        kw.update(q_media=qm.to(dev), kv_media=km.to(dev), media_mode=mode)
+        mask = AttnMask(q_media=kw["q_media"], kv_media=kw["kv_media"], media_mode=mode)
+    win = dict(kv_len=kw.get("kv_len"), kv_start=kw.get("kv_start"), alibi=kw.get("alibi_slopes"))
+
+    out, lse = flash_attention_cuda(q, k, v, **kw)
+    delta = (do * out).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, lse, delta)
+    dk, dv = flash_bwd_dkv_cuda(*args, **kw)
+    want_dk, want_dv = flash_bwd_dkv_ref(*args, mask, **win)
+    torch.testing.assert_close(dk, want_dk, **TOL)
+    torch.testing.assert_close(dv, want_dv, **TOL)
+    torch.testing.assert_close(flash_bwd_dq_cuda(*args, **kw),
+                               flash_bwd_dq_ref(*args, mask, **win), **TOL)
+
+    qs, ks, vs = (x.clone().requires_grad_() for x in (q, k, v))
+    got = torch.autograd.grad(flash_attention(qs, ks, vs, **kw)[0], (qs, ks, vs), do)
+    qs, ks, vs = (x.clone().requires_grad_() for x in (q, k, v))
+    want = torch.autograd.grad(attention_ref(qs, ks, vs, mask, **win)[0], (qs, ks, vs), do)
+    for a, b_ in zip(got, want):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a, b_, **TOL)
+
+
 def test_kernel_wrappers_reject_cpu_tensors():
     """A kernel wrapper never computes on the CPU: it raises."""
     rng = np.random.default_rng(1)
     q = _randn(rng, 1, 8, 2, 64)
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention_cuda(q, q, q)
+    lse = torch.zeros(1, 2, 8)
+    for fn in (flash_bwd_dkv_cuda, flash_bwd_dq_cuda, flash_attention_bwd_cuda):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(q, q, q, q, lse, lse)
     qd, kv = _randn(rng, 2, 2, 64), _randn(rng, 1, 2, 8, 64)
     with pytest.raises(ValueError, match="CUDA"):
         decode_attention_cuda(qd, kv, kv, _randn(rng, 2, 2, 4, 64), _randn(rng, 2, 2, 4, 64),

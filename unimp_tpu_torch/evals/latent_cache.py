@@ -14,20 +14,11 @@ from typing import Callable
 import numpy as np
 import torch
 
+from unimp_tpu_torch.data.transforms import normalize_on_device
 from unimp_tpu_torch.device import resolve_device
 
-# CLIP normalization (the reference's FLAMINGO mean / std)
-FLAMINGO_MEAN = (0.48145466, 0.4578275, 0.40821073)
-FLAMINGO_STD = (0.26862954, 0.26130258, 0.27577711)
 # refuse a cache larger than this (n_items x latents x width x dtype size)
 MAX_BYTES = 6 << 30
-
-
-def normalize(x: torch.Tensor) -> torch.Tensor:
-    """uint8 [..., H, W, 3] -> CLIP-normalized float32, on x's device."""
-    mean = torch.tensor(FLAMINGO_MEAN, device=x.device)
-    std = torch.tensor(FLAMINGO_STD, device=x.device)
-    return (x.float() / 255.0 - mean) / std
 
 
 class ItemLatentCache:
@@ -51,7 +42,7 @@ class ItemLatentCache:
             pad = np.concatenate([part, np.full(self.chunk - part.size, part[-1], part.dtype)])
             imgs = torch.from_numpy(np.stack([self.get_image(int(i)) for i in pad]))
             imgs = imgs.to(self.device)[:, None]
-            lat = self.model.encode_vision(normalize(imgs))[:, 0]  # [chunk, L, D]
+            lat = self.model.encode_vision(normalize_on_device(imgs))[:, 0]  # [chunk, L, D]
             if self._cache is None:
                 nbytes = self.n_items * lat[0].numel() * lat.element_size()
                 if nbytes > MAX_BYTES:

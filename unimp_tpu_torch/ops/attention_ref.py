@@ -3,7 +3,9 @@
 Counterpart of ``unimp_tpu/ops/attention_ref.py``. ``attention_ref`` is
 the plain version of the hand-written forward kernel in
 ``ops/flash_attention.py`` (the same function, computed by materializing
-the [B, H, Sq, Skv] logits) and the path every CPU tensor takes.
+the [B, H, Sq, Skv] logits) and the path every CPU tensor takes;
+``flash_bwd_dkv_ref`` and ``flash_bwd_dq_ref`` are the plain versions of
+the two backward kernels.
 
 Patterns: causal self-attention, a per-row valid KV window, bidirectional
 attention (ViT / perceiver) and Flamingo media-masked cross-attention
@@ -144,3 +146,72 @@ def attention_ref(
     out = out / torch.where(has, l, 1.0).permute(0, 2, 1, 3)
     lse = torch.where(has, m + torch.log(torch.where(has, l, 1.0)), NEG_INF)
     return out.to(q.dtype), lse[..., 0]
+
+
+def _bwd_terms(q, k, v, do, lse, delta, mask, kv_len, kv_start, scale, alibi):
+    """What both backward kernels recompute: (p, ds_rounded, k and v
+    repeated to H heads), with p and ds [B, H, Sq, Skv] in f32.
+
+    p = exp(s - lse) on allowed pairs and 0 elsewhere: the mask picks 0
+    before the exp, since a fully masked row has lse = NEG_INF and
+    s - lse would overflow to inf (and inf * 0 to NaN). ds = p * (dp -
+    delta) * scale, rounded to q's dtype as the kernels round it.
+    """
+    b, sq, h, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    if hkv != h:
+        if h % hkv:
+            raise ValueError(f"{h} query heads do not group over {hkv} kv heads")
+        k = k.repeat_interleave(h // hkv, dim=2)
+        v = v.repeat_interleave(h // hkv, dim=2)
+    if scale is None:
+        scale = 1.0 / (d**0.5)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if alibi is not None:
+        rel = (torch.arange(skv, device=q.device)[None, :]
+               - torch.arange(sq, device=q.device)[:, None]).float()
+        s = s + alibi.float()[None, :, None, None] * rel
+    z = s - lse.float()[..., None]
+    allowed = window_mask(mask, b, skv, q.device, kv_len, kv_start).allowed(
+        b, sq, skv, q.device)
+    if allowed is not None:
+        z = torch.where(allowed[:, None], z, -math.inf)
+    p = torch.exp(z)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    ds = p * (dp - delta.float()[..., None]) * scale
+    return p, ds.to(q.dtype).float(), k, v
+
+
+def _group_sum(g, hkv):
+    """[B, S, H, D] -> [B, S, Hkv, D]: sum over the H / Hkv query heads of
+    each KV head (what differentiating the GQA repeat gives)."""
+    b, s, h, d = g.shape
+    return g if h == hkv else g.reshape(b, s, hkv, h // hkv, d).sum(3)
+
+
+def flash_bwd_dkv_ref(
+    q, k, v, do, lse, delta, mask: Optional[AttnMask] = None, *,
+    kv_len=None, kv_start=None, scale: Optional[float] = None, alibi=None,
+):
+    """Plain version of the dK/dV backward kernel (K2).
+
+    q, do [B, Sq, H, D]; k, v [B, Skv, Hkv, D]; lse (the forward's) and
+    delta = rowsum(dO * O), both [B, H, Sq] f32; masks as ``attention_ref``.
+    dV = p^T dO with p rounded to dO's dtype; dK = ds^T Q. Returns
+    (dk, dv) in k's / v's dtype, summed over each KV head's query heads.
+    """
+    hkv = k.shape[2]
+    p, ds, _, _ = _bwd_terms(q, k, v, do, lse, delta, mask, kv_len, kv_start, scale, alibi)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), do.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
+    return _group_sum(dk, hkv).to(k.dtype), _group_sum(dv, hkv).to(v.dtype)
+
+
+def flash_bwd_dq_ref(
+    q, k, v, do, lse, delta, mask: Optional[AttnMask] = None, *,
+    kv_len=None, kv_start=None, scale: Optional[float] = None, alibi=None,
+):
+    """Plain version of the dQ backward kernel (K3): dQ = ds K, in q's
+    dtype. Arguments as ``flash_bwd_dkv_ref``."""
+    _, ds, k_rep, _ = _bwd_terms(q, k, v, do, lse, delta, mask, kv_len, kv_start, scale, alibi)
+    return torch.einsum("bhqk,bkhd->bqhd", ds, k_rep.float()).to(q.dtype)

@@ -39,6 +39,18 @@ SIGNATURES = {
         "flash_fwd": [I, I, P, P, P, P, P, P, P, P, P, P,
                       I, I, I, I, I, I, I, F, P],
     },
+    "flash_bwd": {
+        # dtype, d, q, k, v, dout, lse, delta, dk, dv, kv_start, kv_len,
+        # alibi, q_media, kv_media, B, Sq, Skv, H, Hkv, causal, media_mode,
+        # scale, stream
+        "flash_bwd_dkv": [I, I, P, P, P, P, P, P, P, P, P, P, P, P, P,
+                          I, I, I, I, I, I, I, F, P],
+        # dtype, d, q, k, v, dout, lse, delta, dq, kv_start, kv_len, alibi,
+        # q_media, kv_media, B, Sq, Skv, H, Hkv, causal, media_mode, scale,
+        # stream
+        "flash_bwd_dq": [I, I, P, P, P, P, P, P, P, P, P, P, P, P,
+                         I, I, I, I, I, I, I, F, P],
+    },
     "decode_attn": {
         # dtype, d, q, pk, pv, gk, gv, beam_sel, kv_start, prompt_len,
         # alibi, out, B, K, H, Hkv, T, G, step, scale, stream
@@ -51,7 +63,8 @@ SIGNATURES = {
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 80, 128)
 
-LAUNCHES = {"flash_fwd": 0, "decode_attn": 0, "single_query_attn": 0}
+LAUNCHES = {"flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0, "decode_attn": 0,
+            "single_query_attn": 0}
 
 _libs: dict = {}
 _lock = threading.Lock()

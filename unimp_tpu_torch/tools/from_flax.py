@@ -24,6 +24,7 @@ from torch import nn
 from unimp_tpu_torch.device import resolve_device
 from unimp_tpu_torch.models.config import UniMPConfig
 from unimp_tpu_torch.models.flamingo import UniMPModel
+from unimp_tpu_torch.train.partition import backbone_trainable_mask, freeze
 
 # flax truncated_normal variance scaling: stddev of a unit normal cut at
 # +-2 sigma, divided out so the truncated draw has the asked variance
@@ -98,13 +99,26 @@ def cast_params_for_inference(model: nn.Module, dtype=torch.bfloat16) -> nn.Modu
 
 
 def build_model(cfg: UniMPConfig, *, device="cuda", seed: int = 0,
-                inference_dtype=None) -> UniMPModel:
-    """A UniMPModel on ``device`` with seeded weights (``init_params``),
-    optionally cast for inference (``cast_params_for_inference``)."""
+                inference_dtype=None, train: bool = False,
+                frozen_dtype=None) -> UniMPModel:
+    """A UniMPModel on ``device`` with seeded weights (``init_params``).
+
+    Inference (default): ``.eval()``, matrices optionally cast
+    (``cast_params_for_inference``). Training (``train=True``): the
+    reference's freezing (``train/partition.py``): float32 trainable
+    masters, frozen tensors with ``requires_grad=False`` stored in
+    ``frozen_dtype`` when given, ``.train()``. ``load_flax_params`` loads a
+    Flax tree into either build.
+    """
+    if train and inference_dtype is not None:
+        raise ValueError("a training build takes frozen_dtype, not inference_dtype")
     device = resolve_device(device)
     with device:
         model = UniMPModel(cfg)
     init_params(model, torch.Generator(device).manual_seed(seed))
+    if train:
+        freeze(model, backbone_trainable_mask(model), frozen_dtype)
+        return model.train()
     if inference_dtype is not None:
         cast_params_for_inference(model, inference_dtype)
     return model.eval()
