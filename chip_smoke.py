@@ -9,17 +9,21 @@ Phases (any failure exits non-zero):
      nvcc per source, all at once) and prints the build seconds;
   3. kernels vs plain: the flash-attention forward (K1), its backward
      dK/dV (K2) and dQ (K3), split-cache beam decode (K4) and single-query
-     media read (K5) against their plain PyTorch versions at the 4b
-     main-path shapes (eval for K1/K4/K5, training for K2/K3) and at extra
-     shapes (head dim 128 + ALiBi, causal + kv_start windows,
+     media read (K5), each of K4/K5 also with int8 KV caches, and the int8
+     weight matmul (K6) against their plain PyTorch versions at the 4b
+     main-path shapes (eval for K1/K4/K5/K6, training for K2/K3) and at
+     extra shapes (head dim 128 + ALiBi, causal + kv_start windows,
      all_previous, fully masked rows, GQA, decode steps 1 / 17 / 50 with
-     random beam_sel), in bfloat16 and float32, with the tolerances below;
-     times each kernel (CUDA events) beside its plain version, its bound
-     and the ``scaled_dot_product_attention`` yardstick (forward, or its
-     backward through autograd; the port never calls it);
+     random beam_sel, K6 at one row and off its tiles), in bfloat16 and
+     float32, with the tolerances below; times each kernel (CUDA events)
+     beside its plain version, its bound and a one-call yardstick
+     (``scaled_dot_product_attention`` forward, or its backward through
+     autograd; ``torch._weight_int8pack_mm`` and the bf16 matmul for K6;
+     the port never calls them);
   4. the ``small`` variant in float32, once on the card (kernels) and once
      on the CPU (plain versions): the beam eval (token agreement, prefill
-     logit difference), then one ``Trainer`` step (loss, every trainable
+     logit difference), with float weights and again with int8 weights and
+     int8 KV caches, then one ``Trainer`` step (loss, every trainable
      gradient, skipped flag);
   5. the ``4b-instruct`` 10-beam rec eval at full width (random seeded
      weights, gates opened): a 256-item catalogue encoded once by the item
@@ -32,7 +36,14 @@ Phases (any failure exits non-zero):
      224 px each, one <answer> span), focal loss gamma 2 with reweight,
      AdamW at constant lr 1e-4; 2 warm-up then 5 timed steps on one fixed
      batch; prints samples/s, step ms, MFU, peak memory, every loss, the
-     K1/K2/K3 launches per step and a profile of one step.
+     K1/K2/K3 launches per step and a profile of one step;
+  7. the ``4b-instruct`` rec eval of phase 5 with int8 weights
+     (``build_model(eval_param_dtype="int8")``: bf16, then weight-only
+     int8) and int8 KV caches: the same weights, catalogue and prompts;
+     prints items/s, peak memory, the model's bytes, the batch's model
+     FLOPs, each kernel's launches (K6 must run 193 times a decode step
+     and once a batch for the prefill head; the float decode kernels not
+     at all) and a profile of one batch.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -74,24 +85,34 @@ from unimp_tpu_torch.ops.flash_attention import (
     flash_bwd_dkv_cuda,
     flash_bwd_dq_cuda,
 )
+from unimp_tpu_torch.ops.quant_matmul import quant_matmul_cuda, quant_matmul_ref
 from unimp_tpu_torch.tools.from_flax import build_model
 from unimp_tpu_torch.train.optimizer import make_optimizer
 from unimp_tpu_torch.train.partition import trainable_params
 from unimp_tpu_torch.train.trainer import Trainer
-from unimp_tpu_torch.utils.flops import detect_peak_flops, train_step_flops
+from unimp_tpu_torch.utils.flops import decode_flops, detect_peak_flops, train_step_flops
+from unimp_tpu_torch.utils.quant import (
+    QuantizedKernel,
+    _quantize_leaf,
+    quantize_kv,
+    quantize_params_int8,
+    quantized_bytes,
+)
 
 # H100 SXM published peaks (dense): memory 3.35 TB/s; bf16 tensor cores
 # 989 TFLOP/s; float32 outside the tensor cores 67 TFLOP/s
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # kernel vs plain: float32 differs only by summation order; bfloat16 also
-# by where p and the output round to 8 mantissa bits
+# by where p and the output round to 8 mantissa bits (K6: both sum exact
+# products in f32, in another order, and round the scaled sum to bf16)
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 LSE_TOL = 1e-3
-# K2/K3 vs plain: gradients are not O(1) like attention outputs, so bf16
-# is held relative to the gradient's size: max |kernel - plain| <=
-# 2e-2 * max |plain|, per gradient; float32 as above (atol = rtol = 1e-4)
-GRAD_REL_TOL = 2e-2
+# K2/K3 and K6 vs plain: gradients and matmul outputs are not O(1) like
+# attention outputs, so bf16 is held relative to their size: max |kernel -
+# plain| <= 2e-2 * max |plain|, per gradient or output; float32 as above
+# (atol = rtol = 1e-4)
+REL_TOL = 2e-2
 # small training step, card vs CPU, float32: max |d| <= 5e-4 * max |g| per
 # trainable gradient. K1's online softmax gives O to about 1e-7 relative,
 # and the cross-attention q / k projections' gradients pass through
@@ -114,6 +135,7 @@ SMALL_ANSWER_ID, SMALL_EOC_ID = 29999, 29998
 
 EVAL_KERNELS = ("flash_fwd", "decode_attn", "single_query_attn")
 TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+INT8_KERNELS = ("flash_fwd", "decode_attn_int8", "single_query_attn_int8", "quant_matmul")
 KERNELS = {
     "flash_fwd": ("unimp_tpu_torch/csrc/flash_fwd.cu",
                   "unimp_tpu/ops/flash_attention.py:108"),
@@ -125,7 +147,20 @@ KERNELS = {
                     "unimp_tpu/ops/decode_attention_pallas.py:119"),
     "single_query_attn": ("unimp_tpu_torch/csrc/decode_attn.cu",
                           "unimp_tpu/ops/decode_attention_pallas.py:415"),
+    "decode_attn_int8": ("unimp_tpu_torch/csrc/decode_attn.cu",
+                         "unimp_tpu/ops/decode_attention_pallas.py:119"),
+    "single_query_attn_int8": ("unimp_tpu_torch/csrc/decode_attn.cu",
+                               "unimp_tpu/ops/decode_attention_pallas.py:415"),
+    "quant_matmul": ("unimp_tpu_torch/csrc/quant_matmul.cu",
+                     "unimp_tpu/ops/quant_matmul.py:47"),
 }
+# the int8 matmuls of one 4b-instruct decode step, (K, N): launches a step
+# (32 LM blocks: fused QKV, o, MLP up, down; 16 x-attn blocks: q, o, up,
+# down; the lm head)
+K6_DECODE = {"qkv_2560x7680": ((2560, 7680), 32), "o_2560x2560": ((2560, 2560), 32 + 2 * 16),
+             "up_2560x10240": ((2560, 10240), 48), "down_10240x2560": ((10240, 2560), 48),
+             "head_2560x54656": ((2560, 54656), 1)}
+K6_PER_STEP = sum(n for _, n in K6_DECODE.values())  # 193
 
 
 def log(msg: str) -> None:
@@ -290,14 +325,14 @@ def bwd_plain(kernel, q, k, v, do, lse, delta, kw):
               kv_start=kw.get("kv_start"), alibi=kw.get("alibi_slopes"))
 
 
-def check_grad(name, got, want, dtype, results, kernel, main):
-    """float32: atol = rtol = 1e-4; bfloat16: max |d| <= GRAD_REL_TOL *
+def check_rel(name, got, want, dtype, results, kernel, main):
+    """float32: atol = rtol = 1e-4; bfloat16: max |d| <= REL_TOL *
     max |plain|."""
     err = (got.float() - want.float()).abs().max().item()
     size = want.float().abs().max().item()
     finite = bool(torch.isfinite(got.float()).all())
     if dtype == torch.bfloat16:
-        ok, tol = err <= GRAD_REL_TOL * size, f"{GRAD_REL_TOL:g}*{size:.3g}"
+        ok, tol = err <= REL_TOL * size, f"{REL_TOL:g}*{size:.3g}"
     else:
         ok = torch.allclose(got, want, atol=TOL[dtype], rtol=TOL[dtype])
         tol = f"{TOL[dtype]:g}"
@@ -321,9 +356,9 @@ def phase_bwd_kernels(dev, dtype, results, timings):
         dk, dv = flash_bwd_dkv_cuda(*args, **kw)
         dq = flash_bwd_dq_cuda(*args, **kw)
         want_dk, want_dv = bwd_plain("flash_bwd_dkv", *args, kw)
-        check_grad(f"{name} dk", dk, want_dk, dtype, results, "flash_bwd_dkv", main)
-        check_grad(f"{name} dv", dv, want_dv, dtype, results, "flash_bwd_dkv", main)
-        check_grad(f"{name} dq", dq, bwd_plain("flash_bwd_dq", *args, kw), dtype, results,
+        check_rel(f"{name} dk", dk, want_dk, dtype, results, "flash_bwd_dkv", main)
+        check_rel(f"{name} dv", dv, want_dv, dtype, results, "flash_bwd_dkv", main)
+        check_rel(f"{name} dq", dq, bwd_plain("flash_bwd_dq", *args, kw), dtype, results,
                    "flash_bwd_dq", main)
         if not (dtype == torch.bfloat16 and main):
             continue
@@ -378,6 +413,122 @@ def check(name, got, want, dtype, results, kernel, main):
         raise AssertionError(f"{kernel} {name} {dtype}: max_abs_err {err} (finite={finite})")
     if main and dtype == torch.bfloat16:
         results[kernel]["max_abs_err"] = max(results[kernel].get("max_abs_err", 0.0), err)
+
+
+# ------------------------------------------------------------ phase 3: K6
+
+def k6_cases():
+    """(name, main_path, m, k, n): every 4b decode shape (M = 240 beam
+    rows), the prefill head (M = 24) and odd shapes."""
+    cases = [(f"4b_decode_m240_{name}", True, 240, k, n)
+             for name, ((k, n), _) in K6_DECODE.items()]
+    cases += [("4b_prefill_head_m24_2560x54656", True, 24, 2560, 54656),
+              ("greedy_m1_2560x7680", False, 1, 2560, 7680),
+              ("odd_m37_100x70", False, 37, 100, 70), ("odd_m1_72x130", False, 1, 72, 130)]
+    return cases
+
+
+def int8_weight(dev, k, n, seed):
+    """A lecun-scaled random [K, N] weight, quantized as the model's are."""
+    g = torch.Generator(dev).manual_seed(seed)
+    return _quantize_leaf(torch.randn(k, n, generator=g, device=dev) / k**0.5)
+
+
+def k6_timing(name, x, q, scale, out):
+    """K6 against its plain version, its bound and two one-call
+    yardsticks: ``torch._weight_int8pack_mm`` (the same function: int8
+    weight [N, K], per-channel scale) where this torch runs it on the card,
+    and the bf16 matmul against the weight dequantized beforehand (what the
+    bf16 eval runs)."""
+    m, k = x.shape
+    n = q.shape[1]
+    b_ms, b_by = bound(nbytes(x, q, scale, out), 2.0 * m * k * n, x.dtype)
+    w_nk, lib_scale = q.t().contiguous(), scale.to(x.dtype)
+    try:
+        torch._weight_int8pack_mm(x, w_nk, lib_scale)
+        torch.cuda.synchronize()
+        library_ms = cuda_ms(lambda: torch._weight_int8pack_mm(x, w_nk, lib_scale))
+        library = "torch._weight_int8pack_mm"
+    except (RuntimeError, NotImplementedError, TypeError) as err:
+        library_ms = None
+        library = ("torch._weight_int8pack_mm does not run here: "
+                   + str(err).strip().splitlines()[0][:160])
+    w_deq = q.to(x.dtype) * scale.to(x.dtype)
+    return dict(kernel="quant_matmul", case=name, ms=cuda_ms(lambda: quant_matmul_cuda(x, q, scale)),
+                plain_ms=cuda_ms(lambda: quant_matmul_ref(x, q, scale), iters=5),
+                library_ms=library_ms, library=library,
+                bf16_matmul_ms=cuda_ms(lambda: x @ w_deq), bound_ms=b_ms, bound_by=b_by)
+
+
+def phase_int8_kernels(dev, dtype, results, timings):
+    """K6 and the int8-KV branches of K4 / K5 against their plain versions;
+    bf16 main-path shapes are also timed."""
+    gen = torch.Generator(dev).manual_seed(5)
+    for name, main, m, k, n in k6_cases():
+        q, scale = int8_weight(dev, k, n, seed=k + n)
+        x = torch.randn(m, k, generator=gen, device=dev).to(dtype)
+        got = quant_matmul_cuda(x, q, scale)
+        check_rel(name, got, quant_matmul_ref(x, q, scale), dtype, results, "quant_matmul", main)
+        if dtype == torch.bfloat16 and main:
+            timings.append(k6_timing(name, x, q, scale, got))
+        del q, scale
+
+    # K4 int8: 4b decode (B24 K10 H32 d80 T128 G50), caches quantized per
+    # (row, head, position) as the model's are, steps 1 / 17 / 50
+    b, kb, t, g, h, hkv, d = 24, 10, 128, 50, 32, 32, 80
+    c = decode_case(dev, b, kb, t, g, h, hkv, d, seed=7)
+    (pk, pks), (pv, pvs), (gk, gks), (gv, gvs) = (quantize_kv(c[n]) for n in ("pk", "pv", "gk", "gv"))
+    q = c["q"].to(dtype)
+    args = (q, pk, pv, gk, gv)
+    kw = dict(kv_start=c["kv_start"], beam_sel=c["sel"], prompt_k_scale=pks,
+              prompt_v_scale=pvs, gen_k_scale=gks, gen_v_scale=gvs)
+    for step in (1, 17, 50):
+        got = decode_attention_cuda(*args, step=step, **kw)
+        check(f"4b_b24_k10_d80_step{step}_int8", got, decode_attention_ref(*args, step=step, **kw),
+              dtype, results, "decode_attn_int8", True)
+    if dtype == torch.bfloat16:
+        step = 50
+        prompt_rows = int((t - c["kv_start"]).sum())
+        rows = (torch.arange(b * kb, device=dev) // kb * kb)[:, None] + c["sel"][:, :step]
+        gen_rows = int(torch.unique(rows * g + torch.arange(step, device=dev)).numel())
+        # each valid prompt row once (shared by the beams), each referenced
+        # ancestor gen row once: int8 K and V plus their two f32 scales
+        by = nbytes(q, got, c["kv_start"]) + c["sel"][:, :step].numel() * 4 \
+            + (prompt_rows + gen_rows) * hkv * 2 * (d + 4)
+        b_ms, b_by = bound(by, 4.0 * d * h * kb * (prompt_rows + b * step), dtype)
+        timings.append(dict(
+            kernel="decode_attn_int8", case=f"4b_b24_k10_d80_step{step}_int8",
+            ms=cuda_ms(lambda: decode_attention_cuda(*args, step=step, **kw)),
+            plain_ms=cuda_ms(lambda: decode_attention_ref(*args, step=step, **kw), iters=5),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by))
+
+    # K5 int8: 4b x-attn decode over 4 media x 64 latents, "immediate", one
+    # row with no media (gives 0)
+    s = 256
+    c = decode_case(dev, b, kb, s, 1, h, hkv, d, seed=8)
+    (k8, ks), (v8, vs) = quantize_kv(c["pk"]), quantize_kv(c["pv"])
+    q = c["q"].to(dtype)
+    kv_media = torch.arange(1, 5, device=dev, dtype=torch.int32).repeat_interleave(64)
+    mask = media_allowed(kv_media[None].expand(b, -1), torch.full((b,), 4, device=dev),
+                         "immediate").contiguous()
+    mask[0] = False
+    got = single_query_attention_cuda(q, k8, v8, mask, k_scale=ks, v_scale=vs)
+    check("4b_b24_k10_s256_d80_int8", got,
+          single_query_attention_ref(q, k8, v8, mask, k_scale=ks, v_scale=vs), dtype, results,
+          "single_query_attn_int8", True)
+    if not bool((got[:kb] == 0).all()):
+        raise AssertionError("single_query_attn_int8: a row with no media did not give 0")
+    if dtype == torch.bfloat16:
+        n_ok = int(mask.sum())
+        by = nbytes(q, got, mask) + n_ok * hkv * 2 * (d + 4)
+        b_ms, b_by = bound(by, 4.0 * d * h * kb * n_ok, dtype)
+        timings.append(dict(
+            kernel="single_query_attn_int8", case="4b_b24_k10_s256_d80_int8",
+            ms=cuda_ms(lambda: single_query_attention_cuda(q, k8, v8, mask, k_scale=ks,
+                                                           v_scale=vs)),
+            plain_ms=cuda_ms(lambda: single_query_attention_ref(q, k8, v8, mask, k_scale=ks,
+                                                                v_scale=vs), iters=5),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by))
 
 
 def phase_kernels(dev):
@@ -474,11 +625,16 @@ def phase_kernels(dev):
                     library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
                         qs, k, v, attn_mask=am)),
                     bound_ms=b_ms, bound_by=b_by))
+
+        phase_int8_kernels(dev, dtype, results, timings)
     for row in timings:
         lib = "null" if row["library_ms"] is None else f"{row['library_ms']:.4f}"
-        log(f"[time] {row['kernel']:17s} {row['case']:36s} kernel_ms={row['ms']:.4f} "
-            f"plain_ms={row['plain_ms']:.4f} library_ms={lib} bound_ms={row['bound_ms']:.4f} "
-            f"({row['bound_by']})")
+        extra = f" bf16_matmul_ms={row['bf16_matmul_ms']:.4f}" if "bf16_matmul_ms" in row else ""
+        log(f"[time] {row['kernel']:22s} {row['case']:36s} kernel_ms={row['ms']:.4f} "
+            f"plain_ms={row['plain_ms']:.4f} library_ms={lib}{extra} "
+            f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']})")
+        if "library" in row and row["library_ms"] is None:
+            log(f"[time] {row['kernel']} {row['case']}: {row['library']}")
     return results, timings
 
 
@@ -507,19 +663,25 @@ def prompts(rng, b, t, n_media, n_items, min_len, media_id=MEDIA_ID, item_base=I
     return ids, seq_len, image_ids, rng.integers(0, n_items, size=b)
 
 
-def phase_small(dev):
+def phase_small(dev, int8: bool = False):
     """small variant, f32, gates open: the same beam eval on the card
-    (kernels) and on the CPU (plain versions)."""
+    (kernels) and on the CPU (plain versions); ``int8``: weight-only int8
+    (every kernel of at least 65,536 elements, f32 compute) and int8 KV
+    caches."""
     cfg = get_config("small", dtype="float32")
-    cpu_model = build_model(cfg, device="cpu", seed=1)
-    open_gates(cpu_model)
-    card_model = build_model(cfg, device="cpu", seed=1).to(dev)
-    open_gates(card_model)
+    models = []
+    for _ in range(2):
+        model = build_model(cfg, device="cpu", seed=1)
+        open_gates(model)
+        if int8:
+            quantize_params_int8(model, dtype=torch.float32)
+        models.append(model)
+    cpu_model, card_model = models[0], models[1].to(dev)
     rng = np.random.default_rng(1)
     img = cfg.vision.image_size
     images = rng.integers(0, 256, size=(16, img, img, 3), dtype=np.uint8)
     gen_cfg = GenerationConfig(max_new_tokens=20, eos_id=EOS_ID, pad_id=EOS_ID,
-                               num_beams=10, num_return_sequences=10)
+                               num_beams=10, num_return_sequences=10, kv_int8=int8)
     toks, prefill = {}, {}
     for label, model, device in (("card", card_model, dev), ("cpu", cpu_model, torch.device("cpu"))):
         cache = ItemLatentCache(model, lambda i: images[i], 16, chunk=8, device=device)
@@ -541,33 +703,41 @@ def phase_small(dev):
         toks[label] = torch.cat(outs)
     agree = float((toks["card"] == toks["cpu"]).float().mean())
     diff = float((prefill["card"] - prefill["cpu"]).abs().max())
-    log(f"[small] card vs cpu: token agreement={agree:.4f} "
+    tag = "[small-int8]" if int8 else "[small]"
+    log(f"{tag} card vs cpu: token agreement={agree:.4f} "
         f"prefill max_abs_logit_diff={diff:.3e} (limits: agreement >= 0.9, diff <= 2e-3)")
     if not (agree >= 0.9 and diff <= 2e-3):
-        raise AssertionError("small-variant path on the card disagrees with the CPU path")
+        raise AssertionError(f"{tag} small-variant path on the card disagrees with the CPU path")
 
 
 # ------------------------------------------------------------ phase 5
 
-def phase_4b(dev, gpu_line):
+def phase_4b(dev, gpu_line, int8: bool = False, timings=()):
+    """The 4b-instruct 10-beam rec eval: bf16 weights (phase 5), or int8
+    weights and int8 KV caches (phase 7, ``int8``; ``timings`` are phase
+    3's, for K6's time per decode step)."""
+    tag = "[4b-int8]" if int8 else "[4b]"
     cfg = get_config("4b-instruct")
     vocab = -(-(ITEM_BASE + N_ITEM_TOKENS) // 128) * 128
     cfg = cfg.replace(lm=dataclasses.replace(cfg.lm, vocab_size=vocab))
     t0 = time.perf_counter()
-    model = build_model(cfg, device=dev, seed=0, inference_dtype=torch.bfloat16)
+    model = build_model(cfg, device=dev, seed=0, eval_param_dtype="int8" if int8 else "bf16")
     open_gates(model)
     torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in model.parameters())
-    log(f"[4b] {n_params / 1e9:.3f} B params, vocab {vocab}, init {time.perf_counter() - t0:.1f} s")
-    log(f"[4b] K6 (int8 matmul, not ported) bound per decode step: "
-        f"{k6_decode_bound_ms(model):.4f} ms (bytes)")
+    n_params = sum(t.numel() for t in model.state_dict().values())
+    log(f"{tag} {n_params / 1e9:.3f} B weights, vocab {vocab}, init {time.perf_counter() - t0:.1f} s, "
+        f"model bytes {quantized_bytes(model) / 2**30:.3f} GiB (quantized_bytes), "
+        f"allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    if int8:
+        k6_step_report(model, timings)
 
     rng = np.random.default_rng(0)
     n_items, b, t = 256, 24, 128
     catalogue = rng.integers(0, 256, size=(n_items, 224, 224, 3), dtype=np.uint8)
     batches = [prompts(rng, b, t, 4, n_items, 100) for _ in range(2)]
     gen = Generator(model, GenerationConfig(max_new_tokens=50, eos_id=EOS_ID, pad_id=EOS_ID,
-                                            num_beams=10, num_return_sequences=10),
+                                            num_beams=10, num_return_sequences=10,
+                                            kv_int8=int8),
                     media_id=MEDIA_ID)
 
     torch.cuda.reset_peak_memory_stats()
@@ -599,19 +769,42 @@ def phase_4b(dev, gpu_line):
     if not all(0.0 <= v <= 1.0 for v in metrics.values()):
         raise AssertionError(f"metrics out of range: {metrics}")
     ips = b / batch_s[1]
-    log(f"[4b] catalogue encode {encode_s:.2f} s; batch seconds {batch_s}")
-    log(f"[4b] items/s={ips:.3f} (second batch, host clock) peak_mem={peak_gib:.2f} GiB "
+    flops = decode_flops(cfg, b, t, 4, 10, 50)
+    log(f"{tag} catalogue encode {encode_s:.2f} s; batch seconds {batch_s}")
+    log(f"{tag} items/s={ips:.3f} (second batch, host clock) peak_mem={peak_gib:.2f} GiB "
         f"on {gpu_line}")
-    log(f"[4b] metrics {json.dumps(metrics)}")
-    log(f"[4b] launches {json.dumps(launches)}")
-    for name in EVAL_KERNELS:
+    log(f"{tag} model FLOPs per batch (decode_flops, 50 steps) {flops / 1e12:.3f} TFLOP; "
+        f"{flops / batch_s[1] / 1e12:.2f} TFLOP/s on the second batch's wall")
+    log(f"{tag} metrics {json.dumps(metrics)}")
+    log(f"{tag} launches {json.dumps(launches)}")
+    for name in INT8_KERNELS if int8 else EVAL_KERNELS:
         if launches[name] <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the eval path")
+            raise AssertionError(f"kernel {name} was not launched on the {tag} eval path")
+    if int8:
+        check_int8_launches(cfg, launches, len(batches))
     ids, seq_len, image_ids, _ = batches[1]
-    profile_run("4b batch", lambda: gen.generate(torch.from_numpy(ids).to(dev),
-                                                 torch.from_numpy(seq_len).to(dev),
-                                                 cache.gather(image_ids)), batch_s[1])
+    profile_run(f"{tag} batch", lambda: gen.generate(torch.from_numpy(ids).to(dev),
+                                                     torch.from_numpy(seq_len).to(dev),
+                                                     cache.gather(image_ids)), batch_s[1])
     return launches
+
+
+def check_int8_launches(cfg, launches, n_batches) -> None:
+    """On the int8 path: the decode steps that ran, read from K4's int8
+    launches (one per LM layer a step); then K5 int8 once per x-attn layer
+    a step, K6 193 times a step plus the prefill head once a batch, and
+    none of the float decode kernels."""
+    lm = cfg.lm
+    steps, rest = divmod(launches["decode_attn_int8"], lm.num_layers)
+    n_xattn = -(-lm.num_layers // cfg.cross_attn_every_n)
+    want = {"decode_attn_int8": steps * lm.num_layers, "single_query_attn_int8": steps * n_xattn,
+            "quant_matmul": steps * K6_PER_STEP + n_batches,
+            "decode_attn": 0, "single_query_attn": 0}
+    log(f"[4b-int8] {steps} decode steps over {n_batches} batches; expected launches "
+        f"{json.dumps(want)}")
+    bad = {k: (launches[k], n) for k, n in want.items() if launches[k] != n}
+    if rest or bad:
+        raise AssertionError(f"int8 eval launches differ (got, expected): {bad}, rest {rest}")
 
 
 # ------------------------------------------------------------ phase 6
@@ -730,44 +923,53 @@ def phase_4b_train(dev, gpu_line):
     return launches
 
 
-def k6_decode_bound_ms(model) -> float:
-    """The least time of one decode step's int8 weight matmuls (K6, the
-    int8 slice): every projection the step streams (LM blocks; x-attn q, o
-    and MLP, its K/V being cached; the lm head), one byte per weight, over
-    the memory rate; the per-channel scales are left out (under 0.1%)."""
-    n = 0
-    for name, p in model.named_parameters():
-        if p.dim() < 2 or not name.endswith("kernel"):
-            continue
-        if name.startswith("block_") or name == "lm_head.kernel" or (
-                name.startswith("xattn_") and not name.endswith(("k_proj.kernel",
-                                                                 "v_proj.kernel"))):
-            n += p.numel()
-    return n / HBM_BYTES_PER_S * 1e3
+def k6_step_report(model, timings, rows: int = 240) -> None:
+    """K6 over one 4b decode step of ``rows`` beam rows: its bound, the
+    larger of (the int8 weights, their f32 scales and the bf16 activations
+    in and out) over the memory rate and 2 * rows flops per weight over the
+    bf16 peak, and its time from phase 3's per-shape times. Checks that
+    K6_DECODE holds exactly the int8 weights the model streams a step (LM
+    blocks; x-attn q, o and MLP, their K/V being cached; the lm head)."""
+    streamed = sum(m.q.numel() for name, m in model.named_modules()
+                   if isinstance(m, QuantizedKernel) and m.persistent
+                   and (name.startswith("block_") or name == "lm_head.kernel"
+                        or (name.startswith("xattn_")
+                            and not name.endswith(("k_proj.kernel", "v_proj.kernel")))))
+    table = sum(n * k * c for (k, n), c in K6_DECODE.values())
+    if streamed != table:
+        raise AssertionError(f"int8 weights a step: model {streamed}, K6_DECODE {table}")
+    by = sum(c * (k * n + 4 * n + 2 * rows * (k + n)) for (k, n), c in K6_DECODE.values())
+    b_ms, b_by = bound(by, 2.0 * rows * table, torch.bfloat16)
+    ms = {r["case"]: r["ms"] for r in timings if r["kernel"] == "quant_matmul"}
+    step_ms = sum(c * ms[f"4b_decode_m240_{name}"] for name, (_, c) in K6_DECODE.items())
+    log(f"[4b-int8] K6 per decode step ({K6_PER_STEP} launches, {table / 1e9:.4f} G int8 "
+        f"weights, M={rows}): {step_ms:.3f} ms from phase 3's per-shape times; bound "
+        f"{b_ms:.4f} ms ({b_by}; bytes {by / HBM_BYTES_PER_S * 1e3:.4f} ms)")
 
 
 def profile_run(label: str, run, unprofiled_s: float) -> None:
-    """Where one more run spends its time (torch.profiler, after the
-    launch counts are read): device busy share and the top kernels."""
+    """Where one more run spends its time (torch.profiler over the card's
+    activity only, after the launch counts are read): device busy share and
+    the top kernels, summed from the profiler's raw kernel events (the same
+    sums as ``key_averages()``, in a tenth of its time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = []
-    for ev in prof.key_averages():
+    by_name = {}
+    for ev in prof.profiler.kineto_results.events():
         # user annotations (AdamW's "Optimizer.step") span kernels counted
         # on their own
-        if ev.device_type != DeviceType.CUDA or getattr(ev, "is_user_annotation", False):
+        if ev.device_type() != DeviceType.CUDA or ev.is_user_annotation():
             continue
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = ev.self_cuda_time_total
-        kernels.append((dev_us / 1e3, ev.count, ev.key))
+        ms, count = by_name.get(ev.name(), (0.0, 0))
+        by_name[ev.name()] = (ms + ev.duration_ns() / 1e6, count + 1)
+    kernels = [(ms, count, name) for name, (ms, count) in by_name.items()]
     busy_ms = sum(k[0] for k in kernels)
     if busy_ms == 0:
         log("[profile] the profiler recorded no device time")
@@ -776,12 +978,12 @@ def profile_run(label: str, run, unprofiled_s: float) -> None:
         f"{unprofiled_s * 1e3:.1f} ms without; device busy {busy_ms:.1f} ms = "
         f"{100 * busy_ms / (unprofiled_s * 1e3):.1f}% of the unprofiled wall; "
         f"{sum(k[1] for k in kernels)} kernels")
-    groups = {"port attention kernels": 0.0, "matmul (cuBLAS)": 0.0, "other": 0.0}
+    groups = {"port kernels": 0.0, "matmul (cuBLAS)": 0.0, "other": 0.0}
     for ms, _, name in kernels:
         if any(k in name for k in ("flash_fwd_kernel", "flash_bwd_dkv_kernel",
                                    "flash_bwd_dq_kernel", "decode_attn_kernel",
-                                   "single_query_kernel")):
-            groups["port attention kernels"] += ms
+                                   "single_query_kernel", "qmm_bf16_kernel", "qmm_f32_kernel")):
+            groups["port kernels"] += ms
         elif any(k in name.lower() for k in ("gemm", "cutlass", "xmma", "gemv", "nvjet")):
             groups["matmul (cuBLAS)"] += ms
         else:
@@ -820,6 +1022,7 @@ def main() -> int:
     log(f"[kernels] checked in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase_small(dev)
+    phase_small(dev, int8=True)
     phase_small_train(dev)
     log(f"[small] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -830,26 +1033,39 @@ def main() -> int:
     t0 = time.perf_counter()
     train_launches = phase_4b_train(dev, gpu_line)
     log(f"[4b-train] done in {time.perf_counter() - t0:.1f} s")
+    gc.collect()  # the training model is gone: give its memory back
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    int8_launches = phase_4b(dev, gpu_line, int8=True, timings=timings)
+    log(f"[4b-int8] done in {time.perf_counter() - t0:.1f} s")
 
     # one headline shape per kernel: LM prefill, the LM self-attention
-    # backward of training, decode at step 50, x-attn read
+    # backward of training, decode at step 50, x-attn read, the MLP
+    # up-projection of a decode step (48 launches a step)
     headline = {"flash_fwd": "lm_prefill_128_d80_causal_window",
                 "flash_bwd_dkv": "lm_train_3x256_d80_causal_kvlen",
                 "flash_bwd_dq": "lm_train_3x256_d80_causal_kvlen",
                 "decode_attn": "4b_b24_k10_d80_step50",
-                "single_query_attn": "4b_b24_k10_s256_d80"}
+                "single_query_attn": "4b_b24_k10_s256_d80",
+                "decode_attn_int8": "4b_b24_k10_d80_step50_int8",
+                "single_query_attn_int8": "4b_b24_k10_s256_d80_int8",
+                "quant_matmul": "4b_decode_m240_up_2560x10240"}
     rows = []
     for name, (source, replaces) in KERNELS.items():
         tm = next(r for r in timings if r["kernel"] == name and r["case"] == headline[name])
         by_path = {path: n[name] for path, n, kernels in (
-            ("eval", eval_launches, EVAL_KERNELS), ("train", train_launches, TRAIN_KERNELS))
-            if name in kernels}
-        rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                     "launches": sum(by_path.values()), "launches_by_path": by_path,
-                     "max_abs_err": results[name]["max_abs_err"],
-                     "ms": tm["ms"], "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
-                     "bound_by": tm["bound_by"], "library_ms": tm["library_ms"],
-                     "shape": headline[name]})
+            ("eval", eval_launches, EVAL_KERNELS), ("train", train_launches, TRAIN_KERNELS),
+            ("eval_int8", int8_launches, INT8_KERNELS)) if name in kernels}
+        row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+               "launches": sum(by_path.values()), "launches_by_path": by_path,
+               "max_abs_err": results[name]["max_abs_err"],
+               "ms": tm["ms"], "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
+               "bound_by": tm["bound_by"], "library_ms": tm["library_ms"],
+               "shape": headline[name]}
+        for key in ("library", "bf16_matmul_ms"):
+            if key in tm:
+                row[key] = tm[key]
+        rows.append(row)
     print(gpu_line, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -17,11 +17,13 @@ from unimp_tpu.decode import Generator as JGenerator
 from unimp_tpu.models import UniMPModel as JModel
 from unimp_tpu.models import compute_q_media as j_compute_q_media
 from unimp_tpu.models import get_config as j_get_config
+from unimp_tpu.utils.quant import quantize_params_int8 as j_quantize_params_int8
 from unimp_tpu_torch.decode import GenerationConfig, Generator
 from unimp_tpu_torch.decode.sampler import left_align, top_k
 from unimp_tpu_torch.evals.metrics import rank_metrics_for_hits
 from unimp_tpu_torch.models import UniMPModel, get_config
 from unimp_tpu_torch.tools.from_flax import flatten_tree, load_flax_params
+from unimp_tpu_torch.utils.quant import quantize_params_int8
 
 torch.set_num_threads(2)  # six test workers share the cores
 MEDIA_ID = 7
@@ -44,6 +46,21 @@ def models():
     tmodel = UniMPModel(get_config("debug", dtype="float32"))
     load_flax_params(tmodel, {k: np.asarray(v) for k, v in flatten_tree(params).items()})
     return jmodel, params, tmodel.eval()
+
+
+@pytest.fixture(scope="module")
+def int8_models(models):
+    """The same weights quantized by the JAX package (every kernel,
+    min_size 1, float32 compute) and loaded into the port from the int8
+    tree (``.../kernel/q``, ``.../kernel/scale``)."""
+    jmodel, params, _ = models
+    qparams = j_quantize_params_int8(params, min_size=1, dtype=jnp.float32)
+    leaves = jax.tree_util.tree_flatten_with_path(qparams)[0]
+    flat = {"/".join(str(getattr(k, "key", getattr(k, "name", k))) for k in path):
+            np.asarray(v) for path, v in leaves}
+    tmodel = UniMPModel(get_config("debug", dtype="float32"))
+    load_flax_params(tmodel, flat)
+    return jmodel, qparams, tmodel.eval()
 
 
 def _prompts(cfg, b=3, t=16, m=2, seed=0):
@@ -132,6 +149,62 @@ def test_rec_eval_path_matches_jax(models):
     ttok, _ = Generator(tmodel, GenerationConfig(**gen_kw), media_id=MEDIA_ID).generate(
         torch.from_numpy(ids).long(), torch.from_numpy(seq_len).long(), tlat)
     np.testing.assert_array_equal(ttok.numpy(), np.asarray(jtok))
+
+
+@pytest.mark.parametrize("kv_int8", [False, True])
+@pytest.mark.parametrize("beams", [4, 1])
+def test_int8_generate_matches_jax(int8_models, beams, kv_int8):
+    """int8 weights (K6 at every decode and prefill projection but the
+    patch embedding), with and without int8 KV caches: the same tokens as
+    the JAX Generator. Scores: 1e-4; with int8 KV 1e-3, because a K/V
+    value whose float32 noise between the two frameworks straddles an
+    int8 rounding midpoint lands one int8 step apart (a logit moves by up
+    to one scale), which moves a greedy score by up to 7e-4 on these
+    prompts."""
+    gen_kw = dict(max_new_tokens=6, eos_id=3, pad_id=0, num_beams=beams,
+                  num_return_sequences=beams, kv_int8=kv_int8)
+    (jtok, jscores), (ttok, tscores) = _run_both(int8_models, gen_kw)
+    np.testing.assert_array_equal(ttok, jtok)
+    tol = 1e-3 if kv_int8 else 1e-4
+    np.testing.assert_allclose(tscores, jscores, atol=tol, rtol=tol)
+
+
+def test_int8_rec_eval_path_matches_jax(int8_models):
+    """The rec-eval path with int8 weights and int8 KV: item latents through
+    both ItemLatentCaches, then a 3-beam search over them."""
+    from unimp_tpu.evals.latent_cache import ItemLatentCache as JItemLatentCache
+    from unimp_tpu_torch.evals.latent_cache import ItemLatentCache
+
+    jmodel, qparams, tmodel = int8_models
+    rng = np.random.default_rng(6)
+    img = jmodel.cfg.vision.image_size
+    images = rng.integers(0, 256, size=(7, img, img, 3), dtype=np.uint8)
+    image_ids = np.array([[2, 5], [3, 0], [6, 6]])
+    jlat = JItemLatentCache(jmodel, qparams, lambda i: images[i], 7, chunk=4).gather(image_ids)
+    tlat = ItemLatentCache(tmodel, lambda i: images[i], 7, chunk=4, device="cpu").gather(image_ids)
+    np.testing.assert_allclose(tlat.numpy(), np.asarray(jlat), atol=1e-4, rtol=1e-4)
+    ids, seq_len, _ = _prompts(jmodel.cfg, seed=7)
+    gen_kw = dict(max_new_tokens=4, eos_id=3, pad_id=0, num_beams=3, num_return_sequences=3,
+                  kv_int8=True)
+    jtok, _ = JGenerator(jmodel, JGenerationConfig(**gen_kw), media_id=MEDIA_ID).generate(
+        qparams, jnp.asarray(ids), jnp.asarray(seq_len), jlat)
+    ttok, _ = Generator(tmodel, GenerationConfig(**gen_kw), media_id=MEDIA_ID).generate(
+        torch.from_numpy(ids).long(), torch.from_numpy(seq_len).long(), tlat)
+    np.testing.assert_array_equal(ttok.numpy(), np.asarray(jtok))
+
+
+def test_port_quantizer_gives_jax_tokens(models, int8_models):
+    """The port quantizing the float tree itself decodes as the JAX package
+    does with the tree it quantized."""
+    _, params, _ = models
+    jmodel, qparams, _ = int8_models
+    tmodel = UniMPModel(get_config("debug", dtype="float32"))
+    load_flax_params(tmodel, {k: np.asarray(v) for k, v in flatten_tree(params).items()})
+    quantize_params_int8(tmodel.eval(), min_size=1, dtype=torch.float32)
+    gen_kw = dict(max_new_tokens=6, eos_id=3, pad_id=0, num_beams=4, num_return_sequences=4)
+    (jtok, jscores), (ttok, tscores) = _run_both((jmodel, qparams, tmodel), gen_kw)
+    np.testing.assert_array_equal(ttok, jtok)
+    np.testing.assert_allclose(tscores, jscores, atol=1e-4, rtol=1e-4)
 
 
 def test_padding_invariance(models):

@@ -32,6 +32,8 @@ from unimp_tpu_torch.ops.flash_attention import (
     flash_bwd_dkv_cuda,
     flash_bwd_dq_cuda,
 )
+from unimp_tpu_torch.ops.quant_matmul import quant_matmul_cuda, quant_matmul_ref
+from unimp_tpu_torch.utils.quant import quantize_kv
 
 torch.set_num_threads(2)  # six test workers share the cores
 # float32 kernel vs plain: the sums run in another order
@@ -146,3 +148,84 @@ def test_kernel_wrappers_reject_cpu_tensors():
                               step=1)
     with pytest.raises(ValueError, match="CUDA"):
         single_query_attention_cuda(qd, kv, kv, torch.ones(1, 8, dtype=torch.bool))
+
+
+def _int8(rng, *shape):
+    """Random int8 KV rows and their f32 scales, quantized as the model does."""
+    return quantize_kv(_randn(rng, *shape))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n,ldq", [(240, 256, 320, 320), (24, 160, 96, 96),
+                                       (1, 100, 70, 70), (37, 72, 130, 192)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quant_matmul_matches_plain_on_card(cuda_device, m, k, n, ldq, dtype):
+    """K6 against quant_matmul_ref: decode-like rows, one row, K and N off
+    the tiles, a strided int8 weight (a column slice of a wider one).
+    float32 at 1e-4; bf16 at 2e-2 relative to max |plain| (the f32 sums
+    differ in order, then both round to bf16)."""
+    rng = np.random.default_rng(m + k)
+    x = _randn(rng, m, k).to(cuda_device, dtype)
+    wide = torch.from_numpy(rng.integers(-127, 128, size=(k, ldq)).astype(np.int8))
+    q = wide.to(cuda_device)[:, :n]
+    scale = torch.from_numpy(rng.random(n).astype(np.float32) / 64).to(cuda_device)
+    got = quant_matmul_cuda(x, q, scale)
+    want = quant_matmul_ref(x, q, scale)
+    assert got.dtype == dtype and got.shape == (m, n)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, **TOL)
+    else:
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= 2e-2 * want.float().abs().max().item(), err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_decode_kernels_match_plain_on_card(cuda_device, dtype):
+    """The int8-KV branches of K4 (random beam_sel, kv_start, steps 1 / 17
+    / 50) and K5 (a fully masked row gives 0) against their plain
+    versions; float32 at 1e-4, bf16 at 2e-2."""
+    dev = cuda_device
+    rng = np.random.default_rng(3)
+    b, kb, t, g, h, hkv, d = 2, 3, 16, 50, 4, 2, 80
+    q = _randn(rng, b * kb, h, d).to(dev, dtype)
+    (pk, pks), (pv, pvs) = (_int8(rng, b, hkv, t, d) for _ in range(2))
+    (gk, gks), (gv, gvs) = (_int8(rng, b * kb, hkv, g, d) for _ in range(2))
+    sel = torch.from_numpy(rng.integers(0, kb, size=(b * kb, g)).astype(np.int32))
+    args = [x.to(dev) for x in (pk, pv, gk, gv)]
+    kw = dict(kv_start=torch.tensor([0, 3], device=dev), beam_sel=sel.to(dev),
+              prompt_k_scale=pks.to(dev), prompt_v_scale=pvs.to(dev),
+              gen_k_scale=gks.to(dev), gen_v_scale=gvs.to(dev))
+    tol = TOL if dtype == torch.float32 else dict(atol=2e-2, rtol=2e-2)
+    for step in (1, 17, 50):
+        got = decode_attention(q, *args, step=step, **kw)
+        torch.testing.assert_close(got, decode_attention_ref(q, *args, step=step, **kw), **tol)
+    mask = torch.from_numpy(rng.random((b, t)) < 0.6).to(dev)
+    mask[0] = False
+    skw = dict(k_scale=pks.to(dev), v_scale=pvs.to(dev))
+    got = single_query_attention(q, args[0], args[1], mask, **skw)
+    torch.testing.assert_close(got, single_query_attention_ref(q, args[0], args[1], mask, **skw),
+                               **tol)
+    assert torch.equal(got[:kb], torch.zeros_like(got[:kb]))
+
+
+def test_int8_kernel_wrappers_reject_bad_inputs():
+    """K6's wrapper raises on CPU tensors; the decode wrappers raise on int8
+    caches without their scales and on a partial set of scales."""
+    rng = np.random.default_rng(4)
+    with pytest.raises(ValueError, match="CUDA"):
+        quant_matmul_cuda(_randn(rng, 4, 8), torch.zeros(8, 16, dtype=torch.int8),
+                          torch.ones(16))
+    qd = _randn(rng, 2, 2, 64)
+    kv, kvs = _int8(rng, 1, 2, 8, 64)
+    gen, gens = _int8(rng, 2, 2, 4, 64)
+    with pytest.raises(ValueError, match="scales"):
+        decode_attention_cuda(qd, kv, kv, gen, gen, step=1)
+    with pytest.raises(ValueError, match="scales"):
+        decode_attention_cuda(qd, kv, kv, gen, gen, step=1, prompt_k_scale=kvs,
+                              prompt_v_scale=kvs, gen_k_scale=gens)
+    with pytest.raises(ValueError, match="scales"):
+        single_query_attention_cuda(qd, kv, kv, torch.ones(1, 8, dtype=torch.bool))
+    with pytest.raises(ValueError, match="CUDA"):
+        single_query_attention_cuda(qd, kv, kv, torch.ones(1, 8, dtype=torch.bool),
+                                    k_scale=kvs, v_scale=kvs)

@@ -20,9 +20,11 @@ from unimp_tpu.models import UniMPModel as JModel
 from unimp_tpu.models import compute_q_media as j_compute_q_media
 from unimp_tpu.models import get_config as j_get_config
 from unimp_tpu.models.layers import apply_rope as j_apply_rope
+from unimp_tpu.utils.quant import quantize_params_int8 as j_quantize_params_int8
 from unimp_tpu_torch.models import UniMPModel, compute_q_media, get_config
 from unimp_tpu_torch.models.layers import apply_rope
 from unimp_tpu_torch.tools.from_flax import build_model, flatten_tree, init_params, load_flax_params
+from unimp_tpu_torch.utils.quant import QuantizedKernel, count_quantized
 
 torch.set_num_threads(2)  # six test workers share the cores
 MEDIA_ID = 7
@@ -149,6 +151,54 @@ def test_prefill_decode_matches_full_forward(name):
             steps.append(lg)
     np.testing.assert_allclose(torch.cat(steps, 1).numpy(), full[:, split:].numpy(),
                                atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.parametrize("name", ["debug", "neox"])
+def test_int8_logits_match_jax(name):
+    """Weights quantized by the JAX package (every kernel, min_size 1,
+    float32 compute) and loaded into the port from the int8 tree: every
+    leaf lands, and the generation prefill (images through the ViT, whose
+    patch embedding dequantizes; the last position only, K6 on the head)
+    gives the JAX logits at 1e-4. neox covers the untied head, o_proj's
+    [out] scale and the biases."""
+    jmodel, params, _, _ = _pair(name)
+    qparams = j_quantize_params_int8(params, min_size=1, dtype=jnp.float32)
+    leaves = jax.tree_util.tree_flatten_with_path(qparams)[0]
+    flat = {"/".join(str(getattr(k, "key", getattr(k, "name", k))) for k in path):
+            np.asarray(v) for path, v in leaves}
+    tmodel = UniMPModel(_configs(name)[1])
+    load_flax_params(tmodel, flat)
+    tmodel.eval()
+    state = tmodel.state_dict()
+    assert {k.replace(".", "/") for k in state} == set(flat)
+    for key, val in state.items():
+        np.testing.assert_array_equal(val.numpy(), flat[key.replace(".", "/")])
+    assert isinstance(tmodel.block_0.attn.qkv_int8, QuantizedKernel)
+
+    vision, ids = _inputs(jmodel.cfg)
+    jids, t_ids = jnp.asarray(ids), torch.from_numpy(ids).long()
+    want, _ = jmodel.apply({"params": qparams}, jids, vision_x=jnp.asarray(vision),
+                           return_kv=True, last_logit_only=True,
+                           q_media=j_compute_q_media(jids, MEDIA_ID))
+    with torch.no_grad():
+        got, _ = tmodel(t_ids, vision_x=torch.from_numpy(vision), return_kv=True,
+                        last_logit_only=True, q_media=compute_q_media(t_ids, MEDIA_ID))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4, rtol=1e-4)
+
+
+def test_build_model_int8():
+    """build_model(eval_param_dtype="int8"): cast to bf16, then every kernel
+    of at least 65,536 elements int8; norms, embeddings and biases stay."""
+    cfg = get_config("debug")
+    model = build_model(cfg, device="cpu", eval_param_dtype="int8")
+    kernel = model.block_0.mlp.down.kernel  # [512, 128]
+    assert isinstance(kernel, QuantizedKernel) and kernel.dtype == torch.bfloat16
+    assert not isinstance(model.block_0.attn.q_proj.kernel, QuantizedKernel)  # 128 x 2 x 64
+    assert model.embed.embedding.dtype == torch.bfloat16
+    assert model.block_0.ln1.scale.dtype == torch.float32
+    assert count_quantized(model) == cfg.lm.num_layers * 3 + 2 * 2  # LM + x-attn MLPs
+    with pytest.raises(ValueError):
+        build_model(cfg, device="cpu", eval_param_dtype="int4")
 
 
 @pytest.mark.parametrize("d,pct", [(64, 1.0), (80, 0.25), (128, 0.5)])

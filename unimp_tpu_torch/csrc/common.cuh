@@ -12,6 +12,7 @@ constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(int8_t x) { return static_cast<float>(x); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
@@ -37,7 +38,8 @@ __device__ __forceinline__ float warp_sum(float x) {
 }
 
 // dot(q[0:D], row[0:D]) with q in shared memory (f32) and row in global
-// memory, read 16 bytes at a time (D * sizeof(T) is a multiple of 16).
+// memory (float, bf16 or int8), read 16 bytes at a time (D * sizeof(T) is
+// a multiple of 16).
 template <typename T, int D>
 __device__ __forceinline__ float dot_row(const float* __restrict__ q, const T* __restrict__ row) {
   constexpr int kVec = 16 / sizeof(T);

@@ -11,6 +11,9 @@ max_new_tokens)``):
     reordered either: an ancestry table ``anc`` names, for each beam and
     generated position, the cache row holding that token's K/V, and the
     decode kernel reads the ancestor's row directly;
+  * ``kv_int8`` stores the prompt, latent and generated KV caches in int8
+    with one f32 scale per (row, head, position); the decode kernels read
+    the int8 bytes and fold the scales in;
   * beam-search semantics follow HF beam_search: top-2K candidate
     expansion, EOS candidates with rank < K retire to the finished set
     normalized by length^length_penalty, early_stopping=True stops a row
@@ -32,6 +35,7 @@ import dataclasses
 import torch
 
 from unimp_tpu_torch.models.flamingo import compute_q_media
+from unimp_tpu_torch.utils.quant import quantize_kv
 
 NEG_INF = -1.0e9
 
@@ -49,6 +53,18 @@ class GenerationConfig:
     # BeamSearchScorer, the reference's semantics); "generated": score /
     # (generated incl. eos)**lp (transformers >= 4.50)
     length_norm: str = "full"
+    # int8 KV caches (prompt + latent + generated)
+    kv_int8: bool = False
+
+
+def quantize_kv_cache(cache: dict) -> dict:
+    """{"k","v"} [B, H, S, D] -> int8 + per-(head, position) f32 scales
+    {"k","v","k_scale","v_scale"} (written once at prefill, read every
+    decode step)."""
+    out = {}
+    for name in ("k", "v"):
+        out[name], out[name + "_scale"] = quantize_kv(cache[name])
+    return out
 
 
 def left_align(input_ids: torch.Tensor, seq_len: torch.Tensor, pad_id: int):
@@ -106,9 +122,13 @@ class Generator:
             ids, latents=latents, q_media=q_media, kv_start=start,
             positions=positions, return_kv=True, last_logit_only=True,
         )
+        self_kv, xattn_kv = kv["self"], kv["xattn"]
+        if cfg.kv_int8:
+            self_kv = [quantize_kv_cache(c) for c in self_kv]
+            xattn_kv = [quantize_kv_cache(c) for c in xattn_kv]
         state = {
-            "self": kv["self"],
-            "xattn": kv["xattn"],
+            "self": self_kv,
+            "xattn": xattn_kv,
             "kv_start": start,
             "n_media": n_media,
             "kv_media": kv_media,
@@ -126,7 +146,7 @@ class Generator:
         cfg = self.cfg
         b = last_logits.shape[0]
         dev = last_logits.device
-        gen = self.model.init_gen_caches(b, cfg.max_new_tokens, dev)
+        gen = self.model.init_gen_caches(b, cfg.max_new_tokens, dev, quantized=cfg.kv_int8)
         tokens = torch.full((b, cfg.max_new_tokens), cfg.pad_id, dtype=torch.int64, device=dev)
         done = torch.zeros(b, dtype=torch.bool, device=dev)
         scores = torch.zeros(b, dtype=torch.float32, device=dev)
@@ -159,7 +179,7 @@ class Generator:
         seq_len_f = seq_len.to(device=dev, dtype=torch.float32)
 
         start_k = start.repeat_interleave(k)
-        gen = self.model.init_gen_caches(b * k, max_new, dev)
+        gen = self.model.init_gen_caches(b * k, max_new, dev, quantized=cfg.kv_int8)
         # anc[bk, g] = global cache row holding beam bk's KV for generated
         # position g (the caches are never reordered)
         anc = torch.zeros(b * k, max_new, dtype=torch.int64, device=dev)

@@ -28,6 +28,7 @@ from unimp_tpu_torch.models.lm import DecoderBlock, init_gen_cache
 from unimp_tpu_torch.models.perceiver import PerceiverResampler
 from unimp_tpu_torch.models.vit import VisionTower
 from unimp_tpu_torch.ops import AttnMask
+from unimp_tpu_torch.ops.quant_matmul import quant_dot
 
 
 def compute_q_media(input_ids: torch.Tensor, media_token_id: int) -> torch.Tensor:
@@ -129,8 +130,9 @@ class UniMPModel(nn.Module):
         if self.cfg.lm.tie_embeddings:
             # f32 logits, as the JAX package's f32-accumulating dot
             return (x @ self.embed.embedding.to(x.dtype).t()).float()
-        # untied head: logits in the compute dtype (the JAX quant_dot path)
-        return x @ self.lm_head.kernel.to(x.dtype)
+        # untied head: logits in the compute dtype; an int8 head streams
+        # through K6 at decode rows and at the prefill's last position
+        return quant_dot(x, self.lm_head.kernel)
 
     @staticmethod
     def kv_media_for(latents) -> torch.Tensor:
@@ -203,7 +205,8 @@ class UniMPModel(nn.Module):
             return logits, {"self": self_caches, "xattn": xattn_caches}
         return logits, None
 
-    def init_gen_caches(self, batch: int, max_new: int, device=None):
+    def init_gen_caches(self, batch: int, max_new: int, device=None,
+                        quantized: bool = False):
         device = device or self.embed.embedding.device
         return [init_gen_cache(batch, max_new, self.cfg.lm, self.cfg.compute_dtype,
-                               device) for _ in range(self.cfg.lm.num_layers)]
+                               device, quantized) for _ in range(self.cfg.lm.num_layers)]

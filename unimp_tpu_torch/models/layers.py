@@ -4,15 +4,19 @@ Counterpart of ``unimp_tpu/models/layers.py``. Parameters keep the Flax
 names and layouts (Dense ``kernel`` [in, out], ``Proj`` [in, H, d],
 ``OProj`` [H, d, out], norm ``scale`` / ``bias``), so a Flax tree maps
 onto the port by path (``tools/from_flax.py``). Matmuls run in the
-module's compute dtype, casting each weight to it at use.
+module's compute dtype, casting each weight to it at use, and go through
+``quant_dot``: a kernel that ``utils/quant.py`` quantized to int8 runs the
+int8 matmul (K6) at decode row counts.
 
 ``Attention`` has three modes:
   * full / prefill: ``multi_head_attention`` (the flash kernel on the
     card); optionally returns the projected K/V heads-major as the
     prompt cache;
-  * self-attention decode: writes this token's K/V into the gen cache at
-    ``step`` (in place: the cache is owned by the decode loop) and reads
-    the split cache through ``decode_attention``;
+  * self-attention decode: one fused QKV matmul when the projections are
+    int8; writes this token's K/V into the gen cache at ``step`` (in
+    place: the cache is owned by the decode loop; an int8 cache takes the
+    token's int8 K/V and their scales) and reads the split cache through
+    ``decode_attention``;
   * cross-attention decode: one query per beam against cached projected
     latents through ``single_query_attention``.
 """
@@ -27,6 +31,8 @@ from torch import nn
 
 from unimp_tpu_torch.ops import AttnMask, alibi_slopes, multi_head_attention
 from unimp_tpu_torch.ops.decode_attention import decode_attention, single_query_attention
+from unimp_tpu_torch.ops.quant_matmul import quant_dot
+from unimp_tpu_torch.utils.quant import QuantizedKernel, quantize_kv
 
 
 def _param(*shape) -> nn.Parameter:
@@ -98,8 +104,8 @@ class Proj(nn.Module):
         self.bias = _param(heads, head_dim) if use_bias else None
 
     def forward(self, x):
-        in_dim, h, d = self.kernel.shape
-        y = x @ self.kernel.reshape(in_dim, h * d).to(x.dtype)
+        _, h, d = self.kernel.shape
+        y = quant_dot(x, self.kernel)
         y = y.reshape(*y.shape[:-1], h, d)
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
@@ -107,15 +113,21 @@ class Proj(nn.Module):
 
 
 class DenseWeights(nn.Module):
-    """nn.Dense params: kernel [in, F], bias [F]."""
+    """nn.Dense params: kernel [in, F], bias [F]. ``stream=False`` is
+    Flax's own ``nn.Dense`` (the ViT patch embedding): an int8 kernel is
+    dequantized in its compute dtype at every row count, never streamed."""
 
-    def __init__(self, in_dim: int, features: int, use_bias: bool):
+    def __init__(self, in_dim: int, features: int, use_bias: bool, stream: bool = True):
         super().__init__()
+        self.stream = stream
         self.kernel = _param(in_dim, features)
         self.bias = _param(features) if use_bias else None
 
     def forward(self, x):
-        y = x @ self.kernel.to(x.dtype)
+        if not self.stream and isinstance(self.kernel, QuantizedKernel):
+            y = x @ self.kernel.dequantize().to(x.dtype)
+        else:
+            y = quant_dot(x, self.kernel)
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
         return y
@@ -132,9 +144,10 @@ class OProj(nn.Module):
         self.bias = _param(out_dim) if use_bias else None
 
     def forward(self, y):  # [..., H, D] -> [..., out]
-        h, d, out_dim = self.kernel.shape
-        y2 = y.reshape(*y.shape[:-2], h * d).to(self.dtype)
-        out = y2 @ self.kernel.reshape(h * d, out_dim).to(self.dtype)
+        h, d, _ = self.kernel.shape
+        # an int8 kernel's scale is [out] (both leading axes contract), so
+        # it folds out of the flat [H*d, out] matmul
+        out = quant_dot(y.reshape(*y.shape[:-2], h * d).to(self.dtype), self.kernel)
         if self.bias is not None:
             out = out + self.bias.to(out.dtype)
         return out
@@ -185,6 +198,9 @@ class Attention(nn.Module):
         self.k_proj = Proj(kv_in, self.num_kv_heads, head_dim, use_bias)
         self.v_proj = Proj(kv_in, self.num_kv_heads, head_dim, use_bias)
         self.o_proj = OProj(num_heads, head_dim, in_dim, use_bias, dtype)
+        # int8 q/k/v payloads fused for the decode step, made when a decoder
+        # block's projections are quantized (``utils/quant.py``)
+        self.qkv_int8 = None
         if positions_mode == "alibi":
             self.register_buffer("alibi", alibi_slopes(num_heads), persistent=False)
         else:
@@ -200,16 +216,29 @@ class Attention(nn.Module):
         [B,Hkv,T,D], "gen": {"k","v"} [BK,Hkv,G,D], "step": int tokens
         generated so far (current excluded), "kv_start": [B], "gen_index":
         [BK, G] ancestry table or None}. xattn_cache: {"k","v"}
-        [B,Hkv,S,D] projected latents; xattn_allowed: [B, S] mask.
+        [B,Hkv,S,D] projected latents; xattn_allowed: [B, S] mask. int8
+        caches (prompt, gen, latents) also hold "k_scale" / "v_scale"
+        [B*,Hkv,S] f32.
         """
         if xattn_cache is not None:
             q = self.q_proj(x)
-            out = single_query_attention(q[:, 0], xattn_cache["k"],
-                                         xattn_cache["v"], xattn_allowed)
+            out = single_query_attention(q[:, 0], xattn_cache["k"], xattn_cache["v"],
+                                         xattn_allowed, k_scale=xattn_cache.get("k_scale"),
+                                         v_scale=xattn_cache.get("v_scale"))
             return self.o_proj(out[:, None]), None
 
-        kv_src = x if kv_x is None else kv_x
-        q, k, v = self.q_proj(x), self.k_proj(kv_src), self.v_proj(kv_src)
+        if decode_state is not None and kv_x is None and self.qkv_int8 is not None:
+            # one int8 matmul for q, k and v (each column keeps its scale)
+            y = quant_dot(x, self.qkv_int8)
+            if self.q_proj.bias is not None:
+                y = y + torch.cat([p.bias.reshape(-1) for p in
+                                   (self.q_proj, self.k_proj, self.v_proj)]).to(y.dtype)
+            h, hkv, d = self.num_heads, self.num_kv_heads, self.head_dim
+            q, k, v = torch.split(y, [h * d, hkv * d, hkv * d], dim=-1)
+            q, k, v = (t.reshape(*x.shape[:2], -1, d) for t in (q, k, v))
+        else:
+            kv_src = x if kv_x is None else kv_x
+            q, k, v = self.q_proj(x), self.k_proj(kv_src), self.v_proj(kv_src)
         if self.positions_mode == "rope":
             if positions is None:
                 positions = torch.arange(x.shape[1], device=x.device)[None].expand(
@@ -220,9 +249,13 @@ class Attention(nn.Module):
         if decode_state is not None:
             step = int(decode_state["step"])
             gen = decode_state["gen"]
-            # heads-major cache; this token's K/V land at column `step`
-            gen["k"][:, :, step] = k[:, 0].to(gen["k"].dtype)
-            gen["v"][:, :, step] = v[:, 0].to(gen["v"].dtype)
+            # heads-major cache; this token's K/V land at column `step`; an
+            # int8 cache takes them quantized per (row, head) with their
+            # scales, written at the same column
+            for name, t in (("k", k[:, 0]), ("v", v[:, 0])):
+                if gen[name].dtype == torch.int8:
+                    t, gen[name + "_scale"][:, :, step] = quantize_kv(t)
+                gen[name][:, :, step] = t.to(gen[name].dtype)
             prompt = decode_state["prompt"]
             gen_index = decode_state.get("gen_index")
             beam_sel = None
@@ -235,6 +268,8 @@ class Attention(nn.Module):
                 q[:, 0], prompt["k"], prompt["v"], gen["k"], gen["v"],
                 step=step + 1, kv_start=decode_state.get("kv_start"),
                 alibi=self.alibi, beam_sel=beam_sel,
+                prompt_k_scale=prompt.get("k_scale"), prompt_v_scale=prompt.get("v_scale"),
+                gen_k_scale=gen.get("k_scale"), gen_v_scale=gen.get("v_scale"),
             )
             return self.o_proj(out[:, None]), gen
 

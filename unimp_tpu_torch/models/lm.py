@@ -52,9 +52,16 @@ class DecoderBlock(nn.Module):
 
 
 def init_gen_cache(batch: int, max_new: int, cfg: LMConfig, dtype=torch.bfloat16,
-                   device=None) -> dict:
+                   device=None, quantized: bool = False) -> dict:
     """Per-layer generated-token KV cache, split K and V, heads-major
-    [B*, Hkv, max_new, D] (the layout the decode kernel reads)."""
+    [B*, Hkv, max_new, D] (the layout the decode kernel reads).
+    ``quantized``: int8 K and V with f32 scales [B*, Hkv, max_new], one per
+    (row, head, position)."""
     shape = (batch, cfg.kv_heads, max_new, cfg.head_dim)
+    if quantized:
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+                "v_scale": torch.zeros(shape[:-1], dtype=torch.float32, device=device)}
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}

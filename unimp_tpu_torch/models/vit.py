@@ -39,7 +39,8 @@ class VisionTower(nn.Module):
         super().__init__()
         self.cfg, self.dtype = cfg, dtype
         d, p = cfg.hidden_size, cfg.patch_size
-        self.patch_embed = DenseWeights(p * p * 3, d, use_bias=False)
+        # Flax nn.Dense: an int8 kernel dequantizes, never streams
+        self.patch_embed = DenseWeights(p * p * 3, d, use_bias=False, stream=False)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, d))
         self.pos_embed = nn.Parameter(torch.zeros(1, cfg.num_patches + 1, d))
         self.pre_ln = LayerNorm(d, cfg.layernorm_eps, dtype)

@@ -56,15 +56,26 @@ SIGNATURES = {
         # alibi, out, B, K, H, Hkv, T, G, step, scale, stream
         "decode_attn": [I, I, P, P, P, P, P, P, P, P, P, P,
                         I, I, I, I, I, I, I, F, P],
+        # dtype, d, q, pk, pv, gk, gv, pk_scale, pv_scale, gk_scale,
+        # gv_scale, beam_sel, kv_start, prompt_len, alibi, out, B, K, H, Hkv,
+        # T, G, step, scale, stream
+        "decode_attn_int8": [I, I, P, P, P, P, P, P, P, P, P, P, P, P, P, P,
+                             I, I, I, I, I, I, I, F, P],
         # dtype, d, q, k, v, allowed, out, B, K, H, Hkv, S, scale, stream
         "single_query_attn": [I, I, P, P, P, P, P, I, I, I, I, I, F, P],
+        # dtype, d, q, k, v, k_scale, v_scale, allowed, out, B, K, H, Hkv, S,
+        # scale, stream
+        "single_query_attn_int8": [I, I, P, P, P, P, P, P, P, I, I, I, I, I, F, P],
+    },
+    "quant_matmul": {
+        # dtype, x, q, scale, out, M, K, N, ldq, stream
+        "quant_matmul": [I, P, P, P, P, I, I, I, I, P],
     },
 }
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 80, 128)
 
-LAUNCHES = {"flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0, "decode_attn": 0,
-            "single_query_attn": 0}
+LAUNCHES = {name: 0 for fns in SIGNATURES.values() for name in fns}
 
 _libs: dict = {}
 _lock = threading.Lock()

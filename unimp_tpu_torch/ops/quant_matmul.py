@@ -1,0 +1,82 @@
+"""Weight-streaming int8 matmul: the plain version, the dispatch, and
+``quant_dot``.
+
+Counterpart of ``unimp_tpu/ops/quant_matmul.py``. ``quant_matmul``
+computes x @ (q * scale) with the f32 sum taken over x @ q and the
+per-output-channel scale applied once after it; a CUDA tensor goes to the
+kernel (``quant_matmul_cuda``, K6 in ``csrc/quant_matmul.cu``), a CPU
+tensor to ``quant_matmul_ref``. ``quant_dot`` is the call site the model
+uses for every matmul weight.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from unimp_tpu_torch.ops import kernel_lib
+from unimp_tpu_torch.utils.quant import QuantizedKernel
+
+
+def quant_matmul_ref(x, q, scale):
+    """Plain K6: x [..., K] @ q [K, N] int8 with an f32 sum, times scale
+    [N] (f32), rounded to x.dtype. int8 -> x.dtype is exact and a
+    bf16 * int8 product is exact in f32, so the kernel differs from this
+    only in the order of the sum."""
+    acc = x.float() @ q.float()
+    return (acc * scale.float()).to(x.dtype)
+
+
+def quant_matmul_cuda(x, q, scale):
+    """Launch K6; returns [..., N] in x.dtype.
+
+    x [..., K] float32 or bfloat16; q [K, N]
+    int8 whose rows may be strided (N contiguous); scale [N] float32."""
+    if x.dtype not in kernel_lib.DTYPE_CODES:
+        raise TypeError(f"quant_matmul takes float32 or bfloat16 x, got {x.dtype}")
+    *lead, k = x.shape
+    x2 = x.reshape(-1, k)
+    kernel_lib.check_cuda_tensor("x", x2, x.dtype, 2)
+    if not q.is_cuda or q.dtype != torch.int8 or q.dim() != 2 or q.stride(1) != 1:
+        raise ValueError(f"q must be a 2-D int8 CUDA tensor with contiguous rows, got "
+                         f"{q.dtype} {tuple(q.shape)} on {q.device}")
+    if q.shape[0] != k:
+        raise ValueError(f"x {tuple(x.shape)} does not contract with q {tuple(q.shape)}")
+    n = q.shape[1]
+    kernel_lib.check_cuda_tensor("scale", scale, torch.float32, 1)
+    if scale.shape[0] != n:
+        raise ValueError(f"scale {tuple(scale.shape)} does not fit q {tuple(q.shape)}")
+    m = x2.shape[0]
+    out = torch.empty(m, n, dtype=x.dtype, device=x.device)
+    if m:
+        P = kernel_lib.ptr
+        kernel_lib.launch("quant_matmul", "quant_matmul", kernel_lib.DTYPE_CODES[x.dtype],
+                          P(x2), P(q), P(scale), P(out), m, k, n, q.stride(0))
+    return out.reshape(*lead, n)
+
+
+def quant_matmul(x, q, scale):
+    """x @ (q * scale) streaming the int8 weight: the CUDA kernel on the
+    card, the plain version on the CPU."""
+    if x.device.type == "cpu":
+        return quant_matmul_ref(x, q, scale)
+    return quant_matmul_cuda(x, q, scale)
+
+
+def quant_dot(x, kernel, *, max_rows: int = 512):
+    """x [..., in] @ kernel, contracting x's last dim with the kernel's
+    leading axes (Dense [in, N], Proj [in, H, d], o_proj [H, d, out] with
+    x flattened to H*d); returns [..., N].
+
+    A ``QuantizedKernel`` at <= ``max_rows`` rows (a decode step, a
+    prefill head) goes to ``quant_matmul``: the f32 sum of x @ q, then the
+    scale. More rows take the dequantized matmul x @ (q * scale in
+    x.dtype), as the JAX package does (``unimp_tpu/ops/quant_matmul.py:
+    75-96``). The threshold decides which arithmetic runs, so it stays the
+    JAX package's 512 for parity; a float kernel is a plain matmul."""
+    in_dim = x.shape[-1]
+    if isinstance(kernel, QuantizedKernel):
+        q, scale = kernel.flat(in_dim)
+        if x.numel() // in_dim <= max_rows:
+            return quant_matmul(x, q, scale)
+        return x @ (q.to(x.dtype) * scale.to(x.dtype))
+    return x @ kernel.reshape(in_dim, -1).to(x.dtype)

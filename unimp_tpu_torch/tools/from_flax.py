@@ -10,6 +10,10 @@ initializers use (lecun-normal kernels, normal(0.02) embeddings of the
 vision tower and perceiver, variance-scaled token embedding, zero biases
 and gates, unit norm scales), from a ``torch.Generator``, on the
 parameters' device: the card has no JAX to initialise with.
+
+A tree that the JAX ``quantize_params_int8`` quantized holds
+``.../kernel/q`` and ``.../kernel/scale`` leaves; ``load_flax_params``
+turns those kernels of the port into ``QuantizedKernel``s and fills them.
 """
 
 from __future__ import annotations
@@ -25,6 +29,16 @@ from unimp_tpu_torch.device import resolve_device
 from unimp_tpu_torch.models.config import UniMPConfig
 from unimp_tpu_torch.models.flamingo import UniMPModel
 from unimp_tpu_torch.train.partition import backbone_trainable_mask, freeze
+from unimp_tpu_torch.utils.inference import cast_params_for_inference
+from unimp_tpu_torch.utils.quant import (
+    QuantizedKernel,
+    fuse_decode_kernels,
+    quantize_params_int8,
+)
+
+# the cast of each eval_param_dtype (``unimp_tpu/cli/arguments.py``'s
+# --eval_param_dtype); int8 casts to bfloat16 and then quantizes
+EVAL_PARAM_DTYPES = {"fp32": None, "bf16": torch.bfloat16, "int8": torch.bfloat16}
 
 # flax truncated_normal variance scaling: stddev of a unit normal cut at
 # +-2 sigma, divided out so the truncated draw has the asked variance
@@ -43,24 +57,47 @@ def flatten_tree(tree: Mapping, prefix: str = "") -> dict:
     return out
 
 
+def _match_quantized(model: nn.Module, flat: Mapping[str, np.ndarray]) -> None:
+    """Make each kernel int8 where the tree's is (``.../kernel/q`` and
+    ``.../kernel/scale`` leaves), float where the tree's is float."""
+    dtype = model.cfg.compute_dtype
+    for name, mod in list(model.named_modules()):
+        k = getattr(mod, "kernel", None)
+        if k is None:
+            continue
+        path = f"{name.replace('.', '/')}/kernel" if name else "kernel"
+        if f"{path}/q" in flat and not isinstance(k, QuantizedKernel):
+            mod._parameters.pop("kernel")
+            mod.kernel = QuantizedKernel(  # filled by the load
+                torch.zeros(np.shape(flat[f"{path}/q"]), dtype=torch.int8, device=k.device),
+                torch.zeros(np.shape(flat[f"{path}/scale"]), device=k.device), dtype)
+        elif path in flat and isinstance(k, QuantizedKernel):
+            del mod.kernel
+            mod.kernel = nn.Parameter(torch.zeros(k.shape, device=k.q.device))
+
+
 def load_flax_params(model: nn.Module, flat: Mapping[str, np.ndarray]) -> None:
     """Copy a flattened Flax tree ({"a/b/c": numpy array}) onto ``model``.
 
-    Every Flax leaf must map onto a port parameter of the same shape and
-    every port parameter must be covered; raises otherwise.
+    Every Flax leaf must map onto a port tensor of the same shape (a
+    parameter, or an int8 kernel's ``q`` / ``scale``) and every port
+    tensor must be covered; raises otherwise. Kernels follow the tree:
+    int8 where it is quantized, float where it is not.
     """
-    params = dict(model.named_parameters())
-    want = {name.replace(".", "/") for name in params}
+    _match_quantized(model, flat)
+    state = model.state_dict(keep_vars=True)
+    want = {name.replace(".", "/") for name in state}
     have = set(flat)
     if want != have:
         raise KeyError(f"flax tree and model differ: missing {sorted(want - have)[:8]}, "
                        f"unexpected {sorted(have - want)[:8]}")
     with torch.no_grad():
-        for name, p in params.items():
+        for name, p in state.items():
             arr = np.asarray(flat[name.replace(".", "/")])
             if tuple(arr.shape) != tuple(p.shape):
                 raise ValueError(f"{name}: flax shape {arr.shape} != port {tuple(p.shape)}")
             p.copy_(torch.from_numpy(np.array(arr)).to(p.dtype))
+    fuse_decode_kernels(model)
 
 
 def _lecun_normal_(p: torch.Tensor, gen: torch.Generator) -> None:
@@ -89,29 +126,26 @@ def init_params(model: nn.Module, generator: torch.Generator) -> None:
                 raise KeyError(f"no initializer for parameter {name}")
 
 
-def cast_params_for_inference(model: nn.Module, dtype=torch.bfloat16) -> nn.Module:
-    """Matrices to ``dtype``; norm scales, biases and gates stay float32
-    (counterpart of ``unimp_tpu/utils/inference.py``)."""
-    for p in model.parameters():
-        if p.dim() >= 2 and p.dtype == torch.float32:
-            p.data = p.data.to(dtype)
-    return model
-
-
 def build_model(cfg: UniMPConfig, *, device="cuda", seed: int = 0,
-                inference_dtype=None, train: bool = False,
+                eval_param_dtype: str = "fp32", train: bool = False,
                 frozen_dtype=None) -> UniMPModel:
     """A UniMPModel on ``device`` with seeded weights (``init_params``).
 
-    Inference (default): ``.eval()``, matrices optionally cast
-    (``cast_params_for_inference``). Training (``train=True``): the
-    reference's freezing (``train/partition.py``): float32 trainable
-    masters, frozen tensors with ``requires_grad=False`` stored in
-    ``frozen_dtype`` when given, ``.train()``. ``load_flax_params`` loads a
-    Flax tree into either build.
+    Inference (default): ``.eval()``, parameters as ``eval_param_dtype``
+    says, in the order ``unimp_tpu/cli/mmrec_eval.py`` applies them:
+    "fp32" as initialised, "bf16" matrices cast
+    (``cast_params_for_inference``), "int8" cast to bfloat16 and then
+    weight-only quantized (``quantize_params_int8`` with its defaults).
+    Training (``train=True``): the reference's freezing
+    (``train/partition.py``): float32 trainable masters, frozen tensors
+    with ``requires_grad=False`` stored in ``frozen_dtype`` when given,
+    ``.train()``. ``load_flax_params`` loads a Flax tree into either build.
     """
-    if train and inference_dtype is not None:
-        raise ValueError("a training build takes frozen_dtype, not inference_dtype")
+    if eval_param_dtype not in EVAL_PARAM_DTYPES:
+        raise ValueError(f"eval_param_dtype {eval_param_dtype!r} not in "
+                         f"{sorted(EVAL_PARAM_DTYPES)}")
+    if train and eval_param_dtype != "fp32":
+        raise ValueError("a training build takes frozen_dtype, not eval_param_dtype")
     device = resolve_device(device)
     with device:
         model = UniMPModel(cfg)
@@ -119,6 +153,9 @@ def build_model(cfg: UniMPConfig, *, device="cuda", seed: int = 0,
     if train:
         freeze(model, backbone_trainable_mask(model), frozen_dtype)
         return model.train()
-    if inference_dtype is not None:
-        cast_params_for_inference(model, inference_dtype)
+    cast = EVAL_PARAM_DTYPES[eval_param_dtype]
+    if cast is not None:
+        cast_params_for_inference(model, cast)
+    if eval_param_dtype == "int8":
+        quantize_params_int8(model)
     return model.eval()

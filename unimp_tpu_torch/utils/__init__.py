@@ -1,1 +1,1 @@
-"""Analytic FLOP counts and the card's peak rate."""
+"""Analytic FLOP counts, inference casts and weight-only int8 quantization."""

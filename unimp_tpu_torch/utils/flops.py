@@ -1,6 +1,8 @@
-"""Analytic FLOP counts of a train step, and MFU on the card.
+"""Analytic FLOP counts of a train step and of a beam-decode batch, and
+MFU on the card.
 
-The port's own copy of ``train_step_flops`` from ``unimp_tpu/utils/flops.py``
+The port's own copy of ``train_step_flops`` and ``decode_flops`` from
+``unimp_tpu/utils/flops.py``
 (matmul FLOPs only; norms, activations and softmax are excluded by the usual
 MFU convention):
 
@@ -112,3 +114,36 @@ def train_step_flops(cfg, batch: int, seq: int, images_per_sample: int,
     if not frozen_backbone:
         return 3.0 * (lm_f + logits_f + x_f + vis_f + res_f)
     return 2.0 * lm_f + 3.0 * (logits_f + x_f + res_f) + vis_f
+
+
+def decode_flops(cfg, batch: int, prompt_len: int, images_per_sample: int,
+                 num_beams: int, new_tokens: int) -> float:
+    """Beam-decode FLOPs for one batch: vision encode + prefill + per-step
+    incremental decode (KV cached, so per step each beam pays the
+    projections and attention over the live KV)."""
+    n_img = batch * images_per_sample
+    n_lat = images_per_sample * cfg.resampler.num_latents
+    prefill = (
+        lm_forward_flops(cfg, batch, prompt_len, with_logits=False)
+        + xattn_forward_flops(cfg, batch, prompt_len, n_lat)
+        + vision_forward_flops(cfg, n_img)
+        + resampler_forward_flops(cfg, n_img)
+    )
+    lm = cfg.lm
+    d, h, dh = lm.hidden_size, lm.num_heads, lm.head_dim
+    rows = batch * num_beams * new_tokens  # total generated tokens
+    per_tok = lm.num_layers * (
+        _dense(1, d, (h + 2 * lm.kv_heads) * dh)
+        + _dense(1, h * dh, d)
+        + _dense(1, d, lm.mlp_dim) * (2 if lm.act == "silu" else 1)
+        + _dense(1, lm.mlp_dim, d)
+        # attention against prompt KV + generated KV (mean live length)
+        + 4.0 * (prompt_len + new_tokens / 2.0) * h * dh
+    ) + _dense(1, d, lm.vocab_size)
+    n_x = (lm.num_layers + cfg.cross_attn_every_n - 1) // cfg.cross_attn_every_n
+    per_tok += n_x * (
+        _dense(1, d, h * dh) + _dense(1, h * dh, d)
+        + _dense(1, d, 4 * d) + _dense(1, 4 * d, d)
+        + 4.0 * n_lat * h * dh
+    )
+    return prefill + rows * per_tok
