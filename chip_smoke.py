@@ -13,9 +13,11 @@ Phases (any failure exits non-zero):
      weight matmul (K6) against their plain PyTorch versions at the 4b
      main-path shapes (eval for K1/K4/K5/K6, training for K2/K3) and at
      extra shapes (head dim 128 + ALiBi, causal + kv_start windows,
-     all_previous, fully masked rows, GQA, decode steps 1 / 17 / 50 with
-     random beam_sel, K6 at one row and off its tiles), in bfloat16 and
-     float32, with the tolerances below; times each kernel (CUDA events)
+     all_previous, fully masked rows, GQA, K1 at 1 x 1 and 65 x 65,
+     decode steps 1 / 17 / 50 with random beam_sel, K6 at one row, off its
+     tiles, at 256 / 300 / 512 rows, split-K over a ragged K, aligned
+     and not, and with strided weight rows), in bfloat16 and float32, with the tolerances
+     below; times each kernel (CUDA events)
      beside its plain version, its bound and a one-call yardstick
      (``scaled_dot_product_attention`` forward, or its backward through
      autograd; ``torch._weight_int8pack_mm`` and the bf16 matmul for K6;
@@ -53,6 +55,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -168,16 +171,39 @@ def log(msg: str) -> None:
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Device ms per call of ``fn``: CUDA events around ``iters`` calls.
+    The device first sleeps for longer than the host needs to enqueue them
+    all (1.5x the host time of the warm-up calls), so a kernel shorter
+    than its Python wrapper's launch is timed on the device, not at the
+    host's launch rate."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     for _ in range(warmup):
         fn()
+    host_s = (time.perf_counter() - t0) / warmup
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(1.5 * iters * host_s + 1e-3, 0.5) * 2e9))  # cycles, <= 2 GHz
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_ms(fn, iters: int = 50) -> float:
+    """Host ms to enqueue one call of ``fn``, with the device held asleep
+    meanwhile so that a full launch queue never makes the host wait."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(0.05 * 2e9))  # 50 ms at <= 2 GHz
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    ms = (time.perf_counter() - t0) / iters * 1e3
+    torch.cuda.synchronize()
+    return ms
 
 
 def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
@@ -238,6 +264,12 @@ def flash_cases(dev):
     cases.append(("gqa_causal_window_d80", False, *qkv(2, 100, 100, 32, 8, 80),
                   dict(causal=True, kv_start=torch.tensor([3, 0], device=dev),
                        kv_len=torch.tensor([100, 77], device=dev))))
+    # the tile edges: one query and one key; 65 (one key past a 64-key
+    # tile, one row past a 64-row block), causal and not
+    cases.append(("one_1x1_d64", False, *qkv(2, 1, 1, 4, 4, 64), {}))
+    cases.append(("tile_edge_65_d80", False, *qkv(2, 65, 65, 8, 8, 80), {}))
+    cases.append(("tile_edge_65_d128_causal", False, *qkv(2, 65, 65, 4, 4, 128),
+                  dict(causal=True)))
     return cases
 
 
@@ -418,13 +450,27 @@ def check(name, got, want, dtype, results, kernel, main):
 # ------------------------------------------------------------ phase 3: K6
 
 def k6_cases():
-    """(name, main_path, m, k, n): every 4b decode shape (M = 240 beam
-    rows), the prefill head (M = 24) and odd shapes."""
-    cases = [(f"4b_decode_m240_{name}", True, 240, k, n)
+    """(name, main_path, m, k, n, ldq): every 4b decode shape (M = 240 beam
+    rows), the prefill head (M = 24), odd shapes, and the edges of the
+    bf16 tiling: a full 256-row block, two blocks (300), ``quant_dot``'s
+    largest (512), a split-K shape whose K is neither a multiple of its
+    split count nor of 64, the same unaligned (N % 16 != 0: the masked
+    loads, the scalar epilogue and reduction), and the down shape's weight
+    as a column slice of a wider one (strided rows). ldq None: q is
+    contiguous."""
+    cases = [(f"4b_decode_m240_{name}", True, 240, k, n, None)
              for name, ((k, n), _) in K6_DECODE.items()]
-    cases += [("4b_prefill_head_m24_2560x54656", True, 24, 2560, 54656),
-              ("greedy_m1_2560x7680", False, 1, 2560, 7680),
-              ("odd_m37_100x70", False, 37, 100, 70), ("odd_m1_72x130", False, 1, 72, 130)]
+    cases += [("4b_prefill_head_m24_2560x54656", True, 24, 2560, 54656, None),
+              ("greedy_m1_2560x7680", False, 1, 2560, 7680, None),
+              ("odd_m37_100x70", False, 37, 100, 70, None),
+              ("odd_m1_72x130", False, 1, 72, 130, None),
+              ("m256_down_10240x2560", False, 256, 10240, 2560, None),
+              ("m300_down_10240x2560", False, 300, 10240, 2560, None),
+              ("m512_qkv_2560x7680", False, 512, 2560, 7680, None),
+              ("m512_down_10240x2560", False, 512, 10240, 2560, None),
+              ("splitk_ragged_m240_1000x2560", False, 240, 1000, 2560, None),
+              ("odd_splitk_m100_1000x130", False, 100, 1000, 130, None),
+              ("strided_m240_down_10240x2560_ldq2688", False, 240, 10240, 2560, 2688)]
     return cases
 
 
@@ -457,19 +503,22 @@ def k6_timing(name, x, q, scale, out):
     return dict(kernel="quant_matmul", case=name, ms=cuda_ms(lambda: quant_matmul_cuda(x, q, scale)),
                 plain_ms=cuda_ms(lambda: quant_matmul_ref(x, q, scale), iters=5),
                 library_ms=library_ms, library=library,
-                bf16_matmul_ms=cuda_ms(lambda: x @ w_deq), bound_ms=b_ms, bound_by=b_by)
+                bf16_matmul_ms=cuda_ms(lambda: x @ w_deq), bound_ms=b_ms, bound_by=b_by,
+                host_ms=host_ms(lambda: quant_matmul_cuda(x, q, scale)),
+                bf16_matmul_host_ms=host_ms(lambda: x @ w_deq))
 
 
 def phase_int8_kernels(dev, dtype, results, timings):
     """K6 and the int8-KV branches of K4 / K5 against their plain versions;
     bf16 main-path shapes are also timed."""
     gen = torch.Generator(dev).manual_seed(5)
-    for name, main, m, k, n in k6_cases():
-        q, scale = int8_weight(dev, k, n, seed=k + n)
+    for name, main, m, k, n, ldq in k6_cases():
+        q, scale = int8_weight(dev, k, ldq or n, seed=k + n)
+        q, scale = q[:, :n], scale[:n].contiguous()  # ldq > n: a column slice
         x = torch.randn(m, k, generator=gen, device=dev).to(dtype)
         got = quant_matmul_cuda(x, q, scale)
         check_rel(name, got, quant_matmul_ref(x, q, scale), dtype, results, "quant_matmul", main)
-        if dtype == torch.bfloat16 and main:
+        if dtype == torch.bfloat16 and (main or name == "m512_down_10240x2560"):
             timings.append(k6_timing(name, x, q, scale, got))
         del q, scale
 
@@ -629,7 +678,8 @@ def phase_kernels(dev):
         phase_int8_kernels(dev, dtype, results, timings)
     for row in timings:
         lib = "null" if row["library_ms"] is None else f"{row['library_ms']:.4f}"
-        extra = f" bf16_matmul_ms={row['bf16_matmul_ms']:.4f}" if "bf16_matmul_ms" in row else ""
+        extra = "".join(f" {key}={row[key]:.4f}" for key in
+                        ("bf16_matmul_ms", "host_ms", "bf16_matmul_host_ms") if key in row)
         log(f"[time] {row['kernel']:22s} {row['case']:36s} kernel_ms={row['ms']:.4f} "
             f"plain_ms={row['plain_ms']:.4f} library_ms={lib}{extra} "
             f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']})")
@@ -940,11 +990,27 @@ def k6_step_report(model, timings, rows: int = 240) -> None:
         raise AssertionError(f"int8 weights a step: model {streamed}, K6_DECODE {table}")
     by = sum(c * (k * n + 4 * n + 2 * rows * (k + n)) for (k, n), c in K6_DECODE.values())
     b_ms, b_by = bound(by, 2.0 * rows * table, torch.bfloat16)
-    ms = {r["case"]: r["ms"] for r in timings if r["kernel"] == "quant_matmul"}
-    step_ms = sum(c * ms[f"4b_decode_m240_{name}"] for name, (_, c) in K6_DECODE.items())
+    rows_k6 = {r["case"]: r for r in timings if r["kernel"] == "quant_matmul"}
+
+    def per_step(key):
+        return sum(c * rows_k6[f"4b_decode_m240_{name}"][key]
+                   for name, (_, c) in K6_DECODE.items())
+
     log(f"[4b-int8] K6 per decode step ({K6_PER_STEP} launches, {table / 1e9:.4f} G int8 "
-        f"weights, M={rows}): {step_ms:.3f} ms from phase 3's per-shape times; bound "
-        f"{b_ms:.4f} ms ({b_by}; bytes {by / HBM_BYTES_PER_S * 1e3:.4f} ms)")
+        f"weights, M={rows}): {per_step('ms'):.3f} ms from phase 3's per-shape times "
+        f"(the bf16 matmul on the dequantized weights {per_step('bf16_matmul_ms'):.3f} ms); "
+        f"bound {b_ms:.4f} ms ({b_by}; bytes {by / HBM_BYTES_PER_S * 1e3:.4f} ms)")
+
+
+def kernel_name(ptxas_line: str) -> str:
+    """The kernel's name and its mangled template arguments, as in
+    'flash_fwd_mma_kernel ILi80ELb1EE' (80, true), from ptxas's
+    "Compiling entry function '<mangled>'" line."""
+    # overlapping matches: a length-prefixed name that ends in _kernel
+    for m in re.finditer(r"(?=(\d{1,2})([A-Za-z_]\w*?_kernel)(I\w*?EE|E))", ptxas_line):
+        if int(m.group(1)) == len(m.group(2)):
+            return m.group(2) + ("" if m.group(3) == "E" else " " + m.group(3))
+    return ptxas_line.strip()[:80]
 
 
 def profile_run(label: str, run, unprofiled_s: float) -> None:
@@ -980,9 +1046,11 @@ def profile_run(label: str, run, unprofiled_s: float) -> None:
         f"{sum(k[1] for k in kernels)} kernels")
     groups = {"port kernels": 0.0, "matmul (cuBLAS)": 0.0, "other": 0.0}
     for ms, _, name in kernels:
-        if any(k in name for k in ("flash_fwd_kernel", "flash_bwd_dkv_kernel",
-                                   "flash_bwd_dq_kernel", "decode_attn_kernel",
-                                   "single_query_kernel", "qmm_bf16_kernel", "qmm_f32_kernel")):
+        if any(k in name for k in ("flash_fwd_kernel", "flash_fwd_mma_kernel",
+                                   "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel",
+                                   "decode_attn_kernel", "single_query_kernel",
+                                   "qmm_bf16_kernel", "qmm_splitk_reduce_kernel",
+                                   "qmm_f32_kernel")):
             groups["port kernels"] += ms
         elif any(k in name.lower() for k in ("gemm", "cutlass", "xmma", "gemv", "nvjet")):
             groups["matmul (cuBLAS)"] += ms
@@ -1013,9 +1081,12 @@ def main() -> int:
     for name in libs:
         info = (kernel_lib.BUILD_DIR / f"{name}.ptxas.txt")
         if info.exists():
+            fn = "?"
             for line in info.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    log(f"[ptxas] {name}: {line.strip()}")
+                if "Compiling entry function" in line:
+                    fn = kernel_name(line)
+                elif "registers" in line or "spill" in line:
+                    log(f"[ptxas] {name}: {fn}: {line.replace('ptxas info    :', '').strip()}")
 
     t0 = time.perf_counter()
     results, timings = phase_kernels(dev)

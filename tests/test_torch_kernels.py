@@ -32,7 +32,15 @@ from unimp_tpu_torch.ops.flash_attention import (
     flash_bwd_dkv_cuda,
     flash_bwd_dq_cuda,
 )
-from unimp_tpu_torch.ops.quant_matmul import quant_matmul_cuda, quant_matmul_ref
+from unimp_tpu_torch.ops.quant_matmul import (
+    K6_BK,
+    SMS,
+    k6_block_rows,
+    quant_matmul_cuda,
+    quant_matmul_ref,
+    split_k_plan,
+    split_k_scratch,
+)
 from unimp_tpu_torch.utils.quant import quantize_kv
 
 torch.set_num_threads(2)  # six test workers share the cores
@@ -229,3 +237,110 @@ def test_int8_kernel_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError, match="CUDA"):
         single_query_attention_cuda(qd, kv, kv, torch.ones(1, 8, dtype=torch.bool),
                                     k_scale=kvs, v_scale=kvs)
+
+
+# the int8 matmuls of a 4b-instruct decode step (M = 240 beam rows) and its
+# prefill head (M = 24), (m, k, n)
+K6_MAIN = [(240, 2560, 7680), (240, 2560, 2560), (240, 2560, 10240), (240, 10240, 2560),
+           (240, 2560, 54656), (24, 2560, 54656)]
+K6_PLAN_SHAPES = K6_MAIN + [(1, 2560, 7680), (256, 10240, 2560), (300, 10240, 2560),
+                            (512, 10240, 2560), (512, 2560, 7680), (240, 1000, 2560),
+                            (100, 1000, 130), (37, 100, 70), (1, 72, 130), (3, 0, 16),
+                            (240, 64, 128)]
+
+
+@pytest.mark.parametrize("m,k,n", K6_PLAN_SHAPES)
+def test_split_k_chunks_tile_k(m, k, n):
+    """K6's split plan: whole 64-deep k tiles a chunk, at most 8 splits,
+    and the chunks [z * k_chunk, min(k, (z + 1) * k_chunk)) cover K
+    exactly, none empty (what the kernel's C entry point checks)."""
+    splits, k_chunk = split_k_plan(m, k, n)
+    assert 1 <= splits <= 8 and k_chunk % K6_BK == 0 and k_chunk > 0
+    chunks = [(z * k_chunk, min(k, (z + 1) * k_chunk)) for z in range(splits)]
+    assert chunks[0][0] == 0 and chunks[-1][1] == k
+    assert all(a[1] == b[0] for a, b in zip(chunks, chunks[1:]))
+    assert splits == 1 or all(hi > lo for lo, hi in chunks)
+
+
+@pytest.mark.parametrize("m,k,n", K6_PLAN_SHAPES)
+def test_split_k_only_where_sms_idle(m, k, n):
+    """One split where the output tiles already fill the 132 SMs; more
+    only while the split grid still fits on them."""
+    splits, _ = split_k_plan(m, k, n)
+    blocks = -(-n // 128) * -(-m // k6_block_rows(m))
+    if blocks >= SMS:
+        assert splits == 1
+    assert splits * blocks <= max(SMS, blocks)
+
+
+def test_split_k_plan_at_the_decode_shapes():
+    """o and down (20 N tiles) split 6 ways, the fused QKV (60) 2, the
+    rest (80 and more tiles) not at all."""
+    assert [split_k_plan(*s)[0] for s in K6_MAIN] == [2, 6, 1, 6, 1, 1]
+    assert k6_block_rows(240) == k6_block_rows(256) == 256 and k6_block_rows(64) == 64
+
+
+@pytest.mark.parametrize("m,k,n", K6_PLAN_SHAPES)
+def test_split_k_scratch_matches_plan(m, k, n):
+    """The wrapper's f32 scratch holds [splits, m, n] partial sums (none
+    for one split): at most 20 MB at the 4b down projection."""
+    splits, k_chunk, part = split_k_scratch(m, k, n, "cpu")
+    assert (splits, k_chunk) == split_k_plan(m, k, n)
+    if splits == 1:
+        assert part is None
+    else:
+        assert part.dtype == torch.float32 and tuple(part.shape) == (splits, m, n)
+    if (m, k, n) == (240, 10240, 2560):
+        assert part.numel() * 4 <= 20e6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [256, 300, 512])
+def test_quant_matmul_split_k_rows_on_card(cuda_device, m):
+    """K6 bf16 with split-K engaged at one full 256-row block, two blocks
+    and quant_dot's largest row count, on a strided weight whose K is not
+    a multiple of the split: within 2e-2 of max |plain| (the f32 sums
+    differ in order, then both round to bf16); the same output twice (no
+    atomics)."""
+    k, n, ldq = 1000, 640, 672
+    assert split_k_plan(m, k, n)[0] > 1
+    rng = np.random.default_rng(m)
+    x = _randn(rng, m, k).to(cuda_device, torch.bfloat16)
+    wide = torch.from_numpy(rng.integers(-127, 128, size=(k, ldq)).astype(np.int8))
+    q = wide.to(cuda_device)[:, :n]
+    scale = torch.from_numpy(rng.random(n).astype(np.float32) / 64).to(cuda_device)
+    got = quant_matmul_cuda(x, q, scale)
+    want = quant_matmul_ref(x, q, scale)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 2e-2 * want.float().abs().max().item(), err
+    assert torch.equal(got, quant_matmul_cuda(x, q, scale))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["vit", "perceiver", "xattn_immediate", "lm_prefill"])
+def test_flash_forward_bf16_main_shapes_on_card(cuda_device, case):
+    """K1's bf16 tensor-core path at the 4b main-path shapes, batch cut to
+    2: out within 2e-2 of the plain version (P and the output round to
+    bf16 in both), lse within 1e-3."""
+    dev = cuda_device
+    b, sq, skv, h, d = dict(vit=(2, 257, 257, 16, 64), perceiver=(2, 64, 320, 16, 64),
+                            xattn_immediate=(2, 128, 256, 32, 80),
+                            lm_prefill=(2, 128, 128, 32, 80))[case]
+    rng = np.random.default_rng(5)
+    q = _randn(rng, b, sq, h, d).to(dev, torch.bfloat16)
+    k, v = (_randn(rng, b, skv, h, d).to(dev, torch.bfloat16) for _ in range(2))
+    kw, mask = {}, AttnMask()
+    if case == "xattn_immediate":
+        pos = torch.zeros(b, sq, dtype=torch.int32)
+        pos[:, [10, 34, 58, 82]] = 1  # text before the first <image>: fully masked
+        qm = torch.cumsum(pos, 1, dtype=torch.int32).to(dev)
+        km = torch.arange(1, 5, dtype=torch.int32).repeat_interleave(64)[None].repeat(b, 1).to(dev)
+        kw = dict(q_media=qm, kv_media=km, media_mode="immediate")
+        mask = AttnMask(q_media=qm, kv_media=km, media_mode="immediate")
+    if case == "lm_prefill":
+        kw = dict(causal=True, kv_start=torch.tensor([0, 27], device=dev))
+        mask = AttnMask(causal=True)
+    got, lse = flash_attention_cuda(q, k, v, **kw)
+    want, want_lse = attention_ref(q, k, v, mask, kv_start=kw.get("kv_start"))
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=1e-3)

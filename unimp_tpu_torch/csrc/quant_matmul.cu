@@ -4,26 +4,50 @@
 // (x[M, K] @ q[K, N]) * scale[N], with q int8 (rows N-contiguous, row
 // stride ldq), the sum in f32 and the per-output-channel scale applied
 // once after it, the result rounded to x's dtype. It runs every int8
-// projection of a decode step (M = B*K beam rows) and the prefill's head.
+// projection of a decode step (M = B*K = 240 beam rows), the LM head, and
+// the prefill's head (M = 24); ops/quant_matmul.py:quant_dot sends it up
+// to 512 rows.
 //
-// What bounds it on the H100: at the 4b eval's decode rows (M = 240) it
-// does 2*M flops per weight byte, past the 295 flops a byte where the
-// bf16 tensor cores (989 TFLOP/s), not the memory (3.35 TB/s), are the
-// limit: 2*240*3.7e9 weights is 1.78 TFLOP a step, 1.8 ms at the peak.
-// At small M (a greedy step, the prefill head) the int8 bytes bound it.
+// What bounds it on the H100. At M = 240 it does 2 * 240 flops per weight
+// byte, past the ~295 flops a byte where the bf16 tensor cores (989
+// TFLOP/s), not the memory (3.35 TB/s), are the limit: every decode shape
+// (fused QKV 2560x7680, o 2560x2560, MLP up 2560x10240, down 10240x2560,
+// head 2560x54656) is bound by operations, 1.8 ms a step at the peak
+// against 1.39 ms for the bytes. At M <= 64 (the prefill head, a greedy
+// step) the int8 weight bytes bound it.
 //
-// The design, bf16 x: one block of 4 warps per 64 x 64 output tile, a loop
-// over K in 32-deep tiles. Each tile of x and of q is staged in shared
-// memory (16-byte loads where K, N and the row stride allow, masked tails
-// otherwise); the int8 tile is widened to bf16 on the way in, stored
-// n-major so that a warp reads its B fragments as k pairs, and each warp
-// runs mma.sync m16n8k16 (bf16 in, f32 accumulate) over its 32 x 32
-// quarter of the tile. int8 -> bf16 is exact (|q| <= 127 needs 7 bits)
-// and a bf16 * int8 product is exact in f32, so the tensor cores give the
-// plain version's numbers up to the order of the sum. float32 x runs on
-// the CUDA cores: 256 threads per 64 x 64 tile, 4 x 4 outputs each, x and
-// the widened q tile in shared memory. No pipelining, no TMA, no wgmma:
-// those are later work.
+// The design, bf16 x. One block owns a BM x 128 output tile and walks its
+// K range in 64-deep tiles through a 4-stage cp.async ring (x and the raw
+// int8 q tile), so the loads of tile t + 3 run under the products of tile
+// t and one barrier guards each tile. BM = 256 for M > 64, 8 warps of 128
+// x 32: the 240 decode rows fit one M block, so each weight byte crosses
+// HBM and is widened once per call (rows 257-512 take two blocks). BM = 64
+// for the bytes-bound small M, 4 warps of 64 x 32, so that several blocks
+// share an SM and keep more weight bytes in flight. Both tiles are
+// XOR-swizzled by 16-byte chunk, so ldmatrix reads them without bank
+// conflicts. The int8 tile is
+// read with ldmatrix.trans as if it held 16-bit pairs: a thread receives
+// q[2t4, 2t4+1][2g, 2g+1], which splits by byte permutes into the B
+// fragments of two n8 tiles, the even and the odd columns of 16; the warp's
+// outputs come back as 4 adjacent columns per thread. Bytes widen to bf16
+// in registers by the 2^23 float trick (one xor, six byte permutes and
+// four adds per 4 bytes); int8 -> bf16 is exact and a bf16 * int8 product is
+// exact in f32, so mma.sync m16n8k16 (bf16 in, f32 accumulate) gives the
+// plain version's numbers up to the order of the sum. Each warp widens
+// only its own 32 columns.
+//
+// Split-K: shapes whose tiles would leave SMs idle (o and down: 20 N tiles
+// on 132 SMs) split K over grid.z by the plan of ops/quant_matmul.py:
+// split_k_plan. Each split writes f32 partials to a scratch buffer the
+// wrapper allocates; a second kernel adds them in split order, applies the
+// scale once and rounds to bf16 (no atomics: the same output every run).
+// Where x, q, K, N and ldq are 16-byte aligned (every main-path call) the
+// loads are cp.async only, ragged rows and k tails zero-filled by a 0-byte
+// source; otherwise a second instantiation takes masked synchronous loads
+// into the same ring (a branch per chunk slowed the aligned calls).
+//
+// float32 x runs on the CUDA cores: 256 threads per 64 x 64 tile, 4 x 4
+// outputs each, x and the widened q tile in shared memory.
 
 #include "common.cuh"
 
@@ -31,127 +55,254 @@ namespace {
 
 using namespace unimp;
 
-constexpr int BM = 64, BN = 64;
-
 // ---------------------------------------------------------------- bf16 x
 
-constexpr int kMmaBK = 32;
-constexpr int kMmaThreads = 128;
-constexpr int kStride = kMmaBK + 8;  // bf16 row stride of both shared tiles
+constexpr int kBN = 128, kWN = 32;     // block and warp tile widths
+constexpr int kBK = 64;                // k per ring stage: 128 bytes of x, 64 rows of q
+constexpr int kStages = 4;
 
-__device__ __forceinline__ void mma_bf16_16816(float (&c)[4], const uint32_t (&a)[4],
-                                               const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+// warps: kWarpsM (M) x 4 (N); BM = 256: 2 x 4 of 128 x 32, BM = 64: 1 x 4 of 64 x 32
+template <int BM>
+constexpr int kWarpsM = BM > 64 ? 2 : 1;
+template <int BM>
+constexpr int kThreads = 32 * 4 * kWarpsM<BM>;
+
+template <int BM>
+constexpr int smem_bytes() { return kStages * (BM * kBK * 2 + kBK * kBN); }
+
+// byte offset of 16-byte chunk c of a 128-byte smem row r, XOR-swizzled
+__device__ __forceinline__ int swz(int r, int c) { return r * 128 + ((c ^ (r & 7)) << 4); }
+
+// int8 bytes j0 and j0 + 2 of r (already xor 0x80: u = q + 128) -> bf16x2
+// {q[j0], q[j0 + 2]}: 2^23 + u as a float, minus 2^23 + 128, is exact, and
+// a small integer's bf16 is its float's upper half
+__device__ __forceinline__ uint32_t widen_pair(uint32_t r, int j0) {
+  const float lo = __uint_as_float(__byte_perm(r, 0x4B000000u, 0x7540 + j0)) - 8388736.f;
+  const float hi = __uint_as_float(__byte_perm(r, 0x4B000000u, 0x7542 + j0)) - 8388736.f;
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
 }
 
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__global__ void __launch_bounds__(kMmaThreads)
-qmm_bf16_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
-                const float* __restrict__ scale, __nv_bfloat16* __restrict__ out, int M,
-                int K, int N, int ldq, bool q_vec) {
-  __shared__ __align__(16) __nv_bfloat16 xs[BM * kStride];  // [m][k]
-  __shared__ __align__(16) __nv_bfloat16 ws[BN * kStride];  // [n][k]
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int wm = (warp / 2) * 32, wn = (warp % 2) * 32;  // the warp's quarter
-  const int g = lane / 4, t4 = lane % 4;                 // mma fragment coordinates
-  const bool x_vec = K % 8 == 0;
-  float acc[2][4][4];
+// Stage one k tile [k0, k0 + 64) of x (BM rows) and q (128 columns) into
+// ring slot xs / qs; rows past M, k past k_end and columns past N are zeros.
+// kAligned: x, q, K, N and ldq 16-byte aligned, so every chunk is either
+// wholly inside or wholly past its edges (K % 8 == 0, N % 16 == 0).
+template <int BM, bool kAligned>
+__device__ __forceinline__ void load_tile(
+    char* xs, char* qs, const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
+    int M, int K, int N, int ldq, int m0, int n0, int k0, int k_end) {
+  constexpr int T = kThreads<BM>;
+  const int tid = threadIdx.x;
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int it = 0; it < BM * 8 / T; ++it) {  // 8 chunks of 8 bf16 a row
+    const int i = tid + it * T, r = i >> 3, c = i & 7;
+    const int m = m0 + r, k = k0 + 8 * c;
+    const uint32_t dst = smem_addr(xs + swz(r, c));
+    const __nv_bfloat16* src = x + (size_t)m * K + k;
+    if (kAligned) {
+      const bool in = m < M && k < k_end;
+      cp_async_16(dst, in ? src : x, in ? 16 : 0);
+    } else {
+      union { uint4 u; __nv_bfloat16 h[8]; } v;
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        v.h[e] = (m < M && k + e < k_end) ? src[e] : __float2bfloat16(0.f);
+      *reinterpret_cast<uint4*>(xs + swz(r, c)) = v.u;
+    }
+  }
+#pragma unroll
+  for (int it = 0; it < kBK * 8 / T; ++it) {  // 8 chunks of 16 int8 a row
+    const int i = tid + it * T, kr = i >> 3, c = i & 7;
+    const int k = k0 + kr, n = n0 + 16 * c;
+    const int8_t* src = q + (size_t)k * ldq + n;
+    if (kAligned) {
+      const bool in = k < k_end && n < N;
+      cp_async_16(smem_addr(qs + swz(kr, c)), in ? src : q, in ? 16 : 0);
+    } else if (k >= k_end || n >= N) {
+      *reinterpret_cast<uint4*>(qs + swz(kr, c)) = make_uint4(0, 0, 0, 0);
+    } else if (n + 16 <= N && ((uintptr_t)src & 15) == 0) {
+      cp_async_16(smem_addr(qs + swz(kr, c)), src, 16);
+    } else {
+      union { uint4 u; int8_t b[16]; } w;
+#pragma unroll
+      for (int e = 0; e < 16; ++e) w.b[e] = n + e < N ? src[e] : int8_t(0);
+      *reinterpret_cast<uint4*>(qs + swz(kr, c)) = w.u;
+    }
+  }
+}
+
+// grid (N tiles, M blocks, splits). Split z sums k in [z * k_chunk,
+// min(K, (z + 1) * k_chunk)); with one split it writes out, else its f32
+// partials to part[z][M][N].
+template <int BM, bool kAligned>
+__global__ void __launch_bounds__(kThreads<BM>, 1)
+qmm_bf16_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
+                const float* __restrict__ scale, __nv_bfloat16* __restrict__ out,
+                float* __restrict__ part, int M, int K, int N, int ldq, int k_chunk) {
+  constexpr int MT = BM / (16 * kWarpsM<BM>);  // m16 tiles per warp
+  extern __shared__ __align__(128) char smem[];
+  char* xs0 = smem;                                // kStages x [BM][64] bf16
+  char* qs0 = smem + kStages * BM * kBK * 2;       // kStages x [64][128] int8
+  const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * BM, z = blockIdx.z;
+  const int k_begin = z * k_chunk, k_end = min(K, k_begin + k_chunk);
+  const int n_tiles = (k_end - k_begin + kBK - 1) / kBK;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = (warp / 4) * (BM / kWarpsM<BM>), wn = (warp % 4) * kWN;
+  const int g = lane / 4, t4 = lane % 4;
+
+  // acc[i][j]: m16 tile i; j = 2c + o, o = 0 the even, 1 the odd columns
+  // of 16-column chunk c
+  float acc[MT][4][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
 
-  for (int k0 = 0; k0 < K; k0 += kMmaBK) {
-    // x tile: 64 rows x 32 k, in chunks of 8 bf16
-    for (int c = tid; c < BM * kMmaBK / 8; c += kMmaThreads) {
-      const int r = c / (kMmaBK / 8), kc = (c % (kMmaBK / 8)) * 8;
-      const int m = m0 + r, k = k0 + kc;
-      union { uint4 u; __nv_bfloat16 h[8]; } v;
-      v.u = make_uint4(0, 0, 0, 0);
-      if (m < M) {
-        const __nv_bfloat16* src = x + (size_t)m * K + k;
-        if (x_vec && k + 8 <= K) {
-          v.u = __ldg(reinterpret_cast<const uint4*>(src));
-        } else {
 #pragma unroll
-          for (int i = 0; i < 8; ++i) v.h[i] = k + i < K ? src[i] : __float2bfloat16(0.f);
-        }
-      }
-      *reinterpret_cast<uint4*>(&xs[r * kStride + kc]) = v.u;
-    }
-    // q tile: 32 k x 64 n int8, 16 bytes per thread, widened to bf16 and
-    // stored transposed
-    for (int c = tid; c < kMmaBK * BN / 16; c += kMmaThreads) {
-      const int kr = c / (BN / 16), nc = (c % (BN / 16)) * 16;
-      const int k = k0 + kr, n = n0 + nc;
-      union { uint4 u; int8_t b[16]; } w;
-      w.u = make_uint4(0, 0, 0, 0);
-      if (k < K) {
-        const int8_t* src = q + (size_t)k * ldq + n;
-        if (q_vec && n + 16 <= N) {
-          w.u = __ldg(reinterpret_cast<const uint4*>(src));
-        } else {
-#pragma unroll
-          for (int i = 0; i < 16; ++i) w.b[i] = n + i < N ? src[i] : int8_t(0);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 16; ++i) ws[(nc + i) * kStride + kr] = __float2bfloat16((float)w.b[i]);
-    }
-    __syncthreads();
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_tiles)
+      load_tile<BM, kAligned>(xs0 + s * BM * kBK * 2, qs0 + s * kBK * kBN, x, q, M, K, N, ldq,
+                              m0, n0, k_begin + s * kBK, k_end);
+    cp_async_commit();
+  }
 
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // tile t landed; slot (t - 1) % kStages is free
+    const int nt = t + kStages - 1;
+    if (nt < n_tiles) {
+      const int s = nt % kStages;
+      load_tile<BM, kAligned>(xs0 + s * BM * kBK * 2, qs0 + s * kBK * kBN, x, q, M, K, N, ldq,
+                              m0, n0, k_begin + nt * kBK, k_end);
+    }
+    cp_async_commit();
+
+    const char* xs = xs0 + (t % kStages) * BM * kBK * 2;
+    const char* qs = qs0 + (t % kStages) * kBK * kBN;
 #pragma unroll
-    for (int kk = 0; kk < kMmaBK; kk += 16) {
-      uint32_t a[2][4], b[4][2];
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      // B: k rows kk*16 + (lane & 15), the warp's chunk wn/16 + (lane >> 4)
+      uint32_t r[4], b[4][2];
+      ldmatrix_x4_trans(r, smem_addr(qs + swz(kk * 16 + (lane & 15), wn / 16 + (lane >> 4))));
+      // every m16 tile's A fragments, then the widening, then the products:
+      // the loads overlap the widening, and no branch splits the mma stream
+      // (rows past M are zeros in the tile)
+      uint32_t a[MT][4];
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const __nv_bfloat16* p = &xs[(wm + i * 16 + g) * kStride + kk + 2 * t4];
-        a[i][0] = ld_pair(p);                     // row g,     k 2t, 2t+1
-        a[i][1] = ld_pair(p + 8 * kStride);       // row g + 8, k 2t, 2t+1
-        a[i][2] = ld_pair(p + 8);                 // row g,     k 2t+8, 2t+9
-        a[i][3] = ld_pair(p + 8 * kStride + 8);   // row g + 8, k 2t+8, 2t+9
+      for (int i = 0; i < MT; ++i)
+        ldmatrix_x4(a[i], smem_addr(xs + swz(wm + i * 16 + (lane & 15), kk * 2 + (lane >> 4))));
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const uint32_t lo = r[2 * c] ^ 0x80808080u, hi = r[2 * c + 1] ^ 0x80808080u;
+        b[2 * c][0] = widen_pair(lo, 0);      // even columns, k 2t4, 2t4+1
+        b[2 * c][1] = widen_pair(hi, 0);      //               k 2t4+8, 2t4+9
+        b[2 * c + 1][0] = widen_pair(lo, 1);  // odd columns
+        b[2 * c + 1][1] = widen_pair(hi, 1);
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const __nv_bfloat16* p = &ws[(wn + j * 8 + g) * kStride + kk + 2 * t4];
-        b[j][0] = ld_pair(p);      // col g, k 2t, 2t+1
-        b[j][1] = ld_pair(p + 8);  // col g, k 2t+8, 2t+9
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
+      for (int i = 0; i < MT; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) mma_bf16_16816(acc[i][j], a[i], b[j]);
     }
-    __syncthreads();
   }
+  cp_async_wait<0>();
 
-  // c0, c1: row g, cols 2t, 2t+1; c2, c3: row g + 8
+  // thread holds, per m16 tile and chunk c, rows g and g + 8 at columns
+  // n .. n + 3 = even c0, odd c0, even c1, odd c1 (c2, c3 for row g + 8)
+  const bool n_vec = N % 4 == 0;
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < MT; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + wn + j * 8 + 2 * t4;
+    for (int c = 0; c < 2; ++c) {
+      const int n = n0 + wn + 16 * c + 4 * t4;
+      if (n >= N) continue;
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
         const int m = m0 + wm + i * 16 + g + 8 * hh;
         if (m >= M) continue;
-#pragma unroll
-        for (int e = 0; e < 2; ++e)
-          if (n + e < N)
-            out[(size_t)m * N + n + e] = __float2bfloat16(acc[i][j][2 * hh + e] * scale[n + e]);
+        float v[4] = {acc[i][2 * c][2 * hh], acc[i][2 * c + 1][2 * hh],
+                      acc[i][2 * c][2 * hh + 1], acc[i][2 * c + 1][2 * hh + 1]};
+        if (part != nullptr) {
+          float* dst = part + ((size_t)z * M + m) * N + n;
+          if (n_vec) {
+            *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+          } else {
+            for (int e = 0; e < 4 && n + e < N; ++e) dst[e] = v[e];
+          }
+        } else {
+          __nv_bfloat16* dst = out + (size_t)m * N + n;
+          if (n_vec) {
+            const float4 sc = __ldg(reinterpret_cast<const float4*>(scale + n));
+            uint2 w;
+            w.x = pack_bf16(v[0] * sc.x, v[1] * sc.y);
+            w.y = pack_bf16(v[2] * sc.z, v[3] * sc.w);
+            *reinterpret_cast<uint2*>(dst) = w;
+          } else {
+            for (int e = 0; e < 4 && n + e < N; ++e) dst[e] = __float2bfloat16(v[e] * scale[n + e]);
+          }
+        }
       }
     }
 }
+
+// out[m][n] = bf16(scale[n] * sum over z in order of part[z][m][n]), four
+// adjacent outputs a thread where N % 4 == 0
+__global__ void qmm_splitk_reduce_kernel(const float* __restrict__ part,
+                                         const float* __restrict__ scale,
+                                         __nv_bfloat16* __restrict__ out, int M, int N,
+                                         int splits) {
+  const size_t mn = (size_t)M * N, stride = (size_t)gridDim.x * blockDim.x;
+  const size_t first = blockIdx.x * (size_t)blockDim.x + threadIdx.x;
+  if (N % 4 == 0) {
+    const float4* p4 = reinterpret_cast<const float4*>(part);
+    for (size_t e = first; e < mn / 4; e += stride) {
+      float4 acc = __ldg(p4 + e);
+      for (int z = 1; z < splits; ++z) {
+        const float4 v = __ldg(p4 + z * (mn / 4) + e);
+        acc.x += v.x; acc.y += v.y; acc.z += v.z; acc.w += v.w;
+      }
+      const float4 sc = __ldg(reinterpret_cast<const float4*>(scale + (4 * e) % N));
+      uint2 w;
+      w.x = pack_bf16(acc.x * sc.x, acc.y * sc.y);
+      w.y = pack_bf16(acc.z * sc.z, acc.w * sc.w);
+      reinterpret_cast<uint2*>(out)[e] = w;
+    }
+  } else {
+    for (size_t e = first; e < mn; e += stride) {
+      float acc = part[e];
+      for (int z = 1; z < splits; ++z) acc += part[z * mn + e];
+      out[e] = __float2bfloat16(acc * scale[e % N]);
+    }
+  }
+}
+
+template <int BM, bool kAligned>
+int launch_bf16(const __nv_bfloat16* x, const int8_t* q, const float* scale,
+                __nv_bfloat16* out, float* part, int M, int K, int N, int ldq, int splits,
+                int k_chunk, cudaStream_t s) {
+  constexpr int bytes = smem_bytes<BM>();
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        qmm_bf16_kernel<BM, kAligned>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attr_set = true;
+  }
+  const dim3 grid((N + kBN - 1) / kBN, (M + BM - 1) / BM, splits);
+  qmm_bf16_kernel<BM, kAligned><<<grid, kThreads<BM>, bytes, s>>>(
+      x, q, scale, out, splits > 1 ? part : nullptr, M, K, N, ldq, k_chunk);
+  if (splits > 1) {
+    const int err = static_cast<int>(cudaGetLastError());
+    if (err != 0) return err;
+    const size_t items = N % 4 == 0 ? (size_t)M * N / 4 : (size_t)M * N;
+    const int blocks = static_cast<int>(items < 528 * 256 ? (items + 255) / 256 : 528);
+    qmm_splitk_reduce_kernel<<<blocks, 256, 0, s>>>(part, scale, out, M, N, splits);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+constexpr int BM = 64, BN = 64;  // float32 tile
 
 // ---------------------------------------------------------------- float32 x
 
@@ -214,23 +365,31 @@ qmm_f32_kernel(const float* __restrict__ x, const int8_t* __restrict__ q,
 
 // dtype (of x and out): 0 = float32, 1 = bfloat16. x [M, K] and out
 // [M, N] row-major; q [K, N] int8 with row stride ldq (elements); scale [N]
-// f32. Returns cudaGetLastError() after the launch, or -1 for an
-// unsupported dtype.
+// f32. bfloat16 with splits > 1 sums K in chunks of k_chunk (a multiple of
+// 64) over ``splits`` blocks each, through part [splits, M, N] f32 scratch;
+// float32 ignores splits, k_chunk and part. Returns cudaGetLastError()
+// after the launches, or -1 for an unsupported dtype or split.
 extern "C" int quant_matmul(int dtype, const void* x, const void* q, const float* scale,
-                            void* out, int M, int K, int N, int ldq, void* stream) {
+                            void* out, float* part, int M, int K, int N, int ldq, int splits,
+                            int k_chunk, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   const int8_t* qi = static_cast<const int8_t*>(q);
   if (dtype == 0) {
+    const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
     qmm_f32_kernel<<<grid, kFmaThreads, 0, s>>>(static_cast<const float*>(x), qi, scale,
                                                 static_cast<float*>(out), M, K, N, ldq);
-  } else if (dtype == 1) {
-    const bool q_vec = ldq % 16 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0;
-    qmm_bf16_kernel<<<grid, kMmaThreads, 0, s>>>(static_cast<const __nv_bfloat16*>(x), qi,
-                                                 scale, static_cast<__nv_bfloat16*>(out), M, K,
-                                                 N, ldq, q_vec);
-  } else {
-    return -1;
+    return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(cudaGetLastError());
+  if (dtype != 1) return -1;
+  if (splits < 1 || k_chunk % kBK || (long long)splits * k_chunk < K ||
+      (splits > 1 && ((long long)(splits - 1) * k_chunk >= K || part == nullptr)))
+    return -1;
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  auto* ob = static_cast<__nv_bfloat16*>(out);
+  const bool aligned = K % 8 == 0 && N % 16 == 0 && ldq % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(q) % 16 == 0;
+  auto fn = M <= 64 ? (aligned ? launch_bf16<64, true> : launch_bf16<64, false>)
+                    : (aligned ? launch_bf16<256, true> : launch_bf16<256, false>);
+  return fn(xb, qi, scale, ob, part, M, K, N, ldq, splits, k_chunk, s);
 }

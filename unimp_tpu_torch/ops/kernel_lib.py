@@ -68,8 +68,9 @@ SIGNATURES = {
         "single_query_attn_int8": [I, I, P, P, P, P, P, P, P, I, I, I, I, I, F, P],
     },
     "quant_matmul": {
-        # dtype, x, q, scale, out, M, K, N, ldq, stream
-        "quant_matmul": [I, P, P, P, P, I, I, I, I, P],
+        # dtype, x, q, scale, out, part (split-K scratch), M, K, N, ldq,
+        # splits, k_chunk, stream
+        "quant_matmul": [I, P, P, P, P, P, I, I, I, I, I, I, P],
     },
 }
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

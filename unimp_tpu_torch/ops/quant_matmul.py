@@ -11,6 +11,8 @@ uses for every matmul weight.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from unimp_tpu_torch.ops import kernel_lib
@@ -26,11 +28,52 @@ def quant_matmul_ref(x, q, scale):
     return (acc * scale.float()).to(x.dtype)
 
 
+# K6's bf16 tiling (csrc/quant_matmul.cu) on an H100 SXM's 132 SMs
+SMS = 132
+K6_BN, K6_BK = 128, 64
+K6_MAX_SPLITS = 8
+K6_MIN_SPLIT_TILES = 4  # k tiles per split: enough to fill the 4-stage ring
+
+
+def k6_block_rows(m: int) -> int:
+    """Rows of one K6 bf16 block: 64 for the bytes-bound small M, else 256
+    (the 240 decode rows in one block)."""
+    return 64 if m <= 64 else 256
+
+
+@functools.lru_cache(maxsize=256)
+def split_k_plan(m: int, k: int, n: int) -> tuple[int, int]:
+    """(splits, k_chunk) of K6's bf16 branch for x [m, k] @ q [k, n].
+
+    Split z sums k in [z * k_chunk, min(k, (z + 1) * k_chunk)); k_chunk is
+    a whole number of 64-deep k tiles and no split is empty. K is split
+    only where the output tiles leave SMs idle, up to 8 ways and no
+    thinner than 4 k tiles a split: 20 tiles (o, down at 240 rows) take 6
+    splits, 60 (fused QKV) 2, 80 and more 1."""
+    k_tiles = max(1, -(-k // K6_BK))
+    blocks = -(-n // K6_BN) * -(-m // k6_block_rows(m))
+    splits = max(1, min(K6_MAX_SPLITS, SMS // max(blocks, 1), k_tiles // K6_MIN_SPLIT_TILES))
+    chunk_tiles = -(-k_tiles // splits)
+    return -(-k_tiles // chunk_tiles), chunk_tiles * K6_BK
+
+
+def split_k_scratch(m: int, k: int, n: int, device):
+    """(splits, k_chunk, part) for K6's bf16 branch: the plan of
+    ``split_k_plan`` and the f32 partial sums [splits, m, n] that the
+    kernel fills and its second pass adds (None for one split)."""
+    splits, k_chunk = split_k_plan(m, k, n)
+    part = (torch.empty(splits, m, n, dtype=torch.float32, device=device)
+            if splits > 1 else None)
+    return splits, k_chunk, part
+
+
 def quant_matmul_cuda(x, q, scale):
     """Launch K6; returns [..., N] in x.dtype.
 
     x [..., K] float32 or bfloat16; q [K, N]
-    int8 whose rows may be strided (N contiguous); scale [N] float32."""
+    int8 whose rows may be strided (N contiguous); scale [N] float32.
+    bfloat16 splits K by ``split_k_plan`` through the f32 scratch buffer
+    of ``split_k_scratch``, allocated here."""
     if x.dtype not in kernel_lib.DTYPE_CODES:
         raise TypeError(f"quant_matmul takes float32 or bfloat16 x, got {x.dtype}")
     *lead, k = x.shape
@@ -48,9 +91,13 @@ def quant_matmul_cuda(x, q, scale):
     m = x2.shape[0]
     out = torch.empty(m, n, dtype=x.dtype, device=x.device)
     if m:
+        # float32 runs on the CUDA cores without split-K
+        splits, k_chunk, part = (split_k_scratch(m, k, n, x.device)
+                                 if x.dtype == torch.bfloat16 else (1, k, None))
         P = kernel_lib.ptr
         kernel_lib.launch("quant_matmul", "quant_matmul", kernel_lib.DTYPE_CODES[x.dtype],
-                          P(x2), P(q), P(scale), P(out), m, k, n, q.stride(0))
+                          P(x2), P(q), P(scale), P(out), P(part), m, k, n, q.stride(0),
+                          splits, k_chunk)
     return out.reshape(*lead, n)
 
 
