@@ -5,8 +5,10 @@ The same seeded numpy inputs go through ``jax.grad`` of the JAX
 mode), ``jax.grad`` of ``attention_xla``, the port's ``FlashAttentionFn``
 on CPU tensors (its plain backward), and the two plain functions
 ``flash_bwd_dkv_ref`` / ``flash_bwd_dq_ref`` called directly; float32, at
-the JAX suite's gradient tolerance (atol = rtol = 3e-4). The CUDA kernels
-themselves run only on the card: ``tests/test_torch_kernels.py``.
+the JAX suite's gradient tolerance (atol = rtol = 3e-4), and the plain
+functions again in bfloat16 against ``jax.vjp`` of the interpret-mode
+kernels (``BF16_TOL``). The CUDA kernels themselves run only on the card:
+``tests/test_torch_kernels.py``.
 """
 
 import jax
@@ -174,3 +176,46 @@ def test_checkpointed_attention_gives_the_same_gradients():
         grads.append(torch.autograd.grad((out * torch.cos(out)).sum(), (tq, tk, tv)))
     for a, b_ in zip(*grads):
         torch.testing.assert_close(a, b_, rtol=0, atol=0)
+
+
+# bf16: the plain K2 / K3 (the oracle the card's bf16 kernels are held to)
+# against jax.vjp of the JAX flash_attention in interpret mode, on the same
+# bf16 q, k, v and upstream gradient. Both round p to bf16 before p^T dO and
+# dS to bf16 before dS^T Q and dS K, and sum in f32; they differ in the
+# forward each backward starts from (out, whose bf16 rounding feeds delta,
+# and lse, which can flip a bf16 rounding of p or dS by one unit) and in
+# the order of the f32 sums. Held to two units in the last bf16 place of
+# the largest gradient, max |d| <= 2^-7 * max |JAX| per gradient (the
+# worst seen is 1.7e-3 * max |JAX|, under "immediate"; the card holds the
+# kernels to this oracle at 2e-2).
+BF16_TOL = 2.0**-7
+
+
+@pytest.mark.parametrize("name", ["kv_len_window", "immediate_masked_rows", "bidirectional"])
+def test_bf16_plain_backward_matches_jax(name):
+    q, k, v, kw, _ = _inputs(name)
+    b, sq, _, h, _, d = CASES[name]
+    do = np.random.default_rng(7).normal(size=(b, sq, h, d)).astype(np.float32)
+    jkw = {key: jnp.asarray(val) if isinstance(val, np.ndarray) else val
+           for key, val in kw.items()}
+
+    def run(q, k, v):
+        return j_flash_attention(q, k, v, **jkw, interpret=True)
+
+    bf = lambda x: jnp.asarray(x).astype(jnp.bfloat16)  # noqa: E731
+    _, vjp = jax.vjp(run, bf(q), bf(k), bf(v))
+    want = [np.asarray(g.astype(jnp.float32)) for g in vjp(bf(do))]
+
+    tkw = {key: _t(val) if isinstance(val, np.ndarray) else val for key, val in kw.items()}
+    tq, tk, tv, tdo = (_t(x).to(torch.bfloat16) for x in (q, k, v, do))
+    mask = AttnMask(causal=tkw.get("causal", False), q_media=tkw.get("q_media"),
+                    kv_media=tkw.get("kv_media"), media_mode=tkw.get("media_mode"))
+    win = dict(kv_len=tkw.get("kv_len"), kv_start=tkw.get("kv_start"))
+    o, lse = attention_ref(tq, tk, tv, mask, **win)
+    delta = (tdo.float() * o.float()).sum(-1).transpose(1, 2)
+    dk, dv = flash_bwd_dkv_ref(tq, tk, tv, tdo, lse, delta, mask, **win)
+    dq = flash_bwd_dq_ref(tq, tk, tv, tdo, lse, delta, mask, **win)
+    for got, w in zip((dq, dk, dv), want):
+        assert got.dtype == torch.bfloat16 and got.shape == w.shape
+        err = np.abs(got.float().numpy() - w).max()
+        assert err <= BF16_TOL * np.abs(w).max(), err

@@ -344,3 +344,86 @@ def test_flash_forward_bf16_main_shapes_on_card(cuda_device, case):
     want, want_lse = attention_ref(q, k, v, mask, kv_start=kw.get("kv_start"))
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
     torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=1e-3)
+
+
+def _media_ids(b, sq, n_media, lat, first, gap):
+    """(q_media [B, Sq], kv_media [B, n_media * lat]) int32: an <image> every
+    ``gap`` tokens from ``first``; queries before it see nothing under
+    "immediate"."""
+    pos = np.zeros((b, sq), np.int32)
+    pos[:, [first + i * gap for i in range(n_media)]] = 1
+    km = np.repeat(np.arange(1, n_media + 1, dtype=np.int32), lat)[None].repeat(b, 0)
+    return torch.from_numpy(np.cumsum(pos, 1, dtype=np.int32)), torch.from_numpy(km)
+
+
+# name: ((b, sq, skv, h, hkv, d), masks); the 4b training shapes, then the
+# edges of the 64-row / 64-column tiles of the tensor-core kernels
+BF16_BWD_CASES = {
+    "lm_train_3x256_d80_causal_kvlen": ((3, 256, 256, 32, 32, 80),
+                                        dict(causal=True, kv_len=[256, 229, 203])),
+    "xattn_train_3x256x384_d80_immediate": ((3, 256, 384, 32, 32, 80),
+                                            dict(media=(6, 64, 4, 31))),
+    "perceiver_train_18x64x320_d64": ((18, 64, 320, 16, 16, 64), {}),
+    "one_1x1_d64": ((2, 1, 1, 4, 4, 64), {}),
+    "tile_edge_65_d80_causal": ((2, 65, 65, 8, 8, 80), dict(causal=True)),
+    "skv63_d80": ((2, 100, 63, 8, 8, 80), {}),
+    "gqa_32_8_d80_causal_kv_start": ((2, 100, 100, 32, 8, 80),
+                                     dict(causal=True, kv_start=[3, 0], kv_len=[100, 77])),
+    "immediate_masked_rows_d80": ((2, 128, 256, 8, 8, 80), dict(media=(4, 64, 40, 24))),
+    "alibi_d128_causal": ((2, 256, 256, 16, 16, 128), dict(causal=True, alibi=True)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(BF16_BWD_CASES))
+def test_flash_backward_bf16_matches_plain_on_card(cuda_device, case):
+    """K2 and K3 in bf16 (the tensor-core kernels) against flash_bwd_dkv_ref /
+    flash_bwd_dq_ref on the same inputs (lse from K1): max |d| <= 2e-2 *
+    max |plain| per gradient, as chip_smoke's REL_TOL (p and dS round to
+    bf16 in both, the f32 sums run in another order); a gradient that is 0
+    by construction (one key: dq, dk) is f32 rounding noise of dp - delta
+    on both sides and is held to max |kernel| <= 1e-5 (chip_smoke's
+    NOISE_ATOL). Rows that see nothing get dq = 0; a second launch gives
+    the same bits (no atomics)."""
+    dev = cuda_device
+    (b, sq, skv, h, hkv, d), spec = BF16_BWD_CASES[case]
+    rng = np.random.default_rng(6)
+    q, do = (_randn(rng, b, sq, h, d).to(dev, torch.bfloat16) for _ in range(2))
+    k, v = (_randn(rng, b, skv, hkv, d).to(dev, torch.bfloat16) for _ in range(2))
+    kw, mask = {}, AttnMask()
+    if spec.get("causal"):
+        kw["causal"] = True
+        mask = AttnMask(causal=True)
+    for name in ("kv_start", "kv_len"):
+        if name in spec:
+            kw[name] = torch.tensor(spec[name], device=dev)
+    if spec.get("alibi"):
+        kw["alibi_slopes"] = torch.linspace(0.05, 0.5, h, device=dev)
+    if "media" in spec:
+        n_media, lat, first, gap = spec["media"]
+        qm, km = (x.to(dev) for x in _media_ids(b, sq, n_media, lat, first, gap))
+        kw.update(q_media=qm, kv_media=km, media_mode="immediate")
+        mask = AttnMask(q_media=qm, kv_media=km, media_mode="immediate")
+    win = dict(kv_len=kw.get("kv_len"), kv_start=kw.get("kv_start"), alibi=kw.get("alibi_slopes"))
+
+    out, lse = flash_attention_cuda(q, k, v, **kw)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, lse, delta)
+    dk, dv = flash_bwd_dkv_cuda(*args, **kw)
+    dq = flash_bwd_dq_cuda(*args, **kw)
+    want_dk, want_dv = flash_bwd_dkv_ref(*args, mask, **win)
+    want_dq = flash_bwd_dq_ref(*args, mask, **win)
+    for name, got, want in (("dq", dq, want_dq), ("dk", dk, want_dk), ("dv", dv, want_dv)):
+        assert got.dtype == torch.bfloat16 and got.shape == want.shape
+        assert torch.isfinite(got.float()).all(), name
+        size = want.float().abs().max().item()
+        if size < 1e-5:
+            assert got.float().abs().max().item() <= 1e-5, name
+            continue
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= 2e-2 * size, (name, err)
+    if "media" in spec:
+        blind = kw["q_media"] == 0
+        assert blind.any() and torch.equal(dq[blind], torch.zeros_like(dq[blind]))
+    assert torch.equal(dk, flash_bwd_dkv_cuda(*args, **kw)[0])
+    assert torch.equal(dq, flash_bwd_dq_cuda(*args, **kw))
