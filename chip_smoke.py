@@ -14,8 +14,9 @@ Phases (any failure exits non-zero):
      main-path shapes (eval for K1/K4/K5/K6, training for K2/K3) and at
      extra shapes (head dim 128 + ALiBi, causal + kv_start windows,
      all_previous, fully masked rows, GQA, K1/K2/K3 at 1 x 1 and 65 x 65,
-     K2/K3 at 63 keys,
-     decode steps 1 / 17 / 50 with random beam_sel, K6 at one row, off its
+     K2/K3 at 63 keys, decode steps 1 / 17 / 50 with random beam_sel and
+     with beams sharing their first 20 ancestors, K4 at 1 / 16 / 17 beams
+     and ragged prompt windows, K5 with one tile of five allowed, K6 at one row, off its
      tiles, at 256 / 300 / 512 rows, split-K over a ragged K, aligned
      and not, and with strided weight rows), in bfloat16 and float32, with the tolerances
      below; times each kernel (CUDA events)
@@ -26,7 +27,9 @@ Phases (any failure exits non-zero):
   4. the ``small`` variant in float32, once on the card (kernels) and once
      on the CPU (plain versions): the beam eval (token agreement, prefill
      logit difference), with float weights and again with int8 weights and
-     int8 KV caches, then one ``Trainer`` step (loss, every trainable
+     int8 KV caches; in bfloat16 on the card, the beam eval through K4 / K5
+     against the same eval with the plain decode attention (token
+     agreement); then one ``Trainer`` step (loss, every trainable
      gradient, skipped flag);
   5. the ``4b-instruct`` 10-beam rec eval at full width (random seeded
      weights, gates opened): a 256-item catalogue encoded once by the item
@@ -476,6 +479,169 @@ def check(name, got, want, dtype, results, kernel, main):
         results[kernel]["max_abs_err"] = max(results[kernel].get("max_abs_err", 0.0), err)
 
 
+# ------------------------------------------------------------ phase 3: K4/K5
+
+# (name, main path, (b, kb, t, g, h, hkv, d), options, int8 too): the 4b
+# decode shape, beams sharing one ancestor for the first 20 positions (as a
+# real beam search does), MPT d128 ALiBi, GQA 16/4 with prompt_len windows
+# (fixed, and ragged per row with ALiBi at d64 / d128), greedy (K = 1), 16
+# beams (one full tile of rows) and 17 (two groups), 130 gen positions (the
+# kernel lists them 64 at a time)
+K4_SPECS = [
+    ("4b_b24_k10_d80", True, (24, 10, 128, 50, 32, 32, 80), {}, True),
+    ("4b_b24_k10_d80_shared20", False, (24, 10, 128, 50, 32, 32, 80), dict(share=20), True),
+    ("mpt_alibi_d128", False, (4, 10, 128, 50, 16, 16, 128), dict(alibi=True), False),
+    ("gqa_prompt_len_d64", False, (3, 4, 64, 50, 16, 4, 64), dict(plen="fixed"), False),
+    ("gqa_alibi_ragged_d64", False, (3, 4, 100, 50, 16, 4, 64),
+     dict(alibi=True, plen="ragged"), True),
+    ("gqa_alibi_ragged_d128", False, (3, 4, 100, 50, 16, 4, 128),
+     dict(alibi=True, plen="ragged"), True),
+    ("greedy_d80", False, (4, 1, 128, 50, 32, 32, 80), {}, True),
+    ("k16_d80", False, (2, 16, 128, 50, 8, 8, 80), {}, True),
+    ("k17_d64", False, (2, 17, 64, 30, 4, 4, 64), {}, False),
+    ("long_gen_130_d64", False, (2, 5, 64, 130, 4, 4, 64), dict(share=70), True),
+]
+# (name, main path, (b, kb, s, h, hkv, d), mask, int8 too): the 4b x-attn
+# decode read (4 media x 64 latents, "immediate": one 64-latent tile in four
+# allowed), random masks, one allowed run inside one tile of five, K = 16
+# and K = 1; every mask but the main one leaves row 0 with nothing allowed
+K5_SPECS = [
+    ("4b_b24_k10_s256_d80", True, (24, 10, 256, 32, 32, 80), "immediate", True),
+    ("gqa_masked_rows_d128", False, (4, 3, 96, 16, 4, 128), "random", True),
+    ("d64", False, (4, 10, 320, 16, 16, 64), "random", False),
+    ("one_tile_of_five_d80", False, (4, 10, 320, 32, 32, 80), "one_tile", True),
+    ("k16_immediate_d80", False, (2, 16, 256, 8, 8, 80), "immediate", False),
+    ("k1_d64", False, (3, 1, 100, 4, 4, 64), "random", False),
+]
+
+
+def k4_gen_rows(sel, kb, g, step, per_block):
+    """Gen rows (ancestor, position) with position < step that some beam
+    references, per batch row, summed: what the bound counts once. With
+    ``per_block``, as the kernel loads them (once per group of 16 beams)."""
+    bk = sel.shape[0]
+    anc = sel[:, :step].clamp(0, kb - 1).long()
+    group = (torch.arange(bk, device=sel.device) % kb // 16 if per_block
+             else torch.zeros(bk, dtype=torch.long, device=sel.device))
+    row = torch.arange(bk, device=sel.device) // kb
+    key = ((row * (kb // 16 + 1) + group)[:, None] * kb + anc) * g \
+        + torch.arange(step, device=sel.device)
+    return int(torch.unique(key).numel())
+
+
+def decode_bound(c, got, step, kb, g, h, hkv, d, elt, scale_bytes):
+    """(bytes, flops) of K4 at ``step``: q and out once, each valid prompt
+    row once (shared by the beams), each referenced gen row once, K and V
+    (int8: plus their two f32 scales)."""
+    b = c["pk"].shape[0]
+    prompt_rows = int((c["hi"] - c["kv_start"]).clamp(min=0).sum())
+    gen_rows = k4_gen_rows(c["sel"], kb, g, step, per_block=False)
+    by = nbytes(c["q"], got, c["kv_start"]) + c["sel"][:, :step].numel() * 4 \
+        + (prompt_rows + gen_rows) * hkv * 2 * (d * elt + scale_bytes)
+    return by, 4.0 * d * h * kb * (prompt_rows + b * step), gen_rows
+
+
+def phase_decode_kernels(dev, dtype, results, timings):
+    """K4 and K5 against their plain versions, with float caches of q's
+    dtype and with int8 caches; two launches must give the same
+    bits, a row with nothing allowed exactly 0. bf16 main-path shapes are
+    timed, K5 beside SDPA."""
+    for name, main, shape, opt, with_int8 in K4_SPECS:
+        b, kb, t, g, h, hkv, d = shape
+        c = decode_case(dev, *shape, seed=len(name))
+        gen = torch.Generator(dev).manual_seed(len(name) + 100)
+        if opt.get("share"):  # one ancestor for every beam of a row
+            first = torch.randint(0, kb, (b, 1), generator=gen, device=dev, dtype=torch.int32)
+            c["sel"][:, :opt["share"]] = first.repeat_interleave(kb, 0)
+        c["hi"] = torch.full((b,), t, device=dev)
+        if opt.get("plen") == "fixed":
+            c["hi"] = torch.full((b,), t - 9, device=dev)
+        elif opt.get("plen") == "ragged":
+            c["hi"] = torch.randint(t // 2, t + 1, (b,), generator=gen, device=dev)
+        kw = dict(kv_start=c["kv_start"], beam_sel=c["sel"] if kb > 1 else None,
+                  alibi=alibi_slopes(h).to(dev) if opt.get("alibi") else None,
+                  prompt_len=c["hi"] if opt.get("plen") else None)
+        q = c["q"].to(dtype)
+        variants = [("", "decode_attn", [c[n].to(dtype) for n in ("pk", "pv", "gk", "gv")], {})]
+        if with_int8:
+            (pk, pks), (pv, pvs), (gk, gks), (gv, gvs) = (quantize_kv(c[n]) for n in
+                                                          ("pk", "pv", "gk", "gv"))
+            variants.append(("_int8", "decode_attn_int8", [pk, pv, gk, gv],
+                             dict(prompt_k_scale=pks, prompt_v_scale=pvs, gen_k_scale=gks,
+                                  gen_v_scale=gvs)))
+        for tag, kernel, caches, skw in variants:
+            args, kws = (q, *caches), dict(kw, **skw)
+            for step in sorted({1, 17, g}):
+                got = decode_attention_cuda(*args, step=step, **kws)
+                check(f"{name}_step{step}{tag}", got,
+                      decode_attention_ref(*args, step=step, **kws), dtype, results, kernel, main)
+            if not torch.equal(got, decode_attention_cuda(*args, step=g, **kws)):
+                raise AssertionError(f"{kernel} {name}{tag}: two launches differ")
+            if dtype != torch.bfloat16 or not (main or opt.get("share")):
+                continue
+            step, elt = g, caches[0].element_size()
+            by, fl, gen_rows = decode_bound(dict(c, q=q), got, step, kb, g, h, hkv, d, elt,
+                                            4 * bool(tag))
+            read = k4_gen_rows(c["sel"], kb, g, step, per_block=True) * (h // hkv)
+            log(f"[gen-rows] {kernel} {name}{tag} step{step}: the kernel loads {read} gen rows "
+                f"({read * hkv * 2 * (d * elt + 4 * bool(tag)) / 1e6:.3f} MB), the bound "
+                f"counts {gen_rows}; every ancestor row would be {b * kb * step}")
+            if not main:
+                continue
+            b_ms, b_by = bound(by, fl, dtype)
+            timings.append(dict(
+                kernel=kernel, case=f"{name}_step{step}{tag}",
+                ms=cuda_ms(lambda: decode_attention_cuda(*args, step=step, **kws)),
+                plain_ms=cuda_ms(lambda: decode_attention_ref(*args, step=step, **kws), iters=5),
+                library_ms=None, bound_ms=b_ms, bound_by=b_by))
+
+    for name, main, (b, kb, s, h, hkv, d), mode, with_int8 in K5_SPECS:
+        c = decode_case(dev, b, kb, s, 1, h, hkv, d, seed=len(name))
+        q = c["q"].to(dtype)
+        if mode == "immediate":
+            kv_media = torch.arange(1, s // 64 + 1, device=dev,
+                                    dtype=torch.int32).repeat_interleave(64)
+            mask = media_allowed(kv_media[None].expand(b, -1),
+                                 torch.full((b,), s // 64, device=dev), "immediate").contiguous()
+        else:
+            gen = torch.Generator(dev).manual_seed(len(name))
+            mask = torch.rand(b, s, generator=gen, device=dev) < 0.6
+            if mode == "one_tile":  # latents 130-140: the third 64-latent tile only
+                mask = torch.zeros(b, s, dtype=torch.bool, device=dev)
+                mask[:, 130:141] = True
+            mask[0] = False  # a row with nothing allowed: gives 0
+        variants = [("", "single_query_attn", (c["pk"].to(dtype), c["pv"].to(dtype)), {})]
+        if with_int8:
+            (k8, ks), (v8, vs) = quantize_kv(c["pk"]), quantize_kv(c["pv"])
+            variants.append(("_int8", "single_query_attn_int8", (k8, v8),
+                             dict(k_scale=ks, v_scale=vs)))
+        for tag, kernel, (k, v), skw in variants:
+            got = single_query_attention_cuda(q, k, v, mask, **skw)
+            check(f"{name}{tag}", got, single_query_attention_ref(q, k, v, mask, **skw), dtype,
+                  results, kernel, main)
+            if not torch.equal(got, single_query_attention_cuda(q, k, v, mask, **skw)):
+                raise AssertionError(f"{kernel} {name}{tag}: two launches differ")
+            if not bool(mask[0].any()) and not bool((got[:kb] == 0).all()):
+                raise AssertionError(f"{kernel} {name}{tag}: a row with nothing allowed is not 0")
+            if not (dtype == torch.bfloat16 and main):
+                continue
+            n_ok = int(mask.sum())
+            by = nbytes(q, got, mask) + n_ok * hkv * 2 * (d * k.element_size() + 4 * bool(tag))
+            b_ms, b_by = bound(by, 4.0 * d * h * kb * n_ok, dtype)
+            library_ms = None
+            if not tag:  # SDPA takes float K / V only
+                qs = q.reshape(b, kb, h, d).transpose(1, 2).contiguous()
+                am = mask[:, None, None, :]
+                library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qs, k, v,
+                                                                            attn_mask=am))
+            timings.append(dict(
+                kernel=kernel, case=f"{name}{tag}",
+                ms=cuda_ms(lambda: single_query_attention_cuda(q, k, v, mask, **skw)),
+                plain_ms=cuda_ms(lambda: single_query_attention_ref(q, k, v, mask, **skw),
+                                 iters=5),
+                library_ms=library_ms, bound_ms=b_ms, bound_by=b_by))
+
+
 # ------------------------------------------------------------ phase 3: K6
 
 def k6_cases():
@@ -538,8 +704,7 @@ def k6_timing(name, x, q, scale, out):
 
 
 def phase_int8_kernels(dev, dtype, results, timings):
-    """K6 and the int8-KV branches of K4 / K5 against their plain versions;
-    bf16 main-path shapes are also timed."""
+    """K6 against its plain version; bf16 main-path shapes are also timed."""
     gen = torch.Generator(dev).manual_seed(5)
     for name, main, m, k, n, ldq in k6_cases():
         q, scale = int8_weight(dev, k, ldq or n, seed=k + n)
@@ -550,63 +715,6 @@ def phase_int8_kernels(dev, dtype, results, timings):
         if dtype == torch.bfloat16 and (main or name == "m512_down_10240x2560"):
             timings.append(k6_timing(name, x, q, scale, got))
         del q, scale
-
-    # K4 int8: 4b decode (B24 K10 H32 d80 T128 G50), caches quantized per
-    # (row, head, position) as the model's are, steps 1 / 17 / 50
-    b, kb, t, g, h, hkv, d = 24, 10, 128, 50, 32, 32, 80
-    c = decode_case(dev, b, kb, t, g, h, hkv, d, seed=7)
-    (pk, pks), (pv, pvs), (gk, gks), (gv, gvs) = (quantize_kv(c[n]) for n in ("pk", "pv", "gk", "gv"))
-    q = c["q"].to(dtype)
-    args = (q, pk, pv, gk, gv)
-    kw = dict(kv_start=c["kv_start"], beam_sel=c["sel"], prompt_k_scale=pks,
-              prompt_v_scale=pvs, gen_k_scale=gks, gen_v_scale=gvs)
-    for step in (1, 17, 50):
-        got = decode_attention_cuda(*args, step=step, **kw)
-        check(f"4b_b24_k10_d80_step{step}_int8", got, decode_attention_ref(*args, step=step, **kw),
-              dtype, results, "decode_attn_int8", True)
-    if dtype == torch.bfloat16:
-        step = 50
-        prompt_rows = int((t - c["kv_start"]).sum())
-        rows = (torch.arange(b * kb, device=dev) // kb * kb)[:, None] + c["sel"][:, :step]
-        gen_rows = int(torch.unique(rows * g + torch.arange(step, device=dev)).numel())
-        # each valid prompt row once (shared by the beams), each referenced
-        # ancestor gen row once: int8 K and V plus their two f32 scales
-        by = nbytes(q, got, c["kv_start"]) + c["sel"][:, :step].numel() * 4 \
-            + (prompt_rows + gen_rows) * hkv * 2 * (d + 4)
-        b_ms, b_by = bound(by, 4.0 * d * h * kb * (prompt_rows + b * step), dtype)
-        timings.append(dict(
-            kernel="decode_attn_int8", case=f"4b_b24_k10_d80_step{step}_int8",
-            ms=cuda_ms(lambda: decode_attention_cuda(*args, step=step, **kw)),
-            plain_ms=cuda_ms(lambda: decode_attention_ref(*args, step=step, **kw), iters=5),
-            library_ms=None, bound_ms=b_ms, bound_by=b_by))
-
-    # K5 int8: 4b x-attn decode over 4 media x 64 latents, "immediate", one
-    # row with no media (gives 0)
-    s = 256
-    c = decode_case(dev, b, kb, s, 1, h, hkv, d, seed=8)
-    (k8, ks), (v8, vs) = quantize_kv(c["pk"]), quantize_kv(c["pv"])
-    q = c["q"].to(dtype)
-    kv_media = torch.arange(1, 5, device=dev, dtype=torch.int32).repeat_interleave(64)
-    mask = media_allowed(kv_media[None].expand(b, -1), torch.full((b,), 4, device=dev),
-                         "immediate").contiguous()
-    mask[0] = False
-    got = single_query_attention_cuda(q, k8, v8, mask, k_scale=ks, v_scale=vs)
-    check("4b_b24_k10_s256_d80_int8", got,
-          single_query_attention_ref(q, k8, v8, mask, k_scale=ks, v_scale=vs), dtype, results,
-          "single_query_attn_int8", True)
-    if not bool((got[:kb] == 0).all()):
-        raise AssertionError("single_query_attn_int8: a row with no media did not give 0")
-    if dtype == torch.bfloat16:
-        n_ok = int(mask.sum())
-        by = nbytes(q, got, mask) + n_ok * hkv * 2 * (d + 4)
-        b_ms, b_by = bound(by, 4.0 * d * h * kb * n_ok, dtype)
-        timings.append(dict(
-            kernel="single_query_attn_int8", case="4b_b24_k10_s256_d80_int8",
-            ms=cuda_ms(lambda: single_query_attention_cuda(q, k8, v8, mask, k_scale=ks,
-                                                           v_scale=vs)),
-            plain_ms=cuda_ms(lambda: single_query_attention_ref(q, k8, v8, mask, k_scale=ks,
-                                                                v_scale=vs), iters=5),
-            library_ms=None, bound_ms=b_ms, bound_by=b_by))
 
 
 def phase_kernels(dev):
@@ -635,75 +743,7 @@ def phase_kernels(dev):
 
         phase_bwd_kernels(dev, dtype, results, timings)
 
-        # K4: 4b decode (B24 K10 H32 d80 T128 G50) at three fills, + extras
-        specs = [("4b_b24_k10_d80", True, (24, 10, 128, 50, 32, 32, 80), False, None),
-                 ("mpt_alibi_d128", False, (4, 10, 128, 50, 16, 16, 128), True, None),
-                 ("gqa_prompt_len_d64", False, (3, 4, 64, 50, 16, 4, 64), False, "plen"),
-                 ("greedy_d80", False, (4, 1, 128, 50, 32, 32, 80), False, None)]
-        for name, main, shape, use_alibi, extra in specs:
-            c = decode_case(dev, *shape, seed=len(name))
-            c = {n: (x.to(dtype) if x.is_floating_point() else x) for n, x in c.items()}
-            b, kb, t, g, h = shape[:5]
-            kw = dict(kv_start=c["kv_start"], beam_sel=c["sel"] if kb > 1 else None,
-                      alibi=alibi_slopes(h).to(dev) if use_alibi else None,
-                      prompt_len=torch.full((b,), t - 9, device=dev) if extra else None)
-            args = (c["q"], c["pk"], c["pv"], c["gk"], c["gv"])
-            for step in (1, 17, 50):
-                got = decode_attention_cuda(*args, step=step, **kw)
-                want = decode_attention_ref(*args, step=step, **kw)
-                check(f"{name}_step{step}", got, want, dtype, results, "decode_attn", main)
-            if dtype == torch.bfloat16 and main:
-                step = 50
-                hkv, d = shape[5], shape[6]
-                lo = c["kv_start"]
-                prompt_rows = int((t - lo).sum())
-                rows = (torch.arange(b * kb, device=dev) // kb * kb)[:, None] + c["sel"][:, :step]
-                gen_rows = int(torch.unique(rows * g + torch.arange(step, device=dev)).numel())
-                elt = c["q"].element_size()
-                # each valid prompt row once (shared by the beams), each
-                # referenced ancestor gen row once
-                by = nbytes(c["q"], got, c["kv_start"]) + c["sel"][:, :step].numel() * 4 \
-                    + 2 * (prompt_rows + gen_rows) * hkv * d * elt
-                fl = 4.0 * d * h * kb * (prompt_rows + b * step)
-                b_ms, b_by = bound(by, fl, dtype)
-                timings.append(dict(
-                    kernel="decode_attn", case=f"{name}_step{step}",
-                    ms=cuda_ms(lambda: decode_attention_cuda(*args, step=step, **kw)),
-                    plain_ms=cuda_ms(lambda: decode_attention_ref(*args, step=step, **kw), iters=5),
-                    library_ms=None, bound_ms=b_ms, bound_by=b_by))
-
-        # K5: 4b x-attn decode (S = 4 media x 64 latents, "immediate")
-        specs = [("4b_b24_k10_s256_d80", True, (24, 10, 256, 32, 32, 80)),
-                 ("gqa_masked_rows_d128", False, (4, 3, 96, 16, 4, 128)),
-                 ("d64", False, (4, 10, 320, 16, 16, 64))]
-        for name, main, (b, kb, s, h, hkv, d) in specs:
-            c = decode_case(dev, b, kb, s, 1, h, hkv, d, seed=len(name))
-            q, k, v = (c[n].to(dtype) for n in ("q", "pk", "pv"))
-            if main:
-                kv_media = torch.arange(1, 5, device=dev, dtype=torch.int32).repeat_interleave(64)
-                mask = media_allowed(kv_media[None].expand(b, -1),
-                                     torch.full((b,), 4, device=dev), "immediate")
-            else:
-                mask = torch.rand(b, s, device=dev) < 0.6
-                mask[0] = False  # a row with no media: gives 0
-            got = single_query_attention_cuda(q, k, v, mask)
-            want = single_query_attention_ref(q, k, v, mask)
-            check(name, got, want, dtype, results, "single_query_attn", main)
-            if dtype == torch.bfloat16 and main:
-                n_ok = int(mask.sum())
-                by = nbytes(q, got, mask) + 2 * n_ok * hkv * d * q.element_size()
-                fl = 4.0 * d * h * kb * n_ok
-                b_ms, b_by = bound(by, fl, dtype)
-                qs = q.reshape(b, kb, h, d).transpose(1, 2).contiguous()
-                am = mask[:, None, None, :]
-                timings.append(dict(
-                    kernel="single_query_attn", case=name,
-                    ms=cuda_ms(lambda: single_query_attention_cuda(q, k, v, mask)),
-                    plain_ms=cuda_ms(lambda: single_query_attention_ref(q, k, v, mask), iters=5),
-                    library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-                        qs, k, v, attn_mask=am)),
-                    bound_ms=b_ms, bound_by=b_by))
-
+        phase_decode_kernels(dev, dtype, results, timings)
         phase_int8_kernels(dev, dtype, results, timings)
     for row in timings:
         lib = "null" if row["library_ms"] is None else f"{row['library_ms']:.4f}"
@@ -790,6 +830,51 @@ def phase_small(dev, int8: bool = False):
         f"prefill max_abs_logit_diff={diff:.3e} (limits: agreement >= 0.9, diff <= 2e-3)")
     if not (agree >= 0.9 and diff <= 2e-3):
         raise AssertionError(f"{tag} small-variant path on the card disagrees with the CPU path")
+
+
+def phase_small_bf16(dev):
+    """small variant, bf16 weights and compute, gates open, on the card: the
+    beam eval through K4 / K5 and again with the model's decode attention
+    pointed at their plain versions (on the card too): the first check of
+    the tensor-core decode kernels under a real beam_sel."""
+    from unimp_tpu_torch.models import layers
+
+    cfg = get_config("small")
+    model = build_model(cfg, device=dev, seed=1, eval_param_dtype="bf16")
+    open_gates(model)
+    rng = np.random.default_rng(1)
+    img = cfg.vision.image_size
+    images = rng.integers(0, 256, size=(16, img, img, 3), dtype=np.uint8)
+    cache = ItemLatentCache(model, lambda i: images[i], 16, chunk=8, device=dev)
+    gen = Generator(model, GenerationConfig(max_new_tokens=20, eos_id=EOS_ID, pad_id=EOS_ID,
+                                            num_beams=10, num_return_sequences=10),
+                    media_id=SMALL_MEDIA_ID)
+    rng = np.random.default_rng(2)
+    batches = [prompts(rng, 2, 64, 4, 16, 48, SMALL_MEDIA_ID, SMALL_MEDIA_ID + 1)
+               for _ in range(2)]
+    lat = [cache.gather(image_ids) for _, _, image_ids, _ in batches]
+
+    def run():
+        return torch.cat([gen.generate(torch.from_numpy(ids).to(dev),
+                                       torch.from_numpy(seq_len).to(dev), x)[0].cpu()
+                          for (ids, seq_len, _, _), x in zip(batches, lat)])
+
+    kernel_lib.reset_launches()
+    toks = run()
+    launches = {k: kernel_lib.LAUNCHES[k] for k in ("decode_attn", "single_query_attn")}
+    saved = layers.decode_attention, layers.single_query_attention
+    layers.decode_attention, layers.single_query_attention = (decode_attention_ref,
+                                                              single_query_attention_ref)
+    try:
+        plain = run()
+    finally:
+        layers.decode_attention, layers.single_query_attention = saved
+    agree = float((toks == plain).float().mean())
+    log(f"[small-bf16] card, kernels vs plain decode attention: token agreement={agree:.4f} "
+        f"(limit >= 0.9); launches {json.dumps(launches)}")
+    if not (agree >= 0.9 and min(launches.values()) > 0):
+        raise AssertionError("[small-bf16] beam search through K4 / K5 disagrees with the plain "
+                             "decode attention on the card")
 
 
 # ------------------------------------------------------------ phase 5
@@ -1048,8 +1133,9 @@ def kernel_name(ptxas_line: str) -> str:
 # the port's kernels as the profiler names them (each name ends "_kernel")
 PORT_KERNELS = ("flash_fwd_kernel", "flash_fwd_mma_kernel", "flash_bwd_dkv_kernel",
                 "flash_bwd_dq_kernel", "flash_bwd_dkv_mma_kernel", "flash_bwd_dq_mma_kernel",
-                "decode_attn_kernel", "single_query_kernel", "qmm_bf16_kernel",
-                "qmm_splitk_reduce_kernel", "qmm_f32_kernel")
+                "decode_attn_kernel", "single_query_kernel", "decode_attn_mma_kernel",
+                "single_query_mma_kernel", "qmm_bf16_kernel", "qmm_splitk_reduce_kernel",
+                "qmm_f32_kernel")
 
 
 def profile_run(label: str, run, unprofiled_s: float) -> None:
@@ -1134,6 +1220,7 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_small(dev)
     phase_small(dev, int8=True)
+    phase_small_bf16(dev)
     phase_small_train(dev)
     log(f"[small] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()

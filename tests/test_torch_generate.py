@@ -8,6 +8,7 @@ prompt must decode the same alone as batched with a longer one.
 
 import jax
 import jax.numpy as jnp
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
@@ -44,6 +45,26 @@ def models():
             params[key]["attn_gate"] = jnp.asarray(1.0)
             params[key]["ff_gate"] = jnp.asarray(1.0)
     tmodel = UniMPModel(get_config("debug", dtype="float32"))
+    load_flax_params(tmodel, {k: np.asarray(v) for k, v in flatten_tree(params).items()})
+    return jmodel, params, tmodel.eval()
+
+
+@pytest.fixture(scope="module")
+def bf16_models():
+    """The debug model computing in bfloat16 on both sides (float32 weights,
+    cast at use), from the same seeded JAX init, gates opened."""
+    jcfg = j_get_config("debug", dtype="bfloat16")
+    jmodel = JModel(jcfg)
+    ids = jnp.ones((1, 8), jnp.int32).at[0, 1].set(MEDIA_ID)
+    img = jcfg.vision.image_size
+    params = jmodel.init(jax.random.PRNGKey(0), ids,
+                         vision_x=jnp.zeros((1, 1, img, img, 3), jnp.float32),
+                         q_media=j_compute_q_media(ids, MEDIA_ID))["params"]
+    for key in params:
+        if key.startswith("xattn_"):
+            params[key]["attn_gate"] = jnp.asarray(1.0)
+            params[key]["ff_gate"] = jnp.asarray(1.0)
+    tmodel = UniMPModel(get_config("debug", dtype="bfloat16"))
     load_flax_params(tmodel, {k: np.asarray(v) for k, v in flatten_tree(params).items()})
     return jmodel, params, tmodel.eval()
 
@@ -123,6 +144,98 @@ def test_greedy_tokens_match_jax(models):
     (jtok, jscores), (ttok, tscores) = _run_both(models, gen_kw)
     np.testing.assert_array_equal(ttok, jtok)
     np.testing.assert_allclose(tscores, jscores, atol=1e-4, rtol=1e-4)
+
+
+def _near_tied_logits(seed, steps, b, v):
+    """[steps, B, V] bf16 logits whose best two in each row are adjacent
+    bf16 values in [4, 8), the larger at the higher index, over a bulk
+    0.5-2.5 below them (so that |log p| of the best is near 8 or above,
+    where a bf16 step is as wide as the gap or wider); the last id (eos)
+    is never picked."""
+    rng = np.random.default_rng(seed)
+    top = rng.uniform(4.0, 8.0, size=(steps, b)).astype(ml_dtypes.bfloat16)
+    below = np.nextafter(top, np.zeros_like(top))
+    bulk = (top.astype(np.float32)[..., None] - rng.uniform(0.5, 2.5, size=(steps, b, 1))
+            - 0.3 * np.abs(rng.normal(size=(steps, b, v))))
+    x = bulk.astype(ml_dtypes.bfloat16)
+    for s in range(steps):
+        for r in range(b):
+            i, j = np.sort(rng.choice(v - 1, 2, replace=False))
+            x[s, r, i], x[s, r, j] = below[s, r], top[s, r]
+    x[..., v - 1] = -30.0
+    return x
+
+
+class _JStubModel:
+    """Serves fixed logits to the JAX Generator: the prefill's, then one
+    set per decode step (no KV caches)."""
+
+    def __init__(self, logits):
+        self.logits = jnp.asarray(logits)
+
+    def init_gen_caches(self, b, max_new, quantized=False):
+        return jnp.zeros((b,), jnp.int32)
+
+    def apply(self, variables, ids, positions=None, decode_state=None, **kw):
+        if decode_state is None:
+            return self.logits[0][:, None], {"self": [], "xattn": []}
+        step = decode_state["step"] + 1
+        return jax.lax.dynamic_index_in_dim(self.logits, step, keepdims=False)[:, None], \
+            decode_state["gen"]
+
+
+class _StubModel:
+    """The same logits for the port's Generator."""
+
+    def __init__(self, logits):
+        self.logits = torch.from_numpy(logits.astype(np.float32)).to(torch.bfloat16)
+
+    def init_gen_caches(self, b, max_new, device, quantized=False):
+        return None
+
+    def __call__(self, ids, positions=None, decode_state=None, **kw):
+        if decode_state is None:
+            return self.logits[0][:, None], {"self": [], "xattn": []}
+        return self.logits[decode_state["step"] + 1][:, None], decode_state["gen"]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_greedy_bf16_near_ties_match_jax(seed):
+    """bf16 logits (the 4b family's untied head) through both greedy loops:
+    JAX takes log_softmax in bf16, where the best two of a near-tied row
+    can round to one value and argmax then takes the lower index; the port
+    must pick the same tokens and sum the same bf16 scores."""
+    steps, b, v = 3, 64, 8192
+    x = _near_tied_logits(seed, steps + 1, b, v)
+    gen_kw = dict(max_new_tokens=steps, eos_id=v - 1, pad_id=0)
+    ids, seq_len = np.ones((b, 4), np.int32), np.full(b, 4, np.int32)
+    jtok, jscores = JGenerator(_JStubModel(x), JGenerationConfig(**gen_kw),
+                               media_id=MEDIA_ID).generate({}, jnp.asarray(ids),
+                                                           jnp.asarray(seq_len))
+    ttok, tscores = Generator(_StubModel(x), GenerationConfig(**gen_kw),
+                              media_id=MEDIA_ID).generate(torch.from_numpy(ids).long(),
+                                                          torch.from_numpy(seq_len).long())
+    jtok, jscores = np.asarray(jtok)[:, 0], np.asarray(jscores)
+    xf = x[:steps].astype(np.float32)
+    higher = np.array([[np.flatnonzero(row == row.max())[-1] for row in step] for step in xf]).T
+    lower_picks = int((jtok != higher).sum())
+    assert 0 < lower_picks < b * steps  # the rounding decides some rows, not all
+    np.testing.assert_array_equal(ttok.numpy()[:, 0], jtok)
+    np.testing.assert_array_equal(tscores.numpy(), jscores)
+
+
+@pytest.mark.parametrize("beams", [1, 4])
+def test_greedy_tokens_match_jax_bf16(bf16_models, beams):
+    """The debug model in bfloat16: greedy (log_softmax in bf16 on both
+    sides) and 4-beam search give JAX's tokens. Scores within 8e-3
+    relative: each step's log p is a bf16 value (greedy) or comes from bf16
+    logits that the two frameworks' matmuls may round one bf16 step apart
+    (2^-8 to 2^-7 relative)."""
+    gen_kw = dict(max_new_tokens=6, eos_id=3, pad_id=0, num_beams=beams,
+                  num_return_sequences=beams)
+    (jtok, jscores), (ttok, tscores) = _run_both(bf16_models, gen_kw)
+    np.testing.assert_array_equal(ttok, jtok)
+    np.testing.assert_allclose(tscores, jscores, rtol=8e-3)
 
 
 def test_rec_eval_path_matches_jax(models):

@@ -427,3 +427,107 @@ def test_flash_backward_bf16_matches_plain_on_card(cuda_device, case):
         assert blind.any() and torch.equal(dq[blind], torch.zeros_like(dq[blind]))
     assert torch.equal(dk, flash_bwd_dkv_cuda(*args, **kw)[0])
     assert torch.equal(dq, flash_bwd_dq_cuda(*args, **kw))
+
+
+# K4 cases: (b, kb, t, g, h, hkv, d, options); the 4b decode shape, then the
+# edges of the tensor-core kernel: one beam (greedy, no beam_sel), 16 beams
+# (one full tile of rows), beams sharing one ancestor for the first 20 gen
+# positions, ragged kv_start / prompt_len windows, GQA 16/4 with ALiBi, and
+# 130 gen positions (the kernel lists them 64 at a time)
+K4_CARD_CASES = {
+    "4b_b24_k10_d80": (24, 10, 128, 50, 32, 32, 80, {}),
+    "greedy_k1_d80": (4, 1, 128, 50, 32, 32, 80, {}),
+    "k16_d80": (2, 16, 128, 50, 8, 8, 80, {}),
+    "shared_ancestor_20_d80": (4, 10, 128, 50, 8, 8, 80, dict(share=20)),
+    "ragged_windows_d80": (3, 10, 100, 50, 8, 8, 80, dict(ragged=True)),
+    "gqa_16_4_alibi_d64": (3, 4, 100, 50, 16, 4, 64, dict(alibi=True, ragged=True)),
+    "gqa_16_4_alibi_d128": (3, 4, 100, 50, 16, 4, 128, dict(alibi=True, ragged=True)),
+    "long_gen_130_d64": (2, 5, 64, 130, 4, 4, 64, dict(share=70)),
+}
+
+
+def _kv(rng, dev, int8, *shape):
+    """bf16 K or V rows, or int8 rows and their f32 scales."""
+    x = _randn(rng, *shape)
+    if int8:
+        q8, s = quantize_kv(x)
+        return q8.to(dev), s.to(dev)
+    return x.to(dev, torch.bfloat16), None
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+@pytest.mark.parametrize("case", list(K4_CARD_CASES))
+def test_decode_kernel_bf16_matches_plain_on_card(cuda_device, case, kv):
+    """K4 with bf16 q (the tensor-core kernel), bf16 or int8 caches, against
+    decode_attention_ref at steps 1, 17 and the last: within 2e-2 (p and the
+    output round to bf16 in both, p under different maxima); a second
+    launch gives the same bits."""
+    dev, int8 = cuda_device, kv == "int8"
+    b, kb, t, g, h, hkv, d, opt = K4_CARD_CASES[case]
+    rng = np.random.default_rng(7)
+    q = _randn(rng, b * kb, h, d).to(dev, torch.bfloat16)
+    (pk, pks), (pv, pvs) = (_kv(rng, dev, int8, b, hkv, t, d) for _ in range(2))
+    (gk, gks), (gv, gvs) = (_kv(rng, dev, int8, b * kb, hkv, g, d) for _ in range(2))
+    sel = rng.integers(0, kb, size=(b * kb, g))
+    if opt.get("share"):
+        sel[:, :opt["share"]] = np.repeat(rng.integers(0, kb, size=(b, 1)), kb, axis=0)
+    kw = dict(kv_start=torch.from_numpy(rng.integers(0, t // 4, size=b)).to(dev),
+              beam_sel=torch.from_numpy(sel.astype(np.int32)).to(dev) if kb > 1 else None)
+    if opt.get("ragged"):
+        kw["prompt_len"] = torch.from_numpy(rng.integers(t // 2, t + 1, size=b)).to(dev)
+    if opt.get("alibi"):
+        kw["alibi"] = torch.linspace(0.05, 0.5, h, device=dev)
+    if int8:
+        kw.update(prompt_k_scale=pks, prompt_v_scale=pvs, gen_k_scale=gks, gen_v_scale=gvs)
+    args = (q, pk, pv, gk, gv)
+    for step in (1, 17, g):
+        got = decode_attention_cuda(*args, step=step, **kw)
+        want = decode_attention_ref(*args, step=step, **kw)
+        assert got.dtype == torch.bfloat16 and torch.isfinite(got.float()).all()
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+    assert torch.equal(got, decode_attention_cuda(*args, step=g, **kw))
+
+
+# K5 cases: (b, kb, s, h, hkv, d, mask); "immediate": the last of s / 64
+# media allowed (one 64-latent tile in four at the 4b shape); "one_tile":
+# latents 130-140 only (one tile of five); "random" with row 0 fully masked
+K5_CARD_CASES = {
+    "4b_b24_k10_s256_d80_immediate": (24, 10, 256, 32, 32, 80, "immediate"),
+    "one_tile_of_five_d80": (4, 10, 320, 8, 8, 80, "one_tile"),
+    "masked_row_gqa_d128": (4, 3, 96, 16, 4, 128, "random"),
+    "k16_d64": (2, 16, 256, 8, 8, 64, "random"),
+    "k1_d80": (3, 1, 100, 4, 4, 80, "random"),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+@pytest.mark.parametrize("case", list(K5_CARD_CASES))
+def test_single_query_kernel_bf16_matches_plain_on_card(cuda_device, case, kv):
+    """K5 with bf16 q (the tensor-core kernel), bf16 or int8 latents, against
+    single_query_attention_ref: within 2e-2; a row with nothing allowed
+    gives exactly 0; a second launch gives the same bits."""
+    dev, int8 = cuda_device, kv == "int8"
+    b, kb, s, h, hkv, d, mode = K5_CARD_CASES[case]
+    rng = np.random.default_rng(8)
+    q = _randn(rng, b * kb, h, d).to(dev, torch.bfloat16)
+    (k, ks), (v, vs) = (_kv(rng, dev, int8, b, hkv, s, d) for _ in range(2))
+    mask = np.zeros((b, s), bool)
+    if mode == "immediate":
+        mask[:, s - 64:] = True
+    elif mode == "one_tile":
+        mask[:, 130:141] = True
+        mask[0] = False
+    else:
+        mask = rng.random((b, s)) < 0.6
+        mask[0] = False
+    mask = torch.from_numpy(mask).to(dev)
+    kw = dict(k_scale=ks, v_scale=vs) if int8 else {}
+    got = single_query_attention_cuda(q, k, v, mask, **kw)
+    want = single_query_attention_ref(q, k, v, mask, **kw)
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+    if mode != "immediate":
+        assert torch.equal(got[:kb], torch.zeros_like(got[:kb]))
+    assert torch.equal(got, single_query_attention_cuda(q, k, v, mask, **kw))

@@ -233,28 +233,46 @@ def _int8_decode_case(seed, b, kb, t, g, h, hkv, d):
     )
 
 
+def _bf16_q(q):
+    """numpy f32 q -> (torch bf16, jax bf16) holding the same values."""
+    t = torch.from_numpy(q).to(torch.bfloat16)
+    return t, jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+
+
 @pytest.mark.parametrize("step", [1, 29])
-@pytest.mark.parametrize("mode", ["beam", "gqa_d80"])
+@pytest.mark.parametrize("mode", ["beam", "gqa_d80", "bf16_shared_d80"])
 def test_decode_int8_plain_matches_jax(step, mode):
     """Plain int8 K4, random beam_sel and kv_start (tests/test_decode.py:
-    535-580): the Pallas kernel at 1e-5, the XLA path at 2e-2."""
+    535-580): the Pallas kernel at 1e-5, the XLA path at 2e-2. bf16 q (the
+    card's tensor-core kernel; beams sharing their first 16 ancestors):
+    the Pallas kernel at 2e-2 (p rounds to bf16 under other maxima, the
+    output to bf16 after sums in another order: tests/test_torch_ops.py
+    BF16_TOL); the XLA path has no bf16 batched dot on the CPU backend."""
     b, kb, t, g, h, hkv, d = (2, 3, 16, 32, 4, 4, 16) if mode == "beam" else \
         (2, 3, 16, 32, 4, 2, 80)
     c = _int8_decode_case(step + d, b, kb, t, g, h, hkv, d)
     p, gn = c["prompt"], c["gen"]
+    sel = c["sel"]
+    tq, jq = _t(c["q"]), jnp.asarray(c["q"])
+    if mode.startswith("bf16"):
+        tq, jq = _bf16_q(c["q"])
+        sel = sel.copy()
+        sel[:, :16] = np.repeat(sel[::kb, :1], kb, axis=0)
     got = decode_attention(
-        _t(c["q"]), _t(p["k"]), _t(p["v"]), _t(gn["k"]), _t(gn["v"]), step=step,
-        kv_start=_t(c["kv_start"]), beam_sel=_t(c["sel"]),
+        tq, _t(p["k"]), _t(p["v"]), _t(gn["k"]), _t(gn["v"]), step=step,
+        kv_start=_t(c["kv_start"]), beam_sel=_t(sel),
         prompt_k_scale=_t(p["k_scale"]), prompt_v_scale=_t(p["v_scale"]),
-        gen_k_scale=_t(gn["k_scale"]), gen_v_scale=_t(gn["v_scale"])).numpy()
+        gen_k_scale=_t(gn["k_scale"]), gen_v_scale=_t(gn["v_scale"])).float().numpy()
     jkw = dict(step=jnp.int32(step), kv_start=jnp.asarray(c["kv_start"]),
-               beam_sel=jnp.asarray(c["sel"]),
+               beam_sel=jnp.asarray(sel),
                prompt_k_scale=jnp.asarray(p["k_scale"]), prompt_v_scale=jnp.asarray(p["v_scale"]),
                gen_k_scale=jnp.asarray(gn["k_scale"]), gen_v_scale=jnp.asarray(gn["v_scale"]))
-    jargs = [jnp.asarray(c["q"])] + [jnp.asarray(x) for x in
-                                     (p["k"], p["v"], gn["k"], gn["v"])]
-    np.testing.assert_allclose(got, np.asarray(j_decode_attention(*jargs, **jkw, impl="pallas")),
-                               **TOL[np.float32])
+    jargs = [jq] + [jnp.asarray(x) for x in (p["k"], p["v"], gn["k"], gn["v"])]
+    want = np.asarray(j_decode_attention(*jargs, **jkw, impl="pallas"), np.float32)
+    if mode.startswith("bf16"):
+        np.testing.assert_allclose(got, want, **XLA_TOL)
+        return
+    np.testing.assert_allclose(got, want, **TOL[np.float32])
     np.testing.assert_allclose(
         got, np.asarray(j_decode_attention(*jargs, **jkw, impl="xla", gen_chunk=0)), **XLA_TOL)
 
@@ -272,11 +290,14 @@ def test_decode_int8_needs_all_scales():
                                k_scale=_t(p["k_scale"]))
 
 
-@pytest.mark.parametrize("gqa", [False, True])
-def test_single_query_int8_plain_matches_jax(gqa):
+@pytest.mark.parametrize("gqa,dtype", [pytest.param(False, "f32", id="False"),
+                                       pytest.param(True, "f32", id="True"),
+                                       pytest.param(True, "bf16", id="True-bf16-d80")])
+def test_single_query_int8_plain_matches_jax(gqa, dtype):
     """Plain int8 K5 with a fully masked row (gives 0): Pallas at 1e-5, XLA
-    at 2e-2."""
-    b, kb, s, h, d = 2, 3, 24, 4, 16
+    at 2e-2; bf16 q at d80 (the card's tensor-core kernel): Pallas at 2e-2
+    (as test_decode_int8_plain_matches_jax)."""
+    b, kb, s, h, d = 2, 3, 24, 4, (80 if dtype == "bf16" else 16)
     hkv = 2 if gqa else h
     rng = np.random.default_rng(11 + gqa)
     q = rng.normal(size=(b * kb, h, d)).astype(np.float32)
@@ -284,14 +305,19 @@ def test_single_query_int8_plain_matches_jax(gqa):
         {n: jnp.asarray(rng.normal(size=(b, hkv, s, d)), jnp.float32) for n in ("k", "v")}).items()}
     mask = rng.random((b, s)) < 0.7
     mask[1] = False
-    got = single_query_attention(_t(q), _t(kv["k"]), _t(kv["v"]), _t(mask),
+    tq, jq = _bf16_q(q) if dtype == "bf16" else (_t(q), jnp.asarray(q))
+    got = single_query_attention(tq, _t(kv["k"]), _t(kv["v"]), _t(mask),
                                  k_scale=_t(kv["k_scale"]), v_scale=_t(kv["v_scale"]))
     assert torch.equal(got[kb:], torch.zeros_like(got[kb:]))
-    jargs = (jnp.asarray(q), jnp.asarray(kv["k"]), jnp.asarray(kv["v"]), jnp.asarray(mask))
+    got = got.float().numpy()
+    jargs = (jq, jnp.asarray(kv["k"]), jnp.asarray(kv["v"]), jnp.asarray(mask))
     jkw = dict(k_scale=jnp.asarray(kv["k_scale"]), v_scale=jnp.asarray(kv["v_scale"]))
-    np.testing.assert_allclose(got.numpy(), np.asarray(j_single_query(*jargs, **jkw, impl="pallas")),
-                               **TOL[np.float32])
-    np.testing.assert_allclose(got.numpy(), np.asarray(j_single_query(*jargs, **jkw, impl="xla")),
+    want = np.asarray(j_single_query(*jargs, **jkw, impl="pallas"), np.float32)
+    if dtype == "bf16":
+        np.testing.assert_allclose(got, want, **XLA_TOL)
+        return
+    np.testing.assert_allclose(got, want, **TOL[np.float32])
+    np.testing.assert_allclose(got, np.asarray(j_single_query(*jargs, **jkw, impl="xla")),
                                **XLA_TOL)
 
 

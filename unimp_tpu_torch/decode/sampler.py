@@ -21,9 +21,14 @@ max_new_tokens)``):
     with the best attainable running score.
 
 The loop runs on the host, one model call per step, and stops when every
-row is done (one device-to-host read per step). Ties in every top-k
-resolve to the lower index, as ``jax.lax.top_k`` does. Sampling
-(temperature / top-k / top-p) is not ported yet.
+row is done. A greedy step reads the device once (``bool(done.all())``);
+a beam step four times: that check and one ``nonzero()`` in each of the
+three ``top_k`` calls (candidates, the finished set, the alive set). The
+JAX loop is one ``lax.while_loop`` and reads nothing back. Ties in every
+top-k resolve to the lower index, as ``jax.lax.top_k`` does. The greedy
+pick takes ``log_softmax`` in the logits' dtype, step by step as
+``jax.nn.log_softmax`` does, so bf16 logits round (and near-ties break)
+as in JAX. Sampling (temperature / top-k / top-p) is not ported yet.
 
 Returns generated tokens only (no prompt), padded with pad_id.
 """
@@ -77,6 +82,20 @@ def left_align(input_ids: torch.Tensor, seq_len: torch.Tensor, pad_id: int):
     shifted = torch.gather(input_ids, 1, src)
     ids = torch.where(pos < start[:, None], torch.full_like(shifted, pad_id), shifted)
     return ids, start
+
+
+def log_softmax_like_jax(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.log_softmax`` over the last dim as the jitted JAX loop
+    rounds it: float32 as ``torch.log_softmax``; a narrower dtype (the 4b
+    family's bf16 logits) step by step in that dtype (the max, the shifted
+    logits, the log of the sum, the difference), except that XLA fuses the
+    exps into the sum and keeps them in f32 (the sum rounds once), so that
+    two near-tied logits tie or not as they do in JAX."""
+    if x.dtype == torch.float32:
+        return torch.log_softmax(x, dim=-1)
+    shifted = x - x.amax(dim=-1, keepdim=True)
+    total = torch.exp(shifted.float()).sum(dim=-1, keepdim=True).to(x.dtype)
+    return shifted - torch.log(total)
 
 
 def top_k(x: torch.Tensor, k: int):
@@ -153,7 +172,7 @@ class Generator:
         logits = last_logits
         step = 0
         while step < cfg.max_new_tokens and not bool(done.all()):
-            logp = torch.log_softmax(logits.float(), dim=-1)
+            logp = log_softmax_like_jax(logits)
             nxt = torch.argmax(logp, dim=-1)  # first maximum, as jnp.argmax
             nxt = torch.where(done, cfg.pad_id, nxt)
             picked = torch.gather(logp, 1, nxt[:, None])[:, 0]
