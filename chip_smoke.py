@@ -49,7 +49,20 @@ Phases (any failure exits non-zero):
      prints items/s, peak memory, the model's bytes, the batch's model
      FLOPs, each kernel's launches (K6 must run 193 times a decode step
      and once a batch for the prefill head; the float decode kernels not
-     at all) and a profile of one batch.
+     at all) and a profile of one batch;
+  8. the rec eval from files through the port's own CLI: the port's synth
+     writer puts a beauty dataset (4,167 items, 288 users, 64 px JPEGs)
+     on disk, then ``unimp_tpu_torch.cli.mmrec_eval.main`` runs
+     4b-instruct (bf16, seeded weights) over its 48 test users in 2
+     batches of 24: tokenizer, prompts, loader, the latent cache, 10-beam
+     search, answers, HR/NDCG/MRR, the dump and ``eval_results.json``;
+     fails unless both files hold 48 users with metrics in [0, 1], K1
+     ran, K4 ran 32 and K5 16 times a decode step, and neither PIL nor
+     ``tokenizers`` was imported; prints vocab sizes, prompt T, data /
+     catalogue / batch seconds, items/s, peak memory, launches, a
+     profile of the second batch's generate, that generate again with the
+     garbage collector's seconds (``[gc]``, as after phase 5's profile),
+     and a control: phase 5's kind of prompts through the CLI's model.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -950,9 +963,14 @@ def phase_4b(dev, gpu_line, int8: bool = False, timings=()):
     if int8:
         check_int8_launches(cfg, launches, len(batches))
     ids, seq_len, image_ids, _ = batches[1]
-    profile_run(f"{tag} batch", lambda: gen.generate(torch.from_numpy(ids).to(dev),
-                                                     torch.from_numpy(seq_len).to(dev),
-                                                     cache.gather(image_ids)), batch_s[1])
+
+    def run():
+        return gen.generate(torch.from_numpy(ids).to(dev), torch.from_numpy(seq_len).to(dev),
+                            cache.gather(image_ids))
+
+    profile_run(f"{tag} batch", run, batch_s[1])
+    if not int8:
+        gc_report(f"{tag} batch 2 again", run)
     return launches
 
 
@@ -1119,6 +1137,158 @@ def k6_step_report(model, timings, rows: int = 240) -> None:
         f"bound {b_ms:.4f} ms ({b_by}; bytes {by / HBM_BYTES_PER_S * 1e3:.4f} ms)")
 
 
+# ------------------------------------------------------------ phase 8
+
+CLI_USERS, CLI_BATCH = 48, 24
+
+
+def phase_cli(dev, gpu_line):
+    """The 4b-instruct rec eval from files through the port's own CLI:
+    the port's synth writer puts a beauty dataset (4,167 items, 64 px
+    JPEGs) under ``runs/``, then ``unimp_tpu_torch.cli.mmrec_eval.main``
+    tokenizes, builds prompts, batches, encodes the referenced catalogue
+    once and runs the 10-beam search over 2 x 24 test users, bf16, seeded
+    weights (gates closed, as an init leaves them). Spies around the
+    evaluator's batches, the latent cache and the generator read the
+    timings and the decode steps; the launch counts are the kernels'."""
+    import tempfile
+    from pathlib import Path
+
+    from unimp_tpu_torch.cli import common, mmrec_eval
+    from unimp_tpu_torch.data.tokenizer import UniMPTokenizer
+    from unimp_tpu_torch.evals import evaluators
+    from unimp_tpu_torch.tools import synth_data
+
+    runs = Path(__file__).resolve().parent / "runs"
+    runs.mkdir(exist_ok=True)
+    seen = {"batches": [], "encode_s": 0.0, "steps": 0, "generate_s": []}
+    orig_batches = evaluators._generate_batches
+    orig_ensure = ItemLatentCache._ensure
+    orig_generate = Generator.generate
+    orig_step = Generator._decode_step
+    orig_build_model = common.build_model
+
+    def batches(*args, **kw):
+        for answers, batch, ips in orig_batches(*args, **kw):
+            seen["batches"].append((batch["input_ids"].shape, ips))
+            seen["image_ids"] = batch["image_ids"]
+            yield answers, batch, ips
+
+    def ensure(self, ids):
+        seen["cache"] = self
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        orig_ensure(self, ids)
+        torch.cuda.synchronize()
+        seen["encode_s"] += time.perf_counter() - t0
+
+    def generate(self, *args):
+        t0 = time.perf_counter()
+        out = orig_generate(self, *args)
+        torch.cuda.synchronize()
+        seen["generate_s"].append(time.perf_counter() - t0)
+        seen["last"] = (self, args)
+        return out
+
+    def decode_step(self, *args, **kw):
+        seen["steps"] += 1
+        return orig_step(self, *args, **kw)
+
+    def build_model_spy(args, tokenizer):
+        seen["model"], seen["tokenizer"] = orig_build_model(args, tokenizer), tokenizer
+        torch.cuda.synchronize()  # the eval's peak memory starts after the build's
+        seen["build_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        return seen["model"]
+
+    with tempfile.TemporaryDirectory(dir=runs) as tmp:
+        data, run_dir = Path(tmp) / "data", Path(tmp) / "runs"
+        t0 = time.perf_counter()
+        synth_data.generate(str(data), subset="beauty", n_items=N_ITEM_TOKENS, n_users=288,
+                            image_size=64, seed=0)
+        write_s = time.perf_counter() - t0
+        argv = ["--mmrec_path", str(data), "--external_save_dir", str(run_dir),
+                "--run_name", "cli", "--pretrained_model_name_or_path", "4b-instruct",
+                "--subset", "beauty", "--task", "rec", "--single_task",
+                "--n_items", str(N_ITEM_TOKENS), "--history_len", "5",
+                "--patch-image-size", "224", "--eval_batch_size", str(CLI_BATCH),
+                "--num_beams", "10", "--max_records", str(CLI_USERS), "--workers", "2",
+                "--do_test", "--device", "cuda"]
+        evaluators._generate_batches, ItemLatentCache._ensure = batches, ensure
+        Generator.generate, Generator._decode_step = generate, decode_step
+        common.build_model = build_model_spy
+        try:
+            t0 = time.perf_counter()
+            torch.cuda.reset_peak_memory_stats()
+            kernel_lib.reset_launches()      # the main path starts here
+            mmrec_eval.main(argv)
+            torch.cuda.synchronize()
+            launches = dict(kernel_lib.LAUNCHES)  # the main path ends here
+            main_s = time.perf_counter() - t0
+        finally:
+            evaluators._generate_batches, ItemLatentCache._ensure = orig_batches, orig_ensure
+            Generator.generate, Generator._decode_step = orig_generate, orig_step
+            common.build_model = orig_build_model
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        out_dir = run_dir / "cli"
+        results = json.loads((out_dir / "eval_results.json").read_text())
+        dump = json.loads((out_dir / "results" / "cli_rec_test_epoch_0_rank_0.json").read_text())
+        corpus = (data / "corpus.txt").read_text().splitlines()
+        base_vocab = len(UniMPTokenizer.from_corpus(corpus))
+
+    metrics = results["rec"]
+    rank = {k: v for k, v in metrics.items() if k.split("@")[0] in ("hr", "ndcg", "mrr")}
+    if len(rank) != 9 or not all(0.0 <= v <= 1.0 for v in rank.values()):
+        raise AssertionError(f"[cli] rec metrics missing or out of range: {metrics}")
+    if metrics["n_users"] != CLI_USERS or not metrics["items_per_sec"] > 0 \
+            or len(dump) != CLI_USERS:
+        raise AssertionError(f"[cli] want {CLI_USERS} users scored and items/s > 0: "
+                             f"{metrics}, {len(dump)} dump entries")
+    cfg = seen["model"].cfg
+    lm = cfg.lm
+    n_xattn = -(-lm.num_layers // cfg.cross_attn_every_n)
+    steps = seen["steps"]
+    want = {"decode_attn": lm.num_layers * steps, "single_query_attn": n_xattn * steps}
+    bad = {k: (launches[k], n) for k, n in want.items() if launches[k] != n}
+    if launches["flash_fwd"] <= 0 or bad or not 0 < steps <= 50 * len(seen["batches"]):
+        raise AssertionError(f"[cli] launches differ (got, expected): {bad}; K1 "
+                             f"{launches['flash_fwd']}; {steps} decode steps")
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("PIL", "tokenizers"))
+    if loaded:
+        raise AssertionError(f"[cli] modules the card's machine lacks were imported: {loaded}")
+    shapes = [shape for shape, _ in seen["batches"]]
+    batch_s = [shape[0] / ips for shape, ips in seen["batches"]]
+    log(f"[cli] vocab: base {base_vocab} (corpus), extended {len(seen['tokenizer'])}, "
+        f"LM {lm.vocab_size} (padded to 128); prompt T {[s[1] for s in shapes]} (collate), "
+        f"batches {[s[0] for s in shapes]}")
+    log(f"[cli] data write {write_s:.2f} s (synth_data, {N_ITEM_TOKENS} JPEGs of 64 px); "
+        f"main {main_s:.2f} s; catalogue encode {seen['encode_s']:.2f} s "
+        f"(latent cache misses, decode + resize + ViT + perceiver)")
+    log(f"[cli] batch seconds {batch_s} (fetch + encode misses + generate); generate seconds "
+        f"{seen['generate_s']}; {steps} decode steps")
+    log(f"[cli] items/s: evaluator {metrics['items_per_sec']:.3f} (mean over batches, the first "
+        f"with its misses), second batch {CLI_BATCH / batch_s[1]:.3f}; peak_mem={peak_gib:.2f} "
+        f"GiB (the eval, after the build; the build, a float32 init then the bf16 cast, "
+        f"{seen['build_peak_gib']:.2f} GiB) on {gpu_line}; not comparable to phase 5 (vocab "
+        f"{lm.vocab_size} not 54,656, real prompts)")
+    log(f"[cli] metrics {json.dumps(rank)}")
+    log(f"[cli] launches {json.dumps(launches)}; expected {json.dumps(want)}; "
+        f"PIL / tokenizers not imported")
+    gen, args = seen["last"]
+    profile_run("[cli] batch 2 generate", lambda: gen.generate(*args), seen["generate_s"][-1])
+    gc_report("[cli] batch 2 generate again", lambda: gen.generate(*args))
+    # control: phase 5's kind of prompts (random text, 100-128 tokens) through
+    # the CLI's model and generator, on the second batch's (cached) items
+    tok = seen["tokenizer"]
+    ids, seq_len, _, _ = prompts(np.random.default_rng(0), CLI_BATCH, 128, 4, N_ITEM_TOKENS,
+                                 100, tok.media_token_id, tok.convert_tokens_to_ids("item_0"))
+    latents = seen["cache"].gather(seen["image_ids"])
+    gc_report("[cli] phase 5's prompts, the CLI's model",
+              lambda: gen.generate(torch.from_numpy(ids).to(dev), torch.from_numpy(seq_len).to(dev),
+                                   latents))
+    return launches
+
+
 def kernel_name(ptxas_line: str) -> str:
     """The kernel's name and its mangled template arguments, as in
     'flash_fwd_mma_kernel ILi80ELb1EE' (80, true), from ptxas's
@@ -1187,6 +1357,34 @@ def profile_run(label: str, run, unprofiled_s: float) -> None:
         log(f"[profile] {ms:9.2f} ms {count:7d}x {name[:100]}")
 
 
+def gc_report(label: str, run) -> None:
+    """One more run of ``run`` (after the launch counts are read), timed
+    with the seconds the garbage collector spent inside it, by generation,
+    and the number of objects it tracks: the host's share that the
+    collector takes on this path."""
+    spent, count, start = [0.0] * 3, [0] * 3, {}
+
+    def on_gc(phase, info):
+        if phase == "start":
+            start["t"] = time.perf_counter()
+        else:
+            spent[info["generation"]] += time.perf_counter() - start["t"]
+            count[info["generation"]] += 1
+
+    torch.cuda.synchronize()
+    gc.callbacks.append(on_gc)
+    try:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        gc.callbacks.remove(on_gc)
+    log(f"[gc] {label}: wall {wall:.3f} s; collector {sum(spent):.3f} s (by generation "
+        f"{[round(x, 3) for x in spent]} s over {count} passes); "
+        f"{len(gc.get_objects())} objects tracked")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1236,6 +1434,11 @@ def main() -> int:
     t0 = time.perf_counter()
     int8_launches = phase_4b(dev, gpu_line, int8=True, timings=timings)
     log(f"[4b-int8] done in {time.perf_counter() - t0:.1f} s")
+    gc.collect()  # the int8 model is gone: give its memory back
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cli_launches = phase_cli(dev, gpu_line)
+    log(f"[cli] done in {time.perf_counter() - t0:.1f} s")
 
     # one headline shape per kernel: LM prefill, the LM self-attention
     # backward of training, decode at step 50, x-attn read, the MLP
@@ -1253,7 +1456,8 @@ def main() -> int:
         tm = next(r for r in timings if r["kernel"] == name and r["case"] == headline[name])
         by_path = {path: n[name] for path, n, kernels in (
             ("eval", eval_launches, EVAL_KERNELS), ("train", train_launches, TRAIN_KERNELS),
-            ("eval_int8", int8_launches, INT8_KERNELS)) if name in kernels}
+            ("eval_int8", int8_launches, INT8_KERNELS), ("cli", cli_launches, EVAL_KERNELS))
+            if name in kernels}
         row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                "launches": sum(by_path.values()), "launches_by_path": by_path,
                "max_abs_err": results[name]["max_abs_err"],

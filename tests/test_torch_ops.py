@@ -303,8 +303,9 @@ def _port_python_files():
 
 def test_port_imports_no_jax():
     """No module of the port, and not chip_smoke.py, imports jax, flax,
-    optax or the JAX package."""
-    banned = ("jax", "flax", "optax", "unimp_tpu")
+    optax or the JAX package, nor ``tokenizers`` or PIL, which the card's
+    machine lacks."""
+    banned = ("jax", "flax", "optax", "unimp_tpu", "tokenizers", "PIL")
     bad = []
     for path in _port_python_files():
         tree = ast.parse(path.read_text(), filename=str(path))

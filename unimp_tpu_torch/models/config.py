@@ -157,3 +157,78 @@ def get_config(name: str, **overrides) -> UniMPConfig:
         raise KeyError(f"unknown variant {name!r}; have {sorted(VARIANTS)}")
     cfg = VARIANTS[name]
     return cfg.replace(**overrides) if overrides else cfg
+
+
+# Otter/Flamingo-style JSON config loading — the reference's
+# `FlamingoConfig.from_json_file("./flamingo/config.json")` build path
+# (recommender.py:421-422, pipeline/train/config.json). Family defaults
+# by text_config.model_type; any explicit HF-named field overrides them.
+
+_TEXT_FAMILIES = {
+    "llama": dict(norm="rmsnorm", positions="rope", act="silu",
+                  parallel_block=False, use_bias=False, tie_embeddings=False,
+                  vocab_size=32000, hidden_size=4096, num_layers=32,
+                  num_heads=32, mlp_hidden=11008),
+    "gpt_neox": dict(norm="layernorm", positions="rope", rotary_pct=0.25,
+                     act="gelu", parallel_block=True, use_bias=True,
+                     tie_embeddings=False, vocab_size=50432,
+                     hidden_size=2560, num_layers=32, num_heads=32),
+    "mpt": dict(norm="layernorm", positions="alibi", act="gelu",
+                use_bias=False, tie_embeddings=True, vocab_size=50432,
+                hidden_size=2048, num_layers=24, num_heads=16),
+}
+
+_TEXT_FIELD_MAP = {
+    "vocab_size": "vocab_size",
+    "hidden_size": "hidden_size",
+    "num_hidden_layers": "num_layers",
+    "num_attention_heads": "num_heads",
+    "num_key_value_heads": "num_kv_heads",
+    "intermediate_size": "mlp_hidden",
+    "rms_norm_eps": "layernorm_eps",
+    "layer_norm_eps": "layernorm_eps",
+    "rope_theta": "rope_theta",
+    "rotary_pct": "rotary_pct",
+    "max_position_embeddings": "max_seq_len",
+}
+
+
+def config_from_json(path: str) -> UniMPConfig:
+    """Build a UniMPConfig from an Otter/Flamingo config.json."""
+    import json
+
+    with open(path) as f:
+        raw = json.load(f)
+
+    tc = raw.get("text_config", {})
+    family = tc.get("model_type", "llama")
+    if family not in _TEXT_FAMILIES:
+        raise KeyError(
+            f"unknown text_config.model_type {family!r}; "
+            f"have {sorted(_TEXT_FAMILIES)}"
+        )
+    lm_kw = dict(_TEXT_FAMILIES[family])
+    for src, dst in _TEXT_FIELD_MAP.items():
+        if src in tc:
+            lm_kw[dst] = tc[src]
+    if "tie_word_embeddings" in raw:
+        lm_kw["tie_embeddings"] = bool(raw["tie_word_embeddings"])
+    lm = LMConfig(**lm_kw)
+
+    vc = raw.get("vision_config", {})
+    vis_kw = {}
+    for src, dst in (("image_size", "image_size"), ("patch_size", "patch_size"),
+                     ("hidden_size", "hidden_size"),
+                     ("num_hidden_layers", "num_layers"),
+                     ("num_attention_heads", "num_heads"),
+                     ("layer_norm_eps", "layernorm_eps")):
+        if src in vc:
+            vis_kw[dst] = vc[src]
+    if "intermediate_size" in vc and "hidden_size" in vc:
+        vis_kw["mlp_ratio"] = vc["intermediate_size"] // vc["hidden_size"]
+    vision = VisionConfig(**vis_kw)
+
+    return UniMPConfig(
+        vision, ResamplerConfig(), lm,
+        cross_attn_every_n=raw.get("cross_attn_every_n_layers", 4),
+    )
