@@ -52,7 +52,8 @@ Phases (any failure exits non-zero):
      at all) and a profile of one batch;
   8. the rec eval from files through the port's own CLI: the port's synth
      writer puts a beauty dataset (4,167 items, 288 users, 64 px JPEGs)
-     on disk, then ``unimp_tpu_torch.cli.mmrec_eval.main`` runs
+     on disk (phases 8 and 9 share it), then
+     ``unimp_tpu_torch.cli.mmrec_eval.main`` runs
      4b-instruct (bf16, seeded weights) over its 48 test users in 2
      batches of 24: tokenizer, prompts, loader, the latent cache, 10-beam
      search, answers, HR/NDCG/MRR, the dump and ``eval_results.json``;
@@ -62,7 +63,25 @@ Phases (any failure exits non-zero):
      catalogue / batch seconds, items/s, peak memory, launches, a
      profile of the second batch's generate, that generate again with the
      garbage collector's seconds (``[gc]``, as after phase 5's profile),
-     and a control: phase 5's kind of prompts through the CLI's model.
+     and a control: phase 5's kind of prompts through the CLI's model;
+  9. rec training from the same files through the port's own CLI:
+     ``unimp_tpu_torch.cli.mmrec.main`` at 4b-instruct width and depth
+     with the reference's training shape (micro-batch 3 x accum 2 fused,
+     gamma 2 with reweight, bf16 frozen backbone, the vision-tower cache
+     of all 4,167 items), one epoch of 24 train users (4 updates), the
+     10-beam test pass over 24 users, ``weights_epoch_0``,
+     ``checkpoint_0`` and ``final_weights``; then ``final_weights`` read
+     back and held to the trained tensors bit for bit, and
+     ``mmrec_eval --load_weights_name final_weights`` in bf16 (tokens
+     agree >= 0.9 with the training run's test pass) and with int8
+     weights and int8 KV (K6 193 times a decode step and once a batch);
+     fails unless K1 / K2 / K3 ran perceiver + x-attn + LM layers times
+     each micro-batch and no ViT layer in a step, the cache ran the ViT
+     once a chunk, every loss is finite and no step skipped; prints the
+     disk and host memory, the cache's seconds and bytes, each step's ms
+     and the StepTimer's samples/s, the checkpoint write and read
+     seconds and bytes, peak device memory, the host's peak RSS and both
+     reload evals' items/s; deletes its run directory.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -73,9 +92,12 @@ import dataclasses
 import gc
 import json
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -974,7 +996,7 @@ def phase_4b(dev, gpu_line, int8: bool = False, timings=()):
     return launches
 
 
-def check_int8_launches(cfg, launches, n_batches) -> None:
+def check_int8_launches(cfg, launches, n_batches, tag="[4b-int8]") -> None:
     """On the int8 path: the decode steps that ran, read from K4's int8
     launches (one per LM layer a step); then K5 int8 once per x-attn layer
     a step, K6 193 times a step plus the prefill head once a batch, and
@@ -985,7 +1007,7 @@ def check_int8_launches(cfg, launches, n_batches) -> None:
     want = {"decode_attn_int8": steps * lm.num_layers, "single_query_attn_int8": steps * n_xattn,
             "quant_matmul": steps * K6_PER_STEP + n_batches,
             "decode_attn": 0, "single_query_attn": 0}
-    log(f"[4b-int8] {steps} decode steps over {n_batches} batches; expected launches "
+    log(f"{tag} {steps} decode steps over {n_batches} batches; expected launches "
         f"{json.dumps(want)}")
     bad = {k: (launches[k], n) for k, n in want.items() if launches[k] != n}
     if rest or bad:
@@ -1142,25 +1164,30 @@ def k6_step_report(model, timings, rows: int = 240) -> None:
 CLI_USERS, CLI_BATCH = 48, 24
 
 
-def phase_cli(dev, gpu_line):
+def write_cli_data(data) -> float:
+    """The port's synth writer puts a beauty dataset (4,167 items, 64 px
+    JPEGs, 288 users a split, 48 in eval and test) under ``data``;
+    returns the seconds it took."""
+    from unimp_tpu_torch.tools import synth_data
+
+    t0 = time.perf_counter()
+    synth_data.generate(str(data), subset="beauty", n_items=N_ITEM_TOKENS, n_users=288,
+                        image_size=64, seed=0)
+    return time.perf_counter() - t0
+
+
+def phase_cli(dev, gpu_line, data, run_dir, write_s):
     """The 4b-instruct rec eval from files through the port's own CLI:
-    the port's synth writer puts a beauty dataset (4,167 items, 64 px
-    JPEGs) under ``runs/``, then ``unimp_tpu_torch.cli.mmrec_eval.main``
+    ``unimp_tpu_torch.cli.mmrec_eval.main`` on ``write_cli_data``'s files
     tokenizes, builds prompts, batches, encodes the referenced catalogue
     once and runs the 10-beam search over 2 x 24 test users, bf16, seeded
     weights (gates closed, as an init leaves them). Spies around the
     evaluator's batches, the latent cache and the generator read the
     timings and the decode steps; the launch counts are the kernels'."""
-    import tempfile
-    from pathlib import Path
-
     from unimp_tpu_torch.cli import common, mmrec_eval
     from unimp_tpu_torch.data.tokenizer import UniMPTokenizer
     from unimp_tpu_torch.evals import evaluators
-    from unimp_tpu_torch.tools import synth_data
 
-    runs = Path(__file__).resolve().parent / "runs"
-    runs.mkdir(exist_ok=True)
     seen = {"batches": [], "encode_s": 0.0, "steps": 0, "generate_s": []}
     orig_batches = evaluators._generate_batches
     orig_ensure = ItemLatentCache._ensure
@@ -1194,47 +1221,41 @@ def phase_cli(dev, gpu_line):
         seen["steps"] += 1
         return orig_step(self, *args, **kw)
 
-    def build_model_spy(args, tokenizer):
-        seen["model"], seen["tokenizer"] = orig_build_model(args, tokenizer), tokenizer
+    def build_model_spy(args, tokenizer, **kw):
+        seen["model"], seen["tokenizer"] = orig_build_model(args, tokenizer, **kw), tokenizer
         torch.cuda.synchronize()  # the eval's peak memory starts after the build's
         seen["build_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
         torch.cuda.reset_peak_memory_stats()
         return seen["model"]
 
-    with tempfile.TemporaryDirectory(dir=runs) as tmp:
-        data, run_dir = Path(tmp) / "data", Path(tmp) / "runs"
+    argv = ["--mmrec_path", str(data), "--external_save_dir", str(run_dir),
+            "--run_name", "cli", "--pretrained_model_name_or_path", "4b-instruct",
+            "--subset", "beauty", "--task", "rec", "--single_task",
+            "--n_items", str(N_ITEM_TOKENS), "--history_len", "5",
+            "--patch-image-size", "224", "--eval_batch_size", str(CLI_BATCH),
+            "--num_beams", "10", "--max_records", str(CLI_USERS), "--workers", "2",
+            "--do_test", "--device", "cuda"]
+    evaluators._generate_batches, ItemLatentCache._ensure = batches, ensure
+    Generator.generate, Generator._decode_step = generate, decode_step
+    common.build_model = build_model_spy
+    try:
         t0 = time.perf_counter()
-        synth_data.generate(str(data), subset="beauty", n_items=N_ITEM_TOKENS, n_users=288,
-                            image_size=64, seed=0)
-        write_s = time.perf_counter() - t0
-        argv = ["--mmrec_path", str(data), "--external_save_dir", str(run_dir),
-                "--run_name", "cli", "--pretrained_model_name_or_path", "4b-instruct",
-                "--subset", "beauty", "--task", "rec", "--single_task",
-                "--n_items", str(N_ITEM_TOKENS), "--history_len", "5",
-                "--patch-image-size", "224", "--eval_batch_size", str(CLI_BATCH),
-                "--num_beams", "10", "--max_records", str(CLI_USERS), "--workers", "2",
-                "--do_test", "--device", "cuda"]
-        evaluators._generate_batches, ItemLatentCache._ensure = batches, ensure
-        Generator.generate, Generator._decode_step = generate, decode_step
-        common.build_model = build_model_spy
-        try:
-            t0 = time.perf_counter()
-            torch.cuda.reset_peak_memory_stats()
-            kernel_lib.reset_launches()      # the main path starts here
-            mmrec_eval.main(argv)
-            torch.cuda.synchronize()
-            launches = dict(kernel_lib.LAUNCHES)  # the main path ends here
-            main_s = time.perf_counter() - t0
-        finally:
-            evaluators._generate_batches, ItemLatentCache._ensure = orig_batches, orig_ensure
-            Generator.generate, Generator._decode_step = orig_generate, orig_step
-            common.build_model = orig_build_model
-        peak_gib = torch.cuda.max_memory_allocated() / 2**30
-        out_dir = run_dir / "cli"
-        results = json.loads((out_dir / "eval_results.json").read_text())
-        dump = json.loads((out_dir / "results" / "cli_rec_test_epoch_0_rank_0.json").read_text())
-        corpus = (data / "corpus.txt").read_text().splitlines()
-        base_vocab = len(UniMPTokenizer.from_corpus(corpus))
+        torch.cuda.reset_peak_memory_stats()
+        kernel_lib.reset_launches()      # the main path starts here
+        mmrec_eval.main(argv)
+        torch.cuda.synchronize()
+        launches = dict(kernel_lib.LAUNCHES)  # the main path ends here
+        main_s = time.perf_counter() - t0
+    finally:
+        evaluators._generate_batches, ItemLatentCache._ensure = orig_batches, orig_ensure
+        Generator.generate, Generator._decode_step = orig_generate, orig_step
+        common.build_model = orig_build_model
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    out_dir = run_dir / "cli"
+    results = json.loads((out_dir / "eval_results.json").read_text())
+    dump = json.loads((out_dir / "results" / "cli_rec_test_epoch_0_rank_0.json").read_text())
+    corpus = (data / "corpus.txt").read_text().splitlines()
+    base_vocab = len(UniMPTokenizer.from_corpus(corpus))
 
     metrics = results["rec"]
     rank = {k: v for k, v in metrics.items() if k.split("@")[0] in ("hr", "ndcg", "mrr")}
@@ -1287,6 +1308,262 @@ def phase_cli(dev, gpu_line):
               lambda: gen.generate(torch.from_numpy(ids).to(dev), torch.from_numpy(seq_len).to(dev),
                                    latents))
     return launches
+
+
+# ------------------------------------------------------------ phase 9
+
+TRAIN_CLI_RECORDS = 24  # train users (4 updates of 3 x 2) and test users (one batch)
+
+
+def host_memory_line(path) -> str:
+    """The disk under ``path`` and the host's memory, as the card's machine
+    reports them."""
+    du = shutil.disk_usage(path)
+    mem = {line.split(":")[0]: line.split()[1] for line in open("/proc/meminfo")
+           if line.startswith(("MemTotal", "MemAvailable"))}
+    return (f"disk under {path}: {du.total / 2**30:.1f} GiB, {du.free / 2**30:.1f} GiB free; "
+            f"host memory {int(mem['MemTotal']) / 2**20:.1f} GiB, "
+            f"{int(mem['MemAvailable']) / 2**20:.1f} GiB available")
+
+
+def phase_train_cli(dev, gpu_line, data, run_dir):
+    """Rec training from files through the port's own CLI, at 4b-instruct
+    width and depth: ``unimp_tpu_torch.cli.mmrec.main`` on
+    ``write_cli_data``'s files with the reference's training shape (micro-
+    batch 3 x accum 2 fused, focal loss gamma 2 with reweight, bf16 frozen
+    backbone, the vision-tower cache), one epoch over 24 train users (4
+    updates), the 10-beam test pass over 24 users, and its checkpoints.
+    Then ``final_weights`` is read back and held to the trained tensors bit
+    for bit, and ``mmrec_eval --load_weights_name final_weights`` runs in
+    bf16 (its tokens held to the training run's test pass, agreement >=
+    0.9) and with int8 weights and int8 KV (phase 7's launch check)."""
+    import resource
+
+    from unimp_tpu_torch.cli import common, mmrec, mmrec_eval
+    from unimp_tpu_torch.evals import evaluators
+    from unimp_tpu_torch.train import checkpoint as ckpt
+
+    log(f"[train-cli] {host_memory_line(run_dir.parent)}")
+    seen = {"steps": [], "writes": [], "generates": [], "decode_steps": 0}
+    orig = {"cache": mmrec.build_tower_cache, "epoch": mmrec.train_one_epoch,
+            "evals": mmrec.run_evals, "write": ckpt._write, "step": Trainer.train_step,
+            "generate": Generator.generate, "decode_step": Generator._decode_step,
+            "build": common.build_model}
+
+    def counts():
+        torch.cuda.synchronize()
+        return dict(kernel_lib.LAUNCHES)
+
+    def between(before):
+        after = counts()
+        return {k: after[k] - before[k] for k in after}
+
+    def cache(model, *args, **kw):
+        before, t0 = counts(), time.perf_counter()
+        out = orig["cache"](model, *args, **kw)
+        torch.cuda.synchronize()
+        seen["cache"] = (time.perf_counter() - t0, out.nbytes, tuple(out.shape), between(before))
+        return out
+
+    def epoch(*args, **kw):
+        before = counts()
+        torch.cuda.reset_peak_memory_stats()
+        orig["epoch"](*args, **kw)
+        seen["train_launches"] = between(before)
+        seen["train_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+
+    def evals(*args, **kw):
+        before, steps = counts(), seen["decode_steps"]
+        out = orig["evals"](*args, **kw)
+        seen["eval_launches"] = between(before)
+        seen["eval_decode_steps"] = seen["decode_steps"] - steps
+        return out
+
+    def write(path, obj):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        orig["write"](path, obj)
+        seen["writes"].append((Path(path).parent.name + "/" + Path(path).name,
+                               time.perf_counter() - t0, Path(path).stat().st_size))
+
+    def step(self, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = orig["step"](self, batch)
+        torch.cuda.synchronize()
+        seen["steps"].append((time.perf_counter() - t0, float(metrics["loss"]),
+                              float(metrics["grad_norm"]), int(metrics["skipped_nonfinite"])))
+        return metrics
+
+    def generate(self, *args):
+        t0 = time.perf_counter()
+        tok, scores = orig["generate"](self, *args)
+        torch.cuda.synchronize()
+        seen["generates"].append((time.perf_counter() - t0, tok.cpu().numpy()))
+        return tok, scores
+
+    def decode_step(self, *args, **kw):
+        seen["decode_steps"] += 1
+        return orig["decode_step"](self, *args, **kw)
+
+    def build(args, tokenizer, **kw):
+        seen["model"] = orig["build"](args, tokenizer, **kw)
+        return seen["model"]
+
+    common_argv = ["--mmrec_path", str(data), "--external_save_dir", str(run_dir),
+                   "--pretrained_model_name_or_path", "4b-instruct", "--subset", "beauty",
+                   "--task", "rec", "--single_task", "--n_items", str(N_ITEM_TOKENS),
+                   "--history_len", "5", "--patch-image-size", "224",
+                   "--max_records", str(TRAIN_CLI_RECORDS), "--eval_batch_size",
+                   str(TRAIN_CLI_RECORDS), "--num_beams", "10", "--do_test",
+                   "--workers", "2", "--device", "cuda"]
+    train_argv = common_argv + ["--run_name", "train", "--batch_size", "3",
+                                "--gradient_accumulation_steps", "2", "--fused_accumulation",
+                                "--use_reweight", "--gamma", "2", "--frozen_bf16",
+                                "--cache_vision_latents", "--num_epochs", "1",
+                                "--logging_steps", "1"]
+    train_dir = run_dir / "train"
+
+    def reload_argv(run_name, *extra):
+        return common_argv + ["--run_name", run_name, "--load_dir", str(train_dir),
+                              "--load_weights_name", "final_weights", *extra]
+
+    (mmrec.build_tower_cache, mmrec.train_one_epoch, mmrec.run_evals, ckpt._write,
+     Trainer.train_step, Generator.generate, Generator._decode_step, common.build_model) = (
+        cache, epoch, evals, write, step, generate, decode_step, build)
+    try:
+        kernel_lib.reset_launches()          # the main path starts here
+        t0 = time.perf_counter()
+        trainer, state = mmrec.main(train_argv)
+        torch.cuda.synchronize()
+        train_main_s = time.perf_counter() - t0
+        train_generates = list(seen["generates"])
+        evals_after_training = seen["eval_launches"], seen["eval_decode_steps"]
+
+        t0 = time.perf_counter()
+        saved = ckpt.restore_params(str(train_dir), "final_weights")
+        live = ckpt.model_tree(trainer.model)
+        read_bytes, differ = 0, []
+        for name, t in live.items():
+            got = saved[name].to(dev)
+            read_bytes += got.numel() * got.element_size()
+            if got.dtype != t.dtype or not torch.equal(got, t):
+                differ.append(name)
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t0
+        n_tensors = len(live)
+        extra = sorted(set(saved) - set(live))
+        cfg = trainer.model.cfg
+        n_trainable = sum(p.numel() for p in trainer.params.values())
+        del trainer, saved, live, got, t
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        reload = {}
+        for label, dtype_args in (("bf16", ()), ("int8", ("--eval_param_dtype", "int8",
+                                                         "--kv_int8"))):
+            seen["generates"], seen["decode_steps"] = [], 0
+            before = counts()
+            t0 = time.perf_counter()
+            results = mmrec_eval.main(reload_argv(f"reload_{label}", *dtype_args))
+            torch.cuda.synchronize()
+            reload[label] = (time.perf_counter() - t0, results["rec"], list(seen["generates"]),
+                             between(before), seen["decode_steps"])
+            del seen["model"]
+            gc.collect()
+            torch.cuda.empty_cache()
+        launches = counts()                  # the main path ends here
+    finally:
+        (mmrec.build_tower_cache, mmrec.train_one_epoch, mmrec.run_evals, ckpt._write,
+         Trainer.train_step, Generator.generate, Generator._decode_step,
+         common.build_model) = (orig["cache"], orig["epoch"], orig["evals"], orig["write"],
+                                orig["step"], orig["generate"], orig["decode_step"],
+                                orig["build"])
+    rss_gib = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+    jsonl = [json.loads(line) for line in
+             (train_dir / "train_metrics.jsonl").read_text().splitlines()]
+    shutil.rmtree(run_dir)
+
+    # --- checks
+    lm = cfg.lm
+    n_xattn = -(-lm.num_layers // cfg.cross_attn_every_n)
+    bwd = cfg.resampler.depth + n_xattn + lm.num_layers        # per micro-batch
+    n_steps = len(seen["steps"])
+    if n_steps != TRAIN_CLI_RECORDS // 6 or state["step"] != n_steps:
+        raise AssertionError(f"[train-cli] {n_steps} steps, trainer step {state['step']}; "
+                             f"want {TRAIN_CLI_RECORDS // 6}")
+    bad_steps = [s for s in seen["steps"] if s[3] or not (np.isfinite(s[1]) and
+                                                           np.isfinite(s[2]))]
+    if bad_steps:
+        raise AssertionError(f"[train-cli] non-finite or skipped steps: {bad_steps}")
+    want_train = {"flash_fwd": bwd * 2 * n_steps, "flash_bwd_dkv": bwd * 2 * n_steps,
+                  "flash_bwd_dq": bwd * 2 * n_steps}
+    got_train = {k: seen["train_launches"][k] for k in want_train}
+    cache_s, cache_bytes, cache_shape, cache_launches = seen["cache"]
+    chunks = -(-N_ITEM_TOKENS // 64)
+    if got_train != want_train or cache_launches["flash_fwd"] != cfg.vision.num_layers * chunks:
+        raise AssertionError(f"[train-cli] training launches {got_train}, expected "
+                             f"{want_train}; cache K1 {cache_launches['flash_fwd']}, expected "
+                             f"{cfg.vision.num_layers * chunks}")
+    ev_launches, ev_steps = evals_after_training
+    want_ev = {"decode_attn": lm.num_layers * ev_steps, "single_query_attn": n_xattn * ev_steps}
+    if ev_launches["flash_fwd"] <= 0 or any(ev_launches[k] != n for k, n in want_ev.items()) \
+            or not 0 < ev_steps <= 50:
+        raise AssertionError(f"[train-cli] test-pass launches {ev_launches}, expected "
+                             f"{want_ev}; {ev_steps} decode steps")
+    if differ or extra:
+        raise AssertionError(f"[train-cli] final_weights differ from the trained model: "
+                             f"{differ[:8]}, extra {extra[:8]}")
+    train_tok = train_generates[-1][1]
+    bf16_tok = reload["bf16"][2][-1][1]
+    agree = float((train_tok == bf16_tok).mean())
+    if agree < 0.9:
+        raise AssertionError(f"[train-cli] bf16 reload agrees with the training run's test "
+                             f"pass on {agree:.3f} of tokens (< 0.9)")
+    for label, (_, metrics, _, _, _) in reload.items():
+        if metrics["n_users"] != TRAIN_CLI_RECORDS or not metrics["items_per_sec"] > 0:
+            raise AssertionError(f"[train-cli] {label} reload: {metrics}")
+    _, _, _, int8_launches, int8_steps = reload["int8"]
+    check_int8_launches(cfg, int8_launches, 1, tag="[train-cli]")
+    if int8_launches["decode_attn_int8"] != lm.num_layers * int8_steps:
+        raise AssertionError(f"[train-cli] int8 reload: K4 int8 {int8_launches} for "
+                             f"{int8_steps} decode steps")
+
+    # --- report
+    writes = seen["writes"]
+    log(f"[train-cli] 4b-instruct, vocab {lm.vocab_size}, {n_trainable / 1e9:.3f} B "
+        f"trainable (f32), frozen bf16; main {train_main_s:.1f} s (build, cache, 4 steps, "
+        f"the test pass, checkpoints) on {gpu_line}")
+    log(f"[train-cli] vision cache: {cache_shape[0]} items in {cache_s:.2f} s (host JPEG "
+        f"decode + resize, ViT), {cache_bytes / 2**30:.3f} GiB {list(cache_shape)} on {gpu_line}")
+    step_ms = [round(s[0] * 1e3, 1) for s in seen["steps"]]
+    timer_sps = [r["samples_per_second"] for r in jsonl if "samples_per_second" in r]
+    log(f"[train-cli] step ms {step_ms} (host clock, synchronized); StepTimer "
+        f"samples_per_second {timer_sps} (micro-batch 3 over the step, as JAX logs it; "
+        f"{6 / np.mean([s[0] for s in seen['steps'][1:]]):.3f} samples/s over steps 2-4) "
+        f"on {gpu_line}")
+    log(f"[train-cli] losses {[s[1] for s in seen['steps']]}; grad norms "
+        f"{[round(s[2], 4) for s in seen['steps']]}")
+    log(f"[train-cli] checkpoint writes (file, s, bytes): "
+        f"{[(n, round(t, 2), b) for n, t, b in writes]}; total {sum(w[1] for w in writes):.2f} "
+        f"s, {sum(w[2] for w in writes) / 2**30:.2f} GiB on {gpu_line}")
+    log(f"[train-cli] final_weights read back: {n_tensors} tensors, "
+        f"{read_bytes / 2**30:.2f} GiB in {read_s:.2f} s (mmap + copy to the card), every "
+        f"tensor equal to the trained one bit for bit")
+    log(f"[train-cli] peak device memory: training epoch {seen['train_peak_gib']:.2f} GiB; "
+        f"host peak RSS {rss_gib:.2f} GiB (the whole script so far) on {gpu_line}")
+    log(f"[train-cli] training run: test pass launches {json.dumps(ev_launches)} over "
+        f"{ev_steps} decode steps; training launches {json.dumps(seen['train_launches'])}")
+    for label, (sec, metrics, gens, lnch, steps) in reload.items():
+        gen_s = gens[-1][0]
+        log(f"[train-cli] {label} reload eval: main {sec:.1f} s; items/s "
+            f"{metrics['items_per_sec']:.3f} (evaluator: its one batch with the catalogue misses), "
+            f"{TRAIN_CLI_RECORDS / gen_s:.3f} over the generate ({gen_s:.2f} s); "
+            f"{steps} decode steps on {gpu_line}")
+    log(f"[train-cli] bf16 reload tokens agree with the training run's test pass on "
+        f"{agree:.4f}; int8 reload launches {json.dumps(reload['int8'][3])}")
+    return launches
+
 
 
 def kernel_name(ptxas_line: str) -> str:
@@ -1436,9 +1713,19 @@ def main() -> int:
     log(f"[4b-int8] done in {time.perf_counter() - t0:.1f} s")
     gc.collect()  # the int8 model is gone: give its memory back
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    cli_launches = phase_cli(dev, gpu_line)
-    log(f"[cli] done in {time.perf_counter() - t0:.1f} s")
+    runs = Path(__file__).resolve().parent / "runs"
+    runs.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=runs) as tmp:
+        data = Path(tmp) / "data"
+        write_s = write_cli_data(data)
+        t0 = time.perf_counter()
+        cli_launches = phase_cli(dev, gpu_line, data, Path(tmp) / "runs", write_s)
+        log(f"[cli] done in {time.perf_counter() - t0:.1f} s")
+        gc.collect()  # the CLI's eval model is gone: give its memory back
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        train_cli_launches = phase_train_cli(dev, gpu_line, data, Path(tmp) / "train")
+        log(f"[train-cli] done in {time.perf_counter() - t0:.1f} s")
 
     # one headline shape per kernel: LM prefill, the LM self-attention
     # backward of training, decode at step 50, x-attn read, the MLP
@@ -1456,7 +1743,8 @@ def main() -> int:
         tm = next(r for r in timings if r["kernel"] == name and r["case"] == headline[name])
         by_path = {path: n[name] for path, n, kernels in (
             ("eval", eval_launches, EVAL_KERNELS), ("train", train_launches, TRAIN_KERNELS),
-            ("eval_int8", int8_launches, INT8_KERNELS), ("cli", cli_launches, EVAL_KERNELS))
+            ("eval_int8", int8_launches, INT8_KERNELS), ("cli", cli_launches, EVAL_KERNELS),
+            ("train_cli", train_cli_launches, tuple(KERNELS)))
             if name in kernels}
         row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                "launches": sum(by_path.values()), "launches_by_path": by_path,

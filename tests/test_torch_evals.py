@@ -167,7 +167,7 @@ def test_cli_writes_what_jax_writes(data, tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--mesh_fsdp", "2"], ["--mesh_tp", "2"], ["--seq_shard"], ["--load_weights_name", "w"],
+    ["--mesh_fsdp", "2"], ["--mesh_tp", "2"], ["--seq_shard"], ["--load_weights_name", "w.pt"],
     ["--eval_embed"], ["--report_to_wandb"], ["--task", "exp"], ["--task", "img_sel"],
     ["--task", "search"],
 ])

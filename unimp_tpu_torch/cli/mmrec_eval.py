@@ -5,11 +5,14 @@
         --task rec --single_task --do_test [--device cpu] ...
 
 Builds the tokenizer (corpus + task vocabulary), the model with the
-port's seeded weights (cast, or quantized to int8 after the cast, as
-``--eval_param_dtype`` says), then evaluates the test split (and the eval
-split with ``--do_eval``): per-user metric dumps under
-``{external_save_dir}/{run_name}/results/`` and ``eval_results.json``.
-Restoring trained weights is not ported yet.
+port's seeded weights or, with ``--load_weights_name``, the weights of a
+checkpoint of the port's ``mmrec`` (``train/checkpoint.py``; under
+``{load_dir}``, or ``{external_save_dir}/{load_run_name or run_name}``),
+then cast, or quantized to int8 after the cast, as ``--eval_param_dtype``
+says (restore first, then quantize, as the JAX package does). It then
+evaluates the test split (and the eval split with ``--do_eval``): per-user
+metric dumps under ``{external_save_dir}/{run_name}/results/`` and
+``eval_results.json``.
 """
 
 from __future__ import annotations
@@ -19,52 +22,22 @@ import os
 
 from unimp_tpu_torch.cli import common
 from unimp_tpu_torch.cli.arguments import build_parser
-from unimp_tpu_torch.evals.evaluators import evaluate_rec
+from unimp_tpu_torch.cli.mmrec import run_evals
+from unimp_tpu_torch.train import checkpoint as ckpt
 from unimp_tpu_torch.utils.logging import MetricLogger
-
-EVALUATORS = {"rec": evaluate_rec}
-
-
-def run_evals(args, model, tokenizer, logger, epoch, tasks=None, split="test",
-              cache_holder=None):
-    """Evaluate ``tasks`` on ``split``; per-user dumps named as the
-    reference names them (eval_rec.py:158), rooted in the run dir."""
-    tasks = tasks or ([args.task] if args.single_task else ["rec", "exp", "img_sel", "search"])
-    run_dir = os.path.join(args.external_save_dir or ".", args.run_name)
-    rank = 0
-    if cache_holder is None:
-        cache_holder = {}
-    results = {}
-    for task in tasks:
-        try:
-            ds = common.make_dataset(args, tokenizer, split, task=task)
-        except FileNotFoundError as e:
-            logger.print(f"[eval] skipping {task} ({split}): {e}")
-            continue
-        if task not in EVALUATORS:
-            raise NotImplementedError(f"the {task} evaluator is not ported yet "
-                                      "(ROADMAP.md §1, item 5)")
-        loader = common.make_loader(args, ds, tokenizer)
-        metrics = EVALUATORS[task](
-            model, loader, tokenizer, num_beams=args.num_beams,
-            kv_int8=getattr(args, "kv_int8", False), cache_holder=cache_holder,
-            dump_path=os.path.join(
-                run_dir, "results",
-                f"{args.run_name}_{task}_{split}_epoch_{epoch}_rank_{rank}.json"))
-        results[task] = metrics
-        prefix = task if split == "test" else f"{task}/{split}"
-        logger.log({f"{prefix}/{k}": v for k, v in metrics.items()
-                    if isinstance(v, (int, float))}, step=epoch)
-        logger.print(f"[epoch {epoch}] {task} ({split}): " + " ".join(
-            f"{k}={v:.4f}" for k, v in metrics.items() if isinstance(v, (int, float))))
-    return results
 
 
 def main(argv=None):
     args = build_parser(eval_only=True).parse_args(argv)
     common.check_ported(args)
     tokenizer = common.build_tokenizer(args)
-    model = common.build_model(args, tokenizer)
+    weights = None
+    if args.load_weights_name:
+        load_dir = args.load_dir or os.path.join(args.external_save_dir or ".",
+                                                 args.load_run_name or args.run_name)
+        weights = ckpt.restore_params(load_dir, args.load_weights_name)
+    model = common.build_model(args, tokenizer, weights=weights)
+    del weights  # the model holds a copy: release the file's mapping
 
     save_dir = os.path.join(args.external_save_dir or ".", args.run_name)
     logger = MetricLogger(save_dir, f"{args.run_name}_eval", use_wandb=args.report_to_wandb,

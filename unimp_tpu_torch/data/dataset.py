@@ -2,16 +2,18 @@
 
 Counterpart of ``unimp_tpu/data/dataset.py`` (capability parity with the
 reference RecDataset, UniMP's pipeline/mm_utils/rec_dataset.py:56-279),
-for one task at a time, of the two that read ``{split}_users.json``:
-``rec`` and ``search``. The other tasks (exp, img_sel, img_gen) and the
-training mix of several raise until they are ported (ROADMAP.md §1,
-items 3 and 5).
+for the two tasks that read ``{split}_users.json``: ``rec`` and
+``search``, alone or mixed. The other tasks (exp, img_sel, img_gen)
+raise until they are ported (ROADMAP.md §1, item 5).
 
   * file layout: ``{split}_users.json``, ``meta_{subset}.json``,
     ``id2semantic.json``/``img_id2semantic.json``, images at
     ``{subset}/{item_id}.jpg`` (rec_dataset.py:108-131)
   * per-subset history lengths: all=5, netflix=3, hm=8
     (rec_dataset.py:134-142)
+  * multi-task mixing with 25% subsampling of every non-final task, drawn
+    from the dataset's rng (rec_dataset.py:180-206); each record keeps
+    its task
 
 Images are decoded and resized on the host (uint8, ``data/jpeg.py``) and
 CLIP-normalized on the device (``transforms.normalize_on_device``).
@@ -21,7 +23,7 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 
@@ -34,13 +36,13 @@ HISTORY_LEN = {"all": 5, "netflix": 3, "hm": 8}  # rec_dataset.py:134-142
 
 
 class TaskDataset:
-    """Map-style dataset over one task's user records."""
+    """Map-style dataset over (task, user-record) pairs."""
 
     def __init__(
         self,
         data_dir: str,
         subset: str,
-        task: str,
+        task: Union[str, Sequence[str]],
         split: str,
         tokenizer: UniMPTokenizer,
         *,
@@ -87,15 +89,25 @@ class TaskDataset:
             img_id2semantic=img_id2semantic,
         )
 
-        if task not in ("rec", "search"):
-            if task in ("exp", "img_sel", "img_gen", "img_gen_pretrain"):
-                raise NotImplementedError(f"the {task} task's dataset is not ported yet "
-                                          "(ROADMAP.md §1, item 5)")
-            raise KeyError(f"unsupported task {task!r}")
-        self.task = task
-        self.records: List = list(self._load_json(f"{split}_users.json").values())
+        tasks = [task] if isinstance(task, str) else list(task)
+        for t in tasks:
+            if t not in ("rec", "search"):
+                if t in ("exp", "img_sel", "img_gen", "img_gen_pretrain"):
+                    raise NotImplementedError(f"the {t} task's dataset is not ported yet "
+                                              "(ROADMAP.md §1, item 5)")
+                raise KeyError(f"unsupported task {t!r}")
+        self.records: List = []
+        self.tasks: List[str] = []
+        for i, t in enumerate(tasks):
+            records = list(self._load_json(f"{split}_users.json").values())
+            if i < len(tasks) - 1:  # 25% subsample of every non-final task
+                idx = self.rng.permutation(len(records))[: int(0.25 * len(records))]
+                records = [records[j] for j in idx]
+            self.records.extend(records)
+            self.tasks.extend([t] * len(records))
         if max_records is not None:
             self.records = self.records[:max_records]
+            self.tasks = self.tasks[:max_records]
 
     # ------------- loading -------------
 
@@ -137,7 +149,7 @@ class TaskDataset:
         return self.builder.n_items
 
     def __getitem__(self, index: int) -> dict:
-        task = self.task
+        task = self.tasks[index]
         sample = self.builder.build(task, self.split, self.records[index], self.rng)
         train = self.split == "train"
         ids = self.tokenizer.encode(sample.text, add_bos=train, add_eos=train)

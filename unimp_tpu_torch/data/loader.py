@@ -5,8 +5,10 @@ reference's torch DataLoader with 4 worker processes), for one process: a
 thread pool decodes and encodes samples ahead of the consumer, with at
 most ``num_workers + prefetch`` batches in flight, and batches are
 collated to bucketed shapes. ``num_workers=0`` builds batches inline.
-Per-process shards and epochs come with training and multi-GPU
-(ROADMAP.md §1, items 3 and 7).
+A shuffled loader permutes with ``seed + epoch`` (``set_epoch``), so an
+epoch's order depends on nothing else. The per-process shard is the JAX
+package's rank-strided one; more than one process raises until multi-GPU
+is ported (ROADMAP.md §1, item 7).
 """
 
 from __future__ import annotations
@@ -34,8 +36,13 @@ class DataLoader:
         pad_to_multiple: int = 64,
         max_text_len: Optional[int] = None,
         fixed_media: Optional[int] = None,
+        process_index: int = 0,
+        process_count: int = 1,
         prefetch: int = 2,
     ):
+        if process_count != 1:
+            raise NotImplementedError("a loader shard over several processes: multi-GPU is "
+                                      "not ported yet (ROADMAP.md §1, item 7)")
         self.dataset = dataset
         self.batch_size = batch_size
         self.pad_id = pad_id
@@ -46,15 +53,22 @@ class DataLoader:
         self.pad_to_multiple = pad_to_multiple
         self.max_text_len = max_text_len
         self.fixed_media = fixed_media
+        self.process_index = process_index
+        self.process_count = process_count
         self.prefetch = prefetch
+        self.epoch = 0
+
+    def set_epoch(self, epoch: int):
+        self.epoch = epoch
 
     def _indices(self) -> np.ndarray:
         n = len(self.dataset)
         idx = np.arange(n)
         if self.shuffle:
-            rng = np.random.default_rng(self.seed)
+            rng = np.random.default_rng(self.seed + self.epoch)
             idx = rng.permutation(n)
-        return idx
+        # per-process shard: rank-strided (torch DistributedSampler layout)
+        return idx[self.process_index :: self.process_count]
 
     def __len__(self) -> int:
         n = len(self._indices())
@@ -139,3 +153,22 @@ class DataLoader:
                 yield item
         finally:
             stop.set()
+
+
+def prefetch_to_device(iterator, put_fn, size: int = 2):
+    """Run ``put_fn`` (the host->device copy, e.g. ``Trainer.device_batch``)
+    in a background thread for up to ``size`` upcoming batches, so batch
+    N+1's copy rides under batch N's step. Opt-in
+    (``UNIMP_DEVICE_PREFETCH=1`` in the training CLI), as in the JAX
+    package."""
+    import collections
+    from concurrent.futures import ThreadPoolExecutor
+
+    buf: "collections.deque" = collections.deque()
+    with ThreadPoolExecutor(1) as pool:
+        for item in iterator:
+            buf.append(pool.submit(put_fn, item))
+            if len(buf) >= size:
+                yield buf.popleft().result()
+        while buf:
+            yield buf.popleft().result()

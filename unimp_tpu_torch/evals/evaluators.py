@@ -121,3 +121,7 @@ def _rank_eval(model, loader, tokenizer, *, max_new_tokens, ks=(3, 5, 10), num_b
 def evaluate_rec(model, loader, tokenizer, **kw):
     kw.setdefault("max_new_tokens", 50)
     return _rank_eval(model, loader, tokenizer, **kw)
+
+
+# task -> evaluator, as ``unimp_tpu.evals.EVALUATORS`` (the rec task only)
+EVALUATORS = {"rec": evaluate_rec}

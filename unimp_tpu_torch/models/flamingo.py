@@ -20,6 +20,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from unimp_tpu_torch.models.config import UniMPConfig
@@ -57,7 +58,11 @@ class Embed(nn.Module):
         self.embedding = nn.Parameter(torch.zeros(vocab, dim))
 
     def forward(self, ids):
-        return self.embedding[ids].to(self.dtype)
+        # F.embedding, not advanced indexing: its CPU backward sums each
+        # row's gradient in one thread, in order (indexing's accumulating
+        # index_put differs run to run with several threads), so a resumed
+        # run can equal a straight one bit for bit
+        return F.embedding(ids, self.embedding).to(self.dtype)
 
 
 class GatedCrossAttnBlock(nn.Module):
@@ -120,9 +125,22 @@ class UniMPModel(nn.Module):
 
     def encode_vision(self, vision_x: torch.Tensor) -> torch.Tensor:
         """[B, M, H, W, 3] CLIP-normalized -> latents [B, M, L, Dv]."""
+        return self.resample_tower(self.encode_vision_tower(vision_x))
+
+    def encode_vision_tower(self, vision_x: torch.Tensor) -> torch.Tensor:
+        """The frozen half of ``encode_vision``: [B, M, H, W, 3] -> ViT
+        patch features [B, M, P, Dv], before the trainable perceiver. With
+        the tower frozen these are constants of training
+        (``train/vision_cache.py`` encodes each item once)."""
         b, m = vision_x.shape[:2]
         feats = self.vision(vision_x.reshape((b * m,) + vision_x.shape[2:]))
-        lat = self.resampler(feats)
+        return feats.reshape(b, m, feats.shape[1], feats.shape[2])
+
+    def resample_tower(self, tower_feats: torch.Tensor) -> torch.Tensor:
+        """The trainable half: tower features [B, M, P, Dv] -> media latents
+        [B, M, L, Dv]."""
+        b, m = tower_feats.shape[:2]
+        lat = self.resampler(tower_feats.reshape((b * m,) + tower_feats.shape[2:]))
         return lat.reshape(b, m, lat.shape[1], lat.shape[2])
 
     def _logits(self, x):
@@ -140,7 +158,7 @@ class UniMPModel(nn.Module):
         ids = torch.arange(1, m + 1, dtype=torch.int32, device=latents.device)
         return ids.repeat_interleave(l)[None, :].expand(b, m * l)
 
-    def forward(self, input_ids, *, latents=None, vision_x=None, q_media=None,
+    def forward(self, input_ids, *, latents=None, vision_x=None, tower_x=None, q_media=None,
                 kv_len=None, kv_start=None, positions=None,
                 return_kv: bool = False, last_logit_only: bool = False,
                 decode_state: Optional[dict] = None):
@@ -177,6 +195,10 @@ class UniMPModel(nn.Module):
 
         if latents is None and vision_x is not None:
             latents = self.encode_vision(vision_x)
+        elif latents is None and tower_x is not None:
+            # cached-vision training: the frozen tower's features arrive
+            # precomputed; only the trainable perceiver runs
+            latents = self.resample_tower(tower_x)
         latents_flat = kv_media = None
         if latents is not None:
             b, m, l, dv = latents.shape

@@ -76,8 +76,10 @@ def _match_quantized(model: nn.Module, flat: Mapping[str, np.ndarray]) -> None:
             mod.kernel = nn.Parameter(torch.zeros(k.shape, device=k.q.device))
 
 
-def load_flax_params(model: nn.Module, flat: Mapping[str, np.ndarray]) -> None:
-    """Copy a flattened Flax tree ({"a/b/c": numpy array}) onto ``model``.
+def load_flax_params(model: nn.Module, flat: Mapping) -> None:
+    """Copy a flattened Flax tree ({"a/b/c": numpy array or tensor}) onto
+    ``model``, each value cast to its tensor's dtype (a tensor of the same
+    dtype is copied bit for bit).
 
     Every Flax leaf must map onto a port tensor of the same shape (a
     parameter, or an int8 kernel's ``q`` / ``scale``) and every port
@@ -93,10 +95,13 @@ def load_flax_params(model: nn.Module, flat: Mapping[str, np.ndarray]) -> None:
                        f"unexpected {sorted(have - want)[:8]}")
     with torch.no_grad():
         for name, p in state.items():
-            arr = np.asarray(flat[name.replace(".", "/")])
-            if tuple(arr.shape) != tuple(p.shape):
-                raise ValueError(f"{name}: flax shape {arr.shape} != port {tuple(p.shape)}")
-            p.copy_(torch.from_numpy(np.array(arr)).to(p.dtype))
+            val = flat[name.replace(".", "/")]
+            if not isinstance(val, torch.Tensor):
+                val = torch.from_numpy(np.array(val))
+            if tuple(val.shape) != tuple(p.shape):
+                raise ValueError(f"{name}: flax shape {tuple(val.shape)} != port "
+                                 f"{tuple(p.shape)}")
+            p.copy_(val)
     fuse_decode_kernels(model)
 
 
@@ -128,8 +133,11 @@ def init_params(model: nn.Module, generator: torch.Generator) -> None:
 
 def build_model(cfg: UniMPConfig, *, device="cuda", seed: int = 0,
                 eval_param_dtype: str = "fp32", train: bool = False,
-                frozen_dtype=None) -> UniMPModel:
-    """A UniMPModel on ``device`` with seeded weights (``init_params``).
+                frozen_dtype=None, weights: Mapping | None = None) -> UniMPModel:
+    """A UniMPModel on ``device`` with seeded weights (``init_params``), or
+    with ``weights`` (a flat float tree, {"a/b/c": tensor or array}, e.g.
+    ``train/checkpoint.py:restore_params``) loaded in their place before
+    anything is cast or quantized.
 
     Inference (default): ``.eval()``, parameters as ``eval_param_dtype``
     says, in the order ``unimp_tpu/cli/mmrec_eval.py`` applies them:
@@ -149,7 +157,10 @@ def build_model(cfg: UniMPConfig, *, device="cuda", seed: int = 0,
     device = resolve_device(device)
     with device:
         model = UniMPModel(cfg)
-    init_params(model, torch.Generator(device).manual_seed(seed))
+    if weights is None:
+        init_params(model, torch.Generator(device).manual_seed(seed))
+    else:
+        load_flax_params(model, weights)
     if train:
         freeze(model, backbone_trainable_mask(model), frozen_dtype)
         return model.train()

@@ -6,7 +6,11 @@ gates, norms or biases), the reference's get_grouped_params
 get_{linear,cosine,constant}_schedule_with_warmup (mmrec.py:682-697):
 linear warmup from 0, then linear or half-cosine decay to 0, or constant;
 global-norm clipping at 1.0 (mmrec.py:247-248). The optimizer holds no
-TPU kernel, so it is ``torch.optim.AdamW``.
+TPU kernel, so it is ``torch.optim.AdamW``. ``MultiSteps`` is the
+counterpart of ``optax.MultiSteps`` (``--gradient_accumulation_steps``
+without ``--fused_accumulation``). Both save and restore their state by
+parameter name (``state_dict`` / ``load_state_dict``) for
+``train/checkpoint.py``.
 """
 
 from __future__ import annotations
@@ -71,7 +75,9 @@ class ClippedAdamW:
     def __init__(self, params: dict, *, schedule: Callable[[int], float],
                  weight_decay: float, max_grad_norm: float, b1: float, b2: float,
                  eps: float):
+        self.named = dict(params)
         self.params = list(params.values())
+        self.schedule = schedule
         decay = decay_mask(params)
         groups = [{"params": [p for n, p in params.items() if decay[n]],
                    "weight_decay": weight_decay},
@@ -102,6 +108,95 @@ class ClippedAdamW:
 
     def zero_grad(self) -> None:
         self.adamw.zero_grad(set_to_none=True)
+
+    def state_dict(self) -> dict:
+        """{"mu": {name: first moment}, "nu": {name: second moment},
+        "count": AdamW's step, "schedule_count": the schedule's step}; the
+        moments are the live tensors (no copy). Before the first update
+        both moments are empty."""
+        mu, nu, counts = {}, {}, set()
+        for name, p in self.named.items():
+            st = self.adamw.state.get(p)
+            if st:
+                mu[name], nu[name] = st["exp_avg"], st["exp_avg_sq"]
+                counts.add(int(st["step"]))
+        if len(counts) > 1:
+            raise ValueError(f"parameters at different AdamW steps {sorted(counts)}")
+        return {"mu": mu, "nu": nu, "count": counts.pop() if counts else 0,
+                "schedule_count": self.scheduler.last_epoch}
+
+    def load_state_dict(self, state: dict) -> None:
+        """Restore ``state_dict()``'s content (tensors copied onto each
+        parameter's device and dtype) and the learning rate it implies."""
+        mu, nu = state["mu"], state["nu"]
+        if set(mu) != set(nu) or not set(mu) <= set(self.named):
+            unknown = sorted((set(mu) | set(nu)) - set(self.named))
+            raise KeyError(f"moments do not match the parameters: {unknown[:8]}")
+        self.adamw.state.clear()
+        for name, p in self.named.items():
+            if name in mu:
+                self.adamw.state[p] = {
+                    "step": torch.tensor(float(state["count"])),
+                    "exp_avg": mu[name].to(device=p.device, dtype=p.dtype).clone(),
+                    "exp_avg_sq": nu[name].to(device=p.device, dtype=p.dtype).clone()}
+        count = int(state["schedule_count"])
+        self.scheduler.last_epoch = count
+        lrs = [self.schedule(count) * base for base in self.scheduler.base_lrs]
+        for group, lr in zip(self.adamw.param_groups, lrs):
+            group["lr"] = lr
+        self.scheduler._last_lr = lrs
+
+
+class MultiSteps:
+    """``optax.MultiSteps(ClippedAdamW, k)``: the inner optimizer updates
+    once every ``k`` calls of ``step``, on the running mean of the ``k``
+    gradients (optax's ``acc + (g - acc) / (n + 1)``); the other calls only
+    accumulate. The clip applies to the norm of that mean; ``grad_norm``
+    is the current gradient's, as the trainer logs it. AdamW's step and the
+    schedule advance once per ``k``. A call that the trainer skips (a
+    non-finite loss or norm) touches neither the mean nor the count."""
+
+    def __init__(self, inner: ClippedAdamW, k: int):
+        self.inner, self.k = inner, k
+        self.acc = {name: torch.zeros_like(p) for name, p in inner.named.items()}
+        self.mini_step = 0
+        self.gradient_step = 0
+
+    def grad_norm(self) -> torch.Tensor:
+        return self.inner.grad_norm()
+
+    def zero_grad(self) -> None:
+        self.inner.zero_grad()
+
+    def step(self, grad_norm: torch.Tensor) -> None:
+        """Fold the parameters' ``.grad`` into the mean; on every k-th call
+        update with it (``grad_norm``, the current gradient's, is unused)."""
+        n = self.mini_step
+        for name, p in self.inner.named.items():
+            acc = self.acc[name]
+            g = p.grad if p.grad is not None else torch.zeros_like(acc)
+            acc.add_((g - acc) / (n + 1))
+        if n < self.k - 1:
+            self.mini_step += 1
+            return
+        for name, p in self.inner.named.items():
+            p.grad = self.acc[name].clone()
+        self.inner.step(self.inner.grad_norm())
+        for acc in self.acc.values():
+            acc.zero_()
+        self.mini_step = 0
+        self.gradient_step += 1
+
+    def state_dict(self) -> dict:
+        return {**self.inner.state_dict(), "acc": self.acc, "mini_step": self.mini_step,
+                "gradient_step": self.gradient_step}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.inner.load_state_dict(state)
+        for name, acc in self.acc.items():
+            acc.copy_(state["acc"][name])
+        self.mini_step = int(state["mini_step"])
+        self.gradient_step = int(state["gradient_step"])
 
 
 def make_optimizer(params: dict, *, learning_rate: float = 1e-4,

@@ -14,9 +14,15 @@ optimizer step.
 
 Non-finite guard: a step whose loss or gradient norm is not finite leaves
 the parameters, both Adam moments, the optimizer's step count and the
-schedule where they were (the JAX step's ``jnp.where`` over params and
-opt_state). Deciding that costs one device-to-host read per step, which
-the jitted JAX step does not need.
+schedule where they were, and under ``MultiSteps`` its running mean and
+mini-step count too (the JAX step's ``jnp.where`` over params and the
+whole opt_state). Deciding that costs one device-to-host read per step,
+which the jitted JAX step does not need. ``step`` counts every call, as
+the JAX ``TrainState.step`` does, skipped ones included.
+
+Cached vision (``vision_cache``, ``train/vision_cache.py``): batches
+carry ``image_ids`` [B, M] in place of pixels and the step gathers the
+frozen tower's features, so only the trainable perceiver runs.
 """
 
 from __future__ import annotations
@@ -29,24 +35,26 @@ from unimp_tpu_torch.data.transforms import normalize_on_device
 from unimp_tpu_torch.device import resolve_device
 from unimp_tpu_torch.models.flamingo import compute_q_media
 from unimp_tpu_torch.train.loss import masked_focal_loss
-from unimp_tpu_torch.train.optimizer import ClippedAdamW, embedding_row_mask_update
+from unimp_tpu_torch.train.optimizer import embedding_row_mask_update
 from unimp_tpu_torch.train.partition import trainable_params
 
-BATCH_KEYS = ("input_ids", "seq_len", "weights", "images")
+BATCH_KEYS = ("input_ids", "seq_len", "weights", "images", "image_ids")
 
 
 class Trainer:
     """Owns the optimizer and runs ``train_step(batch) -> metrics``.
 
     batch: {"input_ids" [B, T] int, "seq_len" [B] int, "weights" [B]
-    float, "images" [B, M, H, W, 3] uint8}, as numpy arrays or tensors;
-    B is a multiple of ``accum_steps``.
+    float, and "images" [B, M, H, W, 3] uint8 or, with ``vision_cache``
+    set, "image_ids" [B, M] int}, as numpy arrays or tensors; B is a
+    multiple of ``accum_steps``. ``optimizer`` is a ``ClippedAdamW`` or a
+    ``MultiSteps`` over one.
     """
 
-    def __init__(self, model, optimizer: ClippedAdamW, *, media_id: int, answer_id: int,
+    def __init__(self, model, optimizer, *, media_id: int, answer_id: int,
                  endofchunk_id: int, pad_id: int, gamma: float = 2.0,
                  use_reweight: bool = False, mask_lm_head: bool = False,
-                 accum_steps: int = 1, device="cuda"):
+                 accum_steps: int = 1, device="cuda", vision_cache=None):
         self.device = resolve_device(device)
         for name, p in model.named_parameters():
             if p.device.type != self.device.type:
@@ -59,16 +67,21 @@ class Trainer:
         self.use_reweight = use_reweight
         self.mask_lm_head = mask_lm_head
         self.accum_steps = accum_steps
+        self.vision_cache = vision_cache  # [n_items, P, Dv] tower features, or None
+        self.step = 0
 
     def loss_fn(self, batch: dict):
         """(loss, aux) of one micro-batch on the device."""
         ids = batch["input_ids"]
         labels = answer_span_labels(ids, self.ids["answer"], self.ids["eoc"],
                                     self.ids["media"], self.ids["pad"])
-        vision_x = normalize_on_device(batch["images"], self.model.cfg.compute_dtype)
-        logits, _ = self.model(ids, vision_x=vision_x,
-                               q_media=compute_q_media(ids, self.ids["media"]),
-                               kv_len=batch["seq_len"])
+        if self.vision_cache is not None and "image_ids" in batch:
+            media = {"tower_x": self.vision_cache[batch["image_ids"]]}
+        else:
+            media = {"vision_x": normalize_on_device(batch["images"],
+                                                     self.model.cfg.compute_dtype)}
+        logits, _ = self.model(ids, q_media=compute_q_media(ids, self.ids["media"]),
+                               kv_len=batch["seq_len"], **media)
         return masked_focal_loss(logits, labels, batch["weights"], self.gamma,
                                  self.use_reweight)
 
@@ -101,6 +114,7 @@ class Trainer:
         ok = torch.isfinite(loss) & torch.isfinite(gnorm)
         if bool(ok):  # the step's one device->host read
             self.optimizer.step(gnorm)
+        self.step += 1
         return {"loss": loss, "grad_norm": gnorm,
                 "skipped_nonfinite": (~ok).to(torch.int32), **aux}
 
@@ -109,6 +123,8 @@ class Trainer:
         memory with ``non_blocking=True`` copies."""
         out = {}
         for key in BATCH_KEYS:
+            if key not in batch:
+                continue
             t = batch[key]
             if not isinstance(t, torch.Tensor):
                 t = torch.from_numpy(np.ascontiguousarray(t))
@@ -116,4 +132,6 @@ class Trainer:
                 t = t.pin_memory().to(self.device, non_blocking=True)
             out[key] = t.to(self.device)
         out["input_ids"] = out["input_ids"].long()
+        if "image_ids" in out:
+            out["image_ids"] = out["image_ids"].long()
         return out

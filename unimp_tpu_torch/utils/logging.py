@@ -1,7 +1,8 @@
 """Metric logging: console + JSONL (counterpart of ``unimp_tpu/utils/logging.py``).
 
 Keeps the reference's metric names and writes a local JSONL so runs are
-inspectable offline. wandb is not ported: asking for it raises.
+inspectable offline. wandb is not ported: asking for it, or for an
+artifact upload, raises.
 """
 
 from __future__ import annotations
@@ -10,6 +11,27 @@ import json
 import os
 import time
 from typing import Optional
+
+
+class AverageMeter:
+    """Running average (reference train_utils.py:268-284 semantics)."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self.val = 0.0
+        self.sum = 0.0
+        self.count = 0
+
+    def update(self, val, n: int = 1):
+        self.val = float(val)
+        self.sum += float(val) * n
+        self.count += n
+
+    @property
+    def avg(self) -> float:
+        return self.sum / max(self.count, 1)
 
 
 class MetricLogger:
@@ -38,3 +60,6 @@ class MetricLogger:
     def print(self, msg: str):
         if self.rank == 0:
             print(msg, flush=True)
+
+    def log_artifact(self, path: str, name: str, type: str = "checkpoint"):
+        raise NotImplementedError("wandb artifacts are not ported (the port logs JSONL only)")

@@ -11,7 +11,9 @@ is where a quantized kernel is used.
 
 The functions here change a model in place and return it (the JAX ones
 map a parameter tree). The checkpoint helpers (``dequantize_params_host``,
-``abstract_dequantized``) wait for ``train/checkpoint.py``.
+``abstract_dequantized``) wait for the int8 frozen backbone
+(``--frozen_int8``, ROADMAP.md §1, item 3.6): checkpoints of the port hold
+float trees only.
 """
 
 from __future__ import annotations
