@@ -16,7 +16,9 @@ Phases (any failure exits non-zero):
      all_previous, fully masked rows, GQA, K1/K2/K3 at 1 x 1 and 65 x 65,
      K2/K3 at 63 keys, decode steps 1 / 17 / 50 with random beam_sel and
      with beams sharing their first 20 ancestors, K4 at 1 / 16 / 17 beams
-     and ragged prompt windows, K5 with one tile of five allowed, K6 at one row, off its
+     and ragged prompt windows, the other tasks' decodes (greedy to 600 positions, 5 beams
+     to 256, 2 beams to 40; K5 over 9 media at 5 and 2 beams), K2/K3 at the ViT's
+     training shape (257 keys), K5 with one tile of five allowed, K6 at one row, off its
      tiles, at 256 / 300 / 512 rows, split-K over a ragged K, aligned
      and not, and with strided weight rows), in bfloat16 and float32, with the tolerances
      below; times each kernel (CUDA events)
@@ -30,7 +32,9 @@ Phases (any failure exits non-zero):
      int8 KV caches; in bfloat16 on the card, the beam eval through K4 / K5
      against the same eval with the plain decode attention (token
      agreement); then one ``Trainer`` step (loss, every trainable
-     gradient, skipped flag);
+     gradient, skipped flag); then, card vs CPU again, the other tasks'
+     decodes (exp 5 beams to 256, img_sel 2 beams over 9 images, img_gen
+     greedy to 600; token agreement);
   5. the ``4b-instruct`` 10-beam rec eval at full width (random seeded
      weights, gates opened): a 256-item catalogue encoded once by the item
      latent cache, two batches of 24 prompts (T=128, 4 images each), beam
@@ -81,7 +85,25 @@ Phases (any failure exits non-zero):
      disk and host memory, the cache's seconds and bytes, each step's ms
      and the StepTimer's samples/s, the checkpoint write and read
      seconds and bytes, peak device memory, the host's peak RSS and both
-     reload evals' items/s; deletes its run directory.
+     reload evals' items/s; deletes its run directory;
+ 10. the other tasks, multi-task training and the transfer entry through
+     the port's own CLIs at 4b-instruct width and depth, on phase 8's
+     files with the train split cut to 24 users (``phase_tasks``): (a)
+     ``mmrec.main`` on the default four-task list (6 records a task),
+     micro-batch 3 x accum 2 fused, bf16 frozen, the pixel path, then the
+     rec, exp (with BERTScore), img_sel and search test passes over 24
+     users each; (b) ``mmrec_eval --task img_gen`` over 24 users, greedy
+     to 600 new tokens; (c) ``mmrec_prefix.main --transfer_domain office``
+     on (a)'s ``final_weights``, 4 updates with the tower trained, a rec
+     test pass, then ``--only_test``; fails unless each task's metrics
+     are present and finite, the dumps exist, K4 ran once a layer and K5
+     once a cross-attention layer each decode step, K1 / K2 / K3 ran once
+     a layer each micro-batch (the ViT's K2 / K3 in (c) only), the
+     restore with growth equals (a)'s weights bit for bit (new rows: the
+     fresh init), and after (c)'s steps the resampler and x-attn are
+     unchanged and the tower and LM moved; prints each task's seconds,
+     decode steps, items/s and launches, checkpoint writes and peak
+     memory.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -182,6 +204,7 @@ SMALL_ANSWER_ID, SMALL_EOC_ID = 29999, 29998
 
 EVAL_KERNELS = ("flash_fwd", "decode_attn", "single_query_attn")
 TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+TASK_KERNELS = EVAL_KERNELS + TRAIN_KERNELS[1:]
 INT8_KERNELS = ("flash_fwd", "decode_attn_int8", "single_query_attn_int8", "quant_matmul")
 KERNELS = {
     "flash_fwd": ("unimp_tpu_torch/csrc/flash_fwd.cu",
@@ -381,6 +404,9 @@ def bwd_cases(dev):
                   *qkvo(3, 256, 384, 32, 32, 80),
                   dict(q_media=qm, kv_media=km, media_mode="immediate")))
     cases.append(("perceiver_train_18x64x320_d64", True, *qkvo(18, 64, 320, 16, 16, 64), {}))
+    # the transfer entry trains the vision tower: 18 images of 257 tokens
+    # (256 patches + CLS), 16 heads, d64, unmasked; one key past 4 tiles
+    cases.append(("vit_train_18x16_257_d64", True, *qkvo(18, 257, 257, 16, 16, 64), {}))
     # the x-attn case with its latents interleaved (key j of image 1 + j %
     # 6): the same number of allowed pairs, but every 64-key tile holds
     # every image, so no warp can skip a tile; timed beside it
@@ -535,6 +561,12 @@ K4_SPECS = [
     ("k16_d80", False, (2, 16, 128, 50, 8, 8, 80), {}, True),
     ("k17_d64", False, (2, 17, 64, 30, 4, 4, 64), {}, False),
     ("long_gen_130_d64", False, (2, 5, 64, 130, 4, 4, 64), dict(share=70), True),
+    # the other tasks' decodes at the 4b heads: img_gen greedy to 600 new
+    # tokens (10 passes of 64 gen positions), exp 5 beams to 256, img_sel 2
+    # beams to 40 (prompts with 9 images: T 256)
+    ("4b_b24_k1_g600_d80", True, (24, 1, 128, 600, 32, 32, 80), {}, True),
+    ("4b_b24_k5_g256_d80", True, (24, 5, 128, 256, 32, 32, 80), dict(share=8), True),
+    ("4b_b24_k2_g40_d80", True, (24, 2, 256, 40, 32, 32, 80), dict(share=4), True),
 ]
 # (name, main path, (b, kb, s, h, hkv, d), mask, int8 too): the 4b x-attn
 # decode read (4 media x 64 latents, "immediate": one 64-latent tile in four
@@ -547,6 +579,10 @@ K5_SPECS = [
     ("one_tile_of_five_d80", False, (4, 10, 320, 32, 32, 80), "one_tile", True),
     ("k16_immediate_d80", False, (2, 16, 256, 8, 8, 80), "immediate", False),
     ("k1_d64", False, (3, 1, 100, 4, 4, 64), "random", False),
+    # img_sel's 9 media (576 latents, the last one allowed) at exp's 5 beams
+    # and img_sel's 2
+    ("4b_b24_k5_s576_d80", True, (24, 5, 576, 32, 32, 80), "immediate", True),
+    ("4b_b24_k2_s576_d80", True, (24, 2, 576, 32, 32, 80), "immediate", True),
 ]
 
 
@@ -910,6 +946,47 @@ def phase_small_bf16(dev):
     if not (agree >= 0.9 and min(launches.values()) > 0):
         raise AssertionError("[small-bf16] beam search through K4 / K5 disagrees with the plain "
                              "decode attention on the card")
+
+
+# each task's decode (beams, new tokens) and media a prompt: exp 5 beams to 256,
+# img_sel 2 beams to 40 over 9 images, img_gen greedy to 600
+SMALL_TASKS = {"exp": (5, 256, 4), "img_sel": (2, 40, 9), "img_gen": (1, 600, 4)}
+
+
+def phase_small_tasks(dev):
+    """small variant, f32, gates open: the other tasks' decodes, one returned
+    sequence each, on the card (kernels) and on the CPU (plain versions),
+    one batch of 2 prompts each; token agreement as for the rec eval."""
+    cfg = get_config("small", dtype="float32")
+    cpu_model = build_model(cfg, device="cpu", seed=1)
+    open_gates(cpu_model)
+    card_model = build_model(cfg, device="cpu", seed=1)
+    open_gates(card_model)
+    card_model = card_model.to(dev)
+    rng = np.random.default_rng(3)
+    img = cfg.vision.image_size
+    images = rng.integers(0, 256, size=(16, img, img, 3), dtype=np.uint8)
+    caches = {label: ItemLatentCache(model, lambda i: images[i], 16, chunk=8, device=device)
+              for label, model, device in (("card", card_model, dev),
+                                           ("cpu", cpu_model, torch.device("cpu")))}
+    for task, (beams, new, n_media) in SMALL_TASKS.items():
+        ids, seq_len, image_ids, _ = prompts(rng, 2, 96, n_media, 16, 80, SMALL_MEDIA_ID,
+                                             SMALL_MEDIA_ID + 1)
+        gen_cfg = GenerationConfig(max_new_tokens=new, eos_id=EOS_ID, pad_id=EOS_ID,
+                                   num_beams=beams, num_return_sequences=1)
+        toks = {}
+        for label, model, device in (("card", card_model, dev),
+                                     ("cpu", cpu_model, torch.device("cpu"))):
+            gen = Generator(model, gen_cfg, media_id=SMALL_MEDIA_ID)
+            tok, _ = gen.generate(torch.from_numpy(ids).to(device),
+                                  torch.from_numpy(seq_len).to(device),
+                                  caches[label].gather(image_ids))
+            toks[label] = tok.cpu()
+        agree = float((toks["card"] == toks["cpu"]).float().mean())
+        log(f"[small-{task}] card vs cpu, {beams} beam(s), {new} new tokens, {n_media} images: "
+            f"token agreement={agree:.4f} over {tuple(toks['card'].shape)} (limit >= 0.9)")
+        if agree < 0.9:
+            raise AssertionError(f"[small-{task}] the card's decode disagrees with the CPU's")
 
 
 # ------------------------------------------------------------ phase 5
@@ -1326,6 +1403,18 @@ def host_memory_line(path) -> str:
             f"{int(mem['MemAvailable']) / 2**20:.1f} GiB available")
 
 
+def counts() -> dict:
+    """The launch counts, once the card has run what was enqueued."""
+    torch.cuda.synchronize()
+    return dict(kernel_lib.LAUNCHES)
+
+
+def between(before: dict) -> dict:
+    """Launches since ``before`` (a ``counts()``)."""
+    after = counts()
+    return {k: after[k] - before[k] for k in after}
+
+
 def phase_train_cli(dev, gpu_line, data, run_dir):
     """Rec training from files through the port's own CLI, at 4b-instruct
     width and depth: ``unimp_tpu_torch.cli.mmrec.main`` on
@@ -1349,14 +1438,6 @@ def phase_train_cli(dev, gpu_line, data, run_dir):
             "evals": mmrec.run_evals, "write": ckpt._write, "step": Trainer.train_step,
             "generate": Generator.generate, "decode_step": Generator._decode_step,
             "build": common.build_model}
-
-    def counts():
-        torch.cuda.synchronize()
-        return dict(kernel_lib.LAUNCHES)
-
-    def between(before):
-        after = counts()
-        return {k: after[k] - before[k] for k in after}
 
     def cache(model, *args, **kw):
         before, t0 = counts(), time.perf_counter()
@@ -1566,6 +1647,336 @@ def phase_train_cli(dev, gpu_line, data, run_dir):
 
 
 
+# ------------------------------------------------------------ phase 10
+
+TASK_USERS = 24  # train users kept; test users a task (one batch of 24)
+MULTI_TASKS = ("img_sel", "search", "rec", "exp")  # the reference's multi-task order
+# the metrics each evaluator must give, finite
+TASK_METRICS = {
+    "rec": [f"{m}@{k}" for k in (3, 5, 10) for m in ("hr", "ndcg", "mrr")],
+    "exp": ["mae", "rmse", "bleu", "rouge1", "rouge2", "rougeL", "meteor", "bertscore"],
+    "img_sel": ["recall", "precision", "f1"],
+    "img_gen": ["n_generated"],
+}
+TASK_METRICS["search"] = TASK_METRICS["rec"]
+
+
+def write_task_data(src, dst) -> None:
+    """``src``'s dataset with its train split cut to its first TASK_USERS
+    users in each task's train file (users, exp, img_sel, img_gen
+    sequences); every other file and the images are links to ``src``'s."""
+    dst.mkdir()
+    cut = {"train_users.json", "train_beauty_exp.json", "train_beauty_img_sel.json",
+           "search_merge_train.txt"}
+    for path in src.iterdir():
+        if path.name not in cut:
+            (dst / path.name).symlink_to(path)
+    for name in sorted(cut):
+        records = json.loads((src / name).read_text())
+        keep = (records[:TASK_USERS] if isinstance(records, list)
+                else dict(list(records.items())[:TASK_USERS]))
+        (dst / name).write_text(json.dumps(keep))
+
+
+class TaskSpies:
+    """Launches, decode steps, seconds and metrics of each evaluator call,
+    launches and peak memory of each training epoch, the tasks of its
+    records, and each checkpoint write, through the port's own entry
+    points; ``undo`` puts the originals back."""
+
+    def __init__(self):
+        from unimp_tpu_torch.cli import mmrec, mmrec_prefix
+        from unimp_tpu_torch.evals import evaluators
+        from unimp_tpu_torch.train import checkpoint as ckpt
+
+        self.evals, self.epochs, self.writes, self.steps = [], [], [], 0
+        self._undo = []
+
+        def patch(owner, name, fn):
+            self._undo.append((owner, name, getattr(owner, name)))
+            setattr(owner, name, fn)
+
+        for task, fn in list(evaluators.EVALUATORS.items()):
+            self._undo.append((evaluators.EVALUATORS, task, fn))
+            evaluators.EVALUATORS[task] = self._evaluator(task, fn)
+        orig_step, orig_epoch, orig_write = (Generator._decode_step, mmrec.train_one_epoch,
+                                             ckpt._write)
+
+        def decode_step(gen, *args, **kw):
+            self.steps += 1
+            return orig_step(gen, *args, **kw)
+
+        def epoch(args, trainer, loader, *rest, **kw):
+            before = counts()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            orig_epoch(args, trainer, loader, *rest, **kw)
+            self.epochs.append(dict(
+                s=time.perf_counter() - t0, launches=between(before),
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                tasks={t: loader.dataset.tasks.count(t) for t in set(loader.dataset.tasks)},
+                n_batches=len(loader), micro=trainer.accum_steps * len(loader)))
+
+        def write(path, obj):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            orig_write(path, obj)
+            self.writes.append((time.perf_counter() - t0, Path(path).stat().st_size))
+
+        patch(Generator, "_decode_step", decode_step)
+        patch(mmrec, "train_one_epoch", epoch)
+        patch(mmrec_prefix, "train_one_epoch", epoch)
+        patch(ckpt, "_write", write)
+
+    def _evaluator(self, task, fn):
+        def spy(*args, **kw):
+            before, steps = counts(), self.steps
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            self.evals.append(dict(task=task, s=time.perf_counter() - t0, metrics=out,
+                                   launches=between(before), steps=self.steps - steps))
+            return out
+        return spy
+
+    def undo(self):
+        for owner, name, orig in reversed(self._undo):
+            if isinstance(owner, dict):
+                owner[name] = orig
+            else:
+                setattr(owner, name, orig)
+
+
+def check_evals(tag, spies, cfg, max_new, gpu_line) -> None:
+    """Each evaluator call: its metrics present and finite, K4 launched once a
+    layer and K5 once a cross-attention layer each decode step, and no more
+    steps than the task's new tokens."""
+    lm = cfg.lm
+    n_xattn = -(-lm.num_layers // cfg.cross_attn_every_n)
+    for ev in spies.evals:
+        task, steps, launches = ev["task"], ev["steps"], ev["launches"]
+        bad = [k for k in TASK_METRICS[task]
+               if not (k in ev["metrics"] and np.isfinite(ev["metrics"][k]))]
+        want = {"decode_attn": lm.num_layers * steps, "single_query_attn": n_xattn * steps}
+        got = {k: launches[k] for k in want}
+        if bad or got != want or not 0 < steps <= max_new[task] or launches["flash_fwd"] <= 0:
+            raise AssertionError(f"{tag} {task}: metrics missing or not finite {bad}; launches "
+                                 f"{got}, expected {want}; {steps} decode steps (at most "
+                                 f"{max_new[task]}); K1 {launches['flash_fwd']}")
+        if task != "img_gen" and ev["metrics"]["n_users"] != TASK_USERS:
+            raise AssertionError(f"{tag} {task}: {ev['metrics']['n_users']} users scored")
+        log(f"{tag} {task}: {ev['s']:.2f} s, {steps} decode steps, items/s "
+            f"{ev['metrics']['items_per_sec']:.3f} (evaluator); K4 {got['decode_attn']}, K5 "
+            f"{got['single_query_attn']}, K1 {launches['flash_fwd']}; metrics "
+            + json.dumps({k: round(ev["metrics"][k], 6) for k in TASK_METRICS[task]})
+            + f" on {gpu_line}")
+
+
+def check_epoch(tag, epoch, cfg, tower_trained: bool, gpu_line) -> None:
+    """K1 once a layer of the ViT, perceiver, cross-attention and LM each
+    micro-batch; K2 and K3 once a trained layer (the ViT too where the
+    tower trains)."""
+    lm = cfg.lm
+    n_xattn = -(-lm.num_layers // cfg.cross_attn_every_n)
+    fwd = cfg.vision.num_layers + cfg.resampler.depth + n_xattn + lm.num_layers
+    bwd = fwd - (0 if tower_trained else cfg.vision.num_layers)
+    want = {"flash_fwd": fwd * epoch["micro"], "flash_bwd_dkv": bwd * epoch["micro"],
+            "flash_bwd_dq": bwd * epoch["micro"]}
+    got = {k: epoch["launches"][k] for k in want}
+    if got != want:
+        raise AssertionError(f"{tag} training launches {got}, expected {want}")
+    log(f"{tag} epoch: {epoch['n_batches']} updates of {epoch['micro'] // epoch['n_batches']} "
+        f"micro-batches in {epoch['s']:.2f} s; records by task {json.dumps(epoch['tasks'])}; "
+        f"launches {json.dumps(got)} as expected; peak {epoch['peak_gib']:.2f} GiB on {gpu_line}")
+
+
+def phase_tasks(dev, gpu_line, data, run_dir):
+    """The other tasks, multi-task training and the transfer entry through the
+    port's own CLIs at 4b-instruct width and depth, bf16 compute, on
+    ``write_cli_data``'s files with the train split cut to 24 users:
+    (a) ``mmrec.main`` on the default four-task list (img_sel, search, rec,
+    exp; 6 records each: ``--max_records 24`` of the 25% subsamples and
+    exp), micro-batch 3 x accum 2 fused, bf16 frozen backbone, the pixel
+    path (no vision cache), then the test pass of the four default tasks
+    over 24 users each (exp with BERTScore); (b) ``mmrec_eval --task img_gen``
+    over 24 users, greedy to 600 new tokens; (c) ``mmrec_prefix.main
+    --transfer_domain office`` on (a)'s ``final_weights``: the restore with
+    growth held to the checkpoint bit for bit, 4 updates with the tower
+    trained, resampler and x-attn frozen bit for bit, a rec test pass, then
+    ``--only_test``. Returns the launches of (a)-(c)."""
+    from unimp_tpu_torch.cli import mmrec, mmrec_eval, mmrec_prefix
+    from unimp_tpu_torch.train import checkpoint as ckpt
+
+    task_data = run_dir.parent / "task_data"
+    write_task_data(data, task_data)
+    common_argv = ["--mmrec_path", str(task_data), "--external_save_dir", str(run_dir),
+                   "--pretrained_model_name_or_path", "4b-instruct", "--subset", "beauty",
+                   "--n_items", str(N_ITEM_TOKENS), "--history_len", "5",
+                   "--patch-image-size", "224", "--max_records", str(TASK_USERS),
+                   "--eval_batch_size", str(TASK_USERS), "--num_beams", "10",
+                   "--workers", "2", "--device", "cuda"]
+    train_argv = ["--batch_size", "3", "--gradient_accumulation_steps", "2",
+                  "--fused_accumulation", "--use_reweight", "--gamma", "2", "--num_epochs", "1",
+                  "--logging_steps", "1", "--do_test"]
+    max_new = {"rec": 50, "search": 20, "exp": 256, "img_sel": 40, "img_gen": 600}
+    launches = {}
+
+    # --- (a) multi-task training and the four default evals
+    spies = TaskSpies()
+    try:
+        kernel_lib.reset_launches()          # the main path (a) starts here
+        t0 = time.perf_counter()
+        trainer, _ = mmrec.main(common_argv + train_argv + ["--run_name", "multi",
+                                                            "--frozen_bf16", "--eval_embed"])
+        torch.cuda.synchronize()
+        launches["tasks"] = dict(kernel_lib.LAUNCHES)  # ... and ends here
+        main_s = time.perf_counter() - t0
+    finally:
+        spies.undo()
+    cfg = trainer.model.cfg
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    multi_dir = run_dir / "multi"
+    for name in ("weights_epoch_0", "checkpoint_0"):  # only final_weights is read again
+        shutil.rmtree(multi_dir / name)
+    (epoch,) = spies.epochs
+    if set(epoch["tasks"]) != set(MULTI_TASKS) or epoch["n_batches"] != TASK_USERS // 6:
+        raise AssertionError(f"[tasks] the epoch's records {epoch['tasks']}, "
+                             f"{epoch['n_batches']} updates")
+    check_epoch("[tasks]", epoch, cfg, False, gpu_line)
+    if sorted(ev["task"] for ev in spies.evals) != sorted(MULTI_TASKS):
+        raise AssertionError(f"[tasks] evaluated {[ev['task'] for ev in spies.evals]}")
+    check_evals("[tasks]", spies, cfg, max_new, gpu_line)
+    dumps = [multi_dir / "results_exp.txt", multi_dir / "save_gen" / "gen_exps_0.json",
+             multi_dir / "save_gen" / "real_exps_0.json"]
+    if not all(p.is_file() and p.stat().st_size > 0 for p in dumps):
+        raise AssertionError(f"[tasks] missing dumps: {[str(p) for p in dumps if not p.is_file()]}")
+    log(f"[tasks] 4b-instruct, vocab {cfg.lm.vocab_size}; main {main_s:.1f} s (build, "
+        f"{epoch['n_batches']} updates, 4 test passes, checkpoints {sum(w[0] for w in spies.writes):.2f} "
+        f"s for {sum(w[1] for w in spies.writes) / 2**30:.2f} GiB) on {gpu_line}")
+
+    # --- (b) img_gen: greedy to 600 new tokens
+    spies = TaskSpies()
+    try:
+        kernel_lib.reset_launches()          # the main path (b) starts here
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        results = mmrec_eval.main(common_argv + ["--run_name", "img_gen", "--task", "img_gen",
+                                                 "--single_task"])
+        torch.cuda.synchronize()
+        launches["img_gen"] = dict(kernel_lib.LAUNCHES)  # ... and ends here
+        main_s = time.perf_counter() - t0
+    finally:
+        spies.undo()
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_evals("[img_gen]", spies, cfg, max_new, gpu_line)
+    dump = json.loads(Path(results["img_gen"]["dump_path"]).read_text())
+    if len(dump) != TASK_USERS or not all(isinstance(g["generated"], str) for g in dump):
+        raise AssertionError(f"[img_gen] dump of {len(dump)} generations")
+    (ev,) = spies.evals
+    log(f"[img_gen] main {main_s:.1f} s; {ev['steps']} greedy steps in {ev['s']:.2f} s "
+        f"({ev['s'] / ev['steps'] * 1e3:.1f} ms a step), items/s "
+        f"{results['img_gen']['items_per_sec']:.3f}; {len(dump)} generations dumped; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {gpu_line}")
+
+    # --- (c) the transfer entry on (a)'s final weights
+    restored = ckpt.restore_params(str(multi_dir), "final_weights")
+    seen = {"bad": [], "grown": {}}
+    orig_merge, orig_load = ckpt.merge_with_growth, mmrec_prefix.load_flax_params
+
+    def expected(path, t):
+        """(a)'s tensor, cast to the model's dtype; a grown table is the
+        fresh init with (a)'s table over its leading corner."""
+        r = restored[path].to(dev, t.dtype)
+        if path not in seen["grown"]:
+            return r
+        want = seen["grown"][path].clone()
+        want[tuple(slice(0, d) for d in r.shape)] = r
+        return want
+
+    def merge(restored_tree, target):
+        for path, t in target.items():  # each grown table's fresh init
+            if path in restored_tree and tuple(restored_tree[path].shape) != tuple(t.shape):
+                seen["grown"][path] = t.clone()
+        return orig_merge(restored_tree, target)
+
+    def load(model, flat):
+        orig_load(model, flat)
+        seen["bad"] += [path for path, t in ckpt.model_tree(model).items()
+                        if not torch.equal(t, expected(path, t))]
+
+    xfer_argv = common_argv + train_argv + ["--run_name", "xfer", "--task", "rec",
+                                            "--single_task", "--transfer_domain", "office",
+                                            "--load_run_name", "multi",
+                                            "--load_weights_name", "final_weights"]
+    spies = TaskSpies()
+    ckpt.merge_with_growth, mmrec_prefix.load_flax_params = merge, load
+    try:
+        kernel_lib.reset_launches()          # the main path (c) starts here
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer, state = mmrec_prefix.main(xfer_argv)
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t0
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        model = trainer.model
+        n_trainable = sum(p.numel() for p in trainer.params.values())
+        n_params = sum(p.numel() for p in model.parameters())
+        frozen_same, moved = [], {}
+        for name, p in model.named_parameters():
+            path = name.replace(".", "/")
+            same = torch.equal(p.detach(), expected(path, p))
+            group = path.split("/")[0].split("_")[0]  # vision, resampler, xattn, block, ...
+            if p.requires_grad:
+                moved.setdefault(group, [0, 0])[0] += not same
+                moved[group][1] += 1
+            else:
+                frozen_same.append(same and (group in ("resampler", "xattn")))
+        del trainer, model
+        gc.collect()
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        only = mmrec_prefix.main(xfer_argv + ["--only_test"])
+        torch.cuda.synchronize()
+        only_s = time.perf_counter() - t1
+        launches["transfer"] = dict(kernel_lib.LAUNCHES)  # ... and ends here
+    finally:
+        spies.undo()
+        ckpt.merge_with_growth, mmrec_prefix.load_flax_params = orig_merge, orig_load
+    grown = {path: tuple(t.shape) for path, t in seen.pop("grown").items()}
+    del restored
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(run_dir)
+
+    if seen["bad"] or not grown:
+        raise AssertionError(f"[transfer] the restore with growth differs from (a)'s weights "
+                             f"at {seen['bad'][:8]}; grown {grown}")
+    if not (frozen_same and all(frozen_same)):
+        raise AssertionError("[transfer] a frozen tensor outside resampler / xattn, or one "
+                             "that moved")
+    if not all(moved.get(g, [0])[0] > 0 for g in ("vision", "block", "embed")):
+        raise AssertionError(f"[transfer] the tower or the LM did not move: {moved}")
+    (epoch,) = spies.epochs
+    check_epoch("[transfer]", epoch, cfg, True, gpu_line)
+    check_evals("[transfer]", spies, cfg, max_new, gpu_line)
+    if state["step"] != TASK_USERS // 6 or sorted(only) != ["rec"]:
+        raise AssertionError(f"[transfer] state {state}; --only_test gave {sorted(only)}")
+    log(f"[transfer] office: {len(grown)} tables grown {json.dumps(grown)}, every tensor equal "
+        f"to (a)'s final_weights bit for bit (new rows: the fresh init); {n_trainable / 1e9:.3f} "
+        f"B of {n_params / 1e9:.3f} B float32 parameters trainable; after {state['step']} "
+        f"updates {len(frozen_same)} frozen (resampler, xattn) unchanged bit for bit, trainable "
+        f"tensors moved / all by group {json.dumps(moved)}")
+    log(f"[transfer] main {main_s:.1f} s (build, restore, {state['step']} updates, the test "
+        f"pass, checkpoints {sum(w[0] for w in spies.writes):.2f} s for "
+        f"{sum(w[1] for w in spies.writes) / 2**30:.2f} GiB); --only_test {only_s:.1f} s; "
+        f"peak {peak_gib:.2f} GiB (AdamW on {n_trainable / 1e9:.3f} B float32: "
+        f"{16 * n_trainable / 2**30:.1f} GiB of weights, gradients and moments) on {gpu_line}")
+    return launches
+
+
 def kernel_name(ptxas_line: str) -> str:
     """The kernel's name and its mangled template arguments, as in
     'flash_fwd_mma_kernel ILi80ELb1EE' (80, true), from ptxas's
@@ -1697,6 +2108,7 @@ def main() -> int:
     phase_small(dev, int8=True)
     phase_small_bf16(dev)
     phase_small_train(dev)
+    phase_small_tasks(dev)
     log(f"[small] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     eval_launches = phase_4b(dev, gpu_line)
@@ -1726,6 +2138,11 @@ def main() -> int:
         t0 = time.perf_counter()
         train_cli_launches = phase_train_cli(dev, gpu_line, data, Path(tmp) / "train")
         log(f"[train-cli] done in {time.perf_counter() - t0:.1f} s")
+        gc.collect()  # the training CLI's models are gone: give their memory back
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        task_launches = phase_tasks(dev, gpu_line, data, Path(tmp) / "tasks")
+        log(f"[tasks] phase 10 done in {time.perf_counter() - t0:.1f} s")
 
     # one headline shape per kernel: LM prefill, the LM self-attention
     # backward of training, decode at step 50, x-attn read, the MLP
@@ -1744,7 +2161,10 @@ def main() -> int:
         by_path = {path: n[name] for path, n, kernels in (
             ("eval", eval_launches, EVAL_KERNELS), ("train", train_launches, TRAIN_KERNELS),
             ("eval_int8", int8_launches, INT8_KERNELS), ("cli", cli_launches, EVAL_KERNELS),
-            ("train_cli", train_cli_launches, tuple(KERNELS)))
+            ("train_cli", train_cli_launches, tuple(KERNELS)),
+            ("tasks", task_launches["tasks"], TASK_KERNELS),
+            ("img_gen", task_launches["img_gen"], EVAL_KERNELS),
+            ("transfer", task_launches["transfer"], TASK_KERNELS))
             if name in kernels}
         row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                "launches": sum(by_path.values()), "launches_by_path": by_path,

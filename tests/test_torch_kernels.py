@@ -356,14 +356,16 @@ def _media_ids(b, sq, n_media, lat, first, gap):
     return torch.from_numpy(np.cumsum(pos, 1, dtype=np.int32)), torch.from_numpy(km)
 
 
-# name: ((b, sq, skv, h, hkv, d), masks); the 4b training shapes, then the
-# edges of the 64-row / 64-column tiles of the tensor-core kernels
+# name: ((b, sq, skv, h, hkv, d), masks); the 4b training shapes (the ViT's
+# when the transfer entry trains the tower: 257 keys, one past four tiles),
+# then the edges of the 64-row / 64-column tiles of the tensor-core kernels
 BF16_BWD_CASES = {
     "lm_train_3x256_d80_causal_kvlen": ((3, 256, 256, 32, 32, 80),
                                         dict(causal=True, kv_len=[256, 229, 203])),
     "xattn_train_3x256x384_d80_immediate": ((3, 256, 384, 32, 32, 80),
                                             dict(media=(6, 64, 4, 31))),
     "perceiver_train_18x64x320_d64": ((18, 64, 320, 16, 16, 64), {}),
+    "vit_train_18x16_257_d64": ((18, 257, 257, 16, 16, 64), {}),
     "one_1x1_d64": ((2, 1, 1, 4, 4, 64), {}),
     "tile_edge_65_d80_causal": ((2, 65, 65, 8, 8, 80), dict(causal=True)),
     "skv63_d80": ((2, 100, 63, 8, 8, 80), {}),
@@ -433,7 +435,9 @@ def test_flash_backward_bf16_matches_plain_on_card(cuda_device, case):
 # edges of the tensor-core kernel: one beam (greedy, no beam_sel), 16 beams
 # (one full tile of rows), beams sharing one ancestor for the first 20 gen
 # positions, ragged kv_start / prompt_len windows, GQA 16/4 with ALiBi, and
-# 130 gen positions (the kernel lists them 64 at a time)
+# 130 gen positions (the kernel lists them 64 at a time); then the other
+# tasks' decodes at the 4b heads: img_gen greedy to 600 positions, exp's 5
+# beams to 256, img_sel's 2 beams to 40
 K4_CARD_CASES = {
     "4b_b24_k10_d80": (24, 10, 128, 50, 32, 32, 80, {}),
     "greedy_k1_d80": (4, 1, 128, 50, 32, 32, 80, {}),
@@ -443,6 +447,9 @@ K4_CARD_CASES = {
     "gqa_16_4_alibi_d64": (3, 4, 100, 50, 16, 4, 64, dict(alibi=True, ragged=True)),
     "gqa_16_4_alibi_d128": (3, 4, 100, 50, 16, 4, 128, dict(alibi=True, ragged=True)),
     "long_gen_130_d64": (2, 5, 64, 130, 4, 4, 64, dict(share=70)),
+    "img_gen_greedy_b24_g600_d80": (24, 1, 128, 600, 32, 32, 80, {}),
+    "exp_b24_k5_g256_d80": (24, 5, 128, 256, 32, 32, 80, dict(share=8)),
+    "img_sel_b24_k2_g40_d80": (24, 2, 256, 40, 32, 32, 80, dict(share=4)),
 }
 
 
@@ -491,13 +498,16 @@ def test_decode_kernel_bf16_matches_plain_on_card(cuda_device, case, kv):
 
 # K5 cases: (b, kb, s, h, hkv, d, mask); "immediate": the last of s / 64
 # media allowed (one 64-latent tile in four at the 4b shape); "one_tile":
-# latents 130-140 only (one tile of five); "random" with row 0 fully masked
+# latents 130-140 only (one tile of five); "random" with row 0 fully masked;
+# img_sel's 9 media (576 latents) at 5 and 2 beams
 K5_CARD_CASES = {
     "4b_b24_k10_s256_d80_immediate": (24, 10, 256, 32, 32, 80, "immediate"),
     "one_tile_of_five_d80": (4, 10, 320, 8, 8, 80, "one_tile"),
     "masked_row_gqa_d128": (4, 3, 96, 16, 4, 128, "random"),
     "k16_d64": (2, 16, 256, 8, 8, 64, "random"),
     "k1_d80": (3, 1, 100, 4, 4, 80, "random"),
+    "exp_b24_k5_s576_d80_immediate": (24, 5, 576, 32, 32, 80, "immediate"),
+    "img_sel_b24_k2_s576_d80_immediate": (24, 2, 576, 32, 32, 80, "immediate"),
 }
 
 

@@ -8,7 +8,8 @@ test pass, 8 train users. Against them: the loader's epochs, the
 multi-task dataset, the vision tower cache, a cached ``Trainer`` step,
 ``MultiSteps`` with a non-finite micro-batch, the per-step losses and the
 final weights, the files the run writes, resume, the reload eval (float
-and int8) and the flags that are not ported. Tolerances are those of
+and int8), the other tasks' runs (exp, search, the curriculum, the default
+multi-task list) and the flags that are not ported. Tolerances are those of
 ``tests/test_torch_train.py``: losses 1e-5 relative, gradients and weights
 5e-4 of the tensor's largest entry.
 """
@@ -29,6 +30,7 @@ from unimp_tpu.cli import mmrec as j_mmrec
 from unimp_tpu.data.dataset import TaskDataset as JTaskDataset
 from unimp_tpu.data.loader import DataLoader as JDataLoader
 from unimp_tpu.data.transforms import normalize_on_device as j_norm
+from unimp_tpu.evals import evaluators as j_evaluators
 from unimp_tpu.models import UniMPModel as JModel
 from unimp_tpu.tools import synth_data as j_synth
 from unimp_tpu.train import optimizer as j_opt
@@ -186,7 +188,8 @@ def test_loader_epochs_match_jax(data, tokenizers, load_images):
 
 def test_multi_task_dataset_matches_jax(data, tokenizers):
     """``[search, rec]``: a 25% subsample of search drawn from the
-    dataset's rng, then every rec record; each record keeps its task."""
+    dataset's rng, then every rec record; each record keeps its task. Then
+    ``[rec, exp]``: exp reads its own file."""
     jtok, tok = tokenizers
     kw = dict(n_items=N_ITEMS, history_len=5, load_images=False)
     jds = JTaskDataset(data, "beauty", ["search", "rec"], "train", jtok, **kw)
@@ -198,8 +201,10 @@ def test_multi_task_dataset_matches_jax(data, tokenizers):
         assert a["task"] == b["task"] and a["weight"] == b["weight"]
         np.testing.assert_array_equal(a["input_ids"], b["input_ids"])
         np.testing.assert_array_equal(a["image_ids"], b["image_ids"])
-    with pytest.raises(NotImplementedError):
-        TaskDataset(data, "beauty", ["rec", "exp"], "train", tok, n_items=N_ITEMS)
+    jds = JTaskDataset(data, "beauty", ["rec", "exp"], "train", jtok, **kw)
+    ds = TaskDataset(data, "beauty", ["rec", "exp"], "train", tok, **kw)
+    assert ds.tasks == jds.tasks and ds.records == jds.records
+    assert ds.tasks.count("rec") == int(0.25 * 48) and ds.tasks.count("exp") == 48
 
 
 @pytest.fixture(scope="module")
@@ -540,21 +545,85 @@ def test_reload_eval(data, runs, tmp_path, monkeypatch, dtype):
 @pytest.mark.parametrize("extra", [
     ["--frozen_int8"], ["--bf16_opt_state"], ["--remat"], ["--remat_policy", "dots"],
     ["--load_from_original_checkpoint", "w.pt"], ["--save_hf_model"],
-    ["--save_checkpoints_to_wandb"], ["--task", "exp"], ["--task", "search", "--do_test"],
-    ["--train_method", "continue", "--num_epochs", "4"], [],
+    ["--save_checkpoints_to_wandb"],
 ])
 def test_unported_flags_raise_before_any_work(data, tmp_path, monkeypatch, extra):
-    """Each raises before the tokenizer is built. The last case drops
-    --single_task: the default multi-task list reaches img_sel and exp."""
+    """Each raises before the tokenizer is built."""
     def no_work(*args, **kw):
         raise AssertionError("work started before the check")
 
     monkeypatch.setattr(common, "build_tokenizer", no_work)
     argv = _argv(data, str(tmp_path), "cli", "--device", "cpu", *extra)
-    if not extra:
-        argv.remove("--single_task")
     with pytest.raises(NotImplementedError):
         mmrec.main(argv)
+
+
+def _run_files(root: Path) -> list:
+    """The files a run writes, each checkpoint directory as one entry (its
+    layout is Orbax's in the JAX package, ``params.pt`` files in the port)."""
+    out = set()
+    for p in root.rglob("*"):
+        if p.is_file():
+            rel = p.relative_to(root)
+            top = rel.parts[0]
+            ckpt_dir = top == "final_weights" or top.startswith(("weights_epoch_", "checkpoint_"))
+            out.add(top if ckpt_dir else str(rel))
+    return sorted(out)
+
+
+@pytest.mark.parametrize("extra", [
+    ["--task", "exp"], ["--task", "search", "--do_test"],
+    ["--train_method", "continue", "--num_epochs", "4"], [],
+])
+def test_task_runs_match_jax(data, tmp_path, monkeypatch, extra):
+    """The runs that raised before the other tasks were ported, on both
+    packages from the JAX initial weights: the same files, per-step losses
+    within 1e-5 relative, and (search's test pass) the same answers and
+    metrics within 1e-12. The last case drops --single_task: the default
+    multi-task list, whose first 8 records are img_sel's."""
+    seen = {"answers": {"jax": [], "port": []}}
+    orig_init, orig_build = JTrainer.init_state, common.build_model
+
+    def init_state(self, *args, **kw):
+        state = orig_init(self, *args, **kw)
+        seen["init"] = _flat(state.params)
+        return state
+
+    def build(args, tokenizer, **kw):
+        return orig_build(args, tokenizer, **{**kw, "weights": seen["init"]})
+
+    for side, mod in (("jax", j_evaluators), ("port", evaluators)):
+        orig = mod._generate_batches
+
+        def spy(*args, _orig=orig, _side=side, **kw):
+            for rows, batch, ips in _orig(*args, **kw):
+                seen["answers"][_side].append(rows)
+                yield rows, batch, ips
+
+        monkeypatch.setattr(mod, "_generate_batches", spy)
+    monkeypatch.setattr(JTrainer, "init_state", init_state)
+    monkeypatch.setattr(j_common, "build_mesh", lambda args: None)
+    monkeypatch.setattr(common, "build_model", build)
+    argvs = {side: _argv(data, str(tmp_path / side), "cli", *extra) for side in ("jax", "port")}
+    argvs["port"] += ["--device", "cpu"]
+    for argv in argvs.values():
+        if not extra:
+            argv.remove("--single_task")
+    j_mmrec.main(argvs["jax"])
+    mmrec.main(argvs["port"])
+    roots = {side: tmp_path / side / "cli" for side in ("jax", "port")}
+    assert _run_files(roots["port"]) == _run_files(roots["jax"])
+    want, got = (_losses(roots[side] / "cli_metrics.jsonl") for side in ("jax", "port"))
+    epochs = 4 if "--num_epochs" in extra else 1
+    assert len(got) == len(want) == 4 * epochs
+    np.testing.assert_allclose(got, want, rtol=LOSS_RTOL)
+    assert seen["answers"]["port"] == seen["answers"]["jax"]
+    if "--do_test" in extra:
+        name = "results/cli_search_test_epoch_0_rank_0.json"
+        a, b = (json.loads((roots[side] / name).read_text()) for side in ("port", "jax"))
+        assert len(a) == len(b) == 8
+        for u, w in zip(a, b):
+            assert sorted(u) == sorted(w) and all(abs(u[k] - w[k]) <= 1e-12 for k in w)
 
 
 def test_reload_of_a_jax_checkpoint_or_a_pt_name_raises(data, runs, tmp_path):

@@ -19,17 +19,14 @@ from unimp_tpu_torch.data.loader import DataLoader
 from unimp_tpu_torch.data.tokenizer import UniMPTokenizer
 from unimp_tpu_torch.data.vocab import extend_vocabulary
 from unimp_tpu_torch.device import resolve_device
-from unimp_tpu_torch.evals.evaluators import EVALUATORS
 from unimp_tpu_torch.models import get_config
 from unimp_tpu_torch.models.config import config_from_json
 from unimp_tpu_torch.tools import from_flax
 
-TRAIN_TASKS = ("rec", "search")  # the tasks whose dataset the port has
 ALL_EVAL_TASKS = ["rec", "exp", "img_sel", "search"]  # run_evals' multi-task default
 # flag -> (what it needs, its ROADMAP.md §1 item)
 UNPORTED = {
     "seq_shard": ("--seq_shard: ring attention", "item 7"),
-    "eval_embed": ("--eval_embed: the exp evaluator and BERTScore", "item 5"),
     "frozen_int8": ("--frozen_int8: the int8 frozen backbone under autograd", "item 3.6"),
     "bf16_opt_state": ("--bf16_opt_state: bf16 gradients and moments", "item 3.5"),
     "remat": ("--remat: activation checkpointing", "item 3.4"),
@@ -43,8 +40,7 @@ UNPORTED = {
 
 def check_ported(args, *, train: bool = False) -> None:
     """Raise, before any work, on a flag whose machinery the port does not
-    have yet, or on a run whose train or eval task list reaches a task the
-    port cannot run."""
+    have yet."""
     if getattr(args, "mesh_fsdp", 1) > 1 or getattr(args, "mesh_tp", 1) > 1:
         raise NotImplementedError("--mesh_fsdp / --mesh_tp above 1: multi-GPU is not "
                                   "ported yet (ROADMAP.md §1, item 7)")
@@ -60,21 +56,6 @@ def check_ported(args, *, train: bool = False) -> None:
     if train and args.cache_vision_latents and args.unfreeze_backbone:
         raise SystemExit("--cache_vision_latents requires the frozen tower "
                          "(drop --unfreeze_backbone)")
-    lists = []
-    if train:
-        lists.append(args.task if args.single_task else multi_task_list(args))
-        if args.train_method == "continue":
-            lists += [curriculum_tasks(e, args.num_epochs) for e in range(args.num_epochs)]
-    for tasks in lists:
-        for t in [tasks] if isinstance(tasks, str) else tasks:
-            if t not in TRAIN_TASKS:
-                raise NotImplementedError(f"training on the {t} task: its dataset is not "
-                                          "ported yet (ROADMAP.md §1, item 5)")
-    if not train or args.do_eval or args.do_test:
-        for t in [args.task] if args.single_task else ALL_EVAL_TASKS:
-            if t not in EVALUATORS:
-                raise NotImplementedError(f"the {t} evaluator is not ported yet "
-                                          "(ROADMAP.md §1, item 5)")
 
 
 def build_tokenizer(args) -> UniMPTokenizer:
@@ -102,7 +83,7 @@ def build_tokenizer(args) -> UniMPTokenizer:
     return tok
 
 
-def build_model(args, tokenizer, *, train: bool = False, weights=None):
+def build_model(args, tokenizer, *, train: bool = False, weights=None, trainable_mask=None):
     """The variant (or ``--config_json``) with the CLI's overrides and the
     vocab sized to the extended tokenizer, rounded up to 128, on
     ``--device``, with the port's seeded weights (``--seed``) or
@@ -110,7 +91,9 @@ def build_model(args, tokenizer, *, train: bool = False, weights=None):
     Inference: cast or quantized as ``--eval_param_dtype`` says, after
     ``weights`` are loaded. Training (``train``): the reference's freezing,
     frozen tensors in bfloat16 under ``--frozen_bf16``, or every tensor
-    trainable (float32) under ``--unfreeze_backbone``."""
+    trainable (float32) under ``--unfreeze_backbone``; or, given
+    ``trainable_mask`` (model -> {parameter name: trainable}), that
+    freezing with every tensor float32 (the transfer entry's)."""
     if getattr(args, "config_json", None):
         cfg = config_from_json(args.config_json)
     else:
@@ -125,6 +108,9 @@ def build_model(args, tokenizer, *, train: bool = False, weights=None):
     if not train:
         return from_flax.build_model(cfg, device=device, seed=args.seed, weights=weights,
                                      eval_param_dtype=args.eval_param_dtype)
+    if trainable_mask is not None:
+        return from_flax.build_model(cfg, device=device, seed=args.seed, weights=weights,
+                                     train=True, trainable_mask=trainable_mask)
     unfreeze = args.unfreeze_backbone
     frozen = torch.bfloat16 if args.frozen_bf16 and not unfreeze else None
     model = from_flax.build_model(cfg, device=device, seed=args.seed, weights=weights,
@@ -136,6 +122,10 @@ def build_model(args, tokenizer, *, train: bool = False, weights=None):
 
 def make_dataset(args, tokenizer, split: str, task=None) -> TaskDataset:
     task = task if task is not None else args.task
+    # --img_gen_mode pretrain selects the single-item catalogue variant
+    # (rec_dataset.py:536-611; the reference toggles it by editing code)
+    if task == "img_gen" and getattr(args, "img_gen_mode", "retrieve") == "pretrain":
+        task = "img_gen_pretrain"
     # eval batches carry item ids; images are encoded once into the
     # device-side latent cache (evals/latent_cache.py). Train batches do the
     # same under --cache_vision_latents (train/vision_cache.py).

@@ -25,6 +25,7 @@ import torch
 from unimp_tpu_torch.cli import common
 from unimp_tpu_torch.cli.arguments import build_parser
 from unimp_tpu_torch.data.loader import prefetch_to_device
+from unimp_tpu_torch.evals.bertscore import make_model_bertscore
 from unimp_tpu_torch.evals.evaluators import EVALUATORS
 from unimp_tpu_torch.tools.from_flax import load_flax_params
 from unimp_tpu_torch.train import checkpoint as ckpt
@@ -65,8 +66,12 @@ def train_one_epoch(args, trainer, loader, epoch, logger, timer):
 
 def run_evals(args, model, tokenizer, logger, epoch, tasks=None, split="test",
               cache_holder=None):
-    """Evaluate ``tasks`` on ``split``; per-user dumps named as the
-    reference names them (eval_rec.py:158), rooted in the run dir. A model
+    """Evaluate ``tasks`` on ``split``, with the dumps named as the reference
+    names them, rooted in the run dir: rec / search per-user metrics under
+    ``results/`` (eval_rec.py:158), exp generations under ``save_gen/`` and
+    an appended ``results_exp.txt`` (eval_exp.py:152-175), img_gen tokens
+    under ``save_img_gen/`` (eval_img_gen.py:141-144). ``--num_beams`` goes
+    to rec and search only; the other tasks keep their own beams. A model
     in training mode is evaluated in place, in ``eval()`` mode under
     ``torch.no_grad()``, and handed back in training mode."""
     tasks = tasks or ([args.task] if args.single_task else common.ALL_EVAL_TASKS)
@@ -84,18 +89,34 @@ def run_evals(args, model, tokenizer, logger, epoch, tasks=None, split="test",
             except FileNotFoundError as e:
                 logger.print(f"[eval] skipping {task} ({split}): {e}")
                 continue
-            if task not in EVALUATORS:
-                raise NotImplementedError(f"the {task} evaluator is not ported yet "
-                                          "(ROADMAP.md §1, item 5)")
             loader = common.make_loader(args, ds, tokenizer, train=False)
+            kwargs = {"kv_int8": getattr(args, "kv_int8", False),
+                      "cache_holder": cache_holder}
+            if task in ("rec", "search"):
+                kwargs["num_beams"] = args.num_beams
+                kwargs["dump_path"] = os.path.join(
+                    run_dir, "results",
+                    f"{args.run_name}_{task}_{split}_epoch_{epoch}_rank_{rank}.json")
+            elif task == "exp":
+                kwargs["dump_dir"] = os.path.join(run_dir, "save_gen")
+                kwargs["rank"] = rank
+                if getattr(args, "eval_embed", False):
+                    kwargs["bertscore_fn"] = make_model_bertscore(model, tokenizer)
+            elif task == "img_gen":
+                kwargs["dump_path"] = os.path.join(
+                    run_dir, "save_img_gen",
+                    f"img_gen_{rank}_epoch_{epoch}_name_{args.run_name}.json")
             with torch.no_grad():
-                metrics = EVALUATORS[task](
-                    model, loader, tokenizer, num_beams=args.num_beams,
-                    kv_int8=getattr(args, "kv_int8", False), cache_holder=cache_holder,
-                    dump_path=os.path.join(
-                        run_dir, "results",
-                        f"{args.run_name}_{task}_{split}_epoch_{epoch}_rank_{rank}.json"))
+                metrics = EVALUATORS[task](model, loader, tokenizer, **kwargs)
             results[task] = metrics
+            if task == "exp" and rank == 0:
+                # the reference appends the aggregate to results_exp.txt
+                # (eval_exp.py:168-175)
+                line = " \n".join(f"{k}: {metrics[k]}" for k in (
+                    "rmse", "mae", "bleu", "rouge1", "rouge2", "rougeL", "meteor", "bertscore")
+                    if k in metrics)
+                with open(os.path.join(run_dir, "results_exp.txt"), "a+") as f:
+                    f.write(line + "\n\n")
             prefix = task if split == "test" else f"{task}/{split}"
             logger.log({f"{prefix}/{k}": v for k, v in metrics.items()
                         if isinstance(v, (int, float))}, step=epoch)

@@ -2,14 +2,15 @@
 
 Counterpart of ``unimp_tpu/data/dataset.py`` (capability parity with the
 reference RecDataset, UniMP's pipeline/mm_utils/rec_dataset.py:56-279),
-for the two tasks that read ``{split}_users.json``: ``rec`` and
-``search``, alone or mixed. The other tasks (exp, img_sel, img_gen)
-raise until they are ported (ROADMAP.md §1, item 5).
+for every task, alone or mixed:
 
-  * file layout: ``{split}_users.json``, ``meta_{subset}.json``,
-    ``id2semantic.json``/``img_id2semantic.json``, images at
+  * file layout: ``{split}_users.json`` (rec, search),
+    ``{split}_{subset}_exp.json``, ``{split}_{subset}_img_sel.json``,
+    ``search_merge_{split}.txt`` (img_gen retrieval sequences, a JSON
+    list), ``meta_{subset}.json`` (its keys are img_gen_pretrain's
+    records), ``id2semantic.json``/``img_id2semantic.json``, images at
     ``{subset}/{item_id}.jpg`` (rec_dataset.py:108-131)
-  * per-subset history lengths: all=5, netflix=3, hm=8
+  * per-subset history lengths: all=5 (img_gen: 2), netflix=3, hm=8
     (rec_dataset.py:134-142)
   * multi-task mixing with 25% subsampling of every non-final task, drawn
     from the dataset's rng (rec_dataset.py:180-206); each record keeps
@@ -31,6 +32,8 @@ from unimp_tpu_torch.data.prompts import PromptBuilder
 from unimp_tpu_torch.data.tokenizer import UniMPTokenizer
 from unimp_tpu_torch.data.transforms import load_resized_uint8
 from unimp_tpu_torch.data.vocab import ITEM_COUNTS
+
+TASK_ORDER = {"img_sel": 0, "search": 1, "rec": 2, "exp": 3}  # rec_dataset.py:181
 
 HISTORY_LEN = {"all": 5, "netflix": 3, "hm": 8}  # rec_dataset.py:134-142
 
@@ -71,6 +74,9 @@ class TaskDataset:
 
         if history_len is None:
             history_len = HISTORY_LEN.get(subset, 5)
+            # as the JAX package compares it: a task list is never "img_gen"
+            if task == "img_gen" and subset == "all":
+                history_len = 2  # rec_dataset.py:135-136
         if n_items is None:
             n_items = ITEM_COUNTS.get(subset)
 
@@ -89,17 +95,12 @@ class TaskDataset:
             img_id2semantic=img_id2semantic,
         )
 
-        tasks = [task] if isinstance(task, str) else list(task)
-        for t in tasks:
-            if t not in ("rec", "search"):
-                if t in ("exp", "img_sel", "img_gen", "img_gen_pretrain"):
-                    raise NotImplementedError(f"the {t} task's dataset is not ported yet "
-                                              "(ROADMAP.md §1, item 5)")
-                raise KeyError(f"unsupported task {t!r}")
         self.records: List = []
         self.tasks: List[str] = []
+        tasks = [task] if isinstance(task, str) else list(task)
         for i, t in enumerate(tasks):
-            records = list(self._load_json(f"{split}_users.json").values())
+            data = self._task_records(t)
+            records = data if isinstance(data, list) else list(data.values())
             if i < len(tasks) - 1:  # 25% subsample of every non-final task
                 idx = self.rng.permutation(len(records))[: int(0.25 * len(records))]
                 records = [records[j] for j in idx]
@@ -124,6 +125,19 @@ class TaskDataset:
             with open(p) as f:
                 return json.load(f)
         return None
+
+    def _task_records(self, task: str):
+        """The task's records: a dict keyed by user, or a list."""
+        split = self.split
+        if task in ("rec", "search"):
+            return self._load_json(f"{split}_users.json")
+        if task in ("exp", "img_sel"):
+            return self._load_json(f"{split}_{self.subset}_{task}.json")
+        if task == "img_gen":  # retrieval sequences (rec_dataset.py:169-176)
+            return self._load_json(f"search_merge_{split}.txt")
+        if task == "img_gen_pretrain":  # the catalogue's items (rec_dataset.py:174-178)
+            return list(self.builder.meta_data.keys())
+        raise KeyError(f"unsupported task {task!r}")
 
     # ------------- access -------------
 

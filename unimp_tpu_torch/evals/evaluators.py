@@ -1,11 +1,20 @@
-"""Rank evaluation: batched beam generation -> HR/NDCG/MRR.
+"""Per-task evaluators: batched generation -> task metrics.
 
-Counterpart of the rec evaluator of ``unimp_tpu/evals/evaluators.py``
-(protocol of UniMP's pipeline/eval/eval_rec.py:100-157): 10 beams, 10
-returned sequences, at most 50 new tokens; the text after the last
-question mark of each returned sequence is an answer, matched exactly
-(whitespace removed) against the target item token; HR/NDCG/MRR @ {3, 5,
-10}.
+Counterpart of ``unimp_tpu/evals/evaluators.py`` (the protocols of UniMP's
+pipeline/eval/):
+
+  rec      eval_rec.py:100-157   — 10 beams, 10 returns, max 50 new,
+           exact match of the text after the last question mark against
+           the target item token; HR/NDCG/MRR @ {3, 5, 10}
+  search   eval_search.py:98-155 — the same, max 20 new
+  exp      eval_exp.py:103-171   — 5 beams / 1 return, max 256; rating
+           parsed from the leading "rate_k" (fallback 3.0); MAE/RMSE +
+           BLEU/ROUGE/METEOR (+BERTScore when a scorer is given)
+  img_sel  eval_img_sel.py:94-136 — 2 beams / 1 return, max 40; the
+           generated s_i token set against the ground truth;
+           recall/precision/F1
+  img_gen  eval_img_gen.py:102-144 — greedy, max 600; dumps the
+           generated VQGAN token strings for offline decoding
 
 Generation is batched: prompts are left-aligned into one window and
 decoded together. Batches that carry ``image_ids`` are served by one
@@ -19,9 +28,6 @@ batch is timed from its fetch to its tokens on the host; the loader's
 worker threads build the next batches meanwhile. ``items_per_sec`` is the
 mean of the per-batch rows per second, the first batch including its
 catalogue misses, as in the JAX package.
-
-The other tasks' evaluators (search, exp, img_sel, img_gen) are not
-ported yet (ROADMAP.md §1, item 5).
 """
 
 from __future__ import annotations
@@ -29,16 +35,17 @@ from __future__ import annotations
 import json
 import os
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from unimp_tpu_torch.data.transforms import normalize_on_device
 from unimp_tpu_torch.decode import GenerationConfig, Generator
+from unimp_tpu_torch.evals import text_metrics
 from unimp_tpu_torch.evals.dist import gather_metric_lists
 from unimp_tpu_torch.evals.latent_cache import ItemLatentCache
-from unimp_tpu_torch.evals.metrics import rank_metrics_for_hits
+from unimp_tpu_torch.evals.metrics import f1_score, rank_metrics_for_hits
 
 
 def _norm(s: str) -> str:
@@ -123,5 +130,118 @@ def evaluate_rec(model, loader, tokenizer, **kw):
     return _rank_eval(model, loader, tokenizer, **kw)
 
 
-# task -> evaluator, as ``unimp_tpu.evals.EVALUATORS`` (the rec task only)
-EVALUATORS = {"rec": evaluate_rec}
+def evaluate_search(model, loader, tokenizer, **kw):
+    kw.setdefault("max_new_tokens", 20)
+    return _rank_eval(model, loader, tokenizer, **kw)
+
+
+def _one_return_config(tokenizer, max_new_tokens, num_beams, kv_int8):
+    return GenerationConfig(
+        max_new_tokens=max_new_tokens, eos_id=tokenizer.eos_token_id,
+        pad_id=tokenizer.eos_token_id, num_beams=num_beams, num_return_sequences=1,
+        kv_int8=kv_int8,
+    )
+
+
+def evaluate_exp(model, loader, tokenizer, *, max_new_tokens=256, num_beams=5,
+                 bertscore_fn: Optional[Callable] = None, dump_dir: Optional[str] = None,
+                 rank: int = 0, kv_int8=False, cache_holder=None):
+    gen_cfg = _one_return_config(tokenizer, max_new_tokens, num_beams, kv_int8)
+    abs_err, sq_err = [], []
+    gen_exps, real_exps = [], []
+    throughput = []
+    for answers, batch, ips in _generate_batches(model, loader, tokenizer, gen_cfg,
+                                                 cache_holder=cache_holder):
+        throughput.append(ips)
+        for row, target in zip(answers, batch["targets"]):
+            words = row[0].split()
+            try:
+                rate = float(words[0].split("_")[-1])
+            except (IndexError, ValueError):
+                rate = 3.0  # reference fallback (eval_exp.py:122-124)
+            exp = " ".join(words[1:]) or "Empty"
+            abs_err.append(abs(rate - target["rating"]))
+            sq_err.append((rate - target["rating"]) ** 2)
+            gen_exps.append(exp)
+            real_exps.append(target["explanation"])
+    metrics = {
+        "mae": float(np.mean(abs_err)),
+        "rmse": float(np.sqrt(np.mean(sq_err))),
+        "bleu": text_metrics.bleu(gen_exps, real_exps)["precision1"],
+        "rouge1": text_metrics.rouge_n(gen_exps, real_exps, 1),
+        "rouge2": text_metrics.rouge_n(gen_exps, real_exps, 2),
+        "rougeL": text_metrics.rouge_l(gen_exps, real_exps),
+        "meteor": text_metrics.meteor(gen_exps, real_exps),
+        "items_per_sec": float(np.mean(throughput)) if throughput else 0.0,
+        "n_users": len(gen_exps),
+    }
+    if bertscore_fn is not None:
+        metrics["bertscore"] = float(np.mean(bertscore_fn(gen_exps, real_exps)))
+    if dump_dir:
+        os.makedirs(dump_dir, exist_ok=True)
+        with open(os.path.join(dump_dir, f"gen_exps_{rank}.json"), "w") as f:
+            json.dump(gen_exps, f)
+        with open(os.path.join(dump_dir, f"real_exps_{rank}.json"), "w") as f:
+            json.dump(real_exps, f)
+    return metrics
+
+
+def evaluate_img_sel(model, loader, tokenizer, *, max_new_tokens=40, num_beams=2,
+                     kv_int8=False, cache_holder=None):
+    gen_cfg = _one_return_config(tokenizer, max_new_tokens, num_beams, kv_int8)
+    recalls, precisions, f1s = [], [], []
+    throughput = []
+    for answers, batch, ips in _generate_batches(model, loader, tokenizer, gen_cfg,
+                                                 cache_holder=cache_holder):
+        throughput.append(ips)
+        for row, target in zip(answers, batch["targets"]):
+            gen_ids = set(row[0].split())
+            gts = [f"s_{i}" for i in target]
+            r = sum(1 for g in gen_ids if g in gts)
+            recall = r / len(gts)
+            precision = r / len(gen_ids) if gen_ids else 0.0
+            recalls.append(recall)
+            precisions.append(precision)
+            f1s.append(f1_score(precision, recall))
+    return {
+        "recall": float(np.mean(recalls)),
+        "precision": float(np.mean(precisions)),
+        "f1": float(np.mean(f1s)),
+        "items_per_sec": float(np.mean(throughput)) if throughput else 0.0,
+        "n_users": len(recalls),
+    }
+
+
+def evaluate_img_gen(model, loader, tokenizer, *, max_new_tokens=600,
+                     dump_path: Optional[str] = None, rank: int = 0, epoch: int = 0,
+                     run_name: str = "run", kv_int8=False, cache_holder=None):
+    gen_cfg = _one_return_config(tokenizer, max_new_tokens, 1, kv_int8)
+    generations = []
+    throughput = []
+    for answers, batch, ips in _generate_batches(model, loader, tokenizer, gen_cfg,
+                                                 cache_holder=cache_holder):
+        throughput.append(ips)
+        for row, target, extra in zip(answers, batch["targets"],
+                                      batch.get("extras", [None] * len(answers))):
+            generations.append({"generated": row[0], "target": target,
+                                "item": None if extra is None else extra.get("item")})
+    if dump_path is None:
+        dump_path = f"save_img_gen/img_gen_{rank}_epoch_{epoch}_name_{run_name}.json"
+    os.makedirs(os.path.dirname(dump_path) or ".", exist_ok=True)
+    with open(dump_path, "w") as f:
+        json.dump(generations, f)
+    return {
+        "n_generated": len(generations),
+        "dump_path": dump_path,
+        "items_per_sec": float(np.mean(throughput)) if throughput else 0.0,
+    }
+
+
+# task -> evaluator, as ``unimp_tpu.evals.EVALUATORS``
+EVALUATORS = {
+    "rec": evaluate_rec,
+    "search": evaluate_search,
+    "exp": evaluate_exp,
+    "img_sel": evaluate_img_sel,
+    "img_gen": evaluate_img_gen,
+}

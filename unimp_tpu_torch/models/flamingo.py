@@ -9,6 +9,7 @@ until trained or opened).
   * full forward:                 logits, None
   * prefill (return_kv=True):     logits, {"self": [...], "xattn": [...]}
   * decode (decode_state=...):    logits, [gen caches, updated in place]
+  * hidden (return_hidden=True):  final-norm hidden states, None
 
 Media masking: each text token cross-attends only to the latents of the
 most recent preceding <image> ("immediate") or of all preceding media
@@ -161,8 +162,11 @@ class UniMPModel(nn.Module):
     def forward(self, input_ids, *, latents=None, vision_x=None, tower_x=None, q_media=None,
                 kv_len=None, kv_start=None, positions=None,
                 return_kv: bool = False, last_logit_only: bool = False,
-                decode_state: Optional[dict] = None):
+                return_hidden: bool = False, decode_state: Optional[dict] = None):
         """Full forward, prefill, or single-token decode (see module doc).
+        ``return_hidden``: the final-norm hidden states and no lm head
+        (contextual token embeddings: the BERTScore encoder,
+        ``evals/bertscore.py``).
 
         decode_state: {"self": [...], "xattn": [...], "gen": [...], "step",
         "kv_start", "n_media", "kv_media", "gen_index"}.
@@ -220,6 +224,8 @@ class UniMPModel(nn.Module):
                           positions=positions, causal=causal,
                           return_cache=return_kv)
             self_caches.append(sc)
+        if return_hidden:
+            return self.final_ln(x), None
         if last_logit_only:
             x = x[:, -1:]
         logits = self._logits(x)

@@ -133,7 +133,8 @@ def init_params(model: nn.Module, generator: torch.Generator) -> None:
 
 def build_model(cfg: UniMPConfig, *, device="cuda", seed: int = 0,
                 eval_param_dtype: str = "fp32", train: bool = False,
-                frozen_dtype=None, weights: Mapping | None = None) -> UniMPModel:
+                frozen_dtype=None, weights: Mapping | None = None,
+                trainable_mask=backbone_trainable_mask) -> UniMPModel:
     """A UniMPModel on ``device`` with seeded weights (``init_params``), or
     with ``weights`` (a flat float tree, {"a/b/c": tensor or array}, e.g.
     ``train/checkpoint.py:restore_params``) loaded in their place before
@@ -144,8 +145,9 @@ def build_model(cfg: UniMPConfig, *, device="cuda", seed: int = 0,
     "fp32" as initialised, "bf16" matrices cast
     (``cast_params_for_inference``), "int8" cast to bfloat16 and then
     weight-only quantized (``quantize_params_int8`` with its defaults).
-    Training (``train=True``): the reference's freezing
-    (``train/partition.py``): float32 trainable masters, frozen tensors
+    Training (``train=True``): ``trainable_mask(model)`` ({parameter
+    name: trainable}; default the reference's freezing,
+    ``train/partition.py``): float32 trainable masters, frozen tensors
     with ``requires_grad=False`` stored in ``frozen_dtype`` when given,
     ``.train()``. ``load_flax_params`` loads a Flax tree into either build.
     """
@@ -162,7 +164,7 @@ def build_model(cfg: UniMPConfig, *, device="cuda", seed: int = 0,
     else:
         load_flax_params(model, weights)
     if train:
-        freeze(model, backbone_trainable_mask(model), frozen_dtype)
+        freeze(model, trainable_mask(model), frozen_dtype)
         return model.train()
     cast = EVAL_PARAM_DTYPES[eval_param_dtype]
     if cast is not None:

@@ -15,8 +15,8 @@ storage at a time, so a save never stages a whole host copy of the model;
 a restore maps the file (``torch.load(mmap=True)``) and hands back host
 tensors that ``tools/from_flax.py:load_flax_params`` copies onto the
 model. An Orbax directory of the JAX package raises: its converter is not
-ported yet (ROADMAP.md §1, item 8), and neither is ``merge_with_growth``
-(the transfer entry, item 5).
+ported yet (ROADMAP.md §1, item 8). ``merge_with_growth`` grafts a restored
+tree onto a model whose vocabulary grew since (the transfer entry).
 """
 
 from __future__ import annotations
@@ -68,6 +68,34 @@ def restore_params(save_dir: str, name: str) -> dict:
     """{flat Flax path: host tensor} of ``save_dir/name`` (any of the three
     kinds), mapped from the file."""
     return _read(os.path.join(_checkpoint_dir(save_dir, name), PARAMS_FILE))
+
+
+def merge_with_growth(restored: dict, target: dict) -> dict:
+    """Graft a restored flat tree onto ``target`` ({flat path: tensor}, e.g.
+    ``model_tree`` of a fresh init), tolerating grown tables.
+
+    The transfer entry (``cli/mmrec_prefix.py``) extends the vocabulary
+    after pretraining, so the new embedding / lm-head rows have no stored
+    counterpart: the overlapping region is copied and the rest keeps the
+    fresh init (the reference reaches the same state via
+    ``resize_token_embeddings`` after the load). Each value is cast to the
+    target's dtype; a path missing from ``restored``, or a shape that does
+    not fit inside the target's, keeps the target's tensor."""
+    out = {}
+    for path, t in target.items():
+        r = restored.get(path)
+        if r is None:
+            out[path] = t
+        elif tuple(r.shape) == tuple(t.shape):
+            out[path] = r.to(t.dtype)
+        elif r.dim() == t.dim() and all(rd <= td for rd, td in zip(r.shape, t.shape)):
+            grown = t.clone()
+            grown[tuple(slice(0, d) for d in r.shape)] = r.to(t.device, t.dtype)
+            out[path] = grown
+        else:
+            print(f"[checkpoint] keeping init for {path}: {tuple(r.shape)} vs {tuple(t.shape)}")
+            out[path] = t
+    return out
 
 
 def save_epoch(save_dir: str, model, epoch: int) -> str:
