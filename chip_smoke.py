@@ -20,7 +20,11 @@ Phases (any failure exits non-zero):
      to 256, 2 beams to 40; K5 over 9 media at 5 and 2 beams), K2/K3 at the ViT's
      training shape (257 keys), K5 with one tile of five allowed, K6 at one row, off its
      tiles, at 256 / 300 / 512 rows, split-K over a ragged K, aligned
-     and not, and with strided weight rows), in bfloat16 and float32, with the tolerances
+     and not, and with strided weight rows; phase 11's serving wave: K1's
+     4 x 64 prefill with an all-pad row (0, lse -1e30), K4 at 4 slots, one
+     query, T 64, 32 gen positions with two empty prompt windows, K5 over one
+     medium with a fully masked row, K6 at the 4-row decode and 256-row
+     prefill shapes), in bfloat16 and float32, with the tolerances
      below; times each kernel (CUDA events)
      beside its plain version, its bound and a one-call yardstick
      (``scaled_dot_product_attention`` forward, or its backward through
@@ -103,7 +107,24 @@ Phases (any failure exits non-zero):
      fresh init), and after (c)'s steps the resampler and x-attn are
      unchanged and the tower and LM moved; prints each task's seconds,
      decode steps, items/s and launches, checkpoint writes and peak
-     memory.
+     memory;
+ 11. serving at 4b-instruct width and depth (``phase_serve``): a port
+     controller and a port worker (built by ``serve/worker.py`` from its
+     command line on phase 8's files, seeded weights, gates opened) on
+     127.0.0.1 with 4 slots and chunks of 8; a warm-up request, one request
+     alone (three inactive slots), then ``benchmarks/serve_bench.py``'s 16
+     prompts at concurrency 4 (4 with a JPEG, 4 sampled at temperature 0.9
+     with fixed seeds, one of them sent again) through ``cli_chat``'s
+     ``stream_request``; then the same with ``--eval_param_dtype int8
+     --kv_int8``. Fails unless every stream ends with a ``finish`` chunk and
+     error code 0, the repeated sampled request gives one text, each
+     wave's launches are what the code counts (K1, K4, K5; int8: K6 at
+     every decode and <= 512-row prefill matmul, no float decode kernel),
+     and the bf16 greedy tokens agree >= 0.9 with the unbatched
+     ``StreamingGenerator`` fed the same tokens; prints TTFT p50 / p90,
+     aggregate and per-stream tokens/s, requests/s, ms a decode step and
+     a chunk, the device->host copies a chunk (the profiler's count over
+     one request), peak memory and the launches.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -113,6 +134,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import re
 import shutil
 import subprocess
@@ -126,6 +148,7 @@ import torch
 import torch.nn.functional as F
 
 from unimp_tpu_torch.decode import GenerationConfig, Generator
+from unimp_tpu_torch.decode.streaming import StreamingGenerator
 from unimp_tpu_torch.evals.latent_cache import ItemLatentCache
 from unimp_tpu_torch.evals.metrics import rank_metrics_for_hits
 from unimp_tpu_torch.models import compute_q_media, get_config
@@ -231,6 +254,14 @@ K6_DECODE = {"qkv_2560x7680": ((2560, 7680), 32), "o_2560x2560": ((2560, 2560), 
              "up_2560x10240": ((2560, 10240), 48), "down_10240x2560": ((10240, 2560), 48),
              "head_2560x54656": ((2560, 54656), 1)}
 K6_PER_STEP = sum(n for _, n in K6_DECODE.values())  # 193
+# the int8 matmuls of the serving wave's prefill at 256 rows, (K, N): LM q,
+# k, v, o; MLP up, down; x-attn k, v over the latents (1,024 wide);
+# perceiver q, o, MLP up, down (phase 11, ``k6_prefill_launches``)
+K6_SERVE_PREFILL = {"lm_qkvo_2560x2560": (2560, 2560), "up_2560x10240": (2560, 10240),
+                    "down_10240x2560": (10240, 2560), "xattn_kv_1024x2560": (1024, 2560),
+                    "perceiver_qo_1024x1024": (1024, 1024),
+                    "perceiver_up_1024x4096": (1024, 4096),
+                    "perceiver_down_4096x1024": (4096, 1024)}
 
 
 def log(msg: str) -> None:
@@ -320,6 +351,10 @@ def flash_cases(dev):
     kv_start = torch.randint(0, 29, (24,), generator=g, device=dev)
     cases.append(("lm_prefill_128_d80_causal_window", True, *qkv(24, 128, 128, 32, 32, 80),
                   dict(causal=True, kv_start=kv_start)))
+    # the serving wave's LM prefill (phase 11): 4 slots left-aligned in a
+    # 64-token window, the last an unused slot (all pad, kv_start 64)
+    cases.append(("serve_prefill_4x64_d80_causal_pad_row", True, *qkv(4, 64, 64, 32, 32, 80),
+                  dict(causal=True, kv_start=torch.tensor([0, 37, 12, 64], device=dev))))
     # extras
     cases.append(("mpt_256_d128_alibi_causal", False, *qkv(2, 256, 256, 16, 16, 128),
                   dict(causal=True, alibi_slopes=alibi_slopes(16).to(dev))))
@@ -567,6 +602,11 @@ K4_SPECS = [
     ("4b_b24_k1_g600_d80", True, (24, 1, 128, 600, 32, 32, 80), {}, True),
     ("4b_b24_k5_g256_d80", True, (24, 5, 128, 256, 32, 32, 80), dict(share=8), True),
     ("4b_b24_k2_g40_d80", True, (24, 2, 256, 40, 32, 32, 80), dict(share=4), True),
+    # the serving wave's decode (phase 11): 4 slots, one query each, a
+    # 64-token window, 32 gen positions; two unused slots, whose prompt
+    # window is empty (kv_start = T)
+    ("serve_b4_k1_t64_g32_d80_two_empty", True, (4, 1, 64, 32, 32, 32, 80), dict(empty=2),
+     True),
 ]
 # (name, main path, (b, kb, s, h, hkv, d), mask, int8 too): the 4b x-attn
 # decode read (4 media x 64 latents, "immediate": one 64-latent tile in four
@@ -583,6 +623,10 @@ K5_SPECS = [
     # and img_sel's 2
     ("4b_b24_k5_s576_d80", True, (24, 5, 576, 32, 32, 80), "immediate", True),
     ("4b_b24_k2_s576_d80", True, (24, 2, 576, 32, 32, 80), "immediate", True),
+    # the serving wave's media read (phase 11): one medium, row 0 a slot
+    # without an image (nothing allowed)
+    ("serve_b4_k1_s64_d80_masked_row", True, (4, 1, 64, 32, 32, 80), "immediate_masked_row",
+     True),
 ]
 
 
@@ -620,6 +664,7 @@ def phase_decode_kernels(dev, dtype, results, timings):
     for name, main, shape, opt, with_int8 in K4_SPECS:
         b, kb, t, g, h, hkv, d = shape
         c = decode_case(dev, *shape, seed=len(name))
+        c["kv_start"][:opt.get("empty", 0)] = t
         gen = torch.Generator(dev).manual_seed(len(name) + 100)
         if opt.get("share"):  # one ancestor for every beam of a row
             first = torch.randint(0, kb, (b, 1), generator=gen, device=dev, dtype=torch.int32)
@@ -669,11 +714,13 @@ def phase_decode_kernels(dev, dtype, results, timings):
     for name, main, (b, kb, s, h, hkv, d), mode, with_int8 in K5_SPECS:
         c = decode_case(dev, b, kb, s, 1, h, hkv, d, seed=len(name))
         q = c["q"].to(dtype)
-        if mode == "immediate":
+        if mode.startswith("immediate"):
             kv_media = torch.arange(1, s // 64 + 1, device=dev,
                                     dtype=torch.int32).repeat_interleave(64)
             mask = media_allowed(kv_media[None].expand(b, -1),
                                  torch.full((b,), s // 64, device=dev), "immediate").contiguous()
+            if mode == "immediate_masked_row":
+                mask[0] = False
         else:
             gen = torch.Generator(dev).manual_seed(len(name))
             mask = torch.rand(b, s, generator=gen, device=dev) < 0.6
@@ -717,7 +764,8 @@ def phase_decode_kernels(dev, dtype, results, timings):
 
 def k6_cases():
     """(name, main_path, m, k, n, ldq): every 4b decode shape (M = 240 beam
-    rows), the prefill head (M = 24), odd shapes, and the edges of the
+    rows), the prefill head (M = 24), the serving wave's decode shapes (M =
+    4 slots) and prefill shapes (M = 4 x 64 = 256 rows), odd shapes, and the edges of the
     bf16 tiling: a full 256-row block, two blocks (300), ``quant_dot``'s
     largest (512), a split-K shape whose K is neither a multiple of its
     split count nor of 64, the same unaligned (N % 16 != 0: the masked
@@ -726,6 +774,10 @@ def k6_cases():
     contiguous."""
     cases = [(f"4b_decode_m240_{name}", True, 240, k, n, None)
              for name, ((k, n), _) in K6_DECODE.items()]
+    cases += [(f"serve_decode_m4_{name}", True, 4, k, n, None)
+              for name, ((k, n), _) in K6_DECODE.items()]
+    cases += [(f"serve_prefill_m256_{name}", True, 256, k, n, None)
+              for name, (k, n) in K6_SERVE_PREFILL.items()]
     cases += [("4b_prefill_head_m24_2560x54656", True, 24, 2560, 54656, None),
               ("greedy_m1_2560x7680", False, 1, 2560, 7680, None),
               ("odd_m37_100x70", False, 37, 100, 70, None),
@@ -800,6 +852,10 @@ def phase_kernels(dev):
             if not torch.allclose(lse, want_lse, atol=LSE_TOL, rtol=LSE_TOL):
                 lse_err = (lse - want_lse).abs().max().item()
                 raise AssertionError(f"flash_fwd {name} lse: max err {lse_err}")
+            if kw.get("kv_start") is not None:  # a row whose window is empty: 0, lse -1e30
+                dead = kw["kv_start"] >= k.shape[1]
+                if not (bool((got[dead] == 0).all()) and bool((lse[dead] == -1e30).all())):
+                    raise AssertionError(f"flash_fwd {name}: an all-pad row is not 0 / -1e30")
             if dtype == torch.bfloat16 and main:
                 by, fl = flash_work(q, k, v, kw, got, lse)
                 b_ms, b_by = bound(by, fl, dtype)
@@ -1977,6 +2033,390 @@ def phase_tasks(dev, gpu_line, data, run_dir):
     return launches
 
 
+# ------------------------------------------------------------ phase 11
+
+SERVE_SLOTS, SERVE_NEW = 4, 32
+SERVE_IMAGES = (1, 5, 9, 13)  # requests carrying one of phase 8's JPEGs
+# request -> seed, sampled at SERVE_TEMPERATURE; request 13 also carries an
+# image and is sent twice: every wave it lands in then has the same shapes
+# (4 slots, T 64, one medium), so its text must not change. A text-only row
+# in a wave with an image would not be held to that: the gated FF of the
+# x-attn blocks runs on every row of such a wave, in JAX too
+SERVE_SAMPLED = {3: 11, 7: 12, 11: 13, 13: 7}
+SERVE_TEMPERATURE = 0.9
+SERVE_REPEAT = 13
+
+
+def serve_requests(data) -> list:
+    """The 16 requests of ``benchmarks/serve_bench.py:98-101`` (32 new
+    tokens), 4 with a base64 JPEG of phase 8's files and ``<image>`` in the
+    prompt, 4 sampled with fixed seeds, then request 13 again."""
+    import base64
+
+    reqs = []
+    for i in range(16):
+        prompt = f"I bought item_{3 + i} and item_{7 + i}. What should I buy next?"
+        req = {"model": "serve", "prompt": prompt, "max_new_tokens": SERVE_NEW}
+        if i in SERVE_IMAGES:
+            jpg = (data / "beauty" / f"{10 * i}.jpg").read_bytes()
+            req.update(prompt="<image>" + prompt, images=[base64.b64encode(jpg).decode()])
+        if i in SERVE_SAMPLED:
+            req.update(temperature=SERVE_TEMPERATURE, seed=SERVE_SAMPLED[i])
+        reqs.append(req)
+    return reqs + [dict(reqs[SERVE_REPEAT])]
+
+
+def k6_prefill_launches(cfg, slots: int, t: int, media: int) -> int:
+    """K6 launches of one serving prefill, from ``quant_dot``'s rule (an int8
+    kernel at <= 512 rows streams through K6, more rows dequantize): per LM
+    block q, k, v, o and the MLP's (up, down; SwiGLU also gate) at slots * t
+    rows; an untied head at the last position (slots rows); with media, per
+    x-attn block q, o, up, down at slots * t rows and k, v over the latents
+    (slots * media * L rows), per perceiver block q, o, up, down over its
+    latents and k, v over patches + latents (slots * media * (P + L) rows),
+    per ViT block q, k, v, o, up, down at slots * media * (P + 1) rows (its
+    patch embedding never streams)."""
+    def fits(rows):
+        return int(rows <= 512)
+
+    lm = cfg.lm
+    n_xattn = -(-lm.num_layers // cfg.cross_attn_every_n)
+    text = slots * t
+    n = (4 + lm_mlp_matmuls(lm)) * fits(text) * lm.num_layers + fits(slots) * (
+        not lm.tie_embeddings)
+    if media:
+        lat = slots * media * cfg.resampler.num_latents
+        patches = slots * media * cfg.vision.num_patches
+        n += n_xattn * (4 * fits(text) + 2 * fits(lat))
+        n += cfg.resampler.depth * (4 * fits(lat) + 2 * fits(patches + lat))
+        n += cfg.vision.num_layers * 6 * fits(patches + slots * media)
+    return n
+
+
+def lm_mlp_matmuls(lm) -> int:
+    return 3 if lm.act == "silu" else 2  # SwiGLU: gate, up, down
+
+
+def serve_wave_launches(cfg, wave: dict, int8: bool) -> dict:
+    """What one wave launches (the code's count): K1 once per LM layer, plus
+    once per x-attn, ViT and perceiver layer when the wave has media; a
+    decode step K4 once per LM layer and K5 once per x-attn layer with
+    media; int8: K6 at every decode matmul (the fused QKV, o and the MLP's
+    per LM block; q, o, up, down per x-attn block with media; an untied
+    head: 193 a step at 4b with media, 129 without) and at
+    ``k6_prefill_launches``, the float decode kernels never."""
+    lm = cfg.lm
+    n_xattn = -(-lm.num_layers // cfg.cross_attn_every_n)
+    steps, media = wave["steps"], wave["media"]
+    k4, k5 = ("decode_attn_int8", "single_query_attn_int8") if int8 else \
+        ("decode_attn", "single_query_attn")
+    want = {name: 0 for name in kernel_lib.LAUNCHES}
+    want["flash_fwd"] = lm.num_layers + bool(media) * (
+        n_xattn + cfg.vision.num_layers + cfg.resampler.depth)
+    want[k4] = lm.num_layers * steps
+    want[k5] = n_xattn * steps * bool(media)
+    if int8:
+        per_step = (2 + lm_mlp_matmuls(lm)) * lm.num_layers + 4 * n_xattn * bool(media) + (
+            not lm.tie_embeddings)
+        want["quant_matmul"] = per_step * steps + k6_prefill_launches(
+            cfg, wave["slots"], wave["t"], media)
+    return want
+
+
+class ServeSpy:
+    """Around the engine's waves: each wave's requests, launches (read with
+    the card synchronized before and after), wall, decode calls and the
+    time of its first one."""
+
+    def __init__(self, engine):
+        self.engine, self.waves, self.cur = engine, [], None
+        run_wave, model = engine._run_wave, engine.model
+        forward = model.forward
+
+        def wave(reqs):
+            before = counts()
+            self.cur = {"first": None, "decode_calls": 0}
+            t0 = time.perf_counter()
+            try:
+                run_wave(reqs)
+            finally:
+                end = time.perf_counter()
+                info, self.cur = self.cur, None
+            self.waves.append(dict(engine.last_wave, **info, reqs=list(reqs), wall=end - t0,
+                                   end=end, launches=between(before)))
+
+        def spied_forward(*args, **kw):
+            if self.cur is not None and kw.get("decode_state") is not None:
+                self.cur["first"] = self.cur["first"] or time.perf_counter()
+                self.cur["decode_calls"] += 1
+            return forward(*args, **kw)
+
+        engine._run_wave, model.forward = wave, spied_forward
+
+
+def serve_one(addr, req) -> dict:
+    """One streamed request through the controller: TTFT (to the first
+    chunk with text), wall, the chunks."""
+    from unimp_tpu_torch.serve.cli_chat import stream_request
+
+    t0 = time.perf_counter()
+    ttft, chunks = None, []
+    for ch in stream_request(addr, req):
+        if ttft is None and ch.get("text"):
+            ttft = time.perf_counter() - t0
+        chunks.append(ch)
+    wall = time.perf_counter() - t0
+    return {"req": req, "ttft": ttft if ttft is not None else wall, "wall": wall,
+            "chunks": chunks, "tokens": max(len(chunks) - 1, 0),
+            "text": chunks[-1]["text"] if chunks else None}
+
+
+def serve_traffic(addr, reqs, concurrency: int):
+    """``reqs`` at ``concurrency`` client threads; returns (results in
+    request order, wall seconds)."""
+    import concurrent.futures
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(concurrency) as pool:
+        results = list(pool.map(lambda r: serve_one(addr, r), reqs))
+    return results, time.perf_counter() - t0
+
+
+def count_dtoh(label, run, chunks_of) -> tuple:
+    """Device->host copies the card made during ``run`` (torch.profiler,
+    CUDA activity) and its busy ms; ``chunks_of()`` gives the chunks run."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    dtoh, busy_ms = 0, 0.0
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != DeviceType.CUDA or ev.is_user_annotation():
+            continue
+        if "DtoH" in ev.name():
+            dtoh += 1
+        busy_ms += ev.duration_ns() / 1e6
+    chunks = chunks_of()
+    log(f"{label} profiled lone request: {dtoh} device->host copies over {chunks} chunks "
+        f"({dtoh / max(chunks, 1):.2f} a chunk); device busy {busy_ms:.1f} ms of "
+        f"{wall_ms:.1f} ms wall under the profiler")
+    return dtoh, chunks
+
+
+def agreement(pairs) -> float:
+    """Token agreement of (got, want) id lists: equal positions over the
+    longer list's length, summed over the pairs."""
+    same = sum(sum(a == b for a, b in zip(g, w)) for g, w in pairs)
+    return same / max(sum(max(len(g), len(w)) for g, w in pairs), 1)
+
+
+def phase_serve(dev, gpu_line, data) -> dict:
+    """Serving at 4b-instruct width and depth (phase 11): a port controller
+    and a port worker (``serve/worker.py:build_worker`` from its command
+    line, phase 8's tokenizer and files, seeded weights, gates opened) on
+    127.0.0.1, 4 slots (``--limit-model-concurrency 4``), chunks of 8.
+    Traffic: a warm-up request, one request alone (three inactive slots),
+    then ``serve_requests`` at concurrency 4; first bf16, then with
+    ``--eval_param_dtype int8 --kv_int8``. Checks every chunk stream, the
+    repeated sampled text, each wave's launches, and (bf16) the greedy
+    tokens against the unbatched ``StreamingGenerator`` on the card."""
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    from unimp_tpu_torch.serve import controller as controller_mod
+    from unimp_tpu_torch.serve import worker as worker_mod
+    from unimp_tpu_torch.serve.cli_chat import post_json
+
+    reqs = serve_requests(data)
+    out, bf16_ids = {}, {}
+    for name, extra in (("serve", []), ("serve_int8", ["--eval_param_dtype", "int8",
+                                                       "--kv_int8"])):
+        tag = f"[{name}]"
+        # a controller of its own: the first worker's entry would outlive it
+        ctrl = controller_mod.Controller()
+        csrv = ThreadingHTTPServer(("127.0.0.1", 0), controller_mod.make_handler(ctrl))
+        threading.Thread(target=csrv.serve_forever, daemon=True).start()
+        caddr = f"http://127.0.0.1:{csrv.server_address[1]}"
+        argv = ["--mmrec_path", str(data), "--subset", "beauty", "--task", "rec",
+                "--n_items", str(N_ITEM_TOKENS), "--pretrained_model_name_or_path",
+                "4b-instruct", "--patch-image-size", "224", "--run_name", "serve",
+                "--device", "cuda", "--host", "127.0.0.1", "--port", "0",
+                "--controller-address", caddr, "--limit-model-concurrency",
+                str(SERVE_SLOTS), *extra]
+        t0 = time.perf_counter()
+        args = worker_mod.build_parser().parse_args(argv)
+        worker = worker_mod.build_worker(args)
+        open_gates(worker.model)
+        wsrv = worker_mod.make_server(worker, args.host, args.port)
+        threading.Thread(target=wsrv.serve_forever, daemon=True).start()
+        stop = threading.Event()
+        worker.register()
+        threading.Thread(target=worker.heartbeat_loop, args=(stop,), daemon=True).start()
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        engine, cfg = worker.engine, worker.model.cfg
+        spy = ServeSpy(engine)
+        try:
+            if post_json(caddr + "/list_models", {})["models"] != ["serve"]:
+                raise AssertionError(f"{tag} the worker did not register")
+            torch.cuda.reset_peak_memory_stats()
+            kernel_lib.reset_launches()  # the main path starts here
+            warm = serve_one(caddr, reqs[0])
+            alone = serve_one(caddr, reqs[2])
+            results, wall = serve_traffic(caddr, reqs, SERVE_SLOTS)
+            launches = counts()  # the main path ends here
+            peak_gib = torch.cuda.max_memory_allocated() / 2**30
+            waves = list(spy.waves)
+            count_dtoh(tag, lambda: serve_one(caddr, dict(reqs[0], max_new_tokens=16)),
+                       lambda: spy.waves[-1]["steps"] // spy.waves[-1]["chunk"])
+            checks = serve_checks(tag, cfg, name == "serve_int8", warm, alone, results,
+                                  waves, worker, bf16_ids)
+        finally:
+            stop.set()
+            for srv in (wsrv, csrv):
+                srv.shutdown()
+                srv.server_close()
+            engine.stop()
+        serve_report(tag, gpu_line, build_s, warm, alone, results, wall, waves, peak_gib,
+                     launches, checks)
+        out[name] = launches
+        del worker, engine, spy, wsrv
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def serve_checks(tag, cfg, int8, warm, alone, results, waves, worker, bf16_ids):
+    """Fails unless every stream ends with a ``finish`` chunk and error code
+    0, the repeated sampled request gave one text, and every wave launched
+    what the code says; bf16: the greedy tokens agree >= 0.9 with the
+    unbatched ``StreamingGenerator`` on the same prompt and frames (the
+    request's image, or its wave's zero frames, as the engine gives a
+    text-only row) token for token: the streamer's own pick before each of
+    the engine's tokens, fed the engine's tokens (an EOS where the engine
+    ended early). Where a pick differs, its first difference (step, the
+    streamer's top-2 logit gap there) and the streamer's free-running
+    agreement are reported. Returns the numbers to report."""
+    every = [warm, alone] + results
+    bad = [r["req"]["prompt"] for r in every if not r["chunks"]
+           or r["chunks"][-1].get("finish") is not True
+           or any(c["error_code"] != 0 for c in r["chunks"])]
+    if bad:
+        raise AssertionError(f"{tag} streams without a clean finish: {bad}")
+    if results[SERVE_REPEAT]["text"] != results[-1]["text"]:
+        raise AssertionError(f"{tag} the repeated sampled request changed its text: "
+                             f"{results[SERVE_REPEAT]['text']!r} / {results[-1]['text']!r}")
+    for i, wave in enumerate(waves):
+        want = serve_wave_launches(cfg, wave, int8)
+        diff = {k: (wave["launches"][k], n) for k, n in want.items()
+                if wave["launches"][k] != n}
+        if diff:
+            raise AssertionError(f"{tag} wave {i} ({wave['rows']} rows, media {wave['media']}, "
+                                 f"{wave['steps']} steps) launches differ (got, want): {diff}")
+    tok = worker.tokenizer
+    prompts = {tuple(tok.encode(r["req"]["prompt"], add_bos=True)): r["req"]["prompt"]
+               for r in every}
+    streamer = StreamingGenerator(worker.model, tok, SERVE_NEW)
+    forced, free, gaps, vs_bf16, seen = [], [], [], [], set()
+    for wave in waves:
+        for r in wave["reqs"]:
+            if r.temperature > 0:
+                continue
+            own = r.vision is not None
+            key = (tuple(r.prompt_ids), -1 if own else wave["media"])
+            if key in bf16_ids:
+                vs_bf16.append((r.out_ids, bf16_ids[key]))
+            if int8:
+                continue
+            bf16_ids[key] = r.out_ids
+            vision = (r.vision[None] if own else np.zeros(
+                (1, wave["media"], worker.image_size, worker.image_size, 3), np.float32)
+                if wave["media"] else None)
+            tokens = r.out_ids + [tok.eos_token_id] * (len(r.out_ids) < SERVE_NEW)
+            if (key, tuple(tokens)) in seen:  # the same request decoded alike before
+                continue
+            seen.add((key, tuple(tokens)))
+            logits, state, gen, t = streamer._prefill(prompts[key[0]], vision, SERVE_NEW)
+            picks, top2 = [], []
+            for i, token in enumerate(tokens):
+                picks.append(int(torch.argmax(logits, dim=-1)[0]))
+                top2.append(torch.topk(logits[0].float(), 2).values.tolist())
+                if i + 1 < len(tokens):
+                    logits, gen = streamer._step(torch.tensor([token], device=logits.device),
+                                                 state, gen, i, t)
+            forced.append((picks, tokens))
+            if picks == tokens:  # the free-running streamer follows the same tokens
+                free.append((r.out_ids, r.out_ids))
+                continue
+            first = next(i for i, (a, b) in enumerate(zip(picks, tokens)) if a != b)
+            top, second = top2[first]
+            ulp = 2.0 ** (math.floor(math.log2(abs(top))) - 7)  # bf16's spacing at top
+            gaps.append((first, round(top - second, 6), round((top - second) / ulp, 2)))
+            rec = IdRecorder(tok)
+            for _ in StreamingGenerator(worker.model, rec, SERVE_NEW).stream(
+                    None, prompts[key[0]], vision_x=vision):
+                pass
+            free.append((r.out_ids, rec.ids))
+    result = {"greedy_requests": len(forced) or len(vs_bf16),
+              "forced": agreement(forced) if forced else None,
+              "free": agreement(free) if free else None, "first_differences": gaps,
+              "vs_bf16": agreement(vs_bf16) if vs_bf16 else None}
+    if not int8 and not (forced and result["forced"] >= 0.9):
+        raise AssertionError(f"{tag} greedy tokens agree {result['forced']} < 0.9 with the "
+                             f"unbatched streamer over {len(forced)} requests")
+    return result
+
+
+class IdRecorder:
+    """A tokenizer whose ``decode`` keeps the ids it was last given."""
+
+    def __init__(self, tok):
+        self.tok, self.ids = tok, []
+
+    def __getattr__(self, name):
+        return getattr(self.tok, name)
+
+    def decode(self, ids, **kw):
+        self.ids = list(ids)
+        return self.tok.decode(ids, **kw)
+
+
+def serve_report(tag, gpu_line, build_s, warm, alone, results, wall, waves, peak_gib,
+                 launches, checks):
+    ttft = np.array([r["ttft"] for r in results]) * 1e3
+    tokens = sum(r["tokens"] for r in results)
+    stream_rate = [(r["tokens"] - 1) / (r["wall"] - r["ttft"]) for r in results
+                   if r["tokens"] > 1]
+    decode = [w for w in waves if w["decode_calls"]]
+    step_ms = [(w["end"] - w["first"]) / w["decode_calls"] * 1e3 for w in decode]
+    log(f"{tag} worker built in {build_s:.1f} s; warm-up request {warm['wall']:.2f} s "
+        f"(TTFT {warm['ttft'] * 1e3:.1f} ms); one request alone {alone['wall']:.2f} s "
+        f"(TTFT {alone['ttft'] * 1e3:.1f} ms, {alone['tokens']} tokens)")
+    log(f"{tag} {len(results)} requests at concurrency {SERVE_SLOTS}: wall {wall:.2f} s, "
+        f"TTFT p50 {np.percentile(ttft, 50):.1f} ms p90 {np.percentile(ttft, 90):.1f} ms, "
+        f"{tokens} tokens, aggregate {tokens / wall:.2f} tokens/s, per stream (median, after "
+        f"the first token) {np.median(stream_rate):.2f} tokens/s, "
+        f"{len(results) / wall:.3f} requests/s; peak_mem={peak_gib:.2f} GiB on {gpu_line}")
+    log(f"{tag} {len(waves)} waves (rows {[w['rows'] for w in waves]}, media "
+        f"{[w['media'] for w in waves]}, steps {[w['steps'] for w in waves]}); ms per decode "
+        f"step (host clock, first decode call to the wave's end) median "
+        f"{np.median(step_ms):.2f} [{min(step_ms):.2f}, {max(step_ms):.2f}], per chunk of "
+        f"{waves[-1]['chunk']} {np.median(step_ms) * waves[-1]['chunk']:.1f}; device->host "
+        f"copies of tokens {sum(w['copies'] for w in waves)} over "
+        f"{sum(w['steps'] // w['chunk'] for w in waves)} chunks (the engine's count)")
+    log(f"{tag} greedy requests {checks['greedy_requests']} (distinct decodes held to the "
+        f"streamer); token agreement with the unbatched streamer: fed the engine's tokens "
+        f"{checks['forced']}, free-running {checks['free']}; first differences (step, "
+        f"top-2 gap, in bf16 ulps of the top logit) {checks['first_differences']}; with the "
+        f"bf16 worker {checks['vs_bf16']}; repeated sampled request: same text")
+    log(f"{tag} launches {json.dumps(launches)}; every wave as the code counts")
+
+
 def kernel_name(ptxas_line: str) -> str:
     """The kernel's name and its mangled template arguments, as in
     'flash_fwd_mma_kernel ILi80ELb1EE' (80, true), from ptxas's
@@ -2143,6 +2583,11 @@ def main() -> int:
         t0 = time.perf_counter()
         task_launches = phase_tasks(dev, gpu_line, data, Path(tmp) / "tasks")
         log(f"[tasks] phase 10 done in {time.perf_counter() - t0:.1f} s")
+        gc.collect()  # phase 10's models are gone: give their memory back
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        serve_launches = phase_serve(dev, gpu_line, data)
+        log(f"[serve] phase 11 done in {time.perf_counter() - t0:.1f} s")
 
     # one headline shape per kernel: LM prefill, the LM self-attention
     # backward of training, decode at step 50, x-attn read, the MLP
@@ -2164,7 +2609,9 @@ def main() -> int:
             ("train_cli", train_cli_launches, tuple(KERNELS)),
             ("tasks", task_launches["tasks"], TASK_KERNELS),
             ("img_gen", task_launches["img_gen"], EVAL_KERNELS),
-            ("transfer", task_launches["transfer"], TASK_KERNELS))
+            ("transfer", task_launches["transfer"], TASK_KERNELS),
+            ("serve", serve_launches["serve"], EVAL_KERNELS),
+            ("serve_int8", serve_launches["serve_int8"], INT8_KERNELS))
             if name in kernels}
         row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                "launches": sum(by_path.values()), "launches_by_path": by_path,

@@ -165,11 +165,14 @@ def _int8(rng, *shape):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("m,k,n,ldq", [(240, 256, 320, 320), (24, 160, 96, 96),
-                                       (1, 100, 70, 70), (37, 72, 130, 192)])
+                                       (1, 100, 70, 70), (37, 72, 130, 192),
+                                       (4, 2560, 10240, 10240), (256, 1024, 2560, 2560)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_quant_matmul_matches_plain_on_card(cuda_device, m, k, n, ldq, dtype):
     """K6 against quant_matmul_ref: decode-like rows, one row, K and N off
-    the tiles, a strided int8 weight (a column slice of a wider one).
+    the tiles, a strided int8 weight (a column slice of a wider one), the
+    serving engine's 4-row decode (MLP up) and 256-row prefill (the
+    cross-attention's latent projection).
     float32 at 1e-4; bf16 at 2e-2 relative to max |plain| (the f32 sums
     differ in order, then both round to bf16)."""
     rng = np.random.default_rng(m + k)
@@ -317,15 +320,19 @@ def test_quant_matmul_split_k_rows_on_card(cuda_device, m):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", ["vit", "perceiver", "xattn_immediate", "lm_prefill"])
+@pytest.mark.parametrize("case", ["vit", "perceiver", "xattn_immediate", "lm_prefill",
+                                  "serve_prefill_pad_row"])
 def test_flash_forward_bf16_main_shapes_on_card(cuda_device, case):
     """K1's bf16 tensor-core path at the 4b main-path shapes, batch cut to
-    2: out within 2e-2 of the plain version (P and the output round to
-    bf16 in both), lse within 1e-3."""
+    2, and at the serving wave's prefill (4 slots, 64 tokens, the last an
+    unused slot: all pad, kv_start 64): out within 2e-2 of the plain
+    version (P and the output round to bf16 in both), lse within 1e-3; the
+    all-pad row gives 0 and lse -1e30."""
     dev = cuda_device
     b, sq, skv, h, d = dict(vit=(2, 257, 257, 16, 64), perceiver=(2, 64, 320, 16, 64),
                             xattn_immediate=(2, 128, 256, 32, 80),
-                            lm_prefill=(2, 128, 128, 32, 80))[case]
+                            lm_prefill=(2, 128, 128, 32, 80),
+                            serve_prefill_pad_row=(4, 64, 64, 32, 80))[case]
     rng = np.random.default_rng(5)
     q = _randn(rng, b, sq, h, d).to(dev, torch.bfloat16)
     k, v = (_randn(rng, b, skv, h, d).to(dev, torch.bfloat16) for _ in range(2))
@@ -340,10 +347,16 @@ def test_flash_forward_bf16_main_shapes_on_card(cuda_device, case):
     if case == "lm_prefill":
         kw = dict(causal=True, kv_start=torch.tensor([0, 27], device=dev))
         mask = AttnMask(causal=True)
+    if case == "serve_prefill_pad_row":
+        kw = dict(causal=True, kv_start=torch.tensor([0, 37, 12, 64], device=dev))
+        mask = AttnMask(causal=True)
     got, lse = flash_attention_cuda(q, k, v, **kw)
     want, want_lse = attention_ref(q, k, v, mask, kv_start=kw.get("kv_start"))
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
     torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=1e-3)
+    if case == "serve_prefill_pad_row":
+        assert torch.equal(got[3], torch.zeros_like(got[3]))
+        assert bool((lse[3] == -1e30).all())
 
 
 def _media_ids(b, sq, n_media, lat, first, gap):
@@ -437,7 +450,9 @@ def test_flash_backward_bf16_matches_plain_on_card(cuda_device, case):
 # positions, ragged kv_start / prompt_len windows, GQA 16/4 with ALiBi, and
 # 130 gen positions (the kernel lists them 64 at a time); then the other
 # tasks' decodes at the 4b heads: img_gen greedy to 600 positions, exp's 5
-# beams to 256, img_sel's 2 beams to 40
+# beams to 256, img_sel's 2 beams to 40; the serving engine's wave (4 slots,
+# one query each, a 64-token window, 32 gen positions) with two unused slots,
+# whose prompt window is empty (kv_start = T)
 K4_CARD_CASES = {
     "4b_b24_k10_d80": (24, 10, 128, 50, 32, 32, 80, {}),
     "greedy_k1_d80": (4, 1, 128, 50, 32, 32, 80, {}),
@@ -450,6 +465,7 @@ K4_CARD_CASES = {
     "img_gen_greedy_b24_g600_d80": (24, 1, 128, 600, 32, 32, 80, {}),
     "exp_b24_k5_g256_d80": (24, 5, 128, 256, 32, 32, 80, dict(share=8)),
     "img_sel_b24_k2_g40_d80": (24, 2, 256, 40, 32, 32, 80, dict(share=4)),
+    "serve_b4_k1_t64_g32_two_empty_d80": (4, 1, 64, 32, 32, 32, 80, dict(empty=2)),
 }
 
 
@@ -481,6 +497,8 @@ def test_decode_kernel_bf16_matches_plain_on_card(cuda_device, case, kv):
         sel[:, :opt["share"]] = np.repeat(rng.integers(0, kb, size=(b, 1)), kb, axis=0)
     kw = dict(kv_start=torch.from_numpy(rng.integers(0, t // 4, size=b)).to(dev),
               beam_sel=torch.from_numpy(sel.astype(np.int32)).to(dev) if kb > 1 else None)
+    if opt.get("empty"):
+        kw["kv_start"][:opt["empty"]] = t
     if opt.get("ragged"):
         kw["prompt_len"] = torch.from_numpy(rng.integers(t // 2, t + 1, size=b)).to(dev)
     if opt.get("alibi"):
@@ -499,7 +517,8 @@ def test_decode_kernel_bf16_matches_plain_on_card(cuda_device, case, kv):
 # K5 cases: (b, kb, s, h, hkv, d, mask); "immediate": the last of s / 64
 # media allowed (one 64-latent tile in four at the 4b shape); "one_tile":
 # latents 130-140 only (one tile of five); "random" with row 0 fully masked;
-# img_sel's 9 media (576 latents) at 5 and 2 beams
+# img_sel's 9 media (576 latents) at 5 and 2 beams; the serving wave's one
+# medium with row 0 fully masked (a slot without an image)
 K5_CARD_CASES = {
     "4b_b24_k10_s256_d80_immediate": (24, 10, 256, 32, 32, 80, "immediate"),
     "one_tile_of_five_d80": (4, 10, 320, 8, 8, 80, "one_tile"),
@@ -508,6 +527,7 @@ K5_CARD_CASES = {
     "k1_d80": (3, 1, 100, 4, 4, 80, "random"),
     "exp_b24_k5_s576_d80_immediate": (24, 5, 576, 32, 32, 80, "immediate"),
     "img_sel_b24_k2_s576_d80_immediate": (24, 2, 576, 32, 32, 80, "immediate"),
+    "serve_b4_k1_s64_d80_masked_row": (4, 1, 64, 32, 32, 80, "masked_row"),
 }
 
 
@@ -524,8 +544,10 @@ def test_single_query_kernel_bf16_matches_plain_on_card(cuda_device, case, kv):
     q = _randn(rng, b * kb, h, d).to(dev, torch.bfloat16)
     (k, ks), (v, vs) = (_kv(rng, dev, int8, b, hkv, s, d) for _ in range(2))
     mask = np.zeros((b, s), bool)
-    if mode == "immediate":
+    if mode in ("immediate", "masked_row"):
         mask[:, s - 64:] = True
+        if mode == "masked_row":
+            mask[0] = False
     elif mode == "one_tile":
         mask[:, 130:141] = True
         mask[0] = False

@@ -303,10 +303,10 @@ def _port_python_files():
 
 def test_port_imports_no_jax():
     """No module of the port, and not chip_smoke.py, imports jax, flax,
-    optax, orbax or the JAX package, nor ``tokenizers`` or PIL, which the
-    card's machine lacks; the training CLI's modules are among those
-    walked."""
-    banned = ("jax", "flax", "optax", "orbax", "unimp_tpu", "tokenizers", "PIL")
+    optax, orbax or the JAX package, nor ``tokenizers``, PIL or
+    ``requests``, which the card's machine lacks; the training CLI's and
+    the serving modules are among those walked."""
+    banned = ("jax", "flax", "optax", "orbax", "unimp_tpu", "tokenizers", "PIL", "requests")
     bad = []
     for path in _port_python_files():
         tree = ast.parse(path.read_text(), filename=str(path))
@@ -322,5 +322,8 @@ def test_port_imports_no_jax():
     walked = {str(p.relative_to(REPO)) for p in _port_python_files()}
     assert len(walked) > 10
     assert {f"unimp_tpu_torch/{m}.py" for m in (
-        "cli/mmrec", "train/checkpoint", "train/vision_cache", "utils/profiling")} <= walked
+        "cli/mmrec", "train/checkpoint", "train/vision_cache", "utils/profiling",
+        "decode/streaming", "serve/constants", "serve/conversation", "serve/batching",
+        "serve/worker", "serve/controller", "serve/cli_chat", "serve/register_worker",
+        "serve/test_message", "serve/web_server")} <= walked
     assert not bad, bad

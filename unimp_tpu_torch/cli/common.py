@@ -83,6 +83,13 @@ def build_tokenizer(args) -> UniMPTokenizer:
     return tok
 
 
+def weights_dir(args) -> str:
+    """Where ``--load_weights_name`` is read: ``--load_dir``, else
+    ``{external_save_dir}/{load_run_name or run_name}``."""
+    return args.load_dir or os.path.join(args.external_save_dir or ".",
+                                         args.load_run_name or args.run_name)
+
+
 def build_model(args, tokenizer, *, train: bool = False, weights=None, trainable_mask=None):
     """The variant (or ``--config_json``) with the CLI's overrides and the
     vocab sized to the extended tokenizer, rounded up to 128, on

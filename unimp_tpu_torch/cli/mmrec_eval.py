@@ -33,9 +33,7 @@ def main(argv=None):
     tokenizer = common.build_tokenizer(args)
     weights = None
     if args.load_weights_name:
-        load_dir = args.load_dir or os.path.join(args.external_save_dir or ".",
-                                                 args.load_run_name or args.run_name)
-        weights = ckpt.restore_params(load_dir, args.load_weights_name)
+        weights = ckpt.restore_params(common.weights_dir(args), args.load_weights_name)
     model = common.build_model(args, tokenizer, weights=weights)
     del weights  # the model holds a copy: release the file's mapping
 

@@ -64,8 +64,6 @@ def main(argv=None):
     # dataset's prompt draws: the port draws it too (as cli/mmrec.py does)
     next(iter(train_loader))
 
-    load_dir = args.load_dir or os.path.join(args.external_save_dir or ".",
-                                             args.load_run_name or args.run_name)
     save_dir = os.path.join(args.external_save_dir or ".",
                             f"{args.run_name}_{args.transfer_domain}")
     logger = MetricLogger(save_dir, args.run_name, use_wandb=args.report_to_wandb,
@@ -74,7 +72,7 @@ def main(argv=None):
     if args.load_weights_name:
         # the vocabulary grew: the overlap of each table comes from the
         # checkpoint, the new rows keep the fresh init
-        restored = ckpt.restore_params(load_dir, args.load_weights_name)
+        restored = ckpt.restore_params(common.weights_dir(args), args.load_weights_name)
         load_flax_params(model, ckpt.merge_with_growth(restored, ckpt.model_tree(model)))
         del restored  # release the file's mapping
     if args.only_test:

@@ -5,7 +5,9 @@ RandomResize -> ToTensor -> Normalize(FLAMINGO mean/std)). The host
 decodes and resizes to uint8 through the port's own JPEG codec
 (``data/jpeg.py``: libjpeg's decode and the JAX package's native resize,
 bit for bit); images travel to the card as uint8, a byte per channel, and
-are normalized there.
+are normalized there. The serving worker's ``preprocess_image`` resizes
+as PIL's ``Image.resize(BILINEAR)`` does (``resize_bilinear_pil``), as the
+JAX worker does through PIL.
 """
 
 from __future__ import annotations
@@ -37,6 +39,60 @@ def load_resized_uint8(path: str, size: int) -> np.ndarray:
     native pipe gives it."""
     with open(path, "rb") as f:
         return jpeg.decode_resize(f.read(), size)
+
+
+def _pil_taps(src: int, dst: int):
+    """PIL's bilinear ``precompute_coeffs`` and ``normalize_coeffs_8bpc``:
+    per output index the first source index and the taps as integers of
+    22 fractional bits, [dst, ksize] int64."""
+    scale = src / dst
+    support = max(scale, 1.0)
+    ksize = int(np.ceil(support)) * 2 + 1
+    lo = np.zeros(dst, np.int64)
+    taps = np.zeros((dst, ksize), np.int64)
+    for x in range(dst):
+        center = (x + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), src) - xmin
+        w = [max(0.0, 1.0 - abs((i + xmin - center + 0.5) / support)) for i in range(xmax)]
+        total = sum(w)
+        for i, wi in enumerate(w):
+            wi = wi / total if total != 0.0 else wi
+            taps[x, i] = int(-0.5 + wi * (1 << 22)) if wi < 0 else int(0.5 + wi * (1 << 22))
+        lo[x] = xmin
+    return lo, taps
+
+
+def _pil_pass(img: np.ndarray, size: int, axis: int) -> np.ndarray:
+    """One of PIL's 8-bit resampling passes along ``axis`` (0 rows, 1
+    columns): integer taps, a rounding half added, >> 22, clipped."""
+    n = img.shape[axis]
+    lo, taps = _pil_taps(n, size)
+    src = np.moveaxis(img.astype(np.int64), axis, 0)
+    acc = np.full((size,) + src.shape[1:], 1 << 21, np.int64)
+    for i in range(taps.shape[1]):
+        acc += taps[:, i].reshape((size,) + (1,) * (src.ndim - 1)) * src[np.minimum(lo + i, n - 1)]
+    return np.moveaxis(np.clip(acc >> 22, 0, 255).astype(np.uint8), 0, axis)
+
+
+def resize_bilinear_pil(img: np.ndarray, size: int) -> np.ndarray:
+    """uint8 [H, W, 3] -> uint8 [size, size, 3] as PIL's
+    ``Image.resize((size, size), BILINEAR)`` gives it: the horizontal pass,
+    then the vertical one, each skipped where that side keeps its size."""
+    if img.shape[1] != size:
+        img = _pil_pass(img, size, 1)
+    if img.shape[0] != size:
+        img = _pil_pass(img, size, 0)
+    return img
+
+
+def preprocess_image(img: np.ndarray, size: int = 224) -> np.ndarray:
+    """uint8 [H, W, 3] -> float32 CLIP-normalized [size, size, 3] (the
+    serving worker's path; PIL's resize)."""
+    if img.shape[0] != size or img.shape[1] != size:
+        img = resize_bilinear_pil(img, size)
+    x = img.astype(np.float32) / np.float32(255.0)
+    return (x - np.asarray(FLAMINGO_MEAN, np.float32)) / np.asarray(FLAMINGO_STD, np.float32)
 
 
 def normalize_on_device(x: torch.Tensor, dtype=torch.float32) -> torch.Tensor:

@@ -28,7 +28,16 @@ JAX loop is one ``lax.while_loop`` and reads nothing back. Ties in every
 top-k resolve to the lower index, as ``jax.lax.top_k`` does. The greedy
 pick takes ``log_softmax`` in the logits' dtype, step by step as
 ``jax.nn.log_softmax`` does, so bf16 logits round (and near-ties break)
-as in JAX. Sampling (temperature / top-k / top-p) is not ported yet.
+as in JAX.
+
+Sampling (``temperature`` > 0, greedy loop only): ``sample_filter`` gives
+the temperature-scaled, top-k and nucleus-cut logits that JAX's
+``Generator._sample_from`` hands to ``jax.random.categorical``, element
+for element; ``sample_draw`` draws from them with an explicit
+``torch.Generator``. The draw is the port's own (the Gumbel-max race,
+argmax of logits - log E with E ~ Exp(1)): JAX's threefry stream is not
+reproduced, so one seed gives other tokens than in JAX, with the same
+distribution.
 
 Returns generated tokens only (no prompt), padded with pad_id.
 """
@@ -60,6 +69,10 @@ class GenerationConfig:
     length_norm: str = "full"
     # int8 KV caches (prompt + latent + generated)
     kv_int8: bool = False
+    # sampling (num_beams 1): temperature 0 = greedy
+    temperature: float = 0.0
+    top_k: int = 0  # 0 = disabled
+    top_p: float = 1.0  # 1.0 = disabled
 
 
 def quantize_kv_cache(cache: dict) -> dict:
@@ -113,6 +126,39 @@ def top_k(x: torch.Tensor, k: int):
     return torch.gather(vals, -1, order), torch.gather(idx, -1, order)
 
 
+def sample_filter(logits: torch.Tensor, cfg: GenerationConfig) -> torch.Tensor:
+    """[B, V] logits -> the float32 logits JAX's ``_sample_from`` passes to
+    ``jax.random.categorical`` (the greedy loop hands it float32 logits):
+    divided by the temperature, then every logit below the k-th largest
+    (``top_k``) and below the nucleus' smallest (``top_p``: the smallest
+    set whose cumulative probability reaches top_p, kept where the
+    probability before it is below top_p) set to ``NEG_INF``."""
+    scaled = logits.float() / max(cfg.temperature, 1e-6)
+    neg = torch.tensor(NEG_INF, dtype=torch.float32, device=scaled.device)
+    if cfg.top_k > 0:
+        kth = torch.sort(scaled, dim=-1).values[:, -cfg.top_k][:, None]
+        scaled = torch.where(scaled < kth, neg, scaled)
+    if cfg.top_p < 1.0:
+        sorted_desc = torch.sort(scaled, dim=-1, descending=True).values
+        probs = torch.softmax(sorted_desc, dim=-1)
+        csum = torch.cumsum(probs, dim=-1)
+        keep = csum - probs < cfg.top_p
+        cutoff = torch.where(keep, sorted_desc, torch.inf).amin(dim=-1, keepdim=True)
+        scaled = torch.where(scaled < cutoff, neg, scaled)
+    return scaled
+
+
+def sample_draw(logits: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """One categorical draw a row of [B, V] logits, from ``generator`` (on
+    the logits' device): the Gumbel-max race, argmax of logits - log E with
+    E ~ Exp(1) (E clamped above 0, so -log E <= 88 and a ``NEG_INF``
+    logit never wins). Reads nothing back to the host
+    (``torch.multinomial`` checks its input there)."""
+    x = logits.float()
+    race = torch.empty_like(x).exponential_(generator=generator)
+    return torch.argmax(x - torch.log(race.clamp_min(torch.finfo(torch.float32).tiny)), dim=-1)
+
+
 class Generator:
     """generate() over a UniMPModel (or an API-compatible model)."""
 
@@ -122,12 +168,16 @@ class Generator:
         self.media_id = media_id
 
     @torch.no_grad()
-    def generate(self, input_ids, seq_len, latents=None):
-        """input_ids [B, T] right-padded; seq_len [B]; latents [B, M, L, D].
+    def generate(self, input_ids, seq_len, latents=None, generator=None):
+        """input_ids [B, T] right-padded; seq_len [B]; latents [B, M, L, D];
+        ``generator`` (a ``torch.Generator`` on the model's device) is
+        required when sampling (temperature > 0).
 
         Returns (tokens [B, R, max_new], scores [B, R]).
         """
         cfg = self.cfg
+        if cfg.temperature > 0.0 and generator is None:
+            raise ValueError("sampling (temperature > 0) needs a torch.Generator")
         b, t = input_ids.shape
         dev = input_ids.device
         ids, start = left_align(input_ids, seq_len, cfg.pad_id)
@@ -154,14 +204,14 @@ class Generator:
         }
         last_logits = logits[:, -1]
         if cfg.num_beams == 1:
-            return self._greedy_loop(last_logits, state, start, t)
+            return self._greedy_loop(last_logits, state, start, t, generator)
         return self._beam_loop(last_logits, state, start, t, seq_len)
 
     def _decode_step(self, tokens, state, gen, step, positions, gen_index=None):
         ds = dict(state, gen=gen, step=step, gen_index=gen_index)
         return self.model(tokens, positions=positions, decode_state=ds)
 
-    def _greedy_loop(self, last_logits, state, start, t):
+    def _greedy_loop(self, last_logits, state, start, t, generator=None):
         cfg = self.cfg
         b = last_logits.shape[0]
         dev = last_logits.device
@@ -173,7 +223,10 @@ class Generator:
         step = 0
         while step < cfg.max_new_tokens and not bool(done.all()):
             logp = log_softmax_like_jax(logits)
-            nxt = torch.argmax(logp, dim=-1)  # first maximum, as jnp.argmax
+            if cfg.temperature > 0.0:
+                nxt = sample_draw(sample_filter(logits, cfg), generator)
+            else:
+                nxt = torch.argmax(logp, dim=-1)  # first maximum, as jnp.argmax
             nxt = torch.where(done, cfg.pad_id, nxt)
             picked = torch.gather(logp, 1, nxt[:, None])[:, 0]
             scores = scores + torch.where(done, 0.0, picked)
