@@ -24,19 +24,27 @@ Phases (any failure exits non-zero):
      4 x 64 prefill with an all-pad row (0, lse -1e30), K4 at 4 slots, one
      query, T 64, 32 gen positions with two empty prompt windows, K5 over one
      medium with a fully masked row, K6 at the 4-row decode and 256-row
-     prefill shapes), in bfloat16 and float32, with the tolerances
-     below; times each kernel (CUDA events)
+     prefill shapes; phase 12's 3b-mpt training: K1 / K2 / K3 at 3 x 16
+     heads, 256 x 256, d128, causal + ALiBi + kv_len and the x-attn over
+     384 latents, K6 at its 180-row test-pass decode, and
+     ``QuantMatmulFn``'s backward (the int8 frozen backbone's dx) against
+     the gradient through the dequantized weight), in bfloat16 and
+     float32, with the tolerances below; times each kernel (CUDA events)
      beside its plain version, its bound and a one-call yardstick
      (``scaled_dot_product_attention`` forward, or its backward through
-     autograd; ``torch._weight_int8pack_mm`` and the bf16 matmul for K6;
-     the port never calls them);
+     autograd, with ALiBi as a float bias, and the backend it picks;
+     ``torch._weight_int8pack_mm`` and the bf16 matmul for K6; the port
+     never calls them);
   4. the ``small`` variant in float32, once on the card (kernels) and once
      on the CPU (plain versions): the beam eval (token agreement, prefill
      logit difference), with float weights and again with int8 weights and
      int8 KV caches; in bfloat16 on the card, the beam eval through K4 / K5
      against the same eval with the plain decode attention (token
      agreement); then one ``Trainer`` step (loss, every trainable
-     gradient, skipped flag); then, card vs CPU again, the other tasks'
+     gradient, skipped flag), and one more with each headline training
+     flag alone (``--frozen_int8``, ``--bf16_opt_state``, ``--remat
+     --remat_policy dots``) and with all three; then, card vs CPU again,
+     the other tasks'
      decodes (exp 5 beams to 256, img_sel 2 beams over 9 images, img_gen
      greedy to 600; token agreement);
   5. the ``4b-instruct`` 10-beam rec eval at full width (random seeded
@@ -124,7 +132,25 @@ Phases (any failure exits non-zero):
      ``StreamingGenerator`` fed the same tokens; prints TTFT p50 / p90,
      aggregate and per-stream tokens/s, requests/s, ms a decode step and
      a chunk, the device->host copies a chunk (the profiler's count over
-     one request), peak memory and the launches.
+     one request), peak memory and the launches; then the same requests
+     on ``small`` in float32, whose greedy tokens must equal the unbatched
+     streamer's free-running (agreement 1.0);
+ 12. the JAX package's headline training configuration through the
+     port's CLI (``phase_headline_train``): ``mmrec.main`` on 3b-mpt
+     (MPT-1B, ALiBi, d128, an x-attn block before every layer) at full
+     width and depth on phase 8's files, ``--frozen_int8 --bf16_opt_state
+     --remat --remat_policy dots --cache_vision_latents``, micro-batch 3 x
+     accum 2 fused, 256 tokens and 6 images of 224 px a sample: (a) 3
+     updates, the 10-beam test pass, ``checkpoint_0``, one update of
+     epoch 1; (b) ``--resume_from_checkpoint`` and its first update; (c)
+     2 updates without ``--remat``; (d) 2 with ``--frozen_bf16`` and float
+     state. Fails unless every loss is finite, each update launched K1 /
+     K2 / K3 as the code counts them (K1 again in each recompute), K6 ran
+     96 times a decode step of the test pass, (b)'s weights, moments and
+     int8 payloads equal what (a) saved bit for bit, and (b)'s loss is
+     within 1e-3 of (a)'s; prints step ms, samples/s, MFU, busy share,
+     launches per update, checkpoint bytes and seconds, and the peak
+     memory of (a), (c) and (d).
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -172,7 +198,7 @@ from unimp_tpu_torch.ops.flash_attention import (
     flash_bwd_dkv_cuda,
     flash_bwd_dq_cuda,
 )
-from unimp_tpu_torch.ops.quant_matmul import quant_matmul_cuda, quant_matmul_ref
+from unimp_tpu_torch.ops.quant_matmul import QuantMatmulFn, quant_matmul_cuda, quant_matmul_ref
 from unimp_tpu_torch.tools.from_flax import build_model
 from unimp_tpu_torch.train.optimizer import make_optimizer
 from unimp_tpu_torch.train.partition import trainable_params
@@ -181,6 +207,7 @@ from unimp_tpu_torch.utils.flops import decode_flops, detect_peak_flops, train_s
 from unimp_tpu_torch.utils.quant import (
     QuantizedKernel,
     _quantize_leaf,
+    count_quantized,
     quantize_kv,
     quantize_params_int8,
     quantized_bytes,
@@ -262,6 +289,14 @@ K6_SERVE_PREFILL = {"lm_qkvo_2560x2560": (2560, 2560), "up_2560x10240": (2560, 1
                     "perceiver_qo_1024x1024": (1024, 1024),
                     "perceiver_up_1024x4096": (1024, 4096),
                     "perceiver_down_4096x1024": (4096, 1024)}
+# phase 12's int8 frozen MPT-1B backbone in its 10-beam test pass (18 users:
+# 180 rows), (K, N): the fused q/k/v, o, MLP up, down (the x-attn blocks and
+# the tied head are trainable float)
+K6_MPT_DECODE = {"qkv_2048x6144": (2048, 6144), "o_2048x2048": (2048, 2048),
+                 "up_2048x8192": (2048, 8192), "down_8192x2048": (8192, 2048)}
+# QuantMatmulFn's backward at MPT-1B's q and MLP down projections, 256 rows
+QMM_GRAD_CASES = {"mpt_q_m256_2048x2048": (256, 2048, 2048),
+                  "mpt_down_m256_8192x2048": (256, 8192, 2048)}
 
 
 def log(msg: str) -> None:
@@ -355,6 +390,17 @@ def flash_cases(dev):
     # 64-token window, the last an unused slot (all pad, kv_start 64)
     cases.append(("serve_prefill_4x64_d80_causal_pad_row", True, *qkv(4, 64, 64, 32, 32, 80),
                   dict(causal=True, kv_start=torch.tensor([0, 37, 12, 64], device=dev))))
+    # phase 12's 3b-mpt training forward (MPT-1B: 16 heads, d128, ALiBi;
+    # an x-attn block before every layer): micro-batch 3 of 256 tokens,
+    # right padding; 6 images x 64 latents, "immediate"
+    cases.append(("mpt_train_3x256_d128_causal_alibi_kvlen", True,
+                  *qkv(3, 256, 256, 16, 16, 128),
+                  dict(causal=True, alibi_slopes=alibi_slopes(16).to(dev),
+                       kv_len=torch.tensor([256, 231, 204], device=dev))))
+    qm, km = media_index(dev, 3, 256, 6, 64, 4, 31)
+    cases.append(("mpt_xattn_train_3x256x384_d128_immediate", True,
+                  *qkv(3, 256, 384, 16, 16, 128),
+                  dict(q_media=qm, kv_media=km, media_mode="immediate")))
     # extras
     cases.append(("mpt_256_d128_alibi_causal", False, *qkv(2, 256, 256, 16, 16, 128),
                   dict(causal=True, alibi_slopes=alibi_slopes(16).to(dev))))
@@ -405,12 +451,33 @@ def allowed_pairs(q, k, kw):
 
 
 def sdpa_args(q, k, v, kw):
-    """Inputs of the one-call yardstick (no ALiBi, no GQA at the main-path
-    shapes), prepared outside its timing: [B, H, S, D] and a bool mask."""
+    """Inputs of the one-call yardstick (no GQA at the main-path shapes),
+    prepared outside its timing: [B, H, S, D] and a bool mask, or with
+    ALiBi a float bias in q's dtype ([B, H, Sq, Skv]: the slope times
+    key - query, -inf where not allowed)."""
     allowed = allowed_pairs(q, k, kw)
     mask = None if allowed is None else allowed[:, None].contiguous()
+    slopes = kw.get("alibi_slopes")
+    if slopes is not None:
+        sq, skv = q.shape[1], k.shape[1]
+        rel = (torch.arange(skv, device=q.device)[None, :]
+               - torch.arange(sq, device=q.device)[:, None]).float()
+        bias = slopes.float()[:, None, None] * rel
+        if mask is not None:
+            bias = torch.where(mask, bias, float("-inf"))
+        mask = bias.expand(q.shape[0], -1, -1, -1).to(q.dtype).contiguous()
     t = lambda x: x.transpose(1, 2).contiguous()  # noqa: E731
     return t(q), t(k), t(v), mask
+
+
+def sdpa_backend(q, k, v, mask) -> str:
+    """The backend ``scaled_dot_product_attention`` picks for these inputs."""
+    from torch.nn.attention import SDPBackend
+
+    try:
+        return SDPBackend(torch._fused_sdp_choice(q, k, v, mask)).name
+    except (AttributeError, TypeError, ValueError, RuntimeError) as err:
+        return f"not known ({type(err).__name__})"
 
 
 # ------------------------------------------------------------ phase 3: K2/K3
@@ -442,6 +509,15 @@ def bwd_cases(dev):
     # the transfer entry trains the vision tower: 18 images of 257 tokens
     # (256 patches + CLS), 16 heads, d64, unmasked; one key past 4 tiles
     cases.append(("vit_train_18x16_257_d64", True, *qkvo(18, 257, 257, 16, 16, 64), {}))
+    # phase 12's 3b-mpt training (16 heads, d128): the LM's causal ALiBi
+    # self-attention with right padding, and the x-attn over 6 x 64 latents
+    cases.append(("mpt_train_3x256_d128_causal_alibi_kvlen", True,
+                  *qkvo(3, 256, 256, 16, 16, 128),
+                  dict(causal=True, alibi_slopes=alibi_slopes(16).to(dev),
+                       kv_len=torch.tensor([256, 231, 204], device=dev))))
+    cases.append(("mpt_xattn_train_3x256x384_d128_immediate", True,
+                  *qkvo(3, 256, 384, 16, 16, 128),
+                  dict(q_media=qm, kv_media=km, media_mode="immediate")))
     # the x-attn case with its latents interleaved (key j of image 1 + j %
     # 6): the same number of allowed pairs, but every 64-key tile holds
     # every image, so no warp can skip a tile; timed beside it
@@ -530,6 +606,7 @@ def phase_bwd_kernels(dev, dtype, results, timings):
         # SDPA's backward through autograd computes dq, dk and dv in one call
         sq_, sk_, sv_, mask = sdpa_args(q, k, v, kw)
         sq_, sk_, sv_ = (x.requires_grad_() for x in (sq_, sk_, sv_))
+        backend = sdpa_backend(sq_, sk_, sv_, mask)
         lib_out = F.scaled_dot_product_attention(sq_, sk_, sv_, attn_mask=mask)
         lib_do = do.transpose(1, 2).contiguous()
         library_ms = cuda_ms(lambda: torch.autograd.grad(lib_out, (sq_, sk_, sv_), lib_do,
@@ -544,7 +621,7 @@ def phase_bwd_kernels(dev, dtype, results, timings):
                 kernel=kernel, case=name,
                 ms=cuda_ms(lambda: fn(*args, **kw)),
                 plain_ms=cuda_ms(lambda: bwd_plain(kernel, *args, kw), iters=5),
-                library_ms=library_ms, bound_ms=b_ms, bound_by=b_by))
+                library_ms=library_ms, bound_ms=b_ms, bound_by=b_by, sdpa_backend=backend))
 
 
 # ------------------------------------------------------------ phase 3: K4/K5
@@ -778,6 +855,8 @@ def k6_cases():
               for name, ((k, n), _) in K6_DECODE.items()]
     cases += [(f"serve_prefill_m256_{name}", True, 256, k, n, None)
               for name, (k, n) in K6_SERVE_PREFILL.items()]
+    cases += [(f"mpt_decode_m180_{name}", True, 180, k, n, None)
+              for name, (k, n) in K6_MPT_DECODE.items()]
     cases += [("4b_prefill_head_m24_2560x54656", True, 24, 2560, 54656, None),
               ("greedy_m1_2560x7680", False, 1, 2560, 7680, None),
               ("odd_m37_100x70", False, 37, 100, 70, None),
@@ -838,6 +917,21 @@ def phase_int8_kernels(dev, dtype, results, timings):
         if dtype == torch.bfloat16 and (main or name == "m512_down_10240x2560"):
             timings.append(k6_timing(name, x, q, scale, got))
         del q, scale
+    for name, (m, k, n) in QMM_GRAD_CASES.items():
+        # the int8 frozen backbone under autograd (--frozen_int8): dx of
+        # QuantMatmulFn (K6 forward, the matmul of the JAX custom VJP
+        # backward) against the gradient through the dequantized weight in
+        # float32
+        q, scale = int8_weight(dev, k, n, seed=k + n)
+        x = torch.randn(m, k, generator=gen, device=dev).to(dtype).requires_grad_()
+        g = torch.randn(m, n, generator=gen, device=dev).to(dtype)
+        (dx,) = torch.autograd.grad(QuantMatmulFn.apply(x, q, scale), x, g)
+        x32 = x.detach().float().requires_grad_()
+        (want,) = torch.autograd.grad(x32 @ (q.float() * scale), x32, g.float())
+        if dx.dtype != dtype:
+            raise AssertionError(f"QuantMatmulFn {name}: dx is {dx.dtype}, x {dtype}")
+        check_rel(f"{name} dx (QuantMatmulFn backward)", dx, want, torch.bfloat16, results,
+                  "quant_matmul", False)
 
 
 def phase_kernels(dev):
@@ -866,7 +960,8 @@ def phase_kernels(dev):
                     plain_ms=cuda_ms(lambda: flash_plain(q, k, v, kw), iters=5),
                     library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
                         sq_, sk_, sv_, attn_mask=mask)),
-                    bound_ms=b_ms, bound_by=b_by))
+                    bound_ms=b_ms, bound_by=b_by,
+                    sdpa_backend=sdpa_backend(sq_, sk_, sv_, mask)))
 
         phase_bwd_kernels(dev, dtype, results, timings)
 
@@ -878,6 +973,8 @@ def phase_kernels(dev):
                         ("bf16_matmul_ms", "host_ms", "bf16_matmul_host_ms") if key in row)
         if row["library_ms"] is not None:
             extra += f" kernel/library={row['ms'] / row['library_ms']:.2f}"
+        if "sdpa_backend" in row:
+            extra += f" sdpa={row['sdpa_backend']}"
         log(f"[time] {row['kernel']:22s} {row['case']:36s} kernel_ms={row['ms']:.4f} "
             f"plain_ms={row['plain_ms']:.4f} library_ms={lib}{extra} "
             f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
@@ -1196,6 +1293,61 @@ def phase_small_train(dev):
         f"(limit {SMALL_GRAD_TOL:g}); skipped {k_card} vs {k_cpu}")
     if not (loss_rel <= 1e-5 and worst <= SMALL_GRAD_TOL and k_card == k_cpu == 0):
         raise AssertionError("small-variant training step on the card disagrees with the CPU")
+
+
+SMALL_FLAGS = {"frozen_int8": dict(frozen="int8"), "bf16_opt_state": dict(bf16=True),
+               "remat_dots": dict(remat="dots"),
+               "all_three": dict(frozen="int8", bf16=True, remat="dots")}
+BF16_STEP = 2.0 ** -7  # one step of bfloat16's 8-bit significand, at most
+
+
+def phase_small_train_flags(dev):
+    """small variant, f32, gates open: one Trainer step with each headline
+    training flag alone (``--frozen_int8``, ``--bf16_opt_state``, ``--remat
+    --remat_policy dots``), then all three, on the card and on the CPU from
+    the same weights and batch. Limits of ``phase_small_train``: the loss
+    1e-5 relative, each gradient 5e-4 of its largest entry; a bfloat16
+    gradient also one bfloat16 step of the entry (the two sides' float32
+    gradients may straddle a rounding boundary)."""
+    cfg0 = get_config("small", dtype="float32")
+    batch = train_batch(np.random.default_rng(3), 2, 64, 2, 16, cfg0.vision.image_size, 48,
+                        SMALL_MEDIA_ID, SMALL_MEDIA_ID + 1, SMALL_ANSWER_ID, SMALL_EOC_ID)
+    for label, kw in SMALL_FLAGS.items():
+        cfg = cfg0.replace(remat=True, remat_policy=kw["remat"]) if "remat" in kw else cfg0
+        bf16 = torch.bfloat16 if kw.get("bf16") else None
+        got = {}
+        for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
+            model = build_model(cfg, device="cpu", seed=1, train=True,
+                                frozen_dtype=kw.get("frozen")).to(device)
+            open_gates(model)
+            params = trainable_params(model)
+            trainer = Trainer(model, make_optimizer(params, moment_dtype=bf16),
+                              media_id=SMALL_MEDIA_ID, answer_id=SMALL_ANSWER_ID,
+                              endofchunk_id=SMALL_EOC_ID, pad_id=EOS_ID, gamma=2.0,
+                              use_reweight=True, device=device, grad_dtype=bf16)
+            loss, _ = trainer.compute_grads(batch)
+            grads = {n: g.detach().float().cpu() for n, g in
+                     trainer.optimizer.named_grads().items()}
+            metrics = trainer.train_step(batch)
+            got[where] = (float(loss), grads, float(metrics["loss"]),
+                          int(metrics["skipped_nonfinite"]), count_quantized(model))
+        (l_card, g_card, s_card, k_card, q_card), (l_cpu, g_cpu, s_cpu, k_cpu, q_cpu) = (
+            got["card"], got["cpu"])
+        loss_rel = max(abs(l_card - l_cpu), abs(s_card - s_cpu)) / abs(l_cpu)
+        worst, worst_name = 0.0, None
+        for name, g in g_cpu.items():
+            excess = (g_card[name] - g).abs() - (BF16_STEP * g.abs() if bf16 else 0.0)
+            rel = float(excess.max()) / max(float(g.abs().max()), 1e-30)
+            if rel > worst:
+                worst, worst_name = rel, name
+        log(f"[small-train-flags] {label}: card vs cpu loss {l_card:.6f} vs {l_cpu:.6f} (rel "
+            f"{loss_rel:.2e}, limit 1e-5); worst gradient {worst_name} (max|d| - "
+            f"{'one bf16 step' if bf16 else '0'}) / max|g| = {worst:.2e} (limit "
+            f"{SMALL_GRAD_TOL:g}); int8 kernels {q_card} / {q_cpu}; skipped {k_card} / {k_cpu}")
+        if not (loss_rel <= 1e-5 and worst <= SMALL_GRAD_TOL and k_card == k_cpu == 0
+                and q_card == q_cpu and (q_card > 0) == ("frozen" in kw)):
+            raise AssertionError(f"small-variant {label} training step on the card disagrees "
+                                 "with the CPU")
 
 
 def phase_4b_train(dev, gpu_line):
@@ -2233,9 +2385,11 @@ def phase_serve(dev, gpu_line, data) -> dict:
     from unimp_tpu_torch.serve.cli_chat import post_json
 
     reqs = serve_requests(data)
-    out, bf16_ids = {}, {}
+    out, bf16_ids, f32_ids = {}, {}, {}
     for name, extra in (("serve", []), ("serve_int8", ["--eval_param_dtype", "int8",
-                                                       "--kv_int8"])):
+                                                       "--kv_int8"]),
+                        ("serve_small_f32", ["--pretrained_model_name_or_path", "small",
+                                             "--precision", "fp32"])):
         tag = f"[{name}]"
         # a controller of its own: the first worker's entry would outlive it
         ctrl = controller_mod.Controller()
@@ -2275,7 +2429,15 @@ def phase_serve(dev, gpu_line, data) -> dict:
             count_dtoh(tag, lambda: serve_one(caddr, dict(reqs[0], max_new_tokens=16)),
                        lambda: spy.waves[-1]["steps"] // spy.waves[-1]["chunk"])
             checks = serve_checks(tag, cfg, name == "serve_int8", warm, alone, results,
-                                  waves, worker, bf16_ids)
+                                  waves, worker, f32_ids if name == "serve_small_f32"
+                                  else bf16_ids)
+            if name == "serve_small_f32" and not checks["forced"] == checks["free"] == 1.0:
+                # float32 leaves no bf16 near-ties: the wave engine and the
+                # unbatched streamer must give the same greedy tokens
+                raise AssertionError(f"{tag} float32 greedy tokens agree {checks['forced']} "
+                                     f"(fed) / {checks['free']} (free-running) with the "
+                                     f"unbatched streamer; first differences "
+                                     f"{checks['first_differences']}")
         finally:
             stop.set()
             for srv in (wsrv, csrv):
@@ -2417,6 +2579,312 @@ def serve_report(tag, gpu_line, build_s, warm, alone, results, wall, waves, peak
     log(f"{tag} launches {json.dumps(launches)}; every wave as the code counts")
 
 
+# ------------------------------------------------------------ phase 12
+
+HEADLINE_RECORDS = 18  # train users: 3 updates of 3 x 2 an epoch; test users: one batch
+HEADLINE_EPOCHS = 4    # under --train_method continue epochs 0 and 1 train on rec alone
+HEADLINE_LEVERS = ("--frozen_int8", "--bf16_opt_state", "--remat", "--remat_policy", "dots")
+
+
+class StopRun(Exception):
+    """Ends a phase-12 run after the updates it was asked for."""
+
+
+def train_state_tensors(trainer) -> dict:
+    """The trainable weights, both moments and every int8 payload of a
+    trainer, by name."""
+    opt = trainer.optimizer
+    tensors = {f"param {n}": p.detach() for n, p in trainer.params.items()}
+    tensors.update({f"mu {n}": t for n, t in opt.mu.items()})
+    tensors.update({f"nu {n}": t for n, t in opt.nu.items()})
+    tensors.update({f"q {n}": m.q for n, m in trainer.model.named_modules()
+                    if isinstance(m, QuantizedKernel) and m.persistent})
+    return tensors
+
+
+def state_differences(trainer, saved: dict) -> list:
+    """Names of ``train_state_tensors(trainer)`` whose dtype, shape or bits
+    differ from ``saved`` (host copies), or that only one side has."""
+    views = {1: torch.int8, 2: torch.int16, 4: torch.int32}
+    now = train_state_tensors(trainer)
+    differ = sorted(set(now) ^ set(saved))
+    for name in sorted(set(now) & set(saved)):
+        a, b = now[name].cpu(), saved[name]
+        if (a.dtype != b.dtype or a.shape != b.shape or not torch.equal(
+                a.contiguous().view(views[a.element_size()]),
+                b.contiguous().view(views[b.element_size()]))):
+            differ.append(name)
+    return differ
+
+
+def k6_per_decode_step(model) -> int:
+    """K6 launches of one decode step: each decoder block's fused int8 q/k/v
+    (or its int8 q, k, v), o and MLP kernels."""
+    from unimp_tpu_torch.models.lm import DecoderBlock
+
+    n = 0
+    for block in model.modules():
+        if isinstance(block, DecoderBlock):
+            attn = block.attn
+            qkv = [attn.q_proj.kernel, attn.k_proj.kernel, attn.v_proj.kernel]
+            n += 1 if attn.qkv_int8 is not None else sum(isinstance(k, QuantizedKernel)
+                                                         for k in qkv)
+            n += sum(isinstance(m.kernel, QuantizedKernel) for m in
+                     (attn.o_proj, *[c for c in block.mlp.children() if hasattr(c, "kernel")]))
+    return n
+
+
+def phase_headline_train(gpu_line, data, run_dir):
+    """The JAX package's headline training configuration through the port's
+    CLI (phase 12): ``mmrec.main`` on 3b-mpt (CLIP ViT-L/14, MPT-1B with
+    ALiBi and head dim 128, an x-attn block before every layer) at full
+    width and depth, seeded weights, on phase 8's files, with
+    ``--frozen_int8 --bf16_opt_state --remat --remat_policy dots
+    --cache_vision_latents`` and the reference's shape (micro-batch 3 x
+    accum 2 fused, 256 tokens and 6 images of 224 px a sample: 6 history
+    items with their text, ``--use_semantic``; focal loss gamma 2 with
+    reweight),
+    ``--train_method continue`` (each epoch's prompts drawn from the seed,
+    so a resumed epoch sees the batches of a straight one):
+
+      (a) epoch 0 (3 updates), the 10-beam test pass over 18 users,
+          ``weights_epoch_0`` and ``checkpoint_0``, then the first update
+          of epoch 1, where the run is stopped;
+      (b) the same command with ``--resume_from_checkpoint``: its first
+          update (epoch 1's first), then stopped;
+      (c) 2 updates without ``--remat``, and (d) 2 more without
+          ``--frozen_int8`` and ``--bf16_opt_state``, with
+          ``--frozen_bf16``: what each lever saves in device memory.
+
+    Fails unless every loss is finite and no update skipped, K1 / K2 / K3
+    launched what the code counts in every update (K1 again for each
+    checkpointed block's recompute), K6 launched at every decode step of
+    the test pass (its int8 backbone) and nowhere in training (768 rows a
+    micro-batch: the dequantized matmul), (b)'s weights, both moments and
+    int8 payloads equal what (a) saved bit for bit, and (b)'s loss is
+    within 1e-3 relative of (a)'s at the same update. The decode of each
+    item image is memoized across the four runs (same files, same
+    result), so the catalogue is read once."""
+    import resource
+
+    from unimp_tpu_torch.cli import mmrec
+    from unimp_tpu_torch.data import dataset as dataset_mod
+    from unimp_tpu_torch.train import checkpoint as ckpt
+    from unimp_tpu_torch.utils.flops import vision_forward_flops
+
+    log(f"[headline] {host_memory_line(run_dir.parent)}")
+    seen = {"run": None, "steps": {}, "writes": [], "decode_steps": 0}
+    orig = {"cache": mmrec.build_tower_cache, "epoch": mmrec.train_one_epoch,
+            "evals": mmrec.run_evals, "write": ckpt._write, "state": ckpt.save_train_state,
+            "step": Trainer.train_step, "decode_step": Generator._decode_step,
+            "image": dataset_mod.load_resized_uint8}
+    memo, stop_after = {}, {}
+
+    def image(path, size):
+        if (path, size) not in memo:
+            memo[path, size] = orig["image"](path, size)
+        return memo[path, size]
+
+    def cache(model, *args, **kw):
+        before, t0 = counts(), time.perf_counter()
+        out = orig["cache"](model, *args, **kw)
+        torch.cuda.synchronize()
+        seen.setdefault("cache", {})[seen["run"]] = (time.perf_counter() - t0, out.nbytes,
+                                                     tuple(out.shape), between(before))
+        return out
+
+    def epoch(*args, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            orig["epoch"](*args, **kw)
+        finally:
+            peak = seen.setdefault("peak_gib", {})
+            peak[seen["run"]] = max(peak.get(seen["run"], 0.0),
+                                    torch.cuda.max_memory_allocated() / 2**30)
+
+    def evals(args_, model, *args, **kw):
+        seen["k6_per_step"] = k6_per_decode_step(model)
+        before, steps, t0 = counts(), seen["decode_steps"], time.perf_counter()
+        out = orig["evals"](args_, model, *args, **kw)
+        seen["eval"] = (time.perf_counter() - t0, between(before),
+                        seen["decode_steps"] - steps, out)
+        return out
+
+    def write(path, obj):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        orig["write"](path, obj)
+        seen["writes"].append((Path(path).parent.name + "/" + Path(path).name,
+                               time.perf_counter() - t0, Path(path).stat().st_size))
+
+    def save_state(save_dir, trainer, ep):
+        # host copies, held to the resumed state bit for bit
+        seen["rss_before_copy"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+        seen["saved"] = {k: t.cpu() for k, t in train_state_tensors(trainer).items()}
+        seen["saved_gib"] = sum(t.nbytes for t in seen["saved"].values()) / 2**30
+        return orig["state"](save_dir, trainer, ep)
+
+    def step(self, batch):
+        run = seen["run"]
+        steps = seen["steps"].setdefault(run, [])
+        seen["cfg"] = self.model.cfg
+        if run == "resume" and not steps:
+            saved = seen.pop("saved")
+            seen["compared"] = len(saved)
+            seen["differ"] = state_differences(self, saved)
+            del saved
+        before = counts()
+        t0 = time.perf_counter()
+        if run == "main" and len(steps) == 2:  # the last update of epoch 0, profiled
+            out = []
+            profile_run("3b-mpt headline training step (update 3 of run (a))",
+                        lambda: out.append(orig["step"](self, batch)), steps[1][0])
+            metrics = out[0]
+        else:
+            metrics = orig["step"](self, batch)
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t0, float(metrics["loss"]),
+                      float(metrics["grad_norm"]), int(metrics["skipped_nonfinite"]),
+                      between(before), tuple(np.shape(batch["input_ids"])),
+                      tuple(np.shape(batch["image_ids"]))))
+        if len(steps) == stop_after[run]:
+            raise StopRun(run)
+        return metrics
+
+    def decode_step(self, *args, **kw):
+        seen["decode_steps"] += 1
+        return orig["decode_step"](self, *args, **kw)
+
+    base = ["--mmrec_path", str(data), "--external_save_dir", str(run_dir),
+            "--pretrained_model_name_or_path", "3b-mpt", "--subset", "beauty", "--task",
+            "rec", "--single_task", "--n_items", str(N_ITEM_TOKENS), "--history_len", "6",
+            "--use_semantic", "--patch-image-size", "224", "--max_records", str(HEADLINE_RECORDS),
+            "--eval_batch_size", str(HEADLINE_RECORDS), "--num_beams", "10", "--workers", "2",
+            "--device", "cuda", "--batch_size", "3", "--gradient_accumulation_steps", "2",
+            "--fused_accumulation", "--use_reweight", "--gamma", "2",
+            "--cache_vision_latents", "--logging_steps", "1", "--train_method", "continue",
+            "--num_epochs", str(HEADLINE_EPOCHS)]
+    updates = HEADLINE_RECORDS // 6
+    runs = {"main": (["--run_name", "headline", *HEADLINE_LEVERS, "--do_test"], updates + 1),
+            "resume": (["--run_name", "headline", *HEADLINE_LEVERS, "--do_test",
+                        "--resume_from_checkpoint"], 1),
+            "no_remat": (["--run_name", "no_remat", "--frozen_int8", "--bf16_opt_state"], 2),
+            "bf16_frozen": (["--run_name", "bf16_frozen", "--frozen_bf16"], 2)}
+    (mmrec.build_tower_cache, mmrec.train_one_epoch, mmrec.run_evals, ckpt._write,
+     ckpt.save_train_state, Trainer.train_step, Generator._decode_step,
+     dataset_mod.load_resized_uint8) = (cache, epoch, evals, write, save_state, step,
+                                        decode_step, image)
+    wall = {}
+    try:
+        kernel_lib.reset_launches()          # the main path starts here
+        for run, (extra, n_updates) in runs.items():
+            seen["run"], stop_after[run] = run, n_updates
+            t0 = time.perf_counter()
+            try:
+                mmrec.main(base + extra)
+                raise AssertionError(f"[headline] run {run} ended before {n_updates} updates")
+            except StopRun:
+                pass
+            gc.collect()
+            torch.cuda.empty_cache()
+            wall[run] = time.perf_counter() - t0
+            if run == "resume":  # (b) read checkpoint_0: it is not needed any more
+                shutil.rmtree(run_dir / "headline")
+        launches = counts()                  # the main path ends here
+    finally:
+        (mmrec.build_tower_cache, mmrec.train_one_epoch, mmrec.run_evals, ckpt._write,
+         ckpt.save_train_state, Trainer.train_step, Generator._decode_step,
+         dataset_mod.load_resized_uint8) = (orig["cache"], orig["epoch"], orig["evals"],
+                                            orig["write"], orig["state"], orig["step"],
+                                            orig["decode_step"], orig["image"])
+    rss_gib = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+    shutil.rmtree(run_dir, ignore_errors=True)
+
+    # --- checks
+    cfg = seen["cfg"]
+    lm = cfg.lm
+    n_xattn = -(-lm.num_layers // cfg.cross_attn_every_n)
+    fwd = cfg.resampler.depth + n_xattn + lm.num_layers      # K1 / K2 / K3 a micro-batch
+    recompute = n_xattn + lm.num_layers                      # checkpointed blocks
+    for run, steps in seen["steps"].items():
+        remat = run in ("main", "resume")
+        # no K6 in training: 3 x 256 rows a micro-batch take the dequantized
+        # matmul (K6 streams <= 512 rows)
+        want = {"flash_fwd": 2 * (fwd + (recompute if remat else 0)),
+                "flash_bwd_dkv": 2 * fwd, "flash_bwd_dq": 2 * fwd, "quant_matmul": 0}
+        for i, (ms, loss, gnorm, skipped, lnch, ids_shape, img_shape) in enumerate(steps):
+            if skipped or not (np.isfinite(loss) and np.isfinite(gnorm)):
+                raise AssertionError(f"[headline] {run} update {i}: loss {loss}, grad norm "
+                                     f"{gnorm}, skipped {skipped}")
+            got = {k: lnch[k] for k in want}
+            if got != want:
+                raise AssertionError(f"[headline] {run} update {i}: launches {got}, expected "
+                                     f"{want}")
+            if ids_shape != (6, 256) or img_shape != (6, 6):
+                raise AssertionError(f"[headline] {run} update {i}: batch {ids_shape}, images "
+                                     f"{img_shape}; want 6 rows of 256 tokens and 6 images")
+    eval_s, eval_launches, eval_steps, eval_out = seen["eval"]
+    k6_step = seen["k6_per_step"]
+    if not 0 < eval_steps <= 50 or not 0 < eval_launches["quant_matmul"] == k6_step * eval_steps \
+            or \
+            eval_launches["decode_attn"] != lm.num_layers * eval_steps or \
+            eval_launches["single_query_attn"] != n_xattn * eval_steps:
+        raise AssertionError(f"[headline] test pass launches {eval_launches} over {eval_steps} "
+                             f"decode steps ({k6_step} int8 matmuls a step)")
+    if seen["differ"]:
+        raise AssertionError(f"[headline] the resumed state differs from the saved one: "
+                             f"{seen['differ'][:8]} ({len(seen['differ'])} tensors)")
+    straight = seen["steps"]["main"][updates][1]
+    resumed = seen["steps"]["resume"][0][1]
+    resume_rel = abs(resumed - straight) / abs(straight)
+    if resume_rel > 1e-3:
+        raise AssertionError(f"[headline] resumed loss {resumed} vs {straight} straight "
+                             f"(rel {resume_rel:.2e} > 1e-3)")
+
+    # --- report
+    main_steps = seen["steps"]["main"]
+    t = main_steps[0][5][1]
+    flops = train_step_flops(cfg, 6, t, 6, frozen_backbone=True) - vision_forward_flops(cfg, 36)
+    steady = [main_steps[1][0], main_steps[updates][0]]  # update 1 of epoch 0 and 0 of 1
+    step_s = float(np.mean(steady))
+    cache_s, cache_bytes, cache_shape, cache_launches = seen["cache"]["main"]
+    log(f"[headline] 3b-mpt, T {t}, 6 images a sample, micro-batch 3 x accum 2 fused, "
+        f"{' '.join(HEADLINE_LEVERS)} --cache_vision_latents; run walls (s) "
+        f"{ {k: round(v, 1) for k, v in wall.items()} } on {gpu_line}")
+    log(f"[headline] step ms {[round(s[0] * 1e3, 1) for s in main_steps]} (run (a); update 3 "
+        f"under the profiler); {step_s * 1e3:.1f} ms a step, {6 / step_s:.3f} samples/s, the "
+        f"mean of two updates (2 and 4); MFU {100 * flops / step_s / PEAK_FLOPS[torch.bfloat16]:.2f}% "
+        f"({flops / 1e12:.3f} TFLOP a step from utils/flops.py without the cached tower's "
+        f"forward, against 989 TFLOP/s) on {gpu_line}")
+    log(f"[headline] losses (a) {[round(s[1], 6) for s in main_steps]}, (b) "
+        f"{[round(s[1], 6) for s in seen['steps']['resume']]}; resumed update vs straight: "
+        f"{resumed:.6f} vs {straight:.6f} (rel {resume_rel:.2e}, limit 1e-3); weights, "
+        f"moments and int8 payloads restored bit for bit ({seen['compared']} tensors, "
+        f"{seen['saved_gib']:.2f} GiB, held to host copies taken at the save)")
+    log(f"[headline] launches per update (a): {json.dumps(main_steps[1][4])}; (c) "
+        f"{json.dumps(seen['steps']['no_remat'][1][4])}")
+    log(f"[headline] vision cache: {cache_shape[0]} items in {cache_s:.2f} s, "
+        f"{cache_bytes / 2**30:.3f} GiB, launches {json.dumps(cache_launches)} on {gpu_line}")
+    log(f"[headline] test pass: {eval_s:.1f} s, {eval_steps} decode steps ({k6_step} K6 a "
+        f"step: the int8 backbone), rec "
+        f"{ {k: v for k, v in eval_out['rec'].items() if isinstance(v, (int, float))} }; "
+        f"launches {json.dumps(eval_launches)} on {gpu_line}")
+    writes = seen["writes"]
+    log(f"[headline] checkpoint writes (file, s, bytes): "
+        f"{[(n, round(w, 2), b) for n, w, b in writes]}; total "
+        f"{sum(w[1] for w in writes):.2f} s, {sum(w[2] for w in writes) / 2**30:.2f} GiB on "
+        f"{gpu_line}")
+    peak = seen["peak_gib"]
+    log(f"[headline] peak device memory over the training updates: all four levers "
+        f"{peak['main']:.2f} GiB (resumed {peak['resume']:.2f}), without --remat "
+        f"{peak['no_remat']:.2f}, --frozen_bf16 with neither int8 nor bf16 state "
+        f"{peak['bf16_frozen']:.2f}; host peak RSS {rss_gib:.2f} GiB (the whole script so far; "
+        f"{seen['rss_before_copy']:.2f} before the resume check's host copies) "
+        f"on {gpu_line}")
+    return launches
+
+
 def kernel_name(ptxas_line: str) -> str:
     """The kernel's name and its mangled template arguments, as in
     'flash_fwd_mma_kernel ILi80ELb1EE' (80, true), from ptxas's
@@ -2548,6 +3016,7 @@ def main() -> int:
     phase_small(dev, int8=True)
     phase_small_bf16(dev)
     phase_small_train(dev)
+    phase_small_train_flags(dev)
     phase_small_tasks(dev)
     log(f"[small] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -2588,6 +3057,11 @@ def main() -> int:
         t0 = time.perf_counter()
         serve_launches = phase_serve(dev, gpu_line, data)
         log(f"[serve] phase 11 done in {time.perf_counter() - t0:.1f} s")
+        gc.collect()  # the workers are gone: give their memory back
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        headline_launches = phase_headline_train(gpu_line, data, Path(tmp) / "headline")
+        log(f"[headline] phase 12 done in {time.perf_counter() - t0:.1f} s")
 
     # one headline shape per kernel: LM prefill, the LM self-attention
     # backward of training, decode at step 50, x-attn read, the MLP
@@ -2611,7 +3085,9 @@ def main() -> int:
             ("img_gen", task_launches["img_gen"], EVAL_KERNELS),
             ("transfer", task_launches["transfer"], TASK_KERNELS),
             ("serve", serve_launches["serve"], EVAL_KERNELS),
-            ("serve_int8", serve_launches["serve_int8"], INT8_KERNELS))
+            ("serve_int8", serve_launches["serve_int8"], INT8_KERNELS),
+            ("serve_small_f32", serve_launches["serve_small_f32"], EVAL_KERNELS),
+            ("headline_train", headline_launches, TASK_KERNELS + ("quant_matmul",)))
             if name in kernels}
         row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                "launches": sum(by_path.values()), "launches_by_path": by_path,

@@ -252,10 +252,10 @@ def test_jpeg_decodes_grayscale_444_and_422():
     Image.fromarray(arr, "RGB").save(buf, format="JPEG", quality=90, subsampling=1)  # 4:2:2
     want = np.asarray(Image.open(io.BytesIO(buf.getvalue())).convert("RGB"))
     np.testing.assert_array_equal(jpeg.decode_jpeg(buf.getvalue()), want)
-    buf = io.BytesIO()
+    buf = io.BytesIO()  # progressive: decoded since fault 5 was fixed (test_torch_images.py)
     Image.fromarray(arr, "RGB").save(buf, format="JPEG", quality=90, progressive=True)
-    with pytest.raises(ValueError):
-        jpeg.decode_jpeg(buf.getvalue())
+    want = np.asarray(Image.open(io.BytesIO(buf.getvalue())).convert("RGB"))
+    np.testing.assert_array_equal(jpeg.decode_jpeg(buf.getvalue()), want)
 
 
 @pytest.mark.parametrize("size", [28, 224])

@@ -35,6 +35,7 @@ from unimp_tpu_torch.ops.flash_attention import (
 from unimp_tpu_torch.ops.quant_matmul import (
     K6_BK,
     SMS,
+    QuantMatmulFn,
     k6_block_rows,
     quant_matmul_cuda,
     quant_matmul_ref,
@@ -188,6 +189,27 @@ def test_quant_matmul_matches_plain_on_card(cuda_device, m, k, n, ldq, dtype):
     else:
         err = (got.float() - want.float()).abs().max().item()
         assert err <= 2e-2 * want.float().abs().max().item(), err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(256, 2048, 2048), (180, 8192, 2048)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quant_matmul_fn_backward_on_card(cuda_device, m, k, n, dtype):
+    """``QuantMatmulFn`` (the int8 frozen backbone under autograd): K6's
+    forward, and dx against the gradient through the weight dequantized
+    in float32, within 2e-2 of max |plain| (bf16 and float32 alike, as
+    chip_smoke holds it); dx keeps x's dtype."""
+    rng = np.random.default_rng(m + n)
+    x = _randn(rng, m, k).to(cuda_device, dtype).requires_grad_()
+    g = _randn(rng, m, n).to(cuda_device, dtype)
+    q = torch.from_numpy(rng.integers(-127, 128, size=(k, n)).astype(np.int8)).to(cuda_device)
+    scale = torch.from_numpy(rng.random(n).astype(np.float32) / 512).to(cuda_device)
+    (dx,) = torch.autograd.grad(QuantMatmulFn.apply(x, q, scale), x, g)
+    x32 = x.detach().float().requires_grad_()
+    (want,) = torch.autograd.grad(x32 @ (q.float() * scale), x32, g.float())
+    assert dx.dtype == dtype
+    err = (dx.float() - want).abs().max().item()
+    assert err <= 2e-2 * want.abs().max().item(), err
 
 
 @pytest.mark.gpu
@@ -386,6 +408,12 @@ BF16_BWD_CASES = {
                                      dict(causal=True, kv_start=[3, 0], kv_len=[100, 77])),
     "immediate_masked_rows_d80": ((2, 128, 256, 8, 8, 80), dict(media=(4, 64, 40, 24))),
     "alibi_d128_causal": ((2, 256, 256, 16, 16, 128), dict(causal=True, alibi=True)),
+    # 3b-mpt's training (MPT-1B: 16 heads, d128, ALiBi; x-attn over 6 x 64 latents)
+    "mpt_train_3x256_d128_causal_alibi_kvlen": ((3, 256, 256, 16, 16, 128),
+                                                dict(causal=True, alibi=True,
+                                                     kv_len=[256, 231, 204])),
+    "mpt_xattn_train_3x256x384_d128_immediate": ((3, 256, 384, 16, 16, 128),
+                                                 dict(media=(6, 64, 4, 31))),
 }
 
 

@@ -27,9 +27,6 @@ ALL_EVAL_TASKS = ["rec", "exp", "img_sel", "search"]  # run_evals' multi-task de
 # flag -> (what it needs, its ROADMAP.md §1 item)
 UNPORTED = {
     "seq_shard": ("--seq_shard: ring attention", "item 7"),
-    "frozen_int8": ("--frozen_int8: the int8 frozen backbone under autograd", "item 3.6"),
-    "bf16_opt_state": ("--bf16_opt_state: bf16 gradients and moments", "item 3.5"),
-    "remat": ("--remat: activation checkpointing", "item 3.4"),
     "load_from_original_checkpoint": ("--load_from_original_checkpoint: the torch .pt "
                                       "converter", "item 8"),
     "save_hf_model": ("--save_hf_model: the torch .pt exporter", "item 8"),
@@ -47,9 +44,6 @@ def check_ported(args, *, train: bool = False) -> None:
     for flag, (what, item) in UNPORTED.items():
         if getattr(args, flag, False):
             raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md §1, {item})")
-    if getattr(args, "remat_policy", "none") != "none":
-        raise NotImplementedError("--remat_policy: activation checkpointing is not ported yet "
-                                  "(ROADMAP.md §1, item 3.4)")
     if (getattr(args, "load_weights_name", None) or "").endswith(".pt"):
         raise NotImplementedError("--load_weights_name *.pt: the torch .pt converter is not "
                                   "ported yet (ROADMAP.md §1, item 8)")
@@ -97,10 +91,13 @@ def build_model(args, tokenizer, *, train: bool = False, weights=None, trainable
     ``weights`` (a flat tree, ``train/checkpoint.py:restore_params``).
     Inference: cast or quantized as ``--eval_param_dtype`` says, after
     ``weights`` are loaded. Training (``train``): the reference's freezing,
-    frozen tensors in bfloat16 under ``--frozen_bf16``, or every tensor
-    trainable (float32) under ``--unfreeze_backbone``; or, given
-    ``trainable_mask`` (model -> {parameter name: trainable}), that
-    freezing with every tensor float32 (the transfer entry's)."""
+    frozen kernels int8 under ``--frozen_int8`` (which wins over
+    ``--frozen_bf16``, as in the JAX CLI), frozen tensors in bfloat16
+    under ``--frozen_bf16``, or every tensor trainable (float32) under
+    ``--unfreeze_backbone``; or, given ``trainable_mask`` (model ->
+    {parameter name: trainable}), that freezing with every tensor float32
+    (the transfer entry's). ``--remat`` / ``--remat_policy`` set the
+    config's activation checkpointing, as the JAX CLI does."""
     if getattr(args, "config_json", None):
         cfg = config_from_json(args.config_json)
     else:
@@ -109,6 +106,10 @@ def build_model(args, tokenizer, *, train: bool = False, weights=None, trainable
         cfg = cfg.replace(cross_attn_every_n=args.cross_attn_every_n_layers)
     if args.precision in ("fp32", "amp"):
         cfg = cfg.replace(dtype="float32")
+    if getattr(args, "remat", False):
+        cfg = cfg.replace(remat=True)
+    if getattr(args, "remat_policy", "none") != "none":
+        cfg = cfg.replace(remat_policy=args.remat_policy)
     vocab = ((len(tokenizer) + 127) // 128) * 128
     cfg = cfg.replace(lm=dataclasses.replace(cfg.lm, vocab_size=vocab))
     device = resolve_device(args.device)
@@ -119,12 +120,23 @@ def build_model(args, tokenizer, *, train: bool = False, weights=None, trainable
         return from_flax.build_model(cfg, device=device, seed=args.seed, weights=weights,
                                      train=True, trainable_mask=trainable_mask)
     unfreeze = args.unfreeze_backbone
-    frozen = torch.bfloat16 if args.frozen_bf16 and not unfreeze else None
     model = from_flax.build_model(cfg, device=device, seed=args.seed, weights=weights,
-                                  train=True, frozen_dtype=frozen)
+                                  train=True, frozen_dtype=frozen_dtype(args))
     if unfreeze:
         model.requires_grad_(True)
     return model
+
+
+def frozen_dtype(args):
+    """The frozen tensors' storage under the training flags: "int8"
+    (``--frozen_int8``, first, as the JAX CLI decides), bfloat16
+    (``--frozen_bf16``), or None (float32, and always under
+    ``--unfreeze_backbone``, which freezes nothing)."""
+    if args.unfreeze_backbone:
+        return None
+    if args.frozen_int8:
+        return "int8"
+    return torch.bfloat16 if args.frozen_bf16 else None
 
 
 def make_dataset(args, tokenizer, split: str, task=None) -> TaskDataset:

@@ -12,7 +12,11 @@ the eval and test splits with one latent cache, and writes
 ``weights_epoch_{e}`` and ``checkpoint_{e}``; ``final_weights`` at the end.
 ``--resume_from_checkpoint`` continues from the latest ``checkpoint_{e}``
 of the run, and ``--cache_vision_latents`` encodes every item through the
-frozen tower once (``train/vision_cache.py``).
+frozen tower once (``train/vision_cache.py``). The JAX package's headline
+configuration runs too: ``--frozen_int8`` (frozen kernels int8, read
+through K6 at <= 512 rows; checkpoints stay float trees and a resume
+quantizes them again), ``--bf16_opt_state`` (bfloat16 gradients and Adam
+moments) and ``--remat [--remat_policy dots]``.
 """
 
 from __future__ import annotations
@@ -30,11 +34,13 @@ from unimp_tpu_torch.evals.evaluators import EVALUATORS
 from unimp_tpu_torch.tools.from_flax import load_flax_params
 from unimp_tpu_torch.train import checkpoint as ckpt
 from unimp_tpu_torch.train.optimizer import MultiSteps, make_optimizer
-from unimp_tpu_torch.train.partition import trainable_params
+from unimp_tpu_torch.train.partition import (apply_frozen_storage, backbone_trainable_mask,
+                                             trainable_params)
 from unimp_tpu_torch.train.trainer import Trainer
 from unimp_tpu_torch.train.vision_cache import build_tower_cache
 from unimp_tpu_torch.utils.logging import MetricLogger
 from unimp_tpu_torch.utils.profiling import StepTimer, maybe_trace
+from unimp_tpu_torch.utils.quant import abstract_dequantized, count_quantized
 
 
 def train_one_epoch(args, trainer, loader, epoch, logger, timer):
@@ -158,9 +164,11 @@ def main(argv=None):
                           config=vars(args))
     logger.print(f"Total training steps: {total_steps}")
 
+    bf16_state = torch.bfloat16 if args.bf16_opt_state else None
     optimizer = make_optimizer(trainable_params(model), learning_rate=args.learning_rate,
                                lr_scheduler=args.lr_scheduler, total_steps=total_steps,
-                               warmup_steps=warmup, weight_decay=args.weight_decay)
+                               warmup_steps=warmup, weight_decay=args.weight_decay,
+                               moment_dtype=bf16_state)
     if accum > 1 and not args.fused_accumulation:
         optimizer = MultiSteps(optimizer, accum)
     trainer = Trainer(
@@ -168,14 +176,29 @@ def main(argv=None):
         answer_id=tokenizer.answer_token_id, endofchunk_id=tokenizer.endofchunk_token_id,
         pad_id=tokenizer.pad_token_id, gamma=args.gamma, use_reweight=args.use_reweight,
         mask_lm_head=args.mask_lm_head, accum_steps=accum if args.fused_accumulation else 1,
-        device=args.device)
+        device=args.device, grad_dtype=bf16_state)
 
     resume_epoch = 0
     if args.resume_from_checkpoint:
         latest = ckpt.latest_checkpoint(save_dir)
         if latest:
             logger.print(f"Resuming from {latest}")
-            load_flax_params(model, ckpt.restore_params(save_dir, latest))
+            restored = ckpt.restore_params(save_dir, latest)
+            int8 = count_quantized(model) > 0
+            if int8:
+                # checkpoints are float trees: check the file against the
+                # dequantized layout, load it, then quantize the frozen
+                # kernels again
+                like = abstract_dequantized(model)
+                bad = sorted(p for p in set(like) | set(restored)
+                             if p not in like or p not in restored
+                             or tuple(like[p].shape) != tuple(restored[p].shape))
+                if bad:
+                    raise KeyError(f"{latest} does not fit the model: {bad[:8]}")
+            load_flax_params(model, restored)
+            del restored  # release the file's mapping
+            if int8:  # the float kernels the load put in place of int8 ones go back
+                apply_frozen_storage(model, backbone_trainable_mask(model))
             state = ckpt.restore_train_state(save_dir, latest)
             optimizer.load_state_dict(state["opt_state"])
             trainer.step = int(state["step"])

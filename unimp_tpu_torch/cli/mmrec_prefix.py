@@ -14,7 +14,11 @@ or run_name)}/{load_weights_name}`` onto it with growth
 the fresh init), then fine-tunes it with the Trainer, schedule and
 accumulation of ``cli/mmrec.py``, writing ``weights_epoch_{e}`` and
 ``final_weights`` under ``{external_save_dir}/{run_name}_{domain}``.
-``--only_test`` evaluates the restored weights instead.
+``--only_test`` evaluates the restored weights instead. ``--remat`` /
+``--remat_policy`` apply (the model's config); ``--frozen_int8`` and
+``--bf16_opt_state`` leave this entry's float32 tensors, gradients and
+moments as they are, as the JAX entry does (its Trainer and optimizer get
+neither flag, ``unimp_tpu/cli/mmrec_prefix.py:95-114``).
 """
 
 from __future__ import annotations

@@ -5,10 +5,11 @@ imagepipe.cc``) and writes them with PIL. The card's machine has neither
 libjpeg nor a place in the port for PIL, so the port carries its own
 codec, written to give libjpeg's (libjpeg-turbo's) numbers exactly:
 
-  * decode: baseline Huffman, the integer "islow" IDCT (``jidctint.c``)
-    with its 10-bit range-limit table, "fancy" (triangle) upsampling of
-    2x2 and 2x1 chroma (``jdsample.c``) and the fixed-point YCbCr -> RGB
-    tables (``jdcolor.c``);
+  * decode: Huffman entropy decoding (sequential and progressive), the
+    integer "islow" IDCT (``jidctint.c``) with its 10-bit range-limit
+    table, "fancy" (triangle) upsampling of 2x2, 2x1 and 1x2 chroma
+    (``jdsample.c``), the fixed-point YCbCr -> RGB tables (``jdcolor.c``),
+    and CMYK as PIL converts it to RGB;
   * encode: the fixed-point RGB -> YCbCr tables (``jccolor.c``), 2x2
     chroma averaging with the 1, 2, 1, 2 rounding bias (``jcsample.c``),
     libjpeg's edge replication and dummy blocks, the integer "islow" FDCT
@@ -17,9 +18,14 @@ codec, written to give libjpeg's (libjpeg-turbo's) numbers exactly:
   * resize: the pipe's separable triangle filter (PIL BILINEAR for
     downscaling), float32 operation for operation.
 
-Progressive, arithmetic-coded, 12-bit, CMYK and restart-marker files are
-refused. Huffman decoding is a Python loop (about a microsecond a
-coefficient); everything else is vectorized over blocks.
+Decode reads every Huffman-coded 8-bit JPEG that libjpeg reads: baseline
+and extended, interleaved or one component a scan, progressive (DC and AC
+first and refinement scans with end-of-band runs, ``jdphuff.c``), restart
+intervals, 16-bit quantization tables, gray / YCbCr / RGB / CMYK / YCCK,
+and files cut short. Arithmetic-coded, 12-bit, lossless and hierarchical
+files raise a ``ValueError`` that names them (ROADMAP.md §3, fault 5).
+Huffman decoding is a Python loop (about a microsecond a coefficient);
+everything else is vectorized over blocks.
 """
 
 from __future__ import annotations
@@ -234,175 +240,486 @@ def _upsample_h2v2(x: np.ndarray) -> np.ndarray:
 
 # ---------------------------------------------------------------- decode
 
-def _segments(data: bytes):
-    """Yield (marker, payload, offset after the payload) up to SOS."""
-    if data[:2] != b"\xff\xd8":
-        raise ValueError("not a JPEG (no SOI)")
+# the JPEG processes the port does not read (ROADMAP.md §3, fault 5)
+_UNREAD_SOF = {0xC3: "lossless JPEG (SOF3)", 0xC5: "hierarchical JPEG (SOF5)",
+               0xC6: "hierarchical JPEG (SOF6)", 0xC7: "hierarchical lossless JPEG (SOF7)",
+               0xC9: "arithmetic-coded JPEG (SOF9)", 0xCA: "arithmetic-coded JPEG (SOF10)",
+               0xCB: "arithmetic-coded lossless JPEG (SOF11)",
+               0xCD: "arithmetic-coded hierarchical JPEG (SOF13)",
+               0xCE: "arithmetic-coded hierarchical JPEG (SOF14)",
+               0xCF: "arithmetic-coded hierarchical lossless JPEG (SOF15)"}
+UNREAD = "is not read by the port (ROADMAP.md §3, fault 5)"
+# zero bytes behind a scan that the end of the file cut: enough for any
+# MCU read from zero bits (10 blocks of 64 codes of at most 16 + 16 bits)
+_ZERO_TAIL = 2600
+
+
+def _scan_segments(data: bytes, start: int):
+    """The entropy-coded data of the scan starting at ``start``, split at
+    its RSTn markers: (segments, each unstuffed as a uint8 array; the
+    offset of the marker that ends the scan; whether the file ended
+    first). A run of FF before 00 is one FF data byte, as libjpeg reads
+    it."""
+    buf = np.frombuffer(data, np.uint8, offset=start)
+    n = buf.size
+    segments, pieces, p = [], [], 0
+    for i in np.flatnonzero(buf == 0xFF).tolist():
+        if i < p:
+            continue
+        j = i + 1
+        while j < n and buf[j] == 0xFF:
+            j += 1
+        if j >= n:  # the file ends inside a run of FF
+            n = i
+            break
+        if buf[j] == 0x00:
+            pieces.append(buf[p:i + 1])
+        else:
+            pieces.append(buf[p:i])
+            segments.append(np.concatenate(pieces))
+            pieces = []
+            if not 0xD0 <= buf[j] <= 0xD7:
+                return segments, start + i, False
+        p = j + 1
+    pieces.append(buf[p:n])
+    segments.append(np.concatenate(pieces))
+    return segments, len(data), True
+
+
+def _windows(seg: np.ndarray, tail: int) -> list:
+    """32 bits from each byte of ``seg`` followed by ``tail`` zero bytes."""
+    b = np.concatenate([seg, np.zeros(tail + 4, np.uint8)]).astype(np.uint64)
+    return ((b[:-3] << np.uint64(24)) | (b[1:-2] << np.uint64(16)) | (b[2:-1] << np.uint64(8))
+            | b[3:]).tolist()
+
+
+def _bad_code():
+    raise ValueError("corrupt JPEG: bad Huffman code")
+
+
+def _read_baseline(win, mcus, flat, dc, ac, preds, al, ss, se, nbits):
+    """Sequential Huffman MCUs: each block's DC difference and its 63 AC
+    coefficients. Stops after the MCU in which the data ran out (it read
+    zero bits): the rest of the segment keeps what it had (zero here).
+    The other readers stop alike."""
+    pos = 0
+    for mcu in mcus:
+        for ci, base in mcu:
+            out, dc_lut, ac_lut = flat[ci], dc[ci], ac[ci]
+            e = dc_lut[(win[pos >> 3] >> (16 - (pos & 7))) & 0xFFFF]
+            if not e:
+                _bad_code()
+            pos += e >> 8
+            s = e & 0xFF
+            if s:
+                r = (win[pos >> 3] >> (32 - (pos & 7) - s)) & ((1 << s) - 1)
+                pos += s
+                preds[ci] += r if r >= 1 << (s - 1) else r - (1 << s) + 1
+            out[base] = preds[ci]
+            k = 1
+            while k < 64:
+                e = ac_lut[(win[pos >> 3] >> (16 - (pos & 7))) & 0xFFFF]
+                if not e:
+                    _bad_code()
+                pos += e >> 8
+                rs = e & 0xFF
+                s = rs & 15
+                if s:
+                    k += rs >> 4
+                    if k > 63:
+                        raise ValueError("corrupt JPEG: coefficient past 63")
+                    r = (win[pos >> 3] >> (32 - (pos & 7) - s)) & ((1 << s) - 1)
+                    pos += s
+                    out[base + k] = r if r >= 1 << (s - 1) else r - (1 << s) + 1
+                    k += 1
+                elif rs == 0xF0:
+                    k += 16
+                else:
+                    break
+        if pos > nbits:
+            return
+
+
+def _read_dc_first(win, mcus, flat, dc, ac, preds, al, ss, se, nbits):
+    """Progressive DC first scan (``jdphuff.c decode_mcu_DC_first``)."""
+    pos = 0
+    for mcu in mcus:
+        for ci, base in mcu:
+            e = dc[ci][(win[pos >> 3] >> (16 - (pos & 7))) & 0xFFFF]
+            if not e:
+                _bad_code()
+            pos += e >> 8
+            s = e & 0xFF
+            if s:
+                r = (win[pos >> 3] >> (32 - (pos & 7) - s)) & ((1 << s) - 1)
+                pos += s
+                preds[ci] += r if r >= 1 << (s - 1) else r - (1 << s) + 1
+            flat[ci][base] = preds[ci] * (1 << al)
+        if pos > nbits:
+            return
+
+
+def _read_dc_refine(win, mcus, flat, dc, ac, preds, al, ss, se, nbits):
+    """Progressive DC refinement: one bit a block (``decode_mcu_DC_refine``)."""
+    pos, p1 = 0, 1 << al
+    for mcu in mcus:
+        for ci, base in mcu:
+            if (win[pos >> 3] >> (31 - (pos & 7))) & 1:
+                flat[ci][base] |= p1
+            pos += 1
+        if pos > nbits:
+            return
+
+
+def _read_ac_first(win, mcus, flat, dc, ac, preds, al, ss, se, nbits):
+    """Progressive AC first scan over one component, with end-of-band runs
+    (``decode_mcu_AC_first``)."""
+    pos, eobrun = 0, 0
+    for mcu in mcus:
+        (ci, base), = mcu
+        if eobrun:
+            eobrun -= 1
+            continue
+        out, lut = flat[ci], ac[ci]
+        k = ss
+        while k <= se:
+            e = lut[(win[pos >> 3] >> (16 - (pos & 7))) & 0xFFFF]
+            if not e:
+                _bad_code()
+            pos += e >> 8
+            rs = e & 0xFF
+            r, s = rs >> 4, rs & 15
+            if s:
+                k += r
+                if k > 63:
+                    raise ValueError("corrupt JPEG: coefficient past 63")
+                v = (win[pos >> 3] >> (32 - (pos & 7) - s)) & ((1 << s) - 1)
+                pos += s
+                out[base + k] = (v if v >= 1 << (s - 1) else v - (1 << s) + 1) * (1 << al)
+                k += 1
+            elif r == 15:
+                k += 16
+            else:
+                eobrun = 1 << r
+                if r:
+                    eobrun += (win[pos >> 3] >> (32 - (pos & 7) - r)) & ((1 << r) - 1)
+                    pos += r
+                eobrun -= 1
+                break
+        if pos > nbits:
+            return
+
+
+def _read_ac_refine(win, mcus, flat, dc, ac, preds, al, ss, se, nbits):
+    """Progressive AC refinement over one component: new coefficients of
+    +-1 << al and a correction bit for each nonzero one passed, with
+    end-of-band runs (``decode_mcu_AC_refine``)."""
+    pos, eobrun = 0, 0
+    p1, m1 = 1 << al, -1 << al
+    for mcu in mcus:
+        (ci, base), = mcu
+        out, lut = flat[ci], ac[ci]
+        k = ss
+        if not eobrun:
+            while k <= se:
+                e = lut[(win[pos >> 3] >> (16 - (pos & 7))) & 0xFFFF]
+                if not e:
+                    _bad_code()
+                pos += e >> 8
+                rs = e & 0xFF
+                r, s = rs >> 4, rs & 15
+                if s:
+                    s = p1 if (win[pos >> 3] >> (31 - (pos & 7))) & 1 else m1
+                    pos += 1
+                elif r != 15:
+                    eobrun = 1 << r
+                    if r:
+                        eobrun += (win[pos >> 3] >> (32 - (pos & 7) - r)) & ((1 << r) - 1)
+                        pos += r
+                    break
+                while k <= se:  # pass nonzero coefficients and r zero ones
+                    c = out[base + k]
+                    if c:
+                        if (win[pos >> 3] >> (31 - (pos & 7))) & 1 and not c & p1:
+                            out[base + k] = c + (p1 if c >= 0 else m1)
+                        pos += 1
+                    else:
+                        r -= 1
+                        if r < 0:
+                            break
+                    k += 1
+                if s and k <= se:
+                    out[base + k] = s
+                k += 1
+        if eobrun:
+            while k <= se:  # the rest of the band: correction bits only
+                c = out[base + k]
+                if c:
+                    if (win[pos >> 3] >> (31 - (pos & 7))) & 1 and not c & p1:
+                        out[base + k] = c + (p1 if c >= 0 else m1)
+                    pos += 1
+                k += 1
+            eobrun -= 1
+        if pos > nbits:
+            return
+
+
+def _scan_mcus(frame, scan_comps):
+    """MCUs of a scan in order: each a list of (scan component, flat offset
+    of a block's 64 coefficients). One component: its own blocks in raster
+    order, as many as its samples need; several: the frame's MCU grid,
+    each component's h x v blocks an MCU."""
+    h, w, comps, hmax, vmax, mcux, mcuy = frame
+    if len(scan_comps) == 1:
+        c = scan_comps[0]
+        _, hs, vs, _ = comps[c]
+        cols = -(-(-(-w * hs // hmax)) // 8)
+        rows = -(-(-(-h * vs // vmax)) // 8)
+        stride = mcux * hs
+        return [[(0, (r * stride + q) * 64)] for r in range(rows) for q in range(cols)]
+    mcus = []
+    for my in range(mcuy):
+        for mx in range(mcux):
+            mcu = []
+            for si, c in enumerate(scan_comps):
+                _, hs, vs, _ = comps[c]
+                for v in range(vs):
+                    for u in range(hs):
+                        mcu.append((si, ((my * vs + v) * mcux * hs + mx * hs + u) * 64))
+            mcus.append(mcu)
+    return mcus
+
+
+_READERS = {"baseline": _read_baseline, "dc_first": _read_dc_first,
+            "dc_refine": _read_dc_refine, "ac_first": _read_ac_first,
+            "ac_refine": _read_ac_refine}
+
+
+def _read_scan(data, end, frame, coefs, huff, seg, progressive, restart):
+    """Decode one scan into the coefficient buffers; returns the offset
+    after its entropy-coded data."""
+    h, w, comps, *_ = frame
+    ids = [c[0] for c in comps]
+    ns = seg[0]
+    scan_comps, td, ta = [], [], []
+    for k in range(ns):
+        cid, tables = seg[1 + 2 * k], seg[2 + 2 * k]
+        if cid not in ids:
+            raise ValueError(f"corrupt JPEG: scan component {cid} is not in the frame")
+        scan_comps.append(ids.index(cid))
+        td.append(tables >> 4)
+        ta.append(tables & 15)
+    ss, se, ah, al = seg[1 + 2 * ns], seg[2 + 2 * ns], seg[3 + 2 * ns] >> 4, seg[3 + 2 * ns] & 15
+    if not progressive:
+        kind, ss, se, al = "baseline", 0, 63, 0
+    elif ss == 0:
+        kind = "dc_first" if ah == 0 else "dc_refine"
+    else:
+        if ns != 1 or se > 63 or ss > se:
+            raise ValueError("corrupt JPEG: bad progressive AC scan")
+        kind = "ac_first" if ah == 0 else "ac_refine"
+    try:
+        dc = [huff[(0, t)] if kind in ("baseline", "dc_first") else None for t in td]
+        ac = [huff[(1, t)] if kind in ("baseline", "ac_first", "ac_refine") else None for t in ta]
+    except KeyError as e:
+        raise ValueError(f"corrupt JPEG: Huffman table {e} is not defined") from None
+    segments, after, cut = _scan_segments(data, end)
+    mcus = _scan_mcus(frame, scan_comps)
+    per = restart or len(mcus)
+    flat = [coefs[c].reshape(-1) for c in scan_comps]
+    read = _READERS[kind]
+    for s, seg_bytes in enumerate(segments):
+        chunk = mcus[s * per:(s + 1) * per]
+        if not chunk:
+            break
+        last = cut and s == len(segments) - 1
+        win = _windows(seg_bytes, _ZERO_TAIL if last else 8)
+        try:
+            read(win, chunk, flat, dc, ac, [0] * ns, al, ss, se, 8 * seg_bytes.size)
+        except IndexError:
+            raise ValueError("corrupt JPEG: scan data ended early") from None
+    return after
+
+
+def _upsample(plane: np.ndarray, fh: int, fv: int) -> np.ndarray:
+    """libjpeg-turbo's upsampling by (fh, fv): "fancy" (triangle) for 2x1,
+    2x2 and 1x2 where the component is wider than 2 samples, else box
+    replication (``jdsample.c``)."""
+    if (fh, fv) == (1, 1):
+        return plane
+    if plane.shape[1] > 2:
+        if (fh, fv) == (2, 2):
+            return _upsample_h2v2(plane)
+        if (fh, fv) == (2, 1):
+            return _upsample_h2(plane)
+        if (fh, fv) == (1, 2):
+            p = np.pad(plane.astype(np.int64), ((1, 1), (0, 0)), mode="edge")
+            out = np.empty((2 * plane.shape[0], plane.shape[1]), np.int64)
+            out[0::2] = (3 * p[1:-1] + p[:-2] + 1) >> 2
+            out[1::2] = (3 * p[1:-1] + p[2:] + 2) >> 2
+            return out
+    return np.repeat(np.repeat(plane, fv, axis=0), fh, axis=1)
+
+
+def _cmyk_to_rgb(c, m, y, k) -> np.ndarray:
+    """Adobe-inverted CMYK samples, as PIL reads them ("CMYK;I": 255 - x),
+    then PIL's ``convert("RGB")``: 255 - k less (255 - k) * c / 255
+    rounded as its MULDIV255, per channel."""
+    nk = k.astype(np.int64)  # 255 - (255 - k)
+    out = []
+    for ch in (c, m, y):
+        v = 255 - ch.astype(np.int64)
+        t = v * nk + 128
+        out.append(nk - (((t >> 8) + t) >> 8))
+    return np.clip(np.stack(out, axis=-1), 0, 255).astype(np.uint8)
+
+
+def component_count(data: bytes) -> int:
+    """The number of components in a JPEG's frame header (0 if it has
+    none before its first scan)."""
     i = 2
     while i + 4 <= len(data):
         if data[i] != 0xFF:
-            raise ValueError(f"bad marker at byte {i}")
-        marker = data[i + 1]
-        if marker == 0xFF:  # fill byte
             i += 1
             continue
-        length = int.from_bytes(data[i + 2:i + 4], "big")
-        yield marker, data[i + 4:i + 2 + length], i + 2 + length
-        if marker == 0xDA:
-            return
-        i += 2 + length
-    raise ValueError("truncated JPEG (no SOS)")
-
-
-def _entropy_bytes(data: bytes, start: int) -> np.ndarray:
-    """The scan's bytes with stuffing removed, up to the next marker."""
-    buf = np.frombuffer(data, np.uint8, offset=start)
-    ff = np.flatnonzero(buf[:-1] == 0xFF)
-    nxt = buf[ff + 1]
-    ends = ff[(nxt != 0x00) & (nxt != 0xFF)]
-    if ends.size:
-        buf = buf[:ends[0]]
-        ff = ff[ff < ends[0]]
-    keep = np.ones(buf.size, bool)
-    keep[ff[buf[np.minimum(ff + 1, buf.size - 1)] == 0x00] + 1] = False
-    return buf[keep]
+        marker = data[i + 1]
+        if marker == 0xFF or marker in (0x00, 0x01, 0xD8) or 0xD0 <= marker <= 0xD7:
+            i += 1 if marker == 0xFF else 2
+            continue
+        if 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
+            return data[i + 9] if i + 9 < len(data) else 0
+        if marker in (0xD9, 0xDA):
+            return 0
+        i += 2 + int.from_bytes(data[i + 2:i + 4], "big")
+    return 0
 
 
 def decode_jpeg(data: bytes) -> np.ndarray:
-    """Baseline JPEG bytes -> uint8 RGB [H, W, 3], as libjpeg decodes it
-    with its defaults (islow IDCT, fancy upsampling, RGB out)."""
-    qt, huff, frame, scan, restart = {}, {}, None, None, 0
-    for marker, seg, end in _segments(data):
+    """JPEG bytes -> uint8 RGB [H, W, 3], as libjpeg-turbo decodes it with
+    its defaults (islow IDCT, fancy upsampling) and PIL's
+    ``convert("RGB")`` gives it: baseline and extended (SOF0 / SOF1) with
+    interleaved or one-component scans, progressive (SOF2), restart
+    intervals, 8- and 16-bit quantization tables; 1 component (gray), 3
+    (YCbCr, or RGB by the Adobe or component-id rule) or 4 (CMYK, YCCK by
+    the Adobe transform flag). A file cut short decodes as libjpeg does
+    with the end of its data replaced by zero bits (PIL with
+    ``LOAD_TRUNCATED_IMAGES``): the MCU where the data ends reads zeros,
+    the rest of that scan's interval stays zero (gray in a baseline file;
+    a progressive file keeps what its earlier scans gave, without
+    libjpeg's block smoothing)."""
+    if data[:2] != b"\xff\xd8":
+        raise ValueError("not a JPEG (no SOI marker)")
+    qt, latched, huff = {}, {}, {}
+    frame = coefs = None
+    progressive, restart, adobe, jfif, scans = False, 0, None, False, 0
+    i, n = 2, len(data)
+    while i < n:
+        if data[i] != 0xFF:  # bytes between segments: skipped, as libjpeg does
+            i += 1
+            continue
+        while i < n and data[i] == 0xFF:
+            i += 1
+        if i >= n:
+            break
+        marker = data[i]
+        i += 1
+        if marker == 0xD9:  # EOI
+            break
+        if marker in (0x00, 0x01, 0xD8) or 0xD0 <= marker <= 0xD7:
+            continue  # no payload
+        if i + 2 > n:
+            break
+        end = i + int.from_bytes(data[i:i + 2], "big")
+        seg = data[i + 2:end]
+        if end > n:
+            if frame is None:
+                raise ValueError("truncated JPEG (cut before its first scan)")
+            break
+        i = end
         if marker == 0xDB:
             j = 0
             while j < len(seg):
-                if seg[j] >> 4:
-                    raise ValueError("16-bit quantization tables are not supported")
-                qt[seg[j] & 15] = np.frombuffer(seg, np.uint8, 64, j + 1).astype(np.int64)
-                j += 65
+                wide, tq = seg[j] >> 4, seg[j] & 15
+                if wide:
+                    qt[tq] = np.frombuffer(seg, ">u2", 64, j + 1).astype(np.int64)
+                else:
+                    qt[tq] = np.frombuffer(seg, np.uint8, 64, j + 1).astype(np.int64)
+                j += 1 + 64 * (1 + wide)
         elif marker == 0xC4:
             j = 0
             while j < len(seg):
                 bits = tuple(seg[j + 1:j + 17])
-                n = sum(bits)
-                huff[(seg[j] >> 4, seg[j] & 15)] = _huff_lut(bits, tuple(seg[j + 17:j + 17 + n]))
-                j += 17 + n
-        elif marker in (0xC0, 0xC1):
+                m = sum(bits)
+                huff[(seg[j] >> 4, seg[j] & 15)] = _huff_lut(bits, tuple(seg[j + 17:j + 17 + m]))
+                j += 17 + m
+        elif marker in (0xC0, 0xC1, 0xC2):
             if seg[0] != 8:
-                raise ValueError(f"{seg[0]}-bit samples are not supported")
+                raise ValueError(f"{seg[0]}-bit JPEG {UNREAD}")
             h, w = int.from_bytes(seg[1:3], "big"), int.from_bytes(seg[3:5], "big")
+            if not h or not w:
+                raise ValueError("JPEG with its height in a DNL marker " + UNREAD)
             comps = [(seg[6 + 3 * k], seg[7 + 3 * k] >> 4, seg[7 + 3 * k] & 15, seg[8 + 3 * k])
                      for k in range(seg[5])]
-            frame = (h, w, comps)
-        elif 0xC2 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
-            raise ValueError(f"JPEG process SOF{marker - 0xC0} is not supported (baseline only)")
+            if len(comps) not in (1, 3, 4):
+                raise ValueError(f"JPEG with {len(comps)} components {UNREAD}")
+            hmax, vmax = max(c[1] for c in comps), max(c[2] for c in comps)
+            mcux, mcuy = -(-w // (8 * hmax)), -(-h // (8 * vmax))
+            frame = (h, w, comps, hmax, vmax, mcux, mcuy)
+            coefs = [np.zeros((mcuy * c[2], mcux * c[1], 64), np.int64) for c in comps]
+            progressive = marker == 0xC2
+        elif marker in _UNREAD_SOF or marker == 0xCC:
+            raise ValueError(f"{_UNREAD_SOF.get(marker, 'arithmetic-coded JPEG (DAC)')} {UNREAD}")
         elif marker == 0xDD:
             restart = int.from_bytes(seg[:2], "big")
+        elif marker == 0xE0 and seg[:5] == b"JFIF\x00":
+            jfif = True
+        elif marker == 0xEE and seg[:5] == b"Adobe" and len(seg) >= 12:
+            adobe = seg[11]
         elif marker == 0xDA:
-            scan = ([(seg[1 + 2 * k], seg[2 + 2 * k] >> 4, seg[2 + 2 * k] & 15)
-                     for k in range(seg[0])], end)
-    if frame is None or scan is None:
-        raise ValueError("no frame header")
-    if restart:
-        raise ValueError("restart intervals are not supported")
-    h, w, comps = frame
-    if len(comps) not in (1, 3):
-        raise ValueError(f"{len(comps)} components are not supported")
-    scan_comps, start = scan
-    if len(scan_comps) != len(comps):
-        raise ValueError("multi-scan (non-interleaved) files are not supported")
-    hmax = max(c[1] for c in comps)
-    vmax = max(c[2] for c in comps)
-    if len(comps) == 1:  # one non-interleaved component: blocks in raster order
-        hmax = vmax = 1
-        comps = [(comps[0][0], 1, 1, comps[0][3])]
-    mcu_cols = -(-w // (8 * hmax))
-    mcu_rows = -(-h // (8 * vmax))
-    if len(comps) == 1:
-        mcu_cols, mcu_rows = -(-w // 8), -(-h // 8)
-    by_id = {c[0]: c for c in comps}
-    plan = []  # per component of the scan: (blocks array, h, v, dc lut, ac lut)
-    for cid, td, ta in scan_comps:
-        _, hs, vs, tq = by_id[cid]
-        plan.append((np.zeros((mcu_rows * vs, mcu_cols * hs, 64), np.int64), hs, vs,
-                     huff[(0, td)], huff[(1, ta)], cid))
-    coefs = _huffman_decode(_entropy_bytes(data, start), plan, mcu_rows, mcu_cols)
-    planes = {}
-    for (blocks, hs, vs, _, _, cid), c in zip(plan, coefs):
-        tq = by_id[cid][3]
-        deq = np.zeros(blocks.shape, np.int64)
-        deq[..., ZIGZAG] = c * qt[tq]
-        br, bc = blocks.shape[:2]
+            if frame is None:
+                raise ValueError("corrupt JPEG: a scan before the frame header")
+            for k in range(seg[0]):  # tables are latched at a component's first scan
+                cid = seg[1 + 2 * k]
+                comp = next((c for c in frame[2] if c[0] == cid), None)
+                if comp is not None and cid not in latched:
+                    if comp[3] not in qt:
+                        raise ValueError(f"corrupt JPEG: quantization table {comp[3]} is missing")
+                    latched[cid] = qt[comp[3]]
+            i = _read_scan(data, end, frame, coefs, huff, seg, progressive, restart)
+            scans += 1
+    if frame is None or not scans:
+        raise ValueError("not a complete JPEG (no frame header or no scan)")
+    h, w, comps, hmax, vmax, *_ = frame
+    planes = []
+    for (cid, hs, vs, _), c in zip(comps, coefs):
+        deq = np.zeros(c.shape, np.int64)
+        if cid in latched:  # a component no scan reached stays zero
+            deq[..., ZIGZAG] = c * latched[cid]
+        br, bc = c.shape[:2]
         pix = idct_islow(deq.reshape(-1, 8, 8)).reshape(br, bc, 8, 8)
         plane = pix.transpose(0, 2, 1, 3).reshape(br * 8, bc * 8)
-        ch, cw = -(-h * vs // vmax), -(-w * hs // hmax)
-        plane = plane[:ch, :cw]
-        if (hs, vs) != (hmax, vmax):
-            if (hmax // hs, vmax // vs) == (2, 2) and hmax % hs == 0 and vmax % vs == 0:
-                plane = _upsample_h2v2(plane)
-            elif (hmax // hs, vmax // vs) == (2, 1) and hmax % hs == 0 and vmax == vs:
-                plane = _upsample_h2(plane)
-            else:
-                raise ValueError(f"chroma sampling {hs}x{vs} of {hmax}x{vmax} is not supported")
-        planes[cid] = plane[:h, :w]
+        plane = plane[:-(-h * vs // vmax), :-(-w * hs // hmax)]
+        if hmax % hs or vmax % vs:
+            raise ValueError(f"JPEG chroma sampling {hs}x{vs} of {hmax}x{vmax} {UNREAD}")
+        planes.append(_upsample(plane, hmax // hs, vmax // vs)[:h, :w])
     if len(comps) == 1:
-        return np.repeat(planes[comps[0][0]].astype(np.uint8)[..., None], 3, axis=2)
-    return ycc_to_rgb(*(planes[c[0]] for c in comps))
-
-
-def _huffman_decode(buf: np.ndarray, plan, mcu_rows: int, mcu_cols: int):
-    """Interleaved baseline scan -> per component [rows, cols, 64] zigzag
-    coefficients (not dequantized)."""
-    b = np.concatenate([buf, np.zeros(8, np.uint8)]).astype(np.uint64)
-    win = ((b[:-3] << np.uint64(24)) | (b[1:-2] << np.uint64(16)) | (b[2:-1] << np.uint64(8))
-           | b[3:]).tolist()  # 32 bits from each byte
-    nbits = 8 * buf.size
-    outs = [np.zeros(p[0].shape, np.int64) for p in plan]
-    flat = [o.reshape(-1) for o in outs]
-    pos = 0
-    preds = [0] * len(plan)
-    for my in range(mcu_rows):
-        for mx in range(mcu_cols):
-            for ci, (_, hs, vs, dc_lut, ac_lut, _) in enumerate(plan):
-                ncols = mcu_cols * hs
-                out = flat[ci]
-                for v in range(vs):
-                    for hh in range(hs):
-                        base = ((my * vs + v) * ncols + mx * hs + hh) * 64
-                        # DC
-                        e = dc_lut[(win[pos >> 3] >> (16 - (pos & 7))) & 0xFFFF]
-                        if not e:
-                            raise ValueError("corrupt JPEG: bad Huffman code")
-                        pos += e >> 8
-                        s = e & 0xFF
-                        if s:
-                            r = (win[pos >> 3] >> (32 - (pos & 7) - s)) & ((1 << s) - 1)
-                            pos += s
-                            preds[ci] += r if r >= 1 << (s - 1) else r - (1 << s) + 1
-                        out[base] = preds[ci]
-                        k = 1
-                        while k < 64:
-                            e = ac_lut[(win[pos >> 3] >> (16 - (pos & 7))) & 0xFFFF]
-                            if not e:
-                                raise ValueError("corrupt JPEG: bad Huffman code")
-                            pos += e >> 8
-                            rs = e & 0xFF
-                            s = rs & 15
-                            if s:
-                                k += rs >> 4
-                                if k > 63:
-                                    raise ValueError("corrupt JPEG: coefficient past 63")
-                                r = (win[pos >> 3] >> (32 - (pos & 7) - s)) & ((1 << s) - 1)
-                                pos += s
-                                out[base + k] = r if r >= 1 << (s - 1) else r - (1 << s) + 1
-                                k += 1
-                            elif rs == 0xF0:
-                                k += 16
-                            else:
-                                break
-            if pos > nbits + 64:
-                raise ValueError("corrupt JPEG: scan data ended early")
-    return outs
+        return np.repeat(planes[0].astype(np.uint8)[..., None], 3, axis=2)
+    if len(comps) == 3:
+        # libjpeg's colour space rule (``jdapimin.c``): JFIF means YCbCr,
+        # else the Adobe transform flag (0: RGB), else the component ids
+        if jfif:
+            rgb = False
+        elif adobe is not None:
+            rgb = adobe == 0
+        else:
+            rgb = tuple(c[0] for c in comps) == (82, 71, 66)  # 'R', 'G', 'B'
+        if rgb:
+            return np.stack(planes, axis=-1).astype(np.uint8)
+        return ycc_to_rgb(*planes)
+    if adobe not in (None, 0):  # YCCK -> CMYK (``jdcolor.c ycck_cmyk_convert``)
+        c, m, y = (255 - ycc_to_rgb(*planes[:3]).astype(np.int64)).transpose(2, 0, 1)
+        planes = [c, m, y, planes[3]]
+    return _cmyk_to_rgb(*planes)
 
 
 # ---------------------------------------------------------------- encode

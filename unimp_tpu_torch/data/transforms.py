@@ -2,12 +2,17 @@
 
 Counterpart of ``unimp_tpu/data/transforms.py`` (the reference's
 RandomResize -> ToTensor -> Normalize(FLAMINGO mean/std)). The host
-decodes and resizes to uint8 through the port's own JPEG codec
-(``data/jpeg.py``: libjpeg's decode and the JAX package's native resize,
-bit for bit); images travel to the card as uint8, a byte per channel, and
-are normalized there. The serving worker's ``preprocess_image`` resizes
-as PIL's ``Image.resize(BILINEAR)`` does (``resize_bilinear_pil``), as the
-JAX worker does through PIL.
+decodes and resizes to uint8 through the port's own decoders, chosen by
+the file's first bytes (``decode_image``): ``data/jpeg.py`` (libjpeg's
+decode, bit for bit) and ``data/png.py`` (PIL's ``convert("RGB")`` of a
+PNG). ``load_resized_uint8`` resizes as the JAX package does for the same
+file: a JPEG of 1 or 3 components goes through its native pipe's resize
+(``jpeg.resize_bilinear``), a PNG or a 4-component JPEG (which the pipe
+declines) through PIL's bilinear resize (``resize_bilinear_pil``). Images
+travel to the card as uint8, a byte per channel, and are normalized
+there. The serving worker's ``preprocess_image`` resizes every format as
+PIL's ``Image.resize(BILINEAR)`` does, as the JAX worker does through PIL.
+Other formats raise a ``ValueError`` that names them.
 """
 
 from __future__ import annotations
@@ -15,16 +20,43 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from unimp_tpu_torch.data import jpeg
+from unimp_tpu_torch.data import jpeg, png
 
 FLAMINGO_MEAN = (0.48145466, 0.4578275, 0.40821073)
 FLAMINGO_STD = (0.26862954, 0.26130258, 0.27577711)
 
 
+# formats the port does not decode: their first bytes -> name
+_UNREAD_FORMATS = ((b"GIF87a", "GIF"), (b"GIF89a", "GIF"), (b"BM", "BMP"),
+                   (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"))
+
+
+def image_format(data: bytes) -> str:
+    """"jpeg" or "png" by the file's first bytes; raises ``ValueError``
+    naming any other format."""
+    if data[:2] == b"\xff\xd8":
+        return "jpeg"
+    if data.startswith(png.SIGNATURE):
+        return "png"
+    name = next((n for magic, n in _UNREAD_FORMATS if data.startswith(magic)), None)
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        name = "WebP"
+    if name is None:
+        raise ValueError("not an image the port reads (JPEG or PNG)")
+    raise ValueError(f"{name} images are not read by the port (ROADMAP.md §3, fault 5)")
+
+
+def decode_image(data: bytes) -> np.ndarray:
+    """JPEG or PNG bytes -> uint8 RGB [H, W, 3] (PIL's ``convert("RGB")``)."""
+    if image_format(data) == "png":
+        return png.decode_png(data)
+    return jpeg.decode_jpeg(data)
+
+
 def load_image_rgb(path: str) -> np.ndarray:
-    """Decode a JPEG file to uint8 RGB [H, W, 3]."""
+    """Decode a JPEG or PNG file to uint8 RGB [H, W, 3]."""
     with open(path, "rb") as f:
-        return jpeg.decode_jpeg(f.read())
+        return decode_image(f.read())
 
 
 def preprocess_uint8(img: np.ndarray, size: int = 224) -> np.ndarray:
@@ -35,10 +67,17 @@ def preprocess_uint8(img: np.ndarray, size: int = 224) -> np.ndarray:
 
 
 def load_resized_uint8(path: str, size: int) -> np.ndarray:
-    """Decode + resize to uint8 [size, size, 3], as the JAX package's
-    native pipe gives it."""
+    """Decode + resize to uint8 [size, size, 3], as the JAX package gives
+    it: a JPEG of 1 or 3 components as its native pipe does, a PNG or a
+    4-component JPEG as its PIL fallback does."""
     with open(path, "rb") as f:
-        return jpeg.decode_resize(f.read(), size)
+        data = f.read()
+    if image_format(data) == "jpeg" and jpeg.component_count(data) in (1, 3):
+        return jpeg.decode_resize(data, size)
+    img = decode_image(data)
+    if img.shape[0] != size or img.shape[1] != size:
+        img = resize_bilinear_pil(img, size)
+    return img
 
 
 def _pil_taps(src: int, dst: int):

@@ -92,6 +92,12 @@ class UniMPConfig:
     cross_attn_every_n: int = 2
     media_mode: str = "immediate"  # Flamingo: attend to most recent media
     dtype: str = "bfloat16"  # compute dtype
+    # remat: checkpoint each LM block and each x-attn block in the training
+    # forward (activations recomputed in the backward); remat_policy
+    # "dots" saves the outputs of matmuls with no batch dims (JAX's
+    # dots_with_no_batch_dims_saveable), "none" recomputes everything
+    remat: bool = False
+    remat_policy: str = "none"
 
     @property
     def compute_dtype(self) -> torch.dtype:

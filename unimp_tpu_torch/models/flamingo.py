@@ -14,14 +14,26 @@ until trained or opened).
 Media masking: each text token cross-attends only to the latents of the
 most recent preceding <image> ("immediate") or of all preceding media
 ("all_previous"); ``compute_q_media`` gives each token's media index.
+
+Activation checkpointing (``cfg.remat``, ``--remat``): the full forward
+with gradients on runs each decoder block and each x-attn block under
+``torch.utils.checkpoint`` (non-reentrant), as the JAX model wraps them in
+``nn.remat`` (``unimp_tpu/models/flamingo.py:277-313``). With
+``remat_policy="dots"`` the outputs of matmuls with no batch dims
+(``aten.mm`` / ``aten.addmm``) are saved and the rest is recomputed:
+JAX's ``dots_with_no_batch_dims_saveable``. The attention kernels sit in
+their own autograd function, so the backward recomputes their forward (K1
+launches again) as it does the Pallas call in JAX.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint as torch_checkpoint
 from torch import nn
 
 from unimp_tpu_torch.models.config import UniMPConfig
@@ -48,6 +60,33 @@ def media_allowed(kv_media, n_media, mode: str):
     if mode == "all_previous":
         return (kv_media <= n_media[:, None]) & (kv_media > 0)
     raise ValueError(mode)
+
+
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    """Selective checkpointing policy: keep 2-D matmul outputs (no batch
+    dims), recompute everything else."""
+    if op in _SAVED_DOTS:
+        return torch_checkpoint.CheckpointPolicy.MUST_SAVE
+    return torch_checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat(fn, policy: str = "none"):
+    """``fn`` run under non-reentrant activation checkpointing, saving what
+    ``policy`` ("none" or "dots") says."""
+    if policy not in ("none", "dots"):
+        raise ValueError(f"unknown remat policy {policy!r}")
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(
+            torch_checkpoint.create_selective_checkpoint_contexts, _dots_saveable)
+
+    def run(*args, **kwargs):
+        return torch_checkpoint.checkpoint(fn, *args, use_reentrant=False, **kw, **kwargs)
+
+    return run
 
 
 class Embed(nn.Module):
@@ -214,15 +253,32 @@ class UniMPModel(nn.Module):
         x = self.embed(input_ids)
         causal = input_ids.shape[1] > 1
         self_caches, xattn_caches = [], []
+        # the training forward only: a prefill keeps its caches and an
+        # inference forward has no backward to recompute for
+        use_remat = cfg.remat and not return_kv and torch.is_grad_enabled()
+
+        def run_block(mdl, h):
+            return mdl(h, kv_len=kv_len, kv_start=kv_start, positions=positions,
+                       causal=causal)[0]
+
+        def run_xattn(mdl, h):
+            return mdl(h, latents_flat, q_media, kv_media)[0]
+
+        if use_remat:
+            run_block = remat(run_block, cfg.remat_policy)
+            run_xattn = remat(run_xattn, cfg.remat_policy)
         for block, xattn in self._layers():
             if xattn is not None and latents_flat is not None:
-                x, xc = xattn(x, latents_flat, q_media, kv_media,
-                              return_cache=return_kv)
                 if return_kv:
+                    x, xc = xattn(x, latents_flat, q_media, kv_media, return_cache=True)
                     xattn_caches.append(xc)
-            x, sc = block(x, kv_len=kv_len, kv_start=kv_start,
-                          positions=positions, causal=causal,
-                          return_cache=return_kv)
+                else:
+                    x = run_xattn(xattn, x)
+            if return_kv:
+                x, sc = block(x, kv_len=kv_len, kv_start=kv_start, positions=positions,
+                              causal=causal, return_cache=True)
+            else:
+                x, sc = run_block(block, x), None
             self_caches.append(sc)
         if return_hidden:
             return self.final_ln(x), None

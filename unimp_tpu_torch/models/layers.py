@@ -264,8 +264,10 @@ class Attention(nn.Module):
                 # -> local beam index within the row's K beams
                 k_beams = gen["k"].shape[0] // prompt["k"].shape[0]
                 beam_sel = (gen_index % k_beams).to(torch.int32)
+            # q is a view into the fused int8 q/k/v output when no rotary
+            # embedding copies it (ALiBi models): the kernel takes it dense
             out = decode_attention(
-                q[:, 0], prompt["k"], prompt["v"], gen["k"], gen["v"],
+                q[:, 0].contiguous(), prompt["k"], prompt["v"], gen["k"], gen["v"],
                 step=step + 1, kv_start=decode_state.get("kv_start"),
                 alibi=self.alibi, beam_sel=beam_sel,
                 prompt_k_scale=prompt.get("k_scale"), prompt_v_scale=prompt.get("v_scale"),

@@ -5,8 +5,9 @@ Counterpart of ``unimp_tpu/ops/quant_matmul.py``. ``quant_matmul``
 computes x @ (q * scale) with the f32 sum taken over x @ q and the
 per-output-channel scale applied once after it; a CUDA tensor goes to the
 kernel (``quant_matmul_cuda``, K6 in ``csrc/quant_matmul.cu``), a CPU
-tensor to ``quant_matmul_ref``. ``quant_dot`` is the call site the model
-uses for every matmul weight.
+tensor to ``quant_matmul_ref``. ``QuantMatmulFn`` gives it the JAX
+custom VJP's backward (the int8 frozen backbone under autograd).
+``quant_dot`` is the call site the model uses for every matmul weight.
 """
 
 from __future__ import annotations
@@ -109,21 +110,45 @@ def quant_matmul(x, q, scale):
     return quant_matmul_cuda(x, q, scale)
 
 
+class QuantMatmulFn(torch.autograd.Function):
+    """``quant_matmul`` under autograd, as the JAX custom VJP defines it
+    (``unimp_tpu/ops/quant_matmul.py:134-145``): the forward is K6 on a
+    CUDA tensor and ``quant_matmul_ref`` on a CPU one; the backward is
+    dx = (g * scale in g's dtype) @ q^T summed in float32 and rounded to
+    g's dtype, a plain matmul (JAX computes it in XLA, outside the Pallas
+    kernel). q and scale are constants of the frozen weight: no gradient.
+    Nothing is saved but the weight, so a recompute under activation
+    checkpointing launches K6 again and saves nothing new."""
+
+    @staticmethod
+    def forward(ctx, x, q, scale):
+        ctx.save_for_backward(q, scale)
+        return quant_matmul(x, q, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, scale = ctx.saved_tensors
+        gs = g * scale.to(g.dtype)
+        return (gs.float() @ q.float().t()).to(g.dtype), None, None
+
+
 def quant_dot(x, kernel, *, max_rows: int = 512):
     """x [..., in] @ kernel, contracting x's last dim with the kernel's
     leading axes (Dense [in, N], Proj [in, H, d], o_proj [H, d, out] with
     x flattened to H*d); returns [..., N].
 
     A ``QuantizedKernel`` at <= ``max_rows`` rows (a decode step, a
-    prefill head) goes to ``quant_matmul``: the f32 sum of x @ q, then the
-    scale. More rows take the dequantized matmul x @ (q * scale in
-    x.dtype), as the JAX package does (``unimp_tpu/ops/quant_matmul.py:
-    75-96``). The threshold decides which arithmetic runs, so it stays the
-    JAX package's 512 for parity; a float kernel is a plain matmul."""
+    prefill head) goes to ``QuantMatmulFn``: the f32 sum of x @ q, then
+    the scale, with the JAX custom VJP's gradient for x. More rows take
+    the dequantized matmul x @ (q * scale in x.dtype), whose autograd
+    reaches x only, as the JAX package does (``unimp_tpu/ops/
+    quant_matmul.py:75-96``). The threshold decides which arithmetic runs,
+    so it stays the JAX package's 512 for parity; a float kernel is a
+    plain matmul."""
     in_dim = x.shape[-1]
     if isinstance(kernel, QuantizedKernel):
         q, scale = kernel.flat(in_dim)
         if x.numel() // in_dim <= max_rows:
-            return quant_matmul(x, q, scale)
+            return QuantMatmulFn.apply(x, q, scale)
         return x @ (q.to(x.dtype) * scale.to(x.dtype))
     return x @ kernel.reshape(in_dim, -1).to(x.dtype)

@@ -9,10 +9,10 @@ NUL-delimited JSON chunk stream):
         --mmrec_path DATA --subset beauty --task rec --n_items N \\
         --controller-address http://localhost:21001 --port 21002 [--device cpu]
 
-Images arrive as base64 JPEGs, decoded by the port's own codec
-(``data/jpeg.py``; the JAX worker uses PIL, which the card's machine
-lacks) and resized as PIL does; any other format gets an ``error_code``
-1 chunk. Controller calls go through ``urllib``. A request's ``seed``
+Images arrive as base64 JPEGs or PNGs, decoded by the port's own codecs
+(``data/jpeg.py``, ``data/png.py``; the JAX worker uses PIL, which the
+card's machine lacks) and resized as PIL does; any other format gets an
+``error_code`` 1 chunk. Controller calls go through ``urllib``. A request's ``seed``
 reaches the engine (the JAX worker streams every sampled request from
 seed 0).
 """
@@ -30,8 +30,7 @@ from typing import Optional
 
 import numpy as np
 
-from unimp_tpu_torch.data import jpeg
-from unimp_tpu_torch.data.transforms import preprocess_image
+from unimp_tpu_torch.data.transforms import decode_image, preprocess_image
 from unimp_tpu_torch.decode.streaming import StreamingGenerator
 from unimp_tpu_torch.serve.batching import BatchedStreamingEngine
 from unimp_tpu_torch.serve.cli_chat import post_json
@@ -102,20 +101,19 @@ class ModelWorker:
     # ---------------- generation ----------------
 
     def decode_images(self, images_b64) -> np.ndarray:
-        """base64 JPEGs -> CLIP-normalized float32 [1, M, H, W, 3]; raises
-        ValueError on anything that is not a JPEG this codec reads."""
+        """base64 JPEGs or PNGs -> CLIP-normalized float32 [1, M, H, W, 3]
+        (PIL's resize, as the JAX worker's); raises ValueError on anything
+        these decoders do not read."""
         frames = []
         for s in images_b64:
             try:
                 data = base64.b64decode(s, validate=True)
             except (binascii.Error, TypeError) as e:
                 raise ValueError(f"image is not base64: {e}") from None
-            if not data.startswith(b"\xff\xd8"):
-                raise ValueError("image is not a JPEG (only JPEG is read)")
             try:
-                rgb = jpeg.decode_jpeg(data)
-            except Exception as e:  # a malformed or unsupported JPEG
-                raise ValueError(f"JPEG not decoded: {type(e).__name__}: {e}") from None
+                rgb = decode_image(data)
+            except Exception as e:  # a malformed image, or a format not read
+                raise ValueError(f"image not decoded: {type(e).__name__}: {e}") from None
             frames.append(preprocess_image(rgb, self.image_size))
         return np.stack(frames)[None].astype(np.float32)
 

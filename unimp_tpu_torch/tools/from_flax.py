@@ -148,8 +148,9 @@ def build_model(cfg: UniMPConfig, *, device="cuda", seed: int = 0,
     Training (``train=True``): ``trainable_mask(model)`` ({parameter
     name: trainable}; default the reference's freezing,
     ``train/partition.py``): float32 trainable masters, frozen tensors
-    with ``requires_grad=False`` stored in ``frozen_dtype`` when given,
-    ``.train()``. ``load_flax_params`` loads a Flax tree into either build.
+    with ``requires_grad=False`` stored in ``frozen_dtype`` when given
+    (a float dtype, or "int8": frozen kernels quantized, ``train/
+    partition.py:freeze``), ``.train()``. ``load_flax_params`` loads a Flax tree into either build.
     """
     if eval_param_dtype not in EVAL_PARAM_DTYPES:
         raise ValueError(f"eval_param_dtype {eval_param_dtype!r} not in "

@@ -5,7 +5,8 @@ UniMP's mmrec.py:873-894): ``weights_epoch_{e}`` after every epoch,
 ``checkpoint_{e}`` (the weights plus the optimizer state, the step and the
 epoch) for ``--resume_from_checkpoint``, and ``final_weights`` at the end.
 Each is a directory, as Orbax's are, holding ``params.pt``: every tensor
-of the model, trainable and frozen, in its stored dtype, keyed by its flat
+of the model, trainable and frozen, in its stored dtype (an int8 frozen
+kernel as its float32 dequantization, see ``model_tree``), keyed by its flat
 Flax path (``tools/from_flax.py:flatten_tree``'s "a/b/c"), so one naming
 serves the port's checkpoints and trees carried over from JAX;
 ``checkpoint_{e}`` adds ``train_state.pt``.
@@ -26,6 +27,8 @@ from typing import Optional
 
 import torch
 
+from unimp_tpu_torch.utils.quant import count_quantized, dequantize_params_host
+
 PARAMS_FILE = "params.pt"
 STATE_FILE = "train_state.pt"
 ORBAX_MARKERS = ("_CHECKPOINT_METADATA", "_METADATA", "manifest.ocdbt")
@@ -33,7 +36,12 @@ ORBAX_MARKERS = ("_CHECKPOINT_METADATA", "_METADATA", "manifest.ocdbt")
 
 def model_tree(model) -> dict:
     """{flat Flax path: tensor} of every tensor in the model's state (no
-    copies)."""
+    copies), each int8 kernel (``--frozen_int8``) dequantized to a float32
+    host tensor at its ``.../kernel`` path: checkpoints are float trees,
+    as the JAX package writes them (``unimp_tpu/train/checkpoint.py:
+    24-32``), and a resume quantizes them again."""
+    if count_quantized(model):
+        return dequantize_params_host(model)
     return {name.replace(".", "/"): t.detach() for name, t in model.state_dict().items()}
 
 

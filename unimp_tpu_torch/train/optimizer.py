@@ -6,11 +6,14 @@ gates, norms or biases), the reference's get_grouped_params
 get_{linear,cosine,constant}_schedule_with_warmup (mmrec.py:682-697):
 linear warmup from 0, then linear or half-cosine decay to 0, or constant;
 global-norm clipping at 1.0 (mmrec.py:247-248). The optimizer holds no
-TPU kernel, so it is ``torch.optim.AdamW``. ``MultiSteps`` is the
-counterpart of ``optax.MultiSteps`` (``--gradient_accumulation_steps``
-without ``--fused_accumulation``). Both save and restore their state by
-parameter name (``state_dict`` / ``load_state_dict``) for
-``train/checkpoint.py``.
+TPU kernel, so it is ``torch.optim.AdamW``; with ``--bf16_opt_state`` the
+moments are stored in bfloat16 with the arithmetic in float32, which
+``torch.optim.AdamW`` cannot do (it keeps its moments in the parameter's
+dtype), so that path is the port's own update, ``ClippedAdamWCast``.
+``MultiSteps`` is the counterpart of ``optax.MultiSteps``
+(``--gradient_accumulation_steps`` without ``--fused_accumulation``).
+Each saves and restores its state by parameter name (``state_dict`` /
+``load_state_dict``) for ``train/checkpoint.py``.
 """
 
 from __future__ import annotations
@@ -92,6 +95,14 @@ class ClippedAdamW:
     def grads(self) -> list:
         return [p.grad for p in self.params if p.grad is not None]
 
+    def named_grads(self) -> dict:
+        """{name: gradient or None}: the parameters' ``.grad``."""
+        return {name: p.grad for name, p in self.named.items()}
+
+    def set_grads(self, grads: dict) -> None:
+        for name, p in self.named.items():
+            p.grad = grads[name]
+
     def grad_norm(self) -> torch.Tensor:
         """Global L2 norm of the gradients, accumulated in float32."""
         norms = [torch.linalg.vector_norm(g, dtype=torch.float32) for g in self.grads()]
@@ -147,6 +158,104 @@ class ClippedAdamW:
         self.scheduler._last_lr = lrs
 
 
+def global_norm(grads) -> torch.Tensor:
+    """``optax.global_norm`` of the gradients, rounded as the jitted JAX
+    step rounds it: each tensor's sum of squares taken in float32 and
+    rounded to the tensor's dtype, the sum over tensors and the square
+    root in that dtype (bfloat16 under ``--bf16_opt_state``)."""
+    total = None
+    for g in grads:
+        sq = (g.float() * g.float()).sum().to(g.dtype)
+        total = sq if total is None else total + sq
+    return torch.sqrt(total)
+
+
+class ClippedAdamWCast:
+    """``--bf16_opt_state``: the JAX package's optax chain with both Adam
+    moments stored in ``mu_dtype`` / ``nu_dtype`` (bfloat16) and the
+    arithmetic in float32 (``unimp_tpu/train/optimizer.py``: the clip of
+    ``_clip_by_global_norm_f32``, ``_scale_by_adam_cast``, decayed weights
+    on the ``decay_mask`` tensors, then the schedule), operation for
+    operation in the chain's order, one tensor at a time.
+
+    The gradients live in a dict (``set_grads``), not in ``.grad``: they
+    arrive in bfloat16 (the trainer's ``grad_dtype``) while the masters
+    are float32. ``grad_norm`` is the logged norm (``global_norm``, in the
+    gradients' dtype); ``step`` clips by the norm accumulated in float32,
+    scales in float32 and casts back to each gradient's dtype."""
+
+    def __init__(self, params: dict, *, schedule: Callable[[int], float],
+                 weight_decay: float, max_grad_norm: float, b1: float, b2: float,
+                 eps: float, mu_dtype=torch.bfloat16, nu_dtype=torch.bfloat16):
+        self.named = dict(params)
+        self.schedule = schedule
+        self.decay = decay_mask(params)
+        self.weight_decay, self.max_grad_norm = weight_decay, max_grad_norm
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.mu = {n: torch.zeros_like(p, dtype=mu_dtype) for n, p in self.named.items()}
+        self.nu = {n: torch.zeros_like(p, dtype=nu_dtype) for n, p in self.named.items()}
+        self.grad = dict.fromkeys(self.named)
+        self.count = 0  # scale_by_adam's count
+        self.schedule_count = 0  # scale_by_learning_rate's
+
+    def grads(self) -> list:
+        return [g for g in self.grad.values() if g is not None]
+
+    def named_grads(self) -> dict:
+        return dict(self.grad)
+
+    def set_grads(self, grads: dict) -> None:
+        self.grad = {name: grads[name] for name in self.named}
+
+    def grad_norm(self) -> torch.Tensor:
+        return global_norm(self.grads())
+
+    def zero_grad(self) -> None:
+        self.grad = dict.fromkeys(self.named)
+
+    @torch.no_grad()
+    def step(self, grad_norm: torch.Tensor = None) -> None:
+        """Clip, update, advance the schedule (``grad_norm``, the logged
+        one, is not the clip's)."""
+        f32 = torch.float32
+        sq = sum((g.float() * g.float()).sum() for g in self.grads())
+        scale = torch.clamp(self.max_grad_norm / torch.clamp(torch.sqrt(sq), min=1e-16),
+                            max=1.0)
+        self.count += 1
+        dev = scale.device
+        count = torch.tensor(float(self.count), dtype=f32, device=dev)
+        bc1 = 1 - torch.tensor(self.b1, dtype=f32, device=dev) ** count
+        bc2 = 1 - torch.tensor(self.b2, dtype=f32, device=dev) ** count
+        step_size = torch.tensor(-self.schedule(self.schedule_count), dtype=f32, device=dev)
+        for name, p in self.named.items():
+            g = self.grad[name]
+            g = torch.zeros_like(p) if g is None else (g.float() * scale).to(g.dtype)
+            g = g.float()
+            mu, nu = self.mu[name], self.nu[name]
+            mu.copy_(self.b1 * mu.float() + (1 - self.b1) * g)
+            nu.copy_(self.b2 * nu.float() + (1 - self.b2) * g * g)
+            u = (mu.float() / bc1) / (torch.sqrt(nu.float() / bc2) + self.eps)
+            if self.decay[name]:
+                u = u + self.weight_decay * p
+            p.add_(step_size * u)
+        self.schedule_count += 1
+
+    def state_dict(self) -> dict:
+        """{"mu", "nu" (by name, live tensors in their storage dtype),
+        "count", "schedule_count"}: the keys of ``ClippedAdamW``'s."""
+        return {"mu": self.mu, "nu": self.nu, "count": self.count,
+                "schedule_count": self.schedule_count}
+
+    def load_state_dict(self, state: dict) -> None:
+        if set(state["mu"]) != set(self.named) or set(state["nu"]) != set(self.named):
+            raise KeyError("moments do not match the parameters")
+        for name in self.named:
+            self.mu[name].copy_(state["mu"][name])
+            self.nu[name].copy_(state["nu"][name])
+        self.count = int(state["count"])
+        self.schedule_count = int(state["schedule_count"])
+
+
 class MultiSteps:
     """``optax.MultiSteps(ClippedAdamW, k)``: the inner optimizer updates
     once every ``k`` calls of ``step``, on the running mean of the ``k``
@@ -154,9 +263,13 @@ class MultiSteps:
     accumulate. The clip applies to the norm of that mean; ``grad_norm``
     is the current gradient's, as the trainer logs it. AdamW's step and the
     schedule advance once per ``k``. A call that the trainer skips (a
-    non-finite loss or norm) touches neither the mean nor the count."""
+    non-finite loss or norm) touches neither the mean nor the count. The
+    mean is kept in the parameters' dtype (float32) whatever the
+    gradients' dtype, as optax's is (``zeros_like`` of the parameters;
+    ``acc + (g - acc) / (n + 1)`` promotes a bfloat16 g); ``inner`` may be
+    a ``ClippedAdamW`` or a ``ClippedAdamWCast``."""
 
-    def __init__(self, inner: ClippedAdamW, k: int):
+    def __init__(self, inner, k: int):
         self.inner, self.k = inner, k
         self.acc = {name: torch.zeros_like(p) for name, p in inner.named.items()}
         self.mini_step = 0
@@ -168,19 +281,21 @@ class MultiSteps:
     def zero_grad(self) -> None:
         self.inner.zero_grad()
 
+    def set_grads(self, grads: dict) -> None:
+        self.inner.set_grads(grads)
+
     def step(self, grad_norm: torch.Tensor) -> None:
         """Fold the parameters' ``.grad`` into the mean; on every k-th call
         update with it (``grad_norm``, the current gradient's, is unused)."""
         n = self.mini_step
-        for name, p in self.inner.named.items():
-            acc = self.acc[name]
-            g = p.grad if p.grad is not None else torch.zeros_like(acc)
+        grads = self.inner.named_grads()
+        for name, acc in self.acc.items():
+            g = grads[name] if grads[name] is not None else torch.zeros_like(acc)
             acc.add_((g - acc) / (n + 1))
         if n < self.k - 1:
             self.mini_step += 1
             return
-        for name, p in self.inner.named.items():
-            p.grad = self.acc[name].clone()
+        self.inner.set_grads({name: acc.clone() for name, acc in self.acc.items()})
         self.inner.step(self.inner.grad_norm())
         for acc in self.acc.values():
             acc.zero_()
@@ -203,27 +318,33 @@ def make_optimizer(params: dict, *, learning_rate: float = 1e-4,
                    lr_scheduler: str = "constant", total_steps: int = 10_000,
                    warmup_steps: int = 0, weight_decay: float = 0.1,
                    max_grad_norm: float = 1.0, b1: float = 0.9, b2: float = 0.999,
-                   eps: float = 1e-8) -> ClippedAdamW:
+                   eps: float = 1e-8, moment_dtype=None):
     """The reference AdamW over ``params`` ({name: parameter}): pass the
     trainable ones (``partition.trainable_params``) so that decay, clipping
-    and the moments exist only for them."""
+    and the moments exist only for them. ``moment_dtype`` (bfloat16 under
+    ``--bf16_opt_state``: the JAX ``mu_dtype`` and ``nu_dtype``) gives a
+    ``ClippedAdamWCast``; by default a ``ClippedAdamW``."""
     schedule = make_schedule(lr_scheduler, learning_rate, total_steps, warmup_steps)
-    return ClippedAdamW(params, schedule=schedule, weight_decay=weight_decay,
-                        max_grad_norm=max_grad_norm, b1=b1, b2=b2, eps=eps)
+    kw = dict(schedule=schedule, weight_decay=weight_decay, max_grad_norm=max_grad_norm,
+              b1=b1, b2=b2, eps=eps)
+    if moment_dtype is not None:
+        return ClippedAdamWCast(params, mu_dtype=moment_dtype, nu_dtype=moment_dtype, **kw)
+    return ClippedAdamW(params, **kw)
 
 
-def embedding_row_mask_update(params: dict, answer_token_id: int) -> None:
+def embedding_row_mask_update(grads: dict, answer_token_id: int) -> None:
     """--mask_lm_head (mmrec.py:218-233): keep only the <answer> row of the
     token embedding's gradient and the <answer> column of the lm head's,
-    in place (a multiply by a one-hot, as the JAX package does)."""
-    for name, p in params.items():
-        if p.grad is None:
+    in place (a multiply by a one-hot, as the JAX package does); ``grads``
+    is {parameter name: gradient or None}."""
+    for name, g in grads.items():
+        if g is None:
             continue
         if name.endswith("embed.embedding"):
-            row = torch.zeros(p.grad.shape[0], dtype=p.grad.dtype, device=p.grad.device)
+            row = torch.zeros(g.shape[0], dtype=g.dtype, device=g.device)
             row[answer_token_id] = 1.0
-            p.grad.mul_(row[:, None])
+            g.mul_(row[:, None])
         elif name.endswith("lm_head.kernel"):  # [D, V]: a column
-            col = torch.zeros(p.grad.shape[1], dtype=p.grad.dtype, device=p.grad.device)
+            col = torch.zeros(g.shape[1], dtype=g.dtype, device=g.device)
             col[answer_token_id] = 1.0
-            p.grad.mul_(col[None, :])
+            g.mul_(col[None, :])

@@ -23,6 +23,14 @@ the JAX ``TrainState.step`` does, skipped ones included.
 Cached vision (``vision_cache``, ``train/vision_cache.py``): batches
 carry ``image_ids`` [B, M] in place of pixels and the step gathers the
 frozen tower's features, so only the trainable perceiver runs.
+
+bfloat16 gradients (``grad_dtype``, ``--bf16_opt_state``): each
+micro-batch's gradient is taken with ``torch.autograd.grad``, cast to
+``grad_dtype`` and summed in a buffer of that dtype, and the sum is
+multiplied by 1 / accum in it, the JAX step's order of rounding
+(``unimp_tpu/train/trainer.py:282-307``); the optimizer gets them through
+``set_grads`` (a ``ClippedAdamWCast``, or a ``MultiSteps`` over one). By
+default the micro-batches' ``backward()`` sums float32 ``.grad``.
 """
 
 from __future__ import annotations
@@ -48,13 +56,15 @@ class Trainer:
     float, and "images" [B, M, H, W, 3] uint8 or, with ``vision_cache``
     set, "image_ids" [B, M] int}, as numpy arrays or tensors; B is a
     multiple of ``accum_steps``. ``optimizer`` is a ``ClippedAdamW`` or a
-    ``MultiSteps`` over one.
+    ``MultiSteps`` over one, or with ``grad_dtype`` a ``ClippedAdamWCast``
+    or a ``MultiSteps`` over one.
     """
 
     def __init__(self, model, optimizer, *, media_id: int, answer_id: int,
                  endofchunk_id: int, pad_id: int, gamma: float = 2.0,
                  use_reweight: bool = False, mask_lm_head: bool = False,
-                 accum_steps: int = 1, device="cuda", vision_cache=None):
+                 accum_steps: int = 1, device="cuda", vision_cache=None,
+                 grad_dtype=None):
         self.device = resolve_device(device)
         for name, p in model.named_parameters():
             if p.device.type != self.device.type:
@@ -68,6 +78,7 @@ class Trainer:
         self.mask_lm_head = mask_lm_head
         self.accum_steps = accum_steps
         self.vision_cache = vision_cache  # [n_items, P, Dv] tower features, or None
+        self.grad_dtype = grad_dtype
         self.step = 0
 
     def loss_fn(self, batch: dict):
@@ -86,8 +97,9 @@ class Trainer:
                                  self.use_reweight)
 
     def compute_grads(self, batch: dict):
-        """Fill each trainable parameter's ``.grad`` with the step's gradient
-        (mean over micro-batches, then the lm-head row mask); returns the
+        """Hand the optimizer the step's gradient (mean over micro-batches,
+        then the lm-head row mask): each trainable parameter's ``.grad``,
+        or under ``grad_dtype`` the optimizer's ``set_grads``; returns the
         mean (loss, aux), detached."""
         batch = self.device_batch(batch)
         n = batch["input_ids"].shape[0]
@@ -95,15 +107,37 @@ class Trainer:
             raise ValueError(f"batch {n} does not split into {self.accum_steps} micro-batches")
         self.optimizer.zero_grad()
         inv = 1.0 / self.accum_steps
-        loss_sum, aux_sum = 0.0, {}
+        names, params = list(self.params), list(self.params.values())
+        loss_sum, aux_sum, gsum = 0.0, {}, None
         for mb in range(self.accum_steps):
             part = {k: v.chunk(self.accum_steps)[mb] for k, v in batch.items()}
             loss, aux = self.loss_fn(part)
-            (loss * inv).backward()
+            if self.grad_dtype is None:
+                (loss * inv).backward()
+            else:
+                # cast (and add) one tensor at a time: the float32 gradient
+                # tree is released as it goes
+                grads = list(torch.autograd.grad(loss, params, materialize_grads=True))
+                for i, g in enumerate(grads):
+                    grads[i] = None
+                    g = g.to(self.grad_dtype)
+                    if gsum is None:
+                        grads[i] = g
+                    else:
+                        gsum[i].add_(g)
+                gsum = grads if gsum is None else gsum
             loss_sum = loss_sum + loss.detach()
             aux_sum = {k: aux_sum.get(k, 0) + v for k, v in aux.items()}
+        if self.grad_dtype is None:
+            grads = {name: p.grad for name, p in self.params.items()}
+        else:
+            if self.accum_steps > 1:
+                for g in gsum:
+                    g.mul_(inv)
+            grads = dict(zip(names, gsum))
+            self.optimizer.set_grads(grads)
         if self.mask_lm_head:
-            embedding_row_mask_update(self.params, self.ids["answer"])
+            embedding_row_mask_update(grads, self.ids["answer"])
         return loss_sum * inv, {k: v * inv for k, v in aux_sum.items()}
 
     def train_step(self, batch: dict) -> dict:

@@ -10,10 +10,13 @@ the JAX ``quantize_params_int8`` produced. ``ops/quant_matmul.py:quant_dot``
 is where a quantized kernel is used.
 
 The functions here change a model in place and return it (the JAX ones
-map a parameter tree). The checkpoint helpers (``dequantize_params_host``,
-``abstract_dequantized``) wait for the int8 frozen backbone
-(``--frozen_int8``, ROADMAP.md §1, item 3.6): checkpoints of the port hold
-float trees only.
+map a parameter tree). The int8 frozen backbone (``--frozen_int8``)
+quantizes the frozen kernels of a training model
+(``train/partition.py:freeze``); its checkpoints are float trees, as the
+JAX package writes them: ``dequantize_params_host`` gives the model's tree
+with each int8 kernel dequantized on the host, one kernel at a time, and
+``abstract_dequantized`` that tree's layout (meta tensors) as the target
+a restore is checked against.
 """
 
 from __future__ import annotations
@@ -131,15 +134,19 @@ def _set_kernel(mod: nn.Module, kernel) -> None:
 
 
 def quantize_params_int8(model: nn.Module, *, min_size: int = 1 << 16,
-                         dtype=torch.bfloat16) -> nn.Module:
+                         dtype=torch.bfloat16, select=None) -> nn.Module:
     """Quantize every ``kernel`` parameter with ndim >= 2 and at least
     ``min_size`` elements to int8, in place; norms, biases, gates and
     embeddings stay as they are. o_proj kernels [H, d, out] contract both
     leading axes, so their scale is [out]. ``dtype`` is the compute dtype
-    the kernels dequantize to. Returns the model."""
+    the kernels dequantize to. ``select`` (parameter name -> bool), when
+    given, limits it to the kernels it accepts (the frozen subtree of a
+    training model). Returns the model."""
     for name, mod in list(model.named_modules()):
         w = mod._parameters.get("kernel")
         if w is None or w.dim() < 2 or w.numel() < min_size:
+            continue
+        if select is not None and not select(f"{name}.kernel" if name else "kernel"):
             continue
         n_in = 2 if (name.rsplit(".", 1)[-1] == "o_proj" and w.dim() == 3) else 1
         q, scale = _quantize_leaf(w, n_in)
@@ -155,6 +162,38 @@ def dequantize_params(model: nn.Module, dtype=torch.float32) -> nn.Module:
         if isinstance(k, QuantizedKernel):
             _set_kernel(mod, nn.Parameter(k.dequantize(dtype)))
     return fuse_decode_kernels(model)
+
+
+def _flat_tree(model: nn.Module, qleaf, leaf) -> dict:
+    """{flat Flax path: leaf(tensor)} of the model's persistent state, each
+    persistent ``QuantizedKernel`` as one leaf, ``qleaf(kernel)``, at its
+    ``.../kernel`` path."""
+    out = {}
+    for name, t in model.state_dict().items():
+        path = name.replace(".", "/")
+        if path.endswith("kernel/scale"):
+            continue
+        if path.endswith("kernel/q"):
+            out[path[:-2]] = qleaf(model.get_submodule(name.rsplit(".", 1)[0]))
+        else:
+            out[path] = leaf(t.detach())
+    return out
+
+
+def dequantize_params_host(model: nn.Module, dtype=torch.float32) -> dict:
+    """{flat Flax path: tensor} of the model's state with every int8 kernel
+    as a host ``dtype`` tensor (q * scale in float32 on its device, copied
+    to the host and cast, one kernel at a time: the device never holds the
+    whole float frozen tree); other tensors are the live ones (no copy)."""
+    return _flat_tree(model, lambda k: k.dequantize(torch.float32).cpu().to(dtype),
+                      lambda t: t)
+
+
+def abstract_dequantized(model: nn.Module, dtype=torch.float32) -> dict:
+    """{flat Flax path: meta tensor} of the dequantized layout (the tree a
+    checkpoint of the model holds), with no memory behind it."""
+    return _flat_tree(model, lambda k: torch.empty(k.shape, dtype=dtype, device="meta"),
+                      lambda t: torch.empty_like(t, device="meta"))
 
 
 def quantized_bytes(model: nn.Module) -> int:
