@@ -150,7 +150,21 @@ Phases (any failure exits non-zero):
      int8 payloads equal what (a) saved bit for bit, and (b)'s loss is
      within 1e-3 of (a)'s; prints step ms, samples/s, MFU, busy share,
      launches per update, checkpoint bytes and seconds, and the peak
-     memory of (a), (c) and (d).
+     memory of (a), (c) and (d);
+ 13. multi-GPU (``phase_multi_gpu``): phase 12's configuration with the
+     train split cut to 36 users, ``mmrec.main`` in ranks launched by
+     ``python -m torch.distributed.run`` (this script's rank mode, the
+     parent holding no model): (a) one rank over NCCL at micro-batch 6 x
+     accum 2 (3 updates, the test pass, ``checkpoint_0``); (b) two ranks
+     sharing the card over gloo (dp 2) at 3 x 2, the same global batches;
+     (c) (b)'s ``checkpoint_0`` resumed in one rank; fsdp 2 and tp 2 for 2
+     updates each when gloo takes their collectives on CUDA tensors.
+     Fails unless every update launched K1 / K2 / K3 as counted and the
+     test passes K4 / K5 / K6 at every decode step, (b)'s replicas agree
+     after every update, (b)'s losses are within 1e-4 of (a)'s and its
+     grad norms within one bfloat16 step, (b)'s test
+     pass covers (a)'s 36 users, and (c)'s state equals (b)'s saved one;
+     prints update ms, losses, peak memory a rank and the run walls.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -161,6 +175,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -1890,14 +1905,17 @@ class TaskSpies:
     """Launches, decode steps, seconds and metrics of each evaluator call,
     launches and peak memory of each training epoch, the tasks of its
     records, and each checkpoint write, through the port's own entry
-    points; ``undo`` puts the originals back."""
+    points; ``undo`` puts the originals back. ``keep`` (checkpoint names),
+    when given, writes only those checkpoints' files: the phase reads no
+    other (each skipped file is counted in ``skipped``)."""
 
-    def __init__(self):
+    def __init__(self, keep=None):
         from unimp_tpu_torch.cli import mmrec, mmrec_prefix
         from unimp_tpu_torch.evals import evaluators
         from unimp_tpu_torch.train import checkpoint as ckpt
 
         self.evals, self.epochs, self.writes, self.steps = [], [], [], 0
+        self.skipped = 0
         self._undo = []
 
         def patch(owner, name, fn):
@@ -1926,6 +1944,9 @@ class TaskSpies:
                 n_batches=len(loader), micro=trainer.accum_steps * len(loader)))
 
         def write(path, obj):
+            if keep is not None and Path(path).parent.name not in keep:
+                self.skipped += 1
+                return
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             orig_write(path, obj)
@@ -2011,7 +2032,9 @@ def phase_tasks(dev, gpu_line, data, run_dir):
     --transfer_domain office`` on (a)'s ``final_weights``: the restore with
     growth held to the checkpoint bit for bit, 4 updates with the tower
     trained, resampler and x-attn frozen bit for bit, a rec test pass, then
-    ``--only_test``. Returns the launches of (a)-(c)."""
+    ``--only_test``. Returns the launches of (a)-(c). The checkpoints
+    that no step reads ((a)'s ``weights_epoch_0`` and ``checkpoint_0``,
+    (c)'s) are not written: phases 9 and 12 measure the writes."""
     from unimp_tpu_torch.cli import mmrec, mmrec_eval, mmrec_prefix
     from unimp_tpu_torch.train import checkpoint as ckpt
 
@@ -2030,7 +2053,9 @@ def phase_tasks(dev, gpu_line, data, run_dir):
     launches = {}
 
     # --- (a) multi-task training and the four default evals
-    spies = TaskSpies()
+    # only final_weights is read again: the run's other checkpoints are not
+    # written (their write times are phases 9 and 12's)
+    spies = TaskSpies(keep=("final_weights",))
     try:
         kernel_lib.reset_launches()          # the main path (a) starts here
         t0 = time.perf_counter()
@@ -2062,7 +2087,8 @@ def phase_tasks(dev, gpu_line, data, run_dir):
         raise AssertionError(f"[tasks] missing dumps: {[str(p) for p in dumps if not p.is_file()]}")
     log(f"[tasks] 4b-instruct, vocab {cfg.lm.vocab_size}; main {main_s:.1f} s (build, "
         f"{epoch['n_batches']} updates, 4 test passes, checkpoints {sum(w[0] for w in spies.writes):.2f} "
-        f"s for {sum(w[1] for w in spies.writes) / 2**30:.2f} GiB) on {gpu_line}")
+        f"s for {sum(w[1] for w in spies.writes) / 2**30:.2f} GiB; {spies.skipped} unread files "
+        f"not written) on {gpu_line}")
 
     # --- (b) img_gen: greedy to 600 new tokens
     spies = TaskSpies()
@@ -2119,7 +2145,7 @@ def phase_tasks(dev, gpu_line, data, run_dir):
                                             "--single_task", "--transfer_domain", "office",
                                             "--load_run_name", "multi",
                                             "--load_weights_name", "final_weights"]
-    spies = TaskSpies()
+    spies = TaskSpies(keep=())  # the transfer's checkpoints are not read: not written
     ckpt.merge_with_growth, mmrec_prefix.load_flax_params = merge, load
     try:
         kernel_lib.reset_launches()          # the main path (c) starts here
@@ -2178,8 +2204,8 @@ def phase_tasks(dev, gpu_line, data, run_dir):
         f"updates {len(frozen_same)} frozen (resampler, xattn) unchanged bit for bit, trainable "
         f"tensors moved / all by group {json.dumps(moved)}")
     log(f"[transfer] main {main_s:.1f} s (build, restore, {state['step']} updates, the test "
-        f"pass, checkpoints {sum(w[0] for w in spies.writes):.2f} s for "
-        f"{sum(w[1] for w in spies.writes) / 2**30:.2f} GiB); --only_test {only_s:.1f} s; "
+        f"pass; {spies.skipped} unread checkpoint files not written); --only_test "
+        f"{only_s:.1f} s; "
         f"peak {peak_gib:.2f} GiB (AdamW on {n_trainable / 1e9:.3f} B float32: "
         f"{16 * n_trainable / 2**30:.1f} GiB of weights, gradients and moments) on {gpu_line}")
     return launches
@@ -2678,7 +2704,7 @@ def phase_headline_train(gpu_line, data, run_dir):
             "evals": mmrec.run_evals, "write": ckpt._write, "state": ckpt.save_train_state,
             "step": Trainer.train_step, "decode_step": Generator._decode_step,
             "image": dataset_mod.load_resized_uint8}
-    memo, stop_after = {}, {}
+    memo, stop_after = ITEM_IMAGES, {}  # phase 13 reuses the decode
 
     def image(path, size):
         if (path, size) not in memo:
@@ -2885,6 +2911,509 @@ def phase_headline_train(gpu_line, data, run_dir):
     return launches
 
 
+MULTI_RECORDS = 36     # train users: 3 updates of global batch 12; test users: 2 x 18
+MULTI_UPDATES = MULTI_RECORDS // 12
+SHARDED_UPDATES = 2    # fsdp 2 / tp 2 runs, when gloo takes their collectives
+# (b)'s and fsdp 2's losses vs (a)'s: each micro-batch's float32 gradient is
+# summed in another order before its bfloat16 cast, which moves the loss
+# after two updates by 5.9e-6 relative (H100 run, 700 W): 17 times below
+# this bar. tp 2 also sums the row-parallel blocks' bfloat16 partials and
+# runs the pixel path, not the vision cache: its first loss, before any
+# update, sits 2.0e-4 from (a)'s (same run).
+MULTI_LOSS_REL = 1e-4
+TP_LOSS_REL = 1e-3
+# each update's logged gradient norm (bfloat16 under --bf16_opt_state) vs
+# (a)'s: at most one bfloat16 step apart, 2**-7 of the larger. Adam with
+# clipping moves the same for any scale of the gradient, so the losses
+# alone would pass a reduction off by a factor of 2; the norm would not.
+NORM_REL = 2.0 ** -7
+MULTI_DRAW_SEED = 13   # phase 13 keys each training sample's prompt draws by its index
+ITEM_IMAGES = {}       # (path, size) -> decoded item image, filled by phase 12
+
+
+def replica_digest(t: torch.Tensor) -> torch.Tensor:
+    """A 64-bit checksum of a tensor's bits: the sum of its elements' bit
+    patterns times odd position weights, modulo 2**64. Two tensors that
+    differ in one element always differ here (an odd weight is a unit mod
+    2**64); several differences cancel with probability about 2**-64."""
+    views = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    v = t.detach().contiguous().view(views[t.element_size()]).reshape(-1).to(torch.int64)
+    w = torch.arange(v.numel(), device=v.device, dtype=torch.int64) * 2654435761 * 2 + 1
+    return (v * w).sum()
+
+
+def state_digests(trainer, names=None) -> dict:
+    """{name: digest} of ``train_state_tensors(trainer)`` (or its ``names``)."""
+    tensors = train_state_tensors(trainer)
+    return {k: int(replica_digest(t)) for k, t in tensors.items()
+            if names is None or k in names}
+
+
+def rank_main(spec_path: str) -> int:
+    """One rank of phase 13, launched by ``torch.distributed.run``: runs
+    ``mmrec.main`` with the spies the phase reads and writes
+    ``{out}/{tag}_rank{r}.json``. Gloo ranks join their group here (NCCL
+    ones in ``mmrec.main``) and first try the collectives fsdp and tp need
+    on CUDA tensors."""
+    import torch.distributed as dist
+
+    from unimp_tpu_torch.cli import mmrec
+    from unimp_tpu_torch.data import dataset as dataset_mod
+    from unimp_tpu_torch.parallel.mesh import process_device
+    from unimp_tpu_torch.train import checkpoint as ckpt
+
+    spec = json.loads(Path(spec_path).read_text())
+    rank = int(os.environ["RANK"])
+    dev = process_device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"rank": rank, "device": str(dev), "updates": [], "failures": []}
+    if spec["backend"] == "gloo":
+        dist.init_process_group("gloo")
+        out["probe"] = probe_gloo(dev)
+    world = int(os.environ["WORLD_SIZE"])
+    # each sample's prompt draws keyed by its index: the dataset's own
+    # generator runs in the order a process reads, and a rank reads its
+    # shard, so without this (a) and (b) would train on other windows of
+    # the same users
+    orig_get = dataset_mod.TaskDataset.__getitem__
+
+    def keyed_get(self, index):
+        own, self.rng = self.rng, np.random.default_rng([MULTI_DRAW_SEED, int(index)])
+        try:
+            return orig_get(self, index)
+        finally:
+            self.rng = own
+
+    dataset_mod.TaskDataset.__getitem__ = keyed_get
+    if spec.get("image_memo"):
+        memo = torch.load(spec["image_memo"], weights_only=False)
+        orig_image = dataset_mod.load_resized_uint8
+
+        def image(path, size):
+            hit = memo.get((path, size))
+            return hit if hit is not None else orig_image(path, size)
+
+        dataset_mod.load_resized_uint8 = image
+    orig = {"step": Trainer.train_step, "state": ckpt.save_train_state,
+            "params": ckpt.save_params, "evals": mmrec.run_evals,
+            "epoch": mmrec.train_one_epoch}
+    seen = {}
+
+    def step(self, batch):
+        before, t0 = counts(), time.perf_counter()
+        metrics = orig["step"](self, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        rec = {"ms": ms, "loss": float(metrics["loss"]),
+               "grad_norm": float(metrics["grad_norm"]),
+               "skipped": int(metrics["skipped_nonfinite"]), "launches": between(before),
+               "rows": list(np.shape(batch["input_ids"]))}
+        if world > 1:
+            # the replicas' whole tensors after the update: one digest each,
+            # gathered from every rank and compared
+            layout = self.model.tp_layout
+            names = [f"param {n}" for n in self.params if n.replace(".", "/") not in layout]
+            if self.zero is None and not layout:
+                names += [f"{m} {n}" for m in ("mu", "nu") for n in self.params]
+            mine = torch.tensor(list(state_digests(self, set(names)).values()),
+                                dtype=torch.int64)
+            every = torch.empty(world * mine.numel(), dtype=torch.int64)
+            dist.all_gather_into_tensor(every, mine)
+            every = every.reshape(world, -1)
+            rec["replicas_equal"] = bool((every == every[0]).all())
+            rec["compared"] = int(mine.numel())
+            if not rec["replicas_equal"]:
+                out["failures"].append(f"update {len(out['updates'])}: the ranks' tensors "
+                                       "differ")
+        out["updates"].append(rec)
+        if len(out["updates"]) == spec.get("stop_after_updates"):
+            raise StopRun("updates")
+        return metrics
+
+    def epoch(*args, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            orig["epoch"](*args, **kw)
+        finally:
+            out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+
+    def evals(args_, model, *args, **kw):
+        before, t0 = counts(), time.perf_counter()
+        steps0 = seen.get("decode_steps", 0)
+        res = orig["evals"](args_, model, *args, **kw)
+        out["eval"] = {"s": time.perf_counter() - t0, "launches": between(before),
+                       "decode_steps": seen.get("decode_steps", 0) - steps0,
+                       "k6_per_step": k6_per_decode_step(model),
+                       "rec": {k: v for k, v in res["rec"].items()
+                               if isinstance(v, (int, float))}}
+        return res
+
+    def decode_step(self, *args, **kw):
+        seen["decode_steps"] = seen.get("decode_steps", 0) + 1
+        return orig_decode(self, *args, **kw)
+
+    orig_decode = Generator._decode_step
+
+    def save_state(save_dir, trainer, ep):
+        t0 = time.perf_counter()
+        path = orig["state"](save_dir, trainer, ep)
+        out["checkpoint"] = {"path": path, "s": time.perf_counter() - t0}
+        if rank == 0 and spec.get("digests_out"):
+            Path(spec["digests_out"]).write_text(json.dumps(state_digests(trainer)))
+            # the int8 payloads, which the checkpoint holds dequantized: host
+            # copies for (c)
+            torch.save({k: t.cpu() for k, t in train_state_tensors(trainer).items()
+                        if k.startswith("q ")}, spec["digests_out"] + ".payloads.pt")
+        raise StopRun("checkpoint")
+
+    def save_params(save_dir, model, name="final_weights"):
+        if name != "final_weights" or not spec.get("resume_check"):
+            return orig["params"](save_dir, model, name)
+        # (c): the run resumed and trained nothing; hold its state to what
+        # (b) saved (the checkpoint's weights and moments and (b)'s int8
+        # payloads, exactly; every tensor by digest), then stop before
+        # writing
+        trainer = seen["trainer_ref"]
+        saved = json.loads(Path(spec["resume_check"]).read_text())
+        now = state_digests(trainer)
+        differ = sorted(k for k in set(now) | set(saved) if now.get(k) != saved.get(k))
+        params = ckpt.restore_params(save_dir, "checkpoint_0")
+        state = ckpt.restore_train_state(save_dir, "checkpoint_0")["opt_state"]
+        exact = 0
+        for n, p in trainer.params.items():
+            exact += 1
+            if not torch.equal(p.detach().cpu(), params[n.replace(".", "/")]):
+                differ.append(f"file param {n}")
+        for m in ("mu", "nu"):
+            for n, t in getattr(trainer.optimizer, m).items():
+                exact += 1
+                if not torch.equal(t.cpu(), state[m][n]):
+                    differ.append(f"file {m} {n}")
+        payloads = torch.load(spec["resume_check"] + ".payloads.pt")
+        mine = {k: t for k, t in train_state_tensors(trainer).items() if k.startswith("q ")}
+        differ += sorted(set(payloads) ^ set(mine))
+        for k in set(payloads) & set(mine):
+            exact += 1
+            if not torch.equal(mine[k].cpu(), payloads[k]):
+                differ.append(f"saved {k}")
+        out["resume"] = {"digests": len(now), "exact_vs_file": exact, "differ": differ[:8],
+                         "n_differ": len(differ)}
+        if differ:
+            out["failures"].append(f"resumed state differs: {differ[:8]}")
+        raise StopRun("resumed")
+
+    orig_trainer_init = Trainer.__init__
+
+    def trainer_init(self, *args, **kw):
+        orig_trainer_init(self, *args, **kw)
+        seen["trainer_ref"] = self
+
+    (Trainer.train_step, ckpt.save_train_state, ckpt.save_params, mmrec.run_evals,
+     mmrec.train_one_epoch, Generator._decode_step, Trainer.__init__) = (
+        step, save_state, save_params, evals, epoch, decode_step, trainer_init)
+    kernel_lib.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        mmrec.main(spec["argv"])
+        out["failures"].append("mmrec.main returned before the phase stopped it")
+    except StopRun as e:
+        out["stopped"] = str(e)
+    out["wall_s"] = time.perf_counter() - t0
+    out["launches"] = counts()
+    trainer = seen.get("trainer_ref")
+    if trainer is not None:
+        out["k_fwd"] = flash_per_micro_batch(trainer.model.cfg)
+    Path(spec["out"], f"{spec['tag']}_rank{rank}.json").write_text(json.dumps(out))
+    if dist.is_initialized():
+        dist.barrier()
+        dist.destroy_process_group()
+    return 0
+
+
+def probe_gloo(dev) -> dict:
+    """Which collectives gloo takes on CUDA tensors here: {name: "ok" or
+    the error}."""
+    import torch.distributed as dist
+
+    world = dist.get_world_size()
+    tries = {
+        "all_reduce f32": lambda: dist.all_reduce(torch.ones(4, device=dev)),
+        "all_reduce bf16": lambda: dist.all_reduce(torch.ones(4, device=dev,
+                                                              dtype=torch.bfloat16)),
+        "all_gather_into_tensor f32": lambda: dist.all_gather_into_tensor(
+            torch.empty(4 * world, device=dev), torch.ones(4, device=dev)),
+        "reduce_scatter_tensor f32": lambda: dist.reduce_scatter_tensor(
+            torch.empty(4, device=dev), torch.ones(4 * world, device=dev)),
+    }
+    result = {}
+    for name, fn in tries.items():
+        try:
+            fn()
+            torch.cuda.synchronize()
+            result[name] = "ok"
+        except Exception as e:  # a refused collective is this probe's answer
+            result[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
+    return result
+
+
+def flash_per_micro_batch(cfg) -> dict:
+    """(forward blocks, checkpointed blocks) of one micro-batch: K1 / K2 /
+    K3 run once a block, K1 again for each recomputed block."""
+    lm = cfg.lm
+    n_xattn = -(-lm.num_layers // cfg.cross_attn_every_n)
+    return {"fwd": cfg.resampler.depth + n_xattn + lm.num_layers,
+            "recompute": n_xattn + lm.num_layers, "n_xattn": n_xattn,
+            "layers": lm.num_layers, "vision": cfg.vision.num_layers}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def torchrun_start(tag: str, nproc: int, spec: dict, out_dir: Path) -> dict:
+    """Start ``python -m torch.distributed.run --nproc_per_node nproc`` of
+    this script's rank mode on a free local port, in a session of its own;
+    ``torchrun_finish`` waits for it."""
+    spec = {**spec, "tag": tag, "out": str(out_dir)}
+    spec_path = out_dir / f"{tag}.json"
+    spec_path.write_text(json.dumps(spec))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(nproc),
+           "--master_addr", "127.0.0.1", "--master_port", str(free_port()),
+           str(Path(__file__).resolve()), "--multi-gpu-rank", str(spec_path)]
+    log_path = out_dir / f"{tag}.log"
+    logf = open(log_path, "w")
+    proc = subprocess.Popen(cmd, stdout=logf, stderr=subprocess.STDOUT, start_new_session=True,
+                            cwd=str(Path(__file__).resolve().parent))
+    return {"tag": tag, "nproc": nproc, "proc": proc, "log": log_path, "logf": logf,
+            "out": out_dir, "t0": time.perf_counter()}
+
+
+def torchrun_finish(run: dict, timeout: float) -> list:
+    """Wait for a ``torchrun_start``; returns each rank's report. The whole
+    session (the launcher and its ranks) is killed at ``timeout`` seconds
+    from the start."""
+    import signal
+
+    tag, proc, log_path, out_dir = run["tag"], run["proc"], run["log"], run["out"]
+    try:
+        rc = proc.wait(timeout=max(1.0, timeout - (time.perf_counter() - run["t0"])))
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+        rc = "timeout"
+    finally:
+        run["logf"].close()
+    nproc = run["nproc"]
+    if rc != 0:
+        tail = log_path.read_text()[-4000:]
+        raise AssertionError(f"[multi-gpu] ({tag}) torchrun exited {rc}:\n{tail}")
+    reports = [json.loads((out_dir / f"{tag}_rank{r}.json").read_text()) for r in range(nproc)]
+    for rep in reports:
+        if rep["failures"]:
+            raise AssertionError(f"[multi-gpu] ({tag}) rank {rep['rank']}: {rep['failures']}")
+    return reports
+
+
+def check_updates(tag, rep, n_updates, rows, want=None, pixels=False,
+                  loss_rel=MULTI_LOSS_REL) -> list:
+    """Every update finite and not skipped, a batch of ``rows`` rows of 256
+    tokens, K1 / K2 / K3 at what the model counts (2 micro-batches; K1
+    again for each recomputed block, and for each ViT layer on the pixel
+    path), no K6 (the dequantized matmul above 512 rows); with ``want``
+    ((a)'s losses and grad norms) each loss within ``loss_rel`` and each
+    norm within ``NORM_REL`` of (a)'s. Returns the losses."""
+    k = rep["k_fwd"]
+    vit = k["vision"] if pixels else 0
+    counts = {"flash_fwd": 2 * (k["fwd"] + k["recompute"] + vit),
+              "flash_bwd_dkv": 2 * k["fwd"], "flash_bwd_dq": 2 * k["fwd"], "quant_matmul": 0}
+    ups = rep["updates"]
+    if len(ups) != n_updates:
+        raise AssertionError(f"[multi-gpu] ({tag}) rank {rep['rank']}: {len(ups)} updates, "
+                             f"expected {n_updates}")
+    for i, u in enumerate(ups):
+        if u["skipped"] or not (np.isfinite(u["loss"]) and np.isfinite(u["grad_norm"])):
+            raise AssertionError(f"[multi-gpu] ({tag}) update {i}: {u}")
+        got = {name: u["launches"][name] for name in counts}
+        if got != counts or u["rows"] != [rows, 256]:
+            raise AssertionError(f"[multi-gpu] ({tag}) update {i}: launches {got} (want "
+                                 f"{counts}), rows {u['rows']}")
+    losses = [u["loss"] for u in ups]
+    if want is not None:
+        norms = [u["grad_norm"] for u in ups]
+        rel = [abs(x - y) / abs(y) for x, y in zip(losses, want["losses"])]
+        rel_norm = [abs(x - y) / max(abs(x), abs(y)) for x, y in zip(norms, want["norms"])]
+        if max(rel) > loss_rel or max(rel_norm) > NORM_REL:
+            raise AssertionError(f"[multi-gpu] ({tag}) losses {losses} vs (a) {want['losses']}"
+                                 f": rel {rel} (limit {loss_rel}); grad norms {norms} vs (a) "
+                                 f"{want['norms']}: rel {rel_norm} (limit {NORM_REL})")
+    return losses
+
+
+def check_test_pass(tag, rep, n_users) -> dict:
+    ev = rep["eval"]
+    k, steps = rep["k_fwd"], ev["decode_steps"]
+    ln = ev["launches"]
+    if (not 0 < steps or ln["quant_matmul"] != ev["k6_per_step"] * steps
+            or ln["decode_attn"] != k["layers"] * steps
+            or ln["single_query_attn"] != k["n_xattn"] * steps):
+        raise AssertionError(f"[multi-gpu] ({tag}) test pass launches {ln} over {steps} "
+                             f"decode steps")
+    rec = ev["rec"]
+    if rec["n_users"] != n_users or not all(np.isfinite(v) for v in rec.values()):
+        raise AssertionError(f"[multi-gpu] ({tag}) test metrics {rec}, want {n_users} users")
+    return rec
+
+
+def phase_multi_gpu(gpu_line, data, run_dir) -> dict:
+    """Multi-GPU through the port's CLI (phase 13): ``mmrec.main`` under
+    ``torch.distributed.run``, each rank a process, on phase 12's
+    configuration (3b-mpt, ``--frozen_int8 --bf16_opt_state --remat
+    --remat_policy dots --cache_vision_latents``, T 256, 6 images, a
+    10-beam test pass) with the train split cut to 36 users:
+
+      (a) one rank over NCCL (no one-rank shortcut: every collective of the
+          distributed path runs), micro-batch 6 x accum 2 fused: 3 updates
+          of the global batch 12, the test pass over 36 users,
+          ``weights_epoch_0`` and ``checkpoint_0``, then stopped;
+      (b) two ranks sharing the card over gloo (dp 2), micro-batch 3 x
+          accum 2 fused from the same seed: the same global batches;
+      (c) (b)'s ``checkpoint_0`` resumed in one rank (NCCL).
+
+    NCCL refuses two ranks on one device, so (b) runs gloo, which moves
+    CUDA tensors through the host. Every rank draws each sample's prompt
+    window from a generator keyed by the sample's index (``rank_main``),
+    so that (a) and (b) train on the same prompts, not only on the same
+    users. Fails unless every update is finite,
+    K1 / K2 / K3 ran what the model counts in every update and K4 / K5 / K6
+    at every decode step, (b)'s ranks hold the same tensors after every
+    update (``replica_digest``), each of (b)'s losses is within 1e-4 of
+    (a)'s and each grad norm within one bfloat16 step (``MULTI_LOSS_REL``,
+    ``NORM_REL``), (b)'s test pass covers (a)'s users, and (c)'s weights,
+    bf16 moments and int8 payloads equal (b)'s: host copies (the
+    checkpoint's weights and moments, (b)'s payloads written at its save)
+    bit for bit, and every tensor's digest against (b)'s live state at its
+    save. When gloo takes all-gather and reduce-scatter on CUDA tensors,
+    fsdp 2 and tp 2 run 2 updates each under the same gates (tp 2's losses
+    within ``TP_LOSS_REL``), both at once (their update times share the
+    card and the host), tp 2 without the vision cache; otherwise the
+    refused collective is printed."""
+    run_dir.mkdir(parents=True, exist_ok=True)
+    log(f"[multi-gpu] {host_memory_line(run_dir)}")
+    memo_path = run_dir / "item_images.pt"
+    torch.save(dict(ITEM_IMAGES), memo_path)
+    base = ["--mmrec_path", str(data), "--pretrained_model_name_or_path", "3b-mpt",
+            "--subset", "beauty", "--task", "rec", "--single_task", "--n_items",
+            str(N_ITEM_TOKENS), "--history_len", "6", "--use_semantic", "--patch-image-size",
+            "224", "--max_records", str(MULTI_RECORDS), "--eval_batch_size", "18",
+            "--num_beams", "10", "--workers", "2", "--device", "cuda",
+            "--gradient_accumulation_steps", "2", "--fused_accumulation", "--use_reweight",
+            "--gamma", "2", "--cache_vision_latents", "--logging_steps", "1",
+            "--num_epochs", "1", *HEADLINE_LEVERS]
+    common = {"image_memo": str(memo_path)}
+    walls, reports = {}, {}
+
+    def start(tag, nproc, argv, **spec):
+        return torchrun_start(tag, nproc, {**common, **spec, "argv": argv}, run_dir)
+
+    def finish(run, timeout):
+        reps = torchrun_finish(run, timeout)
+        walls[run["tag"]] = time.perf_counter() - run["t0"]
+        reports[run["tag"]] = reps
+        return reps
+
+    def run(tag, nproc, argv, timeout, **spec):
+        return finish(start(tag, nproc, base + argv, **spec), timeout)
+
+    a_dir, b_dir = run_dir / "a", run_dir / "b"
+    (a,) = run("a", 1, ["--external_save_dir", str(a_dir), "--run_name", "a",
+                        "--batch_size", "6", "--do_test"], 600, backend="nccl")
+    losses_a = check_updates("a", a, MULTI_UPDATES, 12)
+    want_a = {"losses": losses_a, "norms": [u["grad_norm"] for u in a["updates"]]}
+    rec_a = check_test_pass("a", a, MULTI_RECORDS)
+    if not Path(a["checkpoint"]["path"], "train_state.pt").exists():
+        raise AssertionError("[multi-gpu] (a) wrote no checkpoint_0")
+    shutil.rmtree(a_dir)
+    digests = run_dir / "b_digests.json"
+    b = run("b", 2, ["--external_save_dir", str(b_dir), "--run_name", "b", "--batch_size", "3",
+                     "--do_test"], 900, backend="gloo", digests_out=str(digests))
+    losses_b = [check_updates("b", rep, MULTI_UPDATES, 6, want_a) for rep in b]
+    if losses_b[0] != losses_b[1]:
+        raise AssertionError(f"[multi-gpu] (b) the ranks' losses differ: {losses_b}")
+    rec_b = [check_test_pass("b", rep, MULTI_RECORDS) for rep in b]
+    if not Path(b[0]["checkpoint"]["path"], "train_state.pt").exists():
+        raise AssertionError("[multi-gpu] (b) rank 0 wrote no checkpoint_0")
+    # (c) trains nothing: no vision cache
+    uncached = [a for a in base if a != "--cache_vision_latents"]
+    (c,) = finish(start("c", 1, uncached + ["--external_save_dir", str(b_dir), "--run_name",
+                                            "b", "--batch_size", "6",
+                                            "--resume_from_checkpoint"],
+                        backend="nccl", resume_check=str(digests)), 600)
+    if not c.get("resume") or c["resume"]["n_differ"]:
+        raise AssertionError(f"[multi-gpu] (c) resume: {c.get('resume')}")
+    shutil.rmtree(b_dir)
+    probe = b[0]["probe"]
+    sharded = {}
+    if all(probe[name] == "ok" for name in probe):
+        # both at once on the card (4 ranks): tp 2 on the pixel path, since
+        # a vision cache of every item through a tp-sharded tower would
+        # all-reduce each ViT layer's activations through the host
+        runs = {tag: start(tag, 2, (base if tag == "fsdp2" else uncached) + [
+                    "--external_save_dir", str(run_dir / tag), "--run_name", tag,
+                    "--batch_size", "3" if tag == "fsdp2" else "6", *flags],
+                    backend="gloo", stop_after_updates=SHARDED_UPDATES)
+                for tag, flags in (("fsdp2", ["--mesh_fsdp", "2"]), ("tp2", ["--mesh_tp", "2"]))}
+        for tag, handle in runs.items():
+            reps = finish(handle, 600)
+            sharded[tag] = [check_updates(tag, rep, SHARDED_UPDATES, 6 if tag == "fsdp2" else 12,
+                                          want_a, pixels=tag == "tp2",
+                                          loss_rel=TP_LOSS_REL if tag == "tp2" else
+                                          MULTI_LOSS_REL)
+                            for rep in reps]
+            shutil.rmtree(run_dir / tag, ignore_errors=True)
+    else:
+        refused = {k: v for k, v in probe.items() if v != "ok"}
+        log(f"[multi-gpu] fsdp 2 and tp 2 not run on the card: gloo refused {refused} on "
+            f"CUDA tensors (torch {torch.__version__}); tests/test_torch_parallel.py holds "
+            f"them to the JAX package on the CPU")
+
+    # --- report
+    log(f"[multi-gpu] runs (s) { {k: round(v, 1) for k, v in walls.items()} } on {gpu_line}; "
+        f"NCCL above one rank not measured (one card: NCCL refuses two ranks on one device)")
+    log(f"[multi-gpu] gloo on CUDA tensors: {json.dumps(probe)}")
+    for tag, reps in reports.items():
+        for rep in reps:
+            ups = rep["updates"]
+            log(f"[multi-gpu] ({tag}) rank {rep['rank']} {rep['device']}: update ms "
+                f"{[round(u['ms'], 1) for u in ups]}, losses {[round(u['loss'], 6) for u in ups]}"
+                f", grad norms {[round(u['grad_norm'], 4) for u in ups]}, replicas equal "
+                f"{[u.get('replicas_equal') for u in ups]} ({ups[0].get('compared') if ups else 0}"
+                f" tensors), peak {rep.get('peak_gib', 0):.2f} GiB, wall {rep['wall_s']:.1f} s"
+                f", checkpoint {rep.get('checkpoint', {}).get('s', 0):.2f} s on {gpu_line}")
+    rel = [abs(x - y) / abs(y) for x, y in zip(losses_b[0], losses_a)]
+    norms_b = [u["grad_norm"] for u in b[0]["updates"]]
+    log(f"[multi-gpu] losses (a) {losses_a} vs (b) {losses_b[0]}: rel {rel} (limit "
+        f"{MULTI_LOSS_REL}); grad norms (a) {want_a['norms']} vs (b) {norms_b} (limit one "
+        f"bfloat16 step, {NORM_REL} of the larger); test pass (a) {rec_a}, (b) rank 0 {rec_b[0]}, eval s "
+        f"(a) {a['eval']['s']:.1f} / (b) {b[0]['eval']['s']:.1f}")
+    log(f"[multi-gpu] (c) resumed (b)'s checkpoint_0 in one rank: {c['resume']['digests']} "
+        f"tensors equal (b)'s at its save by digest, and {c['resume']['exact_vs_file']} "
+        f"exactly (host copies: the checkpoint's weights and moments, (b)'s int8 payloads)")
+    if sharded:
+        log(f"[multi-gpu] sharded losses vs (a): {json.dumps(sharded)}")
+    launches = {}
+    for reps in reports.values():
+        for rep in reps:
+            for name, n in rep["launches"].items():
+                launches[name] = launches.get(name, 0) + n
+    return launches
+
+
 def kernel_name(ptxas_line: str) -> str:
     """The kernel's name and its mangled template arguments, as in
     'flash_fwd_mma_kernel ILi80ELb1EE' (80, true), from ptxas's
@@ -3062,6 +3591,12 @@ def main() -> int:
         t0 = time.perf_counter()
         headline_launches = phase_headline_train(gpu_line, data, Path(tmp) / "headline")
         log(f"[headline] phase 12 done in {time.perf_counter() - t0:.1f} s")
+        gc.collect()  # phase 12's models are gone: the ranks get the card
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        multi_launches = phase_multi_gpu(gpu_line, data, Path(tmp) / "multi")
+        ITEM_IMAGES.clear()
+        log(f"[multi-gpu] phase 13 done in {time.perf_counter() - t0:.1f} s")
 
     # one headline shape per kernel: LM prefill, the LM self-attention
     # backward of training, decode at step 50, x-attn read, the MLP
@@ -3087,7 +3622,8 @@ def main() -> int:
             ("serve", serve_launches["serve"], EVAL_KERNELS),
             ("serve_int8", serve_launches["serve_int8"], INT8_KERNELS),
             ("serve_small_f32", serve_launches["serve_small_f32"], EVAL_KERNELS),
-            ("headline_train", headline_launches, TASK_KERNELS + ("quant_matmul",)))
+            ("headline_train", headline_launches, TASK_KERNELS + ("quant_matmul",)),
+            ("multi_gpu", multi_launches, TASK_KERNELS + ("quant_matmul",)))
             if name in kernels}
         row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -3108,4 +3644,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--multi-gpu-rank"]:  # one rank of phase 13, under torchrun
+        sys.exit(rank_main(sys.argv[2]))
     sys.exit(main())

@@ -591,3 +591,148 @@ def test_single_query_kernel_bf16_matches_plain_on_card(cuda_device, case, kv):
     if mode != "immediate":
         assert torch.equal(got[:kb], torch.zeros_like(got[:kb]))
     assert torch.equal(got, single_query_attention_cuda(q, k, v, mask, **kw))
+
+
+# ---------------------------------------------------------------- ranks on one card
+
+
+def _spawn_ranks(tmp_path, case, world, inputs, timeout=300):
+    """``tests/torch_parallel_worker.py`` on ``world`` gloo ranks sharing
+    the card; each rank's result."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    worker = Path(__file__).with_name("torch_parallel_worker.py")
+    torch.save(inputs, tmp_path / "inputs.pt")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    procs = [subprocess.Popen([sys.executable, str(worker), case, str(r), str(world),
+                               str(tmp_path / "store"), str(tmp_path)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, env=env)
+             for r in range(world)]
+    try:
+        logs = [p.communicate(timeout=timeout)[0].decode()[-3000:] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    failed = [f"rank {r}:\n{log}" for r, (p, log) in enumerate(zip(procs, logs))
+              if p.returncode != 0]
+    assert not failed, "\n".join(failed)
+    return [torch.load(tmp_path / f"{case}_rank{r}.pt", weights_only=False)
+            for r in range(world)]
+
+
+def _card_step_inputs():
+    """Seeded ``small`` weights (a flat float tree: head dims 64, which the
+    kernels take) and a rec-shaped batch of 8 rows whose even rows hold
+    longer answer spans."""
+    from unimp_tpu_torch.models import get_config
+    from unimp_tpu_torch.tools.from_flax import build_model
+
+    model = build_model(get_config("small", dtype="float32"), device="cpu", seed=3)
+    weights = {n.replace(".", "/"): t.clone() for n, t in model.state_dict().items()}
+    rng = np.random.default_rng(5)
+    ids = rng.integers(10, 30000, size=(8, 24)).astype(np.int32)
+    seq_len = rng.integers(21, 25, size=8).astype(np.int32)
+    for r in range(8):
+        ids[r, 2] = ids[r, 7] = 7
+        ids[r, 9] = 8
+        ids[r, 19 if r % 2 == 0 else 12] = 9
+        ids[r, seq_len[r]:] = 0
+    batch = {"input_ids": ids, "seq_len": seq_len,
+             "weights": rng.uniform(0.5, 1.5, size=8).astype(np.float32),
+             "images": rng.integers(0, 256, size=(8, 2, 224, 224, 3), dtype=np.uint8)}
+    ids_kw = dict(media_id=7, answer_id=8, endofchunk_id=9, pad_id=0, gamma=2.0,
+                  use_reweight=True)
+    return {"weights": weights, "batch": batch, "lr": 1e-3, "ids": ids_kw, "device": "cuda",
+            "variant": "small"}
+
+
+@pytest.mark.gpu
+def test_gloo_ranks_on_card_match_one_process(cuda_device, tmp_path):
+    """Two gloo ranks sharing the card (dp 2: K1 / K2 / K3 in each rank, the
+    gradients all-reduced through the host) against one process on the
+    card at the global batch: losses within 1e-5, the reduced gradients
+    within 5e-4 of each tensor's largest entry (float32), the replicas
+    equal bit for bit."""
+    from unimp_tpu_torch.models import get_config
+    from unimp_tpu_torch.tools.from_flax import build_model
+    from unimp_tpu_torch.train.optimizer import make_optimizer
+    from unimp_tpu_torch.train.partition import trainable_params
+    from unimp_tpu_torch.train.trainer import Trainer
+
+    inputs = _card_step_inputs()
+    model = build_model(get_config("small", dtype="float32"), device=cuda_device, train=True,
+                        weights=inputs["weights"])
+    trainer = Trainer(model, make_optimizer(trainable_params(model), learning_rate=1e-3),
+                      device=cuda_device, accum_steps=2, **inputs["ids"])
+    loss, _ = trainer.compute_grads(inputs["batch"])
+    want = {n.replace(".", "/"): p.grad.cpu() for n, p in trainer.params.items()}
+    out = _spawn_ranks(tmp_path, "step", 2, {**inputs, "meshes": [(2, 1, 1)]})
+    got = [res[(2, 1, 1)] for res in out]
+    np.testing.assert_allclose(got[0]["metrics"]["loss"], float(loss), rtol=1e-5)
+    for path, g in got[0]["grads"].items():
+        scale = max(float(want[path].abs().max()), 1e-30)
+        torch.testing.assert_close(g, want[path], rtol=0, atol=5e-4 * scale)
+    for path, p in got[0]["params"].items():
+        assert torch.equal(p, got[1]["params"][path]), path
+
+
+@pytest.mark.gpu
+def test_gloo_sharded_steps_on_card(cuda_device, tmp_path):
+    """fsdp 2 and tp 2 on two gloo ranks sharing the card, each against the
+    dp 2 step: losses within 1e-5 and gradients within 5e-4 of each
+    tensor's largest entry. Skips, naming the collective, where this
+    torch's gloo refuses all-gather or reduce-scatter on CUDA tensors."""
+    (tmp_path / "probe").mkdir()
+    probe = _spawn_ranks(tmp_path / "probe", "probe", 2, {})
+    refused = {k: v for k, v in probe[0].items() if v}
+    if refused:
+        pytest.skip(f"gloo refuses on CUDA tensors: {refused}")
+    inputs = {**_card_step_inputs(), "meshes": [(2, 1, 1), (1, 2, 1), (1, 1, 2)]}
+    out = _spawn_ranks(tmp_path, "step", 2, inputs)
+    base = out[0][(2, 1, 1)]
+    for mesh in ((1, 2, 1), (1, 1, 2)):
+        for res in out:
+            got = res[mesh]
+            np.testing.assert_allclose(got["metrics"]["loss"], base["metrics"]["loss"],
+                                       rtol=1e-5)
+            for path, g in got["grads"].items():
+                scale = max(float(base["grads"][path].abs().max()), 1e-30)
+                torch.testing.assert_close(g, base["grads"][path], rtol=0, atol=5e-4 * scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_gloo_ring_attention_on_card(cuda_device, tmp_path, dtype):
+    """``--seq_shard``'s ring over two gloo ranks sharing the card (K/V
+    rotated by ``batch_isend_irecv`` on CUDA tensors, K1 a block merged by
+    lse, K2 / K3 a block against the merged lse) against K1 / K2 / K3 on
+    the whole sequence in one process, at 3b-mpt's attention shape (16
+    heads of 128, T 256: a block of 128 a rank), causal and with a
+    ``kv_len`` at or below one block, so that rank 1's own block holds no
+    valid key. Forward and gradients within 1e-4 (float32) or 2e-2
+    (bfloat16), the card tests' bars."""
+    from unimp_tpu_torch.ops.flash_attention import flash_attention
+
+    rng = np.random.default_rng(13)
+    b, s, h, d = 2, 256, 16, 128
+    q, k, v, do = (torch.from_numpy(rng.normal(size=(b, s, h, d)).astype(np.float32))
+                   for _ in range(4))
+    kv_len = torch.tensor([256, 100], dtype=torch.int32)
+    inputs = {"q": q.to(dtype), "k": k.to(dtype), "v": v.to(dtype), "do": do,
+              "kv_len": kv_len, "device": "cuda"}
+    out = _spawn_ranks(tmp_path, "ring", 2, inputs)
+    tol = TOL if dtype == torch.float32 else dict(atol=2e-2, rtol=2e-2)
+    for name, kl in (("causal", None), ("kv_len", kv_len.to(cuda_device))):
+        qc, kc, vc = (x.to(cuda_device, dtype).clone().requires_grad_() for x in (q, k, v))
+        o = flash_attention(qc, kc, vc, causal=True, kv_len=kl)[0]
+        (o.float() * do.to(cuda_device)).sum().backward()
+        want = {"out": o, "dq": qc.grad, "dk": kc.grad, "dv": vc.grad}
+        for key, t in want.items():
+            got = torch.cat([res[name][key] for res in out])
+            torch.testing.assert_close(got.float(), t.detach().float().cpu(), **tol,
+                                       msg=lambda m: f"{name} {key}: {m}")

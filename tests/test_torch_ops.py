@@ -46,6 +46,19 @@ def _t(x):
     return torch.from_numpy(np.array(x))
 
 
+def _assert_close(actual, desired, what):
+    """``assert_allclose`` at ``TOL`` whose message gives the worst
+    element's |error| / (atol + rtol * |desired|): 1.0 is the bar."""
+    desired = np.asarray(desired)
+    err = np.abs(actual.astype(np.float64) - desired)
+    ratio = err / (TOL["atol"] + TOL["rtol"] * np.abs(desired))
+    worst = np.unravel_index(int(np.argmax(ratio)), ratio.shape) if ratio.size else ()
+    np.testing.assert_allclose(actual, desired, **TOL, err_msg=(
+        f"{what}: max |error| {err.max() if err.size else 0.0:.3e}, worst error / bar "
+        f"{ratio.max() if ratio.size else 0.0:.4f} at {worst}; torch threads "
+        f"{torch.get_num_threads()}"))
+
+
 def _lse_numpy(q, k, v, allowed, scale, alibi=None):
     """Definition of the logsumexp output: [B, H, Sq] f64."""
     h = q.shape[2]
@@ -130,7 +143,7 @@ def test_flash_plain_matches_jax(name):
     want_pallas = j_flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), **jkw,
                                     alibi_slopes=None if alibi is None else jnp.asarray(alibi),
                                     interpret=True)
-    np.testing.assert_allclose(out.numpy(), np.asarray(want_pallas), **TOL)
+    _assert_close(out.numpy(), np.asarray(want_pallas), "out vs Pallas (interpret)")
 
     kv_valid = None
     if "kv_len" in kw:
@@ -141,10 +154,10 @@ def test_flash_plain_matches_jax(name):
                       kv_valid=kv_valid)
     want_xla = attention_xla(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jmask,
                              alibi=None if alibi is None else jnp.asarray(alibi))
-    np.testing.assert_allclose(out.numpy(), np.asarray(want_xla), **TOL)
+    _assert_close(out.numpy(), np.asarray(want_xla), "out vs attention_xla")
     allowed = _allowed_numpy(kw, b, sq, skv)
     want_lse = _lse_numpy(q, k, v, allowed, 1.0 / d**0.5, alibi)
-    np.testing.assert_allclose(lse.numpy(), want_lse, **TOL)
+    _assert_close(lse.numpy(), want_lse, "lse vs its float64 definition")
 
 
 def test_flash_plain_fully_masked_rows_are_zero():
@@ -298,14 +311,16 @@ def test_single_query_plain_matches_jax(kb, gqa, d, dtype):
 
 def _port_python_files():
     files = sorted((REPO / "unimp_tpu_torch").rglob("*.py"))
-    return files + [REPO / "chip_smoke.py"]
+    # the ranks of the multi-GPU tests run on the card's machine too
+    return files + [REPO / "chip_smoke.py", REPO / "tests" / "torch_parallel_worker.py"]
 
 
 def test_port_imports_no_jax():
     """No module of the port, and not chip_smoke.py, imports jax, flax,
     optax, orbax or the JAX package, nor ``tokenizers``, PIL or
-    ``requests``, which the card's machine lacks; the training CLI's and
-    the serving modules are among those walked."""
+    ``requests``, which the card's machine lacks; the training CLI's,
+    the serving and the multi-GPU modules (and the multi-GPU tests' rank
+    worker) are among those walked."""
     banned = ("jax", "flax", "optax", "orbax", "unimp_tpu", "tokenizers", "PIL", "requests")
     bad = []
     for path in _port_python_files():
@@ -325,5 +340,7 @@ def test_port_imports_no_jax():
         "cli/mmrec", "train/checkpoint", "train/vision_cache", "utils/profiling",
         "decode/streaming", "serve/constants", "serve/conversation", "serve/batching",
         "serve/worker", "serve/controller", "serve/cli_chat", "serve/register_worker",
-        "serve/test_message", "serve/web_server")} <= walked
+        "serve/test_message", "serve/web_server", "parallel/mesh", "parallel/sharding",
+        "parallel/seq_shard", "ops/ring_attention", "evals/dist")} | {
+        "tests/torch_parallel_worker.py"} <= walked
     assert not bad, bad

@@ -44,6 +44,8 @@ from unimp_tpu_torch.data.loader import DataLoader, prefetch_to_device
 from unimp_tpu_torch.data.transforms import normalize_on_device
 from unimp_tpu_torch.evals import evaluators
 from unimp_tpu_torch.models import get_config
+from unimp_tpu_torch.parallel.mesh import set_mesh
+from unimp_tpu_torch.parallel.seq_shard import get_sequence_sharding, set_sequence_sharding
 from unimp_tpu_torch.tools import synth_data
 from unimp_tpu_torch.tools.from_flax import build_model, flatten_tree
 from unimp_tpu_torch.train import checkpoint as ckpt
@@ -180,8 +182,15 @@ def test_loader_epochs_match_jax(data, tokenizers, load_images):
                 np.testing.assert_array_equal(a[key], b[key], err_msg=key)
         orders.append(tuple(tl._indices()))
     assert len(set(orders)) == 3
-    with pytest.raises(NotImplementedError):
-        DataLoader(ds, 3, 0, process_count=2)
+    # one process reading rank 0's shard of two: the JAX loader's shard
+    jl0, tl0 = (cls(d, 3, 0, process_index=0, process_count=2, **kw)
+                for cls, d in ((JDataLoader, jds), (DataLoader, ds)))
+    jl0.set_epoch(2)
+    tl0.set_epoch(2)  # tl's epoch
+    assert len(tl0) == len(jl0) == 1 and list(tl0._indices()) == list(tl._indices()[::2])
+    for a, b in zip(jl0, tl0):
+        for key in ("input_ids", "seq_len", "weights"):
+            np.testing.assert_array_equal(a[key], b[key], err_msg=key)
     moved = list(prefetch_to_device(iter(range(5)), lambda i: i * 10))
     assert moved == [0, 10, 20, 30, 40]
 
@@ -550,14 +559,31 @@ def test_reload_eval(data, runs, tmp_path, monkeypatch, dtype):
 def test_unported_flags_raise_before_any_work(data, tmp_path, monkeypatch, extra):
     """Each raises before the tokenizer is built. (``--frozen_int8``,
     ``--bf16_opt_state``, ``--remat`` and ``--remat_policy`` run now:
-    ``tests/test_torch_train_flags.py`` holds them to the JAX CLI.)"""
+    ``tests/test_torch_train_flags.py`` holds them to the JAX CLI.) The
+    multi-GPU flags run since they were ported: in one process a mesh
+    larger than the world raises ``make_mesh``'s error naming the sizes,
+    and ``--seq_shard`` passes the checks and sets the ring-attention
+    context (``tests/test_torch_parallel.py`` runs them over ranks)."""
     def no_work(*args, **kw):
         raise AssertionError("work started before the check")
 
     monkeypatch.setattr(common, "build_tokenizer", no_work)
     argv = _argv(data, str(tmp_path), "cli", "--device", "cpu", *extra)
-    with pytest.raises(NotImplementedError):
-        mmrec.main(argv)
+    if "--mesh_fsdp" in extra or "--mesh_tp" in extra:
+        with pytest.raises(ValueError, match=r"does not divide world 1"):
+            mmrec.main(argv)
+    elif extra == ["--seq_shard"]:
+        try:
+            with pytest.raises(AssertionError, match="work started"):
+                mmrec.main(argv)
+            ring_mesh = get_sequence_sharding()
+            assert ring_mesh is not None and ring_mesh.world == 1
+        finally:
+            set_sequence_sharding(None)
+            set_mesh(None)
+    else:
+        with pytest.raises(NotImplementedError):
+            mmrec.main(argv)
 
 
 def _run_files(root: Path) -> list:

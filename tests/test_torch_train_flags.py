@@ -41,7 +41,7 @@ from unimp_tpu_torch.ops.quant_matmul import QuantMatmulFn
 from unimp_tpu_torch.tools.from_flax import build_model, flatten_tree, load_flax_params
 from unimp_tpu_torch.train import checkpoint as ckpt
 from unimp_tpu_torch.train.optimizer import MultiSteps, make_optimizer
-from unimp_tpu_torch.train.partition import (apply_frozen_storage, backbone_trainable_mask,
+from unimp_tpu_torch.train.partition import (apply_frozen_storage, int8_kernel_names,
                                              trainable_params)
 from unimp_tpu_torch.train.trainer import Trainer
 from unimp_tpu_torch.utils.quant import QuantizedKernel, count_quantized
@@ -318,8 +318,9 @@ def test_int8_bf16_checkpoint_round_trip(tmp_path):
     assert not any(p.endswith(("kernel/q", "kernel/scale")) for p in restored)
 
     _, _, back = _setup(frozen_int8=True, bf16=True, accum=2)
+    int8 = int8_kernel_names(back.model)
     load_flax_params(back.model, restored)
-    apply_frozen_storage(back.model, backbone_trainable_mask(back.model))
+    apply_frozen_storage(back.model, int8)
     back.optimizer.load_state_dict(ckpt.restore_train_state(str(tmp_path), "checkpoint_0")
                                    ["opt_state"])
     assert count_quantized(back.model) == count_quantized(tt.model) == 6

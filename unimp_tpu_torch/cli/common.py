@@ -2,7 +2,12 @@
 
 Counterpart of ``unimp_tpu/cli/common.py`` (the setup sections of the
 reference's mmrec.py:475-608: model build per variant, vocab extension +
-embedding resize, loader construction), on one process and one device.
+embedding resize, loader construction, the mesh). One process a GPU: under
+``torchrun`` (or any launcher that sets RANK / WORLD_SIZE / MASTER_ADDR)
+``build_mesh`` joins the process group and builds the ("dp", "fsdp", "tp")
+mesh from ``--mesh_fsdp`` / ``--mesh_tp`` (dp takes the rest), and
+``--seq_shard`` routes causal self-attention through ring attention over
+fsdp; launched alone, a run is a mesh of one.
 """
 
 from __future__ import annotations
@@ -12,6 +17,7 @@ import json
 import os
 
 import torch
+import torch.distributed as dist
 
 from unimp_tpu_torch.cli.arguments import variant_name
 from unimp_tpu_torch.data.dataset import TaskDataset
@@ -21,12 +27,13 @@ from unimp_tpu_torch.data.vocab import extend_vocabulary
 from unimp_tpu_torch.device import resolve_device
 from unimp_tpu_torch.models import get_config
 from unimp_tpu_torch.models.config import config_from_json
+from unimp_tpu_torch.parallel import mesh as pmesh
+from unimp_tpu_torch.parallel.seq_shard import set_sequence_sharding
 from unimp_tpu_torch.tools import from_flax
 
 ALL_EVAL_TASKS = ["rec", "exp", "img_sel", "search"]  # run_evals' multi-task default
 # flag -> (what it needs, its ROADMAP.md §1 item)
 UNPORTED = {
-    "seq_shard": ("--seq_shard: ring attention", "item 7"),
     "load_from_original_checkpoint": ("--load_from_original_checkpoint: the torch .pt "
                                       "converter", "item 8"),
     "save_hf_model": ("--save_hf_model: the torch .pt exporter", "item 8"),
@@ -38,9 +45,6 @@ UNPORTED = {
 def check_ported(args, *, train: bool = False) -> None:
     """Raise, before any work, on a flag whose machinery the port does not
     have yet."""
-    if getattr(args, "mesh_fsdp", 1) > 1 or getattr(args, "mesh_tp", 1) > 1:
-        raise NotImplementedError("--mesh_fsdp / --mesh_tp above 1: multi-GPU is not "
-                                  "ported yet (ROADMAP.md §1, item 7)")
     for flag, (what, item) in UNPORTED.items():
         if getattr(args, flag, False):
             raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md §1, {item})")
@@ -50,6 +54,33 @@ def check_ported(args, *, train: bool = False) -> None:
     if train and args.cache_vision_latents and args.unfreeze_backbone:
         raise SystemExit("--cache_vision_latents requires the frozen tower "
                          "(drop --unfreeze_backbone)")
+
+
+def build_mesh(args) -> pmesh.Mesh:
+    """Join the launcher's process group (``parallel/mesh.py:
+    init_distributed``; a group initialised already is kept), build the
+    mesh with dp taking the world's rest (``make_mesh`` raises on sizes
+    that do not divide it), make it the run's, and under ``--seq_shard``
+    route causal self-attention through ring attention over fsdp."""
+    pmesh.init_distributed(device=args.device)
+    mesh = pmesh.make_mesh(dp=None, fsdp=getattr(args, "mesh_fsdp", 1),
+                           tp=getattr(args, "mesh_tp", 1), device=args.device)
+    pmesh.set_mesh(mesh)
+    set_sequence_sharding(mesh if getattr(args, "seq_shard", False) else None)
+    return mesh
+
+
+def min_over_ranks(n: int, mesh: pmesh.Mesh) -> int:
+    """The smallest ``n`` over the data axis' ranks (a training epoch's
+    batch count: a rank with a batch more would wait for its peers in the
+    next collective; DistributedSampler's convention)."""
+    group = mesh.group("data")
+    if group is None:
+        return n
+    dev = "cuda" if dist.get_backend(group) == "nccl" else "cpu"
+    t = torch.tensor([n], dtype=torch.int64, device=dev)
+    dist.all_reduce(t, op=dist.ReduceOp.MIN, group=group)
+    return int(t.item())
 
 
 def build_tokenizer(args) -> UniMPTokenizer:
@@ -84,7 +115,8 @@ def weights_dir(args) -> str:
                                          args.load_run_name or args.run_name)
 
 
-def build_model(args, tokenizer, *, train: bool = False, weights=None, trainable_mask=None):
+def build_model(args, tokenizer, *, train: bool = False, weights=None, trainable_mask=None,
+                mesh=None):
     """The variant (or ``--config_json``) with the CLI's overrides and the
     vocab sized to the extended tokenizer, rounded up to 128, on
     ``--device``, with the port's seeded weights (``--seed``) or
@@ -97,7 +129,9 @@ def build_model(args, tokenizer, *, train: bool = False, weights=None, trainable
     ``--unfreeze_backbone``; or, given ``trainable_mask`` (model ->
     {parameter name: trainable}), that freezing with every tensor float32
     (the transfer entry's). ``--remat`` / ``--remat_policy`` set the
-    config's activation checkpointing, as the JAX CLI does."""
+    config's activation checkpointing, as the JAX CLI does. ``mesh``:
+    each rank builds the whole model, then keeps its tp block
+    (``tools/from_flax.py:build_model``)."""
     if getattr(args, "config_json", None):
         cfg = config_from_json(args.config_json)
     else:
@@ -115,13 +149,13 @@ def build_model(args, tokenizer, *, train: bool = False, weights=None, trainable
     device = resolve_device(args.device)
     if not train:
         return from_flax.build_model(cfg, device=device, seed=args.seed, weights=weights,
-                                     eval_param_dtype=args.eval_param_dtype)
+                                     eval_param_dtype=args.eval_param_dtype, mesh=mesh)
     if trainable_mask is not None:
         return from_flax.build_model(cfg, device=device, seed=args.seed, weights=weights,
-                                     train=True, trainable_mask=trainable_mask)
+                                     train=True, trainable_mask=trainable_mask, mesh=mesh)
     unfreeze = args.unfreeze_backbone
     model = from_flax.build_model(cfg, device=device, seed=args.seed, weights=weights,
-                                  train=True, frozen_dtype=frozen_dtype(args))
+                                  train=True, frozen_dtype=frozen_dtype(args), mesh=mesh)
     if unfreeze:
         model.requires_grad_(True)
     return model
@@ -168,11 +202,13 @@ def make_dataset(args, tokenizer, split: str, task=None) -> TaskDataset:
     )
 
 
-def make_loader(args, ds, tokenizer, *, train: bool) -> DataLoader:
+def make_loader(args, ds, tokenizer, *, train: bool, mesh=None) -> DataLoader:
     """A train loader shuffles (``seed + epoch``) and drops the last partial
     batch, and under ``--fused_accumulation`` yields the accumulation's
     micro-batches at once; an eval loader keeps the order and the last
-    partial batch."""
+    partial batch. Each rank reads its data-axis shard (``mesh``, default
+    the run's)."""
+    mesh = mesh or pmesh.get_mesh()
     accum = (args.gradient_accumulation_steps
              if train and getattr(args, "fused_accumulation", False) else 1)
     return DataLoader(
@@ -185,6 +221,8 @@ def make_loader(args, ds, tokenizer, *, train: bool) -> DataLoader:
         num_workers=args.workers,
         pad_to_multiple=128,
         max_text_len=args.max_src_length,
+        process_index=mesh.data_rank,
+        process_count=mesh.data_size,
     )
 
 

@@ -28,9 +28,10 @@ import os
 from unimp_tpu_torch.cli import common
 from unimp_tpu_torch.cli.arguments import build_parser
 from unimp_tpu_torch.cli.mmrec import run_evals, train_one_epoch
+from unimp_tpu_torch.parallel.sharding import ZeroShards
 from unimp_tpu_torch.tools.from_flax import load_flax_params
 from unimp_tpu_torch.train import checkpoint as ckpt
-from unimp_tpu_torch.train.optimizer import MultiSteps, make_optimizer
+from unimp_tpu_torch.train.optimizer import MultiSteps, decay_mask, make_optimizer
 from unimp_tpu_torch.train.partition import trainable_params
 from unimp_tpu_torch.train.trainer import Trainer
 from unimp_tpu_torch.train.vision_cache import build_tower_cache
@@ -57,10 +58,12 @@ def main(argv=None):
     ``run_evals``' results."""
     args = build_parser(eval_only=True).parse_args(argv)
     common.check_ported(args)
+    mesh = common.build_mesh(args)
     if args.transfer_domain is None:
         args.transfer_domain = "office"
     tokenizer = common.build_tokenizer(args)  # adds item_domain_{i}
-    model = common.build_model(args, tokenizer, train=True, trainable_mask=frozen_mask)
+    model = common.build_model(args, tokenizer, train=True, trainable_mask=frozen_mask,
+                               mesh=mesh)
 
     train_ds = common.make_dataset(args, tokenizer, "train", task=args.task)
     train_loader = common.make_loader(args, train_ds, tokenizer, train=True)
@@ -72,32 +75,38 @@ def main(argv=None):
                             f"{args.run_name}_{args.transfer_domain}")
     logger = MetricLogger(save_dir, args.run_name, use_wandb=args.report_to_wandb,
                           wandb_project=args.wandb_project, wandb_entity=args.wandb_entity,
-                          config=vars(args))
+                          config=vars(args), rank=mesh.rank)
     if args.load_weights_name:
         # the vocabulary grew: the overlap of each table comes from the
         # checkpoint, the new rows keep the fresh init
         restored = ckpt.restore_params(common.weights_dir(args), args.load_weights_name)
-        load_flax_params(model, ckpt.merge_with_growth(restored, ckpt.model_tree(model)))
+        # (whole tensors under tp: the load takes each rank's block)
+        load_flax_params(model, ckpt.merge_with_growth(restored, ckpt.full_model_tree(model)))
         del restored  # release the file's mapping
     if args.only_test:
         return run_evals(args, model, tokenizer, logger, epoch=0, tasks=[args.task])
 
     accum = args.gradient_accumulation_steps
-    total_steps = len(train_loader) * args.num_epochs
+    total_steps = common.min_over_ranks(len(train_loader), mesh) * args.num_epochs
     if accum > 1 and not args.fused_accumulation:
         total_steps = max(1, total_steps // accum)  # in updates (see cli/mmrec.py)
     warmup = (int(total_steps * args.warmup_steps_ratio)
               if args.warmup_steps_ratio is not None else args.warmup_steps)
-    optimizer = make_optimizer(trainable_params(model), learning_rate=args.learning_rate,
+    trainable = trainable_params(model)
+    zero = ZeroShards(trainable, mesh) if mesh.fsdp > 1 else None
+    optimizer = make_optimizer(zero.shards if zero else trainable,
+                               learning_rate=args.learning_rate,
                                lr_scheduler=args.lr_scheduler, total_steps=total_steps,
-                               warmup_steps=warmup, weight_decay=args.weight_decay)
+                               warmup_steps=warmup, weight_decay=args.weight_decay,
+                               decay=decay_mask(trainable))
     if accum > 1 and not args.fused_accumulation:
         optimizer = MultiSteps(optimizer, accum)
     trainer = Trainer(
         model, optimizer, media_id=tokenizer.media_token_id,
         answer_id=tokenizer.answer_token_id, endofchunk_id=tokenizer.endofchunk_token_id,
         pad_id=tokenizer.pad_token_id, gamma=args.gamma, use_reweight=args.use_reweight,
-        accum_steps=accum if args.fused_accumulation else 1, device=args.device)
+        accum_steps=accum if args.fused_accumulation else 1, device=args.device,
+        mesh=mesh, zero=zero)
 
     if args.cache_vision_latents:
         # from the restored tower, as the JAX entry builds it

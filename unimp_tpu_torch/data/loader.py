@@ -6,9 +6,11 @@ thread pool decodes and encodes samples ahead of the consumer, with at
 most ``num_workers + prefetch`` batches in flight, and batches are
 collated to bucketed shapes. ``num_workers=0`` builds batches inline.
 A shuffled loader permutes with ``seed + epoch`` (``set_epoch``), so an
-epoch's order depends on nothing else. The per-process shard is the JAX
-package's rank-strided one; more than one process raises until multi-GPU
-is ported (ROADMAP.md §1, item 7).
+epoch's order depends on nothing else. Each process reads the JAX
+package's rank-strided shard of that order, ``idx[process_index::
+process_count]`` (``process_*`` are the data axis' rank and size,
+``parallel/mesh.py``), so that micro-batch m of P processes at batch size
+B holds the samples of micro-batch m of one process at P * B.
 """
 
 from __future__ import annotations
@@ -39,10 +41,8 @@ class DataLoader:
         process_index: int = 0,
         process_count: int = 1,
         prefetch: int = 2,
+        max_batches: Optional[int] = None,
     ):
-        if process_count != 1:
-            raise NotImplementedError("a loader shard over several processes: multi-GPU is "
-                                      "not ported yet (ROADMAP.md §1, item 7)")
         self.dataset = dataset
         self.batch_size = batch_size
         self.pad_id = pad_id
@@ -56,6 +56,9 @@ class DataLoader:
         self.process_index = process_index
         self.process_count = process_count
         self.prefetch = prefetch
+        # at most this many batches an epoch (the training CLI's count
+        # agreed over ranks), or None
+        self.max_batches = max_batches
         self.epoch = 0
 
     def set_epoch(self, epoch: int):
@@ -73,8 +76,10 @@ class DataLoader:
     def __len__(self) -> int:
         n = len(self._indices())
         if self.drop_last:
-            return n // self.batch_size
-        return (n + self.batch_size - 1) // self.batch_size
+            nb = n // self.batch_size
+        else:
+            nb = (n + self.batch_size - 1) // self.batch_size
+        return nb if self.max_batches is None else min(nb, self.max_batches)
 
     def _batches(self):
         idx = self._indices()

@@ -40,6 +40,12 @@ reproduced, so one seed gives other tokens than in JAX, with the same
 distribution.
 
 Returns generated tokens only (no prompt), padded with pad_id.
+
+Under tensor parallelism every decode step holds collectives, so the ranks
+of a tp group decode the same number of steps: the loop's "every row
+done" exit is one decision over the model's tp group (``parallel/mesh.py:
+all_ranks_true``, an all-reduce MIN); data-parallel ranks decode on their
+own.
 """
 
 from __future__ import annotations
@@ -49,6 +55,7 @@ import dataclasses
 import torch
 
 from unimp_tpu_torch.models.flamingo import compute_q_media
+from unimp_tpu_torch.parallel.mesh import all_ranks_true
 from unimp_tpu_torch.utils.quant import quantize_kv
 
 NEG_INF = -1.0e9
@@ -166,6 +173,8 @@ class Generator:
         self.model = model
         self.cfg = gen_cfg
         self.media_id = media_id
+        # the ranks that decode together (a model sliced over tp), or None
+        self.tp_group = getattr(model, "tp_group", None)
 
     @torch.no_grad()
     def generate(self, input_ids, seq_len, latents=None, generator=None):
@@ -221,7 +230,7 @@ class Generator:
         scores = torch.zeros(b, dtype=torch.float32, device=dev)
         logits = last_logits
         step = 0
-        while step < cfg.max_new_tokens and not bool(done.all()):
+        while step < cfg.max_new_tokens and not all_ranks_true(done.all(), self.tp_group):
             logp = log_softmax_like_jax(logits)
             if cfg.temperature > 0.0:
                 nxt = sample_draw(sample_filter(logits, cfg), generator)
@@ -269,7 +278,7 @@ class Generator:
         rank = torch.arange(2 * k, device=dev)[None, :]
 
         step = 0
-        while step < max_new and not bool(done.all()):
+        while step < max_new and not all_ranks_true(done.all(), self.tp_group):
             logp = torch.log_softmax(logits.float(), dim=-1)
             cand = alive_scores[:, :, None] + logp  # [B, K, V]
             top_vals, top_idx = top_k(cand.reshape(b, k * v), 2 * k)

@@ -28,6 +28,16 @@ batch is timed from its fetch to its tokens on the host; the loader's
 worker threads build the next batches meanwhile. ``items_per_sec`` is the
 mean of the per-batch rows per second, the first batch including its
 catalogue misses, as in the JAX package.
+
+Several ranks (``parallel/mesh.py``): each evaluates the users of its
+data-axis shard (the loader's) and ``evals/dist.py`` joins the per-user
+metrics; ``n_users`` counts every real user once. The ranks of one tp
+group read the same users, so their decode steps pair up (the decode
+loop's exit is one decision over the group); the data-axis ranks hold
+whole parameters (fsdp shards only gradients and optimizer state), so a
+forward of theirs holds no collective and their batch counts may differ:
+no rows are padded (the JAX evaluator pads its global batch to the mesh's
+shard multiple, ``unimp_tpu/evals/evaluators.py:68-91``).
 """
 
 from __future__ import annotations
@@ -227,9 +237,10 @@ def evaluate_img_gen(model, loader, tokenizer, *, max_new_tokens=600,
                                 "item": None if extra is None else extra.get("item")})
     if dump_path is None:
         dump_path = f"save_img_gen/img_gen_{rank}_epoch_{epoch}_name_{run_name}.json"
-    os.makedirs(os.path.dirname(dump_path) or ".", exist_ok=True)
-    with open(dump_path, "w") as f:
-        json.dump(generations, f)
+    if dump_path:  # "": no file (a tp rank other than its group's first)
+        os.makedirs(os.path.dirname(dump_path) or ".", exist_ok=True)
+        with open(dump_path, "w") as f:
+            json.dump(generations, f)
     return {
         "n_generated": len(generations),
         "dump_path": dump_path,

@@ -28,6 +28,7 @@ launches again) as it does the Pallas call in JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Optional
 
@@ -43,6 +44,7 @@ from unimp_tpu_torch.models.perceiver import PerceiverResampler
 from unimp_tpu_torch.models.vit import VisionTower
 from unimp_tpu_torch.ops import AttnMask
 from unimp_tpu_torch.ops.quant_matmul import quant_dot
+from unimp_tpu_torch.parallel.sharding import copy_to_tp, gather_from_tp, reduce_from_tp
 
 
 def compute_q_media(input_ids: torch.Tensor, media_token_id: int) -> torch.Tensor:
@@ -96,13 +98,21 @@ class Embed(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.embedding = nn.Parameter(torch.zeros(vocab, dim))
+        # vocabulary-parallel under tp: this rank's rows start here
+        self.tp_group, self.vocab_start = None, 0
 
     def forward(self, ids):
         # F.embedding, not advanced indexing: its CPU backward sums each
         # row's gradient in one thread, in order (indexing's accumulating
         # index_put differs run to run with several threads), so a resumed
         # run can equal a straight one bit for bit
-        return F.embedding(ids, self.embedding).to(self.dtype)
+        if self.tp_group is None:
+            return F.embedding(ids, self.embedding).to(self.dtype)
+        local = ids - self.vocab_start
+        outside = (local < 0) | (local >= self.embedding.shape[0])
+        x = F.embedding(torch.where(outside, 0, local), self.embedding)
+        x = reduce_from_tp(torch.where(outside[..., None], 0.0, x), self.tp_group)
+        return x.to(self.dtype)
 
 
 class GatedCrossAttnBlock(nn.Module):
@@ -158,6 +168,11 @@ class UniMPModel(nn.Module):
         self.final_ln = make_norm(lm.norm, lm.hidden_size, lm.layernorm_eps, dt)
         if not lm.tie_embeddings:
             self.lm_head = DenseWeights(lm.hidden_size, lm.vocab_size, use_bias=False)
+        # tensor parallelism (``parallel/sharding.py:shard_model_tp``): the
+        # tp layout of the tensors ({flat path: dimension}) and the group that
+        # gathers the logits
+        self.tp_layout, self.logits_tp_group = {}, None
+        self.tp_group, self.tp_rank, self.tp_size = None, 0, 1
 
     def _layers(self):
         for i in range(self.cfg.lm.num_layers):
@@ -185,12 +200,16 @@ class UniMPModel(nn.Module):
 
     def _logits(self, x):
         x = self.final_ln(x)
+        # under tp the head's matrix holds this rank's vocabulary block: the
+        # block's logits are all-gathered
+        group = self.logits_tp_group
+        x = copy_to_tp(x, group)
         if self.cfg.lm.tie_embeddings:
             # f32 logits, as the JAX package's f32-accumulating dot
-            return (x @ self.embed.embedding.to(x.dtype).t()).float()
+            return gather_from_tp((x @ self.embed.embedding.to(x.dtype).t()).float(), group)
         # untied head: logits in the compute dtype; an int8 head streams
         # through K6 at decode rows and at the prefill's last position
-        return quant_dot(x, self.lm_head.kernel)
+        return gather_from_tp(quant_dot(x, self.lm_head.kernel), group)
 
     @staticmethod
     def kv_media_for(latents) -> torch.Tensor:
@@ -292,5 +311,7 @@ class UniMPModel(nn.Module):
     def init_gen_caches(self, batch: int, max_new: int, device=None,
                         quantized: bool = False):
         device = device or self.embed.embedding.device
-        return [init_gen_cache(batch, max_new, self.cfg.lm, self.cfg.compute_dtype,
+        # this rank's KV heads (fewer under tp)
+        lm = dataclasses.replace(self.cfg.lm, num_kv_heads=self.block_0.attn.num_kv_heads)
+        return [init_gen_cache(batch, max_new, lm, self.cfg.compute_dtype,
                                device, quantized) for _ in range(self.cfg.lm.num_layers)]

@@ -19,6 +19,12 @@ int8 matmul (K6) at decode row counts.
     ``decode_attention``;
   * cross-attention decode: one query per beam against cached projected
     latents through ``single_query_attention``.
+
+Under tensor parallelism (``parallel/sharding.py:shard_model_tp``) an
+``Attention`` or ``Mlp`` holds its rank's heads or columns and a
+``tp_group``: its input enters through ``copy_to_tp`` and the row-parallel
+output projection (``OProj``, the MLP's ``down``) all-reduces its partial
+product before the bias.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from torch import nn
 from unimp_tpu_torch.ops import AttnMask, alibi_slopes, multi_head_attention
 from unimp_tpu_torch.ops.decode_attention import decode_attention, single_query_attention
 from unimp_tpu_torch.ops.quant_matmul import quant_dot
+from unimp_tpu_torch.parallel.sharding import copy_to_tp, reduce_from_tp
 from unimp_tpu_torch.utils.quant import QuantizedKernel, quantize_kv
 
 
@@ -120,6 +127,7 @@ class DenseWeights(nn.Module):
     def __init__(self, in_dim: int, features: int, use_bias: bool, stream: bool = True):
         super().__init__()
         self.stream = stream
+        self.tp_group = None  # row-parallel under tp: partial products summed
         self.kernel = _param(in_dim, features)
         self.bias = _param(features) if use_bias else None
 
@@ -128,6 +136,7 @@ class DenseWeights(nn.Module):
             y = x @ self.kernel.dequantize().to(x.dtype)
         else:
             y = quant_dot(x, self.kernel)
+        y = reduce_from_tp(y, self.tp_group)
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
         return y
@@ -140,6 +149,7 @@ class OProj(nn.Module):
                  dtype=torch.bfloat16):
         super().__init__()
         self.dtype = dtype
+        self.tp_group = None  # row-parallel under tp: partial products summed
         self.kernel = _param(heads, head_dim, out_dim)
         self.bias = _param(out_dim) if use_bias else None
 
@@ -148,6 +158,7 @@ class OProj(nn.Module):
         # an int8 kernel's scale is [out] (both leading axes contract), so
         # it folds out of the flat [H*d, out] matmul
         out = quant_dot(y.reshape(*y.shape[:-2], h * d).to(self.dtype), self.kernel)
+        out = reduce_from_tp(out, self.tp_group)
         if self.bias is not None:
             out = out + self.bias.to(out.dtype)
         return out
@@ -163,12 +174,14 @@ class Mlp(nn.Module):
                  quick_gelu: bool = False):
         super().__init__()
         self.act, self.dtype, self.quick_gelu = act, dtype, quick_gelu
+        self.tp_group = None
         if act == "silu":
             self.gate = DenseWeights(d_model, hidden, use_bias)
         self.up = DenseWeights(d_model, hidden, use_bias)
         self.down = DenseWeights(hidden, d_model, use_bias)
 
     def forward(self, x):
+        x = copy_to_tp(x, self.tp_group)
         if self.act == "silu":
             h = F.silu(self.gate(x)) * self.up(x)
         else:
@@ -201,6 +214,7 @@ class Attention(nn.Module):
         # int8 q/k/v payloads fused for the decode step, made when a decoder
         # block's projections are quantized (``utils/quant.py``)
         self.qkv_int8 = None
+        self.tp_group = None
         if positions_mode == "alibi":
             self.register_buffer("alibi", alibi_slopes(num_heads), persistent=False)
         else:
@@ -220,6 +234,9 @@ class Attention(nn.Module):
         caches (prompt, gen, latents) also hold "k_scale" / "v_scale"
         [B*,Hkv,S] f32.
         """
+        x = copy_to_tp(x, self.tp_group)
+        if kv_x is not None:
+            kv_x = copy_to_tp(kv_x, self.tp_group)
         if xattn_cache is not None:
             q = self.q_proj(x)
             out = single_query_attention(q[:, 0], xattn_cache["k"], xattn_cache["v"],

@@ -84,23 +84,35 @@ class FlashAttentionFn(torch.autograd.Function):
     def backward(ctx, d_out, _d_lse):
         q, k, v, out, lse = ctx.saved_tensors
         do = d_out.to(q.dtype).contiguous()
-        # delta = rowsum(dO * O) in f32, outside the kernels as in JAX
-        delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
-        m = ctx.masks
-        if q.device.type == "cpu":
-            kw = dict(kv_len=m["kv_len"], kv_start=m["kv_start"], scale=m["scale"],
-                      alibi=m["alibi_slopes"])
-            dk, dv = flash_bwd_dkv_ref(q, k, v, do, lse, delta, _mask(m), **kw)
-            dq = flash_bwd_dq_ref(q, k, v, do, lse, delta, _mask(m), **kw)
-        else:
-            dq, dk, dv = flash_attention_bwd_cuda(
-                q.contiguous(), k.contiguous(), v.contiguous(), do, lse, delta, **m)
+        dq, dk, dv = flash_backward(q, k, v, do, lse, attention_delta(do, out), **ctx.masks)
         return dq, dk, dv, None, None, None, None, None, None, None, None
 
 
+def attention_delta(do: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(dO * O) in f32, [B, H, Sq]: computed outside the
+    kernels, as in JAX."""
+    return (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def flash_backward(q, k, v, do, lse, delta, **masks):
+    """(dq, dk, dv) of attention under ``masks`` (``flash_attention``'s
+    keyword arguments, ``scale`` given) against ``lse`` and ``delta``: K2
+    and K3 on CUDA tensors, their plain versions on CPU tensors. ``lse``
+    may be a larger softmax's (ring attention's merged one): the result is
+    then this block's share of that softmax's gradient."""
+    if q.device.type == "cpu":
+        kw = dict(kv_len=masks.get("kv_len"), kv_start=masks.get("kv_start"),
+                  scale=masks["scale"], alibi=masks.get("alibi_slopes"))
+        mask = _mask(masks)
+        dk, dv = flash_bwd_dkv_ref(q, k, v, do, lse, delta, mask, **kw)
+        return flash_bwd_dq_ref(q, k, v, do, lse, delta, mask, **kw), dk, dv
+    return flash_attention_bwd_cuda(q.contiguous(), k.contiguous(), v.contiguous(), do,
+                                    lse, delta, **masks)
+
+
 def _mask(m) -> AttnMask:
-    return AttnMask(causal=m["causal"], q_media=m["q_media"], kv_media=m["kv_media"],
-                    media_mode=m["media_mode"])
+    return AttnMask(causal=m.get("causal", False), q_media=m.get("q_media"),
+                    kv_media=m.get("kv_media"), media_mode=m.get("media_mode"))
 
 
 def _kernel_args(q, k, v, causal=False, kv_len=None, kv_start=None, q_media=None,

@@ -28,6 +28,7 @@ from torch import nn
 from unimp_tpu_torch.device import resolve_device
 from unimp_tpu_torch.models.config import UniMPConfig
 from unimp_tpu_torch.models.flamingo import UniMPModel
+from unimp_tpu_torch.parallel.sharding import shard_model_tp, shard_tree_tp
 from unimp_tpu_torch.train.partition import backbone_trainable_mask, freeze
 from unimp_tpu_torch.utils.inference import cast_params_for_inference
 from unimp_tpu_torch.utils.quant import (
@@ -84,8 +85,12 @@ def load_flax_params(model: nn.Module, flat: Mapping) -> None:
     Every Flax leaf must map onto a port tensor of the same shape (a
     parameter, or an int8 kernel's ``q`` / ``scale``) and every port
     tensor must be covered; raises otherwise. Kernels follow the tree:
-    int8 where it is quantized, float where it is not.
+    int8 where it is quantized, float where it is not. A model sliced over
+    tp (``parallel/sharding.py:shard_model_tp``) takes its rank's block of
+    each whole tensor of the tree (an int8 scale with its columns).
     """
+    if getattr(model, "tp_layout", None):
+        flat = shard_tree_tp(flat, model.tp_layout, model.tp_rank, model.tp_size)
     _match_quantized(model, flat)
     state = model.state_dict(keep_vars=True)
     want = {name.replace(".", "/") for name in state}
@@ -134,7 +139,7 @@ def init_params(model: nn.Module, generator: torch.Generator) -> None:
 def build_model(cfg: UniMPConfig, *, device="cuda", seed: int = 0,
                 eval_param_dtype: str = "fp32", train: bool = False,
                 frozen_dtype=None, weights: Mapping | None = None,
-                trainable_mask=backbone_trainable_mask) -> UniMPModel:
+                trainable_mask=backbone_trainable_mask, mesh=None) -> UniMPModel:
     """A UniMPModel on ``device`` with seeded weights (``init_params``), or
     with ``weights`` (a flat float tree, {"a/b/c": tensor or array}, e.g.
     ``train/checkpoint.py:restore_params``) loaded in their place before
@@ -151,6 +156,9 @@ def build_model(cfg: UniMPConfig, *, device="cuda", seed: int = 0,
     with ``requires_grad=False`` stored in ``frozen_dtype`` when given
     (a float dtype, or "int8": frozen kernels quantized, ``train/
     partition.py:freeze``), ``.train()``. ``load_flax_params`` loads a Flax tree into either build.
+    ``mesh`` (``parallel/mesh.py``) with tp > 1: the whole model is built,
+    loaded, frozen or cast and quantized as above, on every rank alike,
+    then sliced to this rank's tp block (``shard_model_tp``).
     """
     if eval_param_dtype not in EVAL_PARAM_DTYPES:
         raise ValueError(f"eval_param_dtype {eval_param_dtype!r} not in "
@@ -166,10 +174,14 @@ def build_model(cfg: UniMPConfig, *, device="cuda", seed: int = 0,
         load_flax_params(model, weights)
     if train:
         freeze(model, trainable_mask(model), frozen_dtype)
-        return model.train()
-    cast = EVAL_PARAM_DTYPES[eval_param_dtype]
-    if cast is not None:
-        cast_params_for_inference(model, cast)
-    if eval_param_dtype == "int8":
-        quantize_params_int8(model)
-    return model.eval()
+        model.train()
+    else:
+        cast = EVAL_PARAM_DTYPES[eval_param_dtype]
+        if cast is not None:
+            cast_params_for_inference(model, cast)
+        if eval_param_dtype == "int8":
+            quantize_params_int8(model)
+        model.eval()
+    if mesh is not None:
+        shard_model_tp(model, mesh)
+    return model

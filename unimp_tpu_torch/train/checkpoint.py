@@ -18,6 +18,14 @@ tensors that ``tools/from_flax.py:load_flax_params`` copies onto the
 model. An Orbax directory of the JAX package raises: its converter is not
 ported yet (ROADMAP.md §1, item 8). ``merge_with_growth`` grafts a restored
 tree onto a model whose vocabulary grew since (the transfer entry).
+
+Over several ranks (``parallel/mesh.py``) a checkpoint holds whole
+tensors, whatever the mesh: the tp blocks of a tensor are all-gathered
+(``full_model_tree``), the fsdp shards of the optimizer state too
+(``Trainer.optimizer_state``), and rank 0 alone writes, with a barrier
+after; a restore reads the whole tree on every rank and each takes its
+block (``load_flax_params``, ``Trainer.load_optimizer_state``), so a
+checkpoint resumes on any world size and mesh.
 """
 
 from __future__ import annotations
@@ -26,7 +34,10 @@ import os
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
+from unimp_tpu_torch.parallel.mesh import barrier, is_distributed
+from unimp_tpu_torch.parallel.sharding import gather_tp, tensor_tp_dim
 from unimp_tpu_torch.utils.quant import count_quantized, dequantize_params_host
 
 PARAMS_FILE = "params.pt"
@@ -43,6 +54,26 @@ def model_tree(model) -> dict:
     if count_quantized(model):
         return dequantize_params_host(model)
     return {name.replace(".", "/"): t.detach() for name, t in model.state_dict().items()}
+
+
+def full_model_tree(model) -> dict:
+    """``model_tree`` with each tp-sharded tensor whole (all-gathered over
+    the model's tp group; host tensors). Collective under tp."""
+    tree = model_tree(model)
+    layout = model.tp_layout
+    if not layout:
+        return tree
+    dev = "cuda" if dist.get_backend(model.tp_group) == "nccl" else "cpu"
+    for path, t in tree.items():
+        dim = tensor_tp_dim(layout, path)
+        if dim is not None:
+            tree[path] = gather_tp(t, dim, model.tp_group, dev)
+    return tree
+
+
+def is_writer() -> bool:
+    """Rank 0 writes the run's files (the reference's main process)."""
+    return not is_distributed() or dist.get_rank() == 0
 
 
 def _write(path: str, obj) -> None:
@@ -65,10 +96,15 @@ def _checkpoint_dir(save_dir: str, name: str) -> str:
 
 
 def save_params(save_dir: str, model, name: str = "final_weights") -> str:
-    """Write the model's tensors under ``save_dir/name``; returns the path."""
+    """Write the model's tensors under ``save_dir/name`` (rank 0; every
+    rank calls it); returns the path."""
     path = os.path.join(os.path.abspath(save_dir), name)
-    os.makedirs(path, exist_ok=True)
-    _write(os.path.join(path, PARAMS_FILE), model_tree(model))
+    tree = full_model_tree(model)
+    if is_writer():
+        os.makedirs(path, exist_ok=True)
+        _write(os.path.join(path, PARAMS_FILE), tree)
+    del tree
+    barrier()
     return path
 
 
@@ -117,8 +153,12 @@ def save_train_state(save_dir: str, trainer, epoch: int) -> str:
     step, the schedule's count, and MultiSteps' mean and counts), the
     trainer's step and the epoch."""
     path = save_params(save_dir, trainer.model, name=f"checkpoint_{epoch}")
-    _write(os.path.join(path, STATE_FILE), {"opt_state": trainer.optimizer.state_dict(),
-                                            "step": trainer.step, "epoch": epoch})
+    state = trainer.optimizer_state()
+    if is_writer():
+        _write(os.path.join(path, STATE_FILE), {"opt_state": state, "step": trainer.step,
+                                                "epoch": epoch})
+    del state
+    barrier()
     return path
 
 

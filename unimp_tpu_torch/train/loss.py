@@ -20,10 +20,13 @@ from unimp_tpu_torch.data.masking import IGNORE
 
 
 def masked_focal_loss(logits: torch.Tensor, labels: torch.Tensor, weights: torch.Tensor,
-                      gamma: float = 2.0, use_reweight: bool = False):
+                      gamma: float = 2.0, use_reweight: bool = False, n_total=None):
     """logits [B, T, V] (any float dtype), labels [B, T], weights [B] ->
     (scalar loss, aux {"ce", "n_answer_tokens", "accuracy"}); aux carries
-    no gradient."""
+    no gradient. ``n_total`` (a rank's share of a batch spread over
+    ranks): the batch's count of valid labels, which then normalizes in
+    place of this share's own count, so that the ranks' losses sum to the
+    batch's."""
     shift_logits = logits[:, :-1].float()
     lab = labels[:, 1:]
     valid = lab != IGNORE
@@ -35,7 +38,7 @@ def masked_focal_loss(logits: torch.Tensor, labels: torch.Tensor, weights: torch
         pt = torch.exp(-ce)  # softmax(logits)[label]; the gradient flows through
         loss_tok = loss_tok * (1.0 - pt) ** gamma
     loss_tok = torch.where(valid, loss_tok, 0.0)
-    n_valid = valid.sum()
+    n_valid = valid.sum() if n_total is None else n_total
     denom = n_valid.clamp(min=1)
     loss = loss_tok.sum() / denom
     with torch.no_grad():

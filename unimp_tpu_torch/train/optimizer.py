@@ -14,6 +14,14 @@ dtype), so that path is the port's own update, ``ClippedAdamWCast``.
 (``--gradient_accumulation_steps`` without ``--fused_accumulation``).
 Each saves and restores its state by parameter name (``state_dict`` /
 ``load_state_dict``) for ``train/checkpoint.py``.
+
+Over several ranks (``train/trainer.py``) a rank may hold a block of a
+gradient (its fsdp shard, its tp block): the trainer then sets
+``norm_reduce``, which turns the vector of per-tensor sums of squares
+(float32, one entry a parameter in ``named`` order) into the whole
+tensors' sums, so that the logged norm and both clips use the norm of the
+whole gradient. A sharded optimizer is built over 1-D shards, so its
+weight-decay mask (``decay``) comes from the whole parameters.
 """
 
 from __future__ import annotations
@@ -77,11 +85,12 @@ class ClippedAdamW:
 
     def __init__(self, params: dict, *, schedule: Callable[[int], float],
                  weight_decay: float, max_grad_norm: float, b1: float, b2: float,
-                 eps: float):
+                 eps: float, decay: dict = None):
         self.named = dict(params)
         self.params = list(params.values())
         self.schedule = schedule
-        decay = decay_mask(params)
+        self.norm_reduce = None
+        decay = decay if decay is not None else decay_mask(params)
         groups = [{"params": [p for n, p in params.items() if decay[n]],
                    "weight_decay": weight_decay},
                   {"params": [p for n, p in params.items() if not decay[n]],
@@ -105,6 +114,8 @@ class ClippedAdamW:
 
     def grad_norm(self) -> torch.Tensor:
         """Global L2 norm of the gradients, accumulated in float32."""
+        if self.norm_reduce is not None:
+            return torch.sqrt(self.norm_reduce(_square_sums(self.named_grads(), self.named)).sum())
         norms = [torch.linalg.vector_norm(g, dtype=torch.float32) for g in self.grads()]
         return torch.linalg.vector_norm(torch.stack(norms))
 
@@ -158,15 +169,27 @@ class ClippedAdamW:
         self.scheduler._last_lr = lrs
 
 
-def global_norm(grads) -> torch.Tensor:
+def _square_sums(grads: dict, named: dict) -> torch.Tensor:
+    """[len(named)] float32: each gradient's sum of squares (0 for None), in
+    ``named`` order."""
+    dev = next(iter(named.values())).device
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    return torch.stack([zero if grads.get(n) is None else
+                        (grads[n].float() * grads[n].float()).sum() for n in named])
+
+
+def global_norm(grads, sq=None) -> torch.Tensor:
     """``optax.global_norm`` of the gradients, rounded as the jitted JAX
     step rounds it: each tensor's sum of squares taken in float32 and
     rounded to the tensor's dtype, the sum over tensors and the square
-    root in that dtype (bfloat16 under ``--bf16_opt_state``)."""
+    root in that dtype (bfloat16 under ``--bf16_opt_state``). ``sq``, when
+    given, holds the whole tensors' float32 sums of squares in ``grads``'
+    order (a sharded gradient's)."""
     total = None
-    for g in grads:
-        sq = (g.float() * g.float()).sum().to(g.dtype)
-        total = sq if total is None else total + sq
+    for i, g in enumerate(grads):
+        part = (g.float() * g.float()).sum() if sq is None else sq[i]
+        part = part.to(g.dtype)
+        total = part if total is None else total + part
     return torch.sqrt(total)
 
 
@@ -186,10 +209,12 @@ class ClippedAdamWCast:
 
     def __init__(self, params: dict, *, schedule: Callable[[int], float],
                  weight_decay: float, max_grad_norm: float, b1: float, b2: float,
-                 eps: float, mu_dtype=torch.bfloat16, nu_dtype=torch.bfloat16):
+                 eps: float, mu_dtype=torch.bfloat16, nu_dtype=torch.bfloat16,
+                 decay: dict = None):
         self.named = dict(params)
         self.schedule = schedule
-        self.decay = decay_mask(params)
+        self.norm_reduce = None
+        self.decay = decay if decay is not None else decay_mask(params)
         self.weight_decay, self.max_grad_norm = weight_decay, max_grad_norm
         self.b1, self.b2, self.eps = b1, b2, eps
         self.mu = {n: torch.zeros_like(p, dtype=mu_dtype) for n, p in self.named.items()}
@@ -208,7 +233,12 @@ class ClippedAdamWCast:
         self.grad = {name: grads[name] for name in self.named}
 
     def grad_norm(self) -> torch.Tensor:
-        return global_norm(self.grads())
+        if self.norm_reduce is None:
+            return global_norm(self.grads())
+        names = [n for n in self.named if self.grad[n] is not None]
+        sq = self.norm_reduce(_square_sums(self.grad, self.named))
+        keep = torch.tensor([self.grad[n] is not None for n in self.named], device=sq.device)
+        return global_norm([self.grad[n] for n in names], sq[keep])
 
     def zero_grad(self) -> None:
         self.grad = dict.fromkeys(self.named)
@@ -218,7 +248,10 @@ class ClippedAdamWCast:
         """Clip, update, advance the schedule (``grad_norm``, the logged
         one, is not the clip's)."""
         f32 = torch.float32
-        sq = sum((g.float() * g.float()).sum() for g in self.grads())
+        if self.norm_reduce is None:
+            sq = sum((g.float() * g.float()).sum() for g in self.grads())
+        else:
+            sq = self.norm_reduce(_square_sums(self.grad, self.named)).sum()
         scale = torch.clamp(self.max_grad_norm / torch.clamp(torch.sqrt(sq), min=1e-16),
                             max=1.0)
         self.count += 1
@@ -318,33 +351,40 @@ def make_optimizer(params: dict, *, learning_rate: float = 1e-4,
                    lr_scheduler: str = "constant", total_steps: int = 10_000,
                    warmup_steps: int = 0, weight_decay: float = 0.1,
                    max_grad_norm: float = 1.0, b1: float = 0.9, b2: float = 0.999,
-                   eps: float = 1e-8, moment_dtype=None):
+                   eps: float = 1e-8, moment_dtype=None, decay: dict = None):
     """The reference AdamW over ``params`` ({name: parameter}): pass the
     trainable ones (``partition.trainable_params``) so that decay, clipping
     and the moments exist only for them. ``moment_dtype`` (bfloat16 under
     ``--bf16_opt_state``: the JAX ``mu_dtype`` and ``nu_dtype``) gives a
-    ``ClippedAdamWCast``; by default a ``ClippedAdamW``."""
+    ``ClippedAdamWCast``; by default a ``ClippedAdamW``. ``decay`` ({name:
+    decayed}) overrides ``decay_mask(params)``: a sharded optimizer's
+    ``params`` are 1-D shards (``parallel/sharding.py:ZeroShards``)."""
     schedule = make_schedule(lr_scheduler, learning_rate, total_steps, warmup_steps)
     kw = dict(schedule=schedule, weight_decay=weight_decay, max_grad_norm=max_grad_norm,
-              b1=b1, b2=b2, eps=eps)
+              b1=b1, b2=b2, eps=eps, decay=decay)
     if moment_dtype is not None:
         return ClippedAdamWCast(params, mu_dtype=moment_dtype, nu_dtype=moment_dtype, **kw)
     return ClippedAdamW(params, **kw)
 
 
-def embedding_row_mask_update(grads: dict, answer_token_id: int) -> None:
+def embedding_row_mask_update(grads: dict, answer_token_id: int, vocab_start: int = 0) -> None:
     """--mask_lm_head (mmrec.py:218-233): keep only the <answer> row of the
     token embedding's gradient and the <answer> column of the lm head's,
     in place (a multiply by a one-hot, as the JAX package does); ``grads``
-    is {parameter name: gradient or None}."""
+    is {parameter name: gradient or None}. Under tp both hold the
+    vocabulary block from ``vocab_start``: a block without <answer> keeps
+    nothing."""
+    idx = answer_token_id - vocab_start
     for name, g in grads.items():
         if g is None:
             continue
         if name.endswith("embed.embedding"):
             row = torch.zeros(g.shape[0], dtype=g.dtype, device=g.device)
-            row[answer_token_id] = 1.0
+            if 0 <= idx < g.shape[0]:
+                row[idx] = 1.0
             g.mul_(row[:, None])
         elif name.endswith("lm_head.kernel"):  # [D, V]: a column
             col = torch.zeros(g.shape[1], dtype=g.dtype, device=g.device)
-            col[answer_token_id] = 1.0
+            if 0 <= idx < g.shape[1]:
+                col[idx] = 1.0
             g.mul_(col[None, :])

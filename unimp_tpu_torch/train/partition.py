@@ -20,7 +20,7 @@ from __future__ import annotations
 
 from torch import nn
 
-from unimp_tpu_torch.utils.quant import quantize_params_int8
+from unimp_tpu_torch.utils.quant import QuantizedKernel, quantize_params_int8
 
 
 def backbone_trainable_mask(model: nn.Module) -> dict:
@@ -36,25 +36,35 @@ def backbone_trainable_mask(model: nn.Module) -> dict:
 def freeze(model: nn.Module, mask: dict, frozen_dtype=None) -> nn.Module:
     """requires_grad_(mask[name]) for every parameter; frozen floating
     parameters move to ``frozen_dtype`` when given, or under "int8" the
-    frozen float kernels are quantized (``apply_frozen_storage``)."""
+    frozen float kernels are quantized to the model's compute dtype, as
+    the JAX ``Trainer`` quantizes its frozen subtree."""
     for name, p in model.named_parameters():
         p.requires_grad_(mask[name])
         if (not mask[name] and frozen_dtype not in (None, "int8")
                 and p.is_floating_point()):
             p.data = p.data.to(frozen_dtype)
     if frozen_dtype == "int8":
-        apply_frozen_storage(model, mask)
+        quantize_params_int8(model, dtype=model.cfg.compute_dtype,
+                             select=lambda name: not mask[name])
     return model
 
 
-def apply_frozen_storage(model: nn.Module, mask: dict) -> nn.Module:
-    """The frozen (``not mask[name]``) float kernels quantized to int8, to
-    the model's compute dtype; kernels quantized already stay as they are,
-    and no ``requires_grad`` changes. After a float tree (a checkpoint's)
-    has overwritten the int8 kernels, this puts them back: the JAX
-    ``Trainer.apply_frozen_storage``."""
-    return quantize_params_int8(model, dtype=model.cfg.compute_dtype,
-                                select=lambda name: not mask[name])
+def int8_kernel_names(model: nn.Module) -> set:
+    """Names of the model's persistent int8 kernels."""
+    return {name for name, mod in model.named_modules()
+            if isinstance(mod, QuantizedKernel) and mod.persistent}
+
+
+def apply_frozen_storage(model: nn.Module, names: set) -> nn.Module:
+    """The float kernels named in ``names`` quantized to int8, to the
+    model's compute dtype; no ``requires_grad`` changes. After a float
+    tree (a checkpoint's) has overwritten the int8 kernels, this puts the
+    same ones back (``int8_kernel_names`` taken before the load): the JAX
+    ``Trainer.apply_frozen_storage``. It selects by name alone, with no
+    size rule, since a tp rank's block of a kernel may be smaller than
+    the size the build quantizes."""
+    return quantize_params_int8(model, dtype=model.cfg.compute_dtype, min_size=0,
+                                select=names.__contains__)
 
 
 def trainable_params(model: nn.Module) -> dict:

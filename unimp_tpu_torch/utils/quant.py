@@ -77,13 +77,19 @@ def _absmax_scale(amax: torch.Tensor) -> torch.Tensor:
     return torch.clamp(amax, min=1e-8) * (1.0 / 127.0)
 
 
-def _quantize_leaf(w: torch.Tensor, n_in_axes: int = 1):
+def _quantize_leaf(w: torch.Tensor, n_in_axes: int = 1, group=None):
     """Kernel -> (q int8, scale f32 reduced over the ``n_in_axes`` leading
     (input) axes): absmax scale = max(amax, 1e-8) / 127, q = round(w /
     scale) clipped to [-127, 127]; ``torch.round`` rounds half to even, as
-    ``jnp.round`` does."""
+    ``jnp.round`` does. ``group``: the kernel is a row block of a tp
+    row-parallel kernel, whose amax is the maximum over the group (the
+    whole kernel's)."""
     w = w.detach().float()
     amax = w.abs().amax(dim=tuple(range(n_in_axes)))
+    if group is not None:
+        import torch.distributed as dist
+
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
     scale = _absmax_scale(amax)
     q = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
     return q, scale
@@ -149,7 +155,8 @@ def quantize_params_int8(model: nn.Module, *, min_size: int = 1 << 16,
         if select is not None and not select(f"{name}.kernel" if name else "kernel"):
             continue
         n_in = 2 if (name.rsplit(".", 1)[-1] == "o_proj" and w.dim() == 3) else 1
-        q, scale = _quantize_leaf(w, n_in)
+        # a tp row-parallel projection (parallel/sharding.py) holds a row block
+        q, scale = _quantize_leaf(w, n_in, getattr(mod, "tp_group", None))
         _set_kernel(mod, QuantizedKernel(q, scale, dtype))
     return fuse_decode_kernels(model)
 
