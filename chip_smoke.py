@@ -85,15 +85,22 @@ Phases (any failure exits non-zero):
      with the reference's training shape (micro-batch 3 x accum 2 fused,
      gamma 2 with reweight, bf16 frozen backbone, the vision-tower cache
      of all 4,167 items), one epoch of 24 train users (4 updates), the
-     10-beam test pass over 24 users, ``weights_epoch_0``,
-     ``checkpoint_0`` and ``final_weights``; then ``final_weights`` read
+     10-beam test pass over 24 users and ``final_weights`` (the epoch's
+     ``weights_epoch_0`` and ``checkpoint_0`` are not written: nothing
+     reads them; phases 12 and 13 write ``checkpoint_0``, and
+     ``weights_epoch_0`` is ``final_weights``' writer under another
+     name); then ``final_weights`` read
      back and held to the trained tensors bit for bit, and
      ``mmrec_eval --load_weights_name final_weights`` in bf16 (tokens
      agree >= 0.9 with the training run's test pass) and with int8
      weights and int8 KV (K6 193 times a decode step and once a batch);
      fails unless K1 / K2 / K3 ran perceiver + x-attn + LM layers times
      each micro-batch and no ViT layer in a step, the cache ran the ViT
-     once a chunk, every loss is finite and no step skipped; prints the
+     once a chunk, every loss is finite and no step skipped; with
+     ``--save_hf_model`` the run also writes ``final_weights_torch.pt``
+     (phase 14 (a)), and ``mmrec_eval --load_weights_name
+     final_weights_torch.pt`` must give the bf16 reload's tokens and rec
+     metrics from tensors equal to its bit for bit; prints the
      disk and host memory, the cache's seconds and bytes, each step's ms
      and the StepTimer's samples/s, the checkpoint write and read
      seconds and bytes, peak device memory, the host's peak RSS and both
@@ -152,25 +159,48 @@ Phases (any failure exits non-zero):
      launches per update, checkpoint bytes and seconds, and the peak
      memory of (a), (c) and (d);
  13. multi-GPU (``phase_multi_gpu``): phase 12's configuration with the
-     train split cut to 36 users, ``mmrec.main`` in ranks launched by
-     ``python -m torch.distributed.run`` (this script's rank mode, the
-     parent holding no model): (a) one rank over NCCL at micro-batch 6 x
-     accum 2 (3 updates, the test pass, ``checkpoint_0``); (b) two ranks
+     train split cut to 24 users, ``mmrec.main`` in
+     ranks launched by ``python -m torch.distributed.run`` (this script's
+     rank mode, the parent holding no model): (a) one rank over NCCL at
+     micro-batch 6 x accum 2 (2 updates, the test pass and
+     ``checkpoint_0``); (b) two ranks
      sharing the card over gloo (dp 2) at 3 x 2, the same global batches;
-     (c) (b)'s ``checkpoint_0`` resumed in one rank; fsdp 2 and tp 2 for 2
-     updates each when gloo takes their collectives on CUDA tensors.
+     (c) (b)'s ``checkpoint_0`` resumed in one rank; fsdp 2 and tp 2 for
+     one update each when gloo takes their collectives on CUDA tensors.
      Fails unless every update launched K1 / K2 / K3 as counted and the
      test passes K4 / K5 / K6 at every decode step, (b)'s replicas agree
-     after every update, (b)'s losses are within 1e-4 of (a)'s and its
-     grad norms within one bfloat16 step, (b)'s test
-     pass covers (a)'s 36 users, and (c)'s state equals (b)'s saved one;
-     prints update ms, losses, peak memory a rank and the run walls.
+     after every update, (b)'s and fsdp 2's losses are within 1e-4 of
+     (a)'s (tp 2's within 1e-3) and their grad norms within one bfloat16
+     step, (b)'s test pass covers (a)'s 24 users, and (c)'s state equals
+     (b)'s saved one; prints update ms, losses, the logged and the float32
+     grad norms, peak memory a rank and the run walls.
+ 14. the tools (``phase_tools``, after phase 13, on phase 8's files):
+     (b) seeded 3b-mpt exported by ``tools/export_torch.py`` (float32,
+     "mpt" names), then ``mmrec.main --load_from_original_checkpoint``
+     with phase 12's levers, one update and the 10-beam test pass over 6
+     users (no checkpoint written); (c) a byte-level BPE
+     ``tokenizer.json`` learned here from the synthetic corpus (400
+     merges), then ``mmrec_eval --tokenizer_path`` at 4b-instruct over 24
+     users; (d) image features of a 640-item synthetic set through (c)'s
+     tower (``tools/features.py``), semantic IDs, then ``mmrec_eval
+     --use_semantic`` over 24 users; (e) a VQGAN decoder at taming's
+     f16-1024 shapes (seeded) on phase 10's img_gen dump. Fails unless
+     (b)'s ``[convert]`` report misses nothing and the weights right after
+     the load equal ``freeze(source, "int8")`` bit for bit, (c)'s corpus
+     round-trips and every added token encodes to its one id, (d)'s K1
+     ran 24 layers a batch and card vs CPU features are within 2e-2 of
+     max |f|, (e)'s card vs CPU image is within 1e-4 (float32, TF32 off),
+     and the evals give 24 users' finite metrics with K4 / K5 at every
+     decode step; prints export / convert GiB/s, (b)'s update ms and peak,
+     items/s, ms an image.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
 import gc
 import json
@@ -178,6 +208,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -215,7 +246,7 @@ from unimp_tpu_torch.ops.flash_attention import (
 )
 from unimp_tpu_torch.ops.quant_matmul import QuantMatmulFn, quant_matmul_cuda, quant_matmul_ref
 from unimp_tpu_torch.tools.from_flax import build_model
-from unimp_tpu_torch.train.optimizer import make_optimizer
+from unimp_tpu_torch.train.optimizer import ClippedAdamWCast, _square_sums, make_optimizer
 from unimp_tpu_torch.train.partition import trainable_params
 from unimp_tpu_torch.train.trainer import Trainer
 from unimp_tpu_torch.utils.flops import decode_flops, detect_peak_flops, train_step_flops
@@ -1613,6 +1644,113 @@ def phase_cli(dev, gpu_line, data, run_dir, write_s):
 # ------------------------------------------------------------ phase 9
 
 TRAIN_CLI_RECORDS = 24  # train users (4 updates of 3 x 2) and test users (one batch)
+# phase 9's checkpoints that nothing reads again: not written, to keep the
+# script within its time (phases 12 and 13 write checkpoint_0;
+# weights_epoch_0 is final_weights' writer under another name)
+UNREAD_CHECKPOINTS = ("weights_epoch_0", "checkpoint_0")
+
+
+@contextlib.contextmanager
+def unread_checkpoints(names):
+    """While entered, the port's checkpoints named in ``names`` (ones that
+    nothing reads again) are not written: ``save_params`` under such a
+    name and ``save_train_state`` of such a ``checkpoint_{e}`` return
+    their path having built and written nothing. Yields {"unwritten": n},
+    the checkpoints skipped. Phases 9, 12, 13 and 14 use it."""
+    from unimp_tpu_torch.train import checkpoint as ckpt
+
+    orig = {"params": ckpt.save_params, "state": ckpt.save_train_state}
+    seen = {"unwritten": 0}
+
+    def skipped(save_dir, name):
+        seen["unwritten"] += 1
+        return os.path.join(os.path.abspath(save_dir), name)
+
+    def save_params(save_dir, model, name="final_weights"):
+        if name in names:
+            return skipped(save_dir, name)
+        return orig["params"](save_dir, model, name)
+
+    def save_train_state(save_dir, trainer, epoch):
+        if f"checkpoint_{epoch}" in names:
+            return skipped(save_dir, f"checkpoint_{epoch}")
+        return orig["state"](save_dir, trainer, epoch)
+
+    ckpt.save_params, ckpt.save_train_state = save_params, save_train_state
+    try:
+        yield seen
+    finally:
+        ckpt.save_params, ckpt.save_train_state = orig["params"], orig["state"]
+
+
+@contextlib.contextmanager
+def item_decode_memo():
+    """The datasets' item decode memoized in ``ITEM_IMAGES`` (the same file
+    and size give the same image), so phases 9-14 decode the catalogue of
+    phase 8's files once."""
+    from unimp_tpu_torch.data import dataset as dataset_mod
+
+    orig = dataset_mod.load_resized_uint8
+
+    def image(path, size):
+        if (path, size) not in ITEM_IMAGES:
+            ITEM_IMAGES[path, size] = orig(path, size)
+        return ITEM_IMAGES[path, size]
+
+    dataset_mod.load_resized_uint8 = image
+    try:
+        yield
+    finally:
+        dataset_mod.load_resized_uint8 = orig
+
+
+RUN_TREE_PREFIX = "unimp_chip_smoke-"  # + the pid of the run that owns the tree
+# the phases write about 90 GiB of checkpoints and .pt files in all, each
+# deleted once read; the most alive at once is phase 9's final_weights
+# (9.9 GiB) and final_weights_torch.pt (15.2 GiB), with the data files:
+# a root needs this much free
+RUN_TREE_GIB = 30
+
+
+def _is_tmpfs(path: Path) -> bool:
+    """Whether ``path`` lies on a tmpfs (its longest mount point's type)."""
+    path, best = str(path.resolve()), ("", "")
+    with open("/proc/mounts") as f:
+        for line in f:
+            point, kind = line.split()[1:3]
+            if (path == point or path.startswith(point.rstrip("/") + "/")) \
+                    and len(point) > len(best[0]):
+                best = (point, kind)
+    return best[1] == "tmpfs"
+
+
+@contextlib.contextmanager
+def run_tree():
+    """The directory the phases write their files in: under ``$TMPDIR``
+    when that is a tmpfs with ``RUN_TREE_GIB`` free, else under
+    ``/dev/shm`` when it is one, else the checkout's ``runs/``. The card's
+    machine takes at most 45 GiB of disk writes a run, deleted files
+    included, so the tree wants a tmpfs, which holds it in host memory and
+    frees it on deletion. The tree is ``RUN_TREE_PREFIX`` + this pid and
+    is removed on the way out, on SIGTERM too (``main`` turns it into
+    ``SystemExit``); a tree left by a run that was killed outright (its
+    pid gone) is removed when the next run starts."""
+    roots = [Path(tempfile.gettempdir()), Path("/dev/shm")]
+    root = next((r for r in roots if r.is_dir() and _is_tmpfs(r)
+                 and shutil.disk_usage(r).free >= RUN_TREE_GIB * 2**30), None)
+    if root is None:
+        root = Path(__file__).resolve().parent / "runs"
+        root.mkdir(exist_ok=True)
+    for old in root.glob(RUN_TREE_PREFIX + "*"):
+        pid = old.name[len(RUN_TREE_PREFIX):]
+        if pid.isdigit() and not Path("/proc", pid).exists():
+            shutil.rmtree(old, ignore_errors=True)
+    tree = root / f"{RUN_TREE_PREFIX}{os.getpid()}"
+    tree.mkdir()
+    try:
+        yield str(tree)
+    finally:
+        shutil.rmtree(tree, ignore_errors=True)
 
 
 def host_memory_line(path) -> str:
@@ -1644,7 +1782,8 @@ def phase_train_cli(dev, gpu_line, data, run_dir):
     ``write_cli_data``'s files with the reference's training shape (micro-
     batch 3 x accum 2 fused, focal loss gamma 2 with reweight, bf16 frozen
     backbone, the vision-tower cache), one epoch over 24 train users (4
-    updates), the 10-beam test pass over 24 users, and its checkpoints.
+    updates), the 10-beam test pass over 24 users, and ``final_weights``
+    (``UNREAD_CHECKPOINTS`` are not written).
     Then ``final_weights`` is read back and held to the trained tensors bit
     for bit, and ``mmrec_eval --load_weights_name final_weights`` runs in
     bf16 (its tokens held to the training run's test pass, agreement >=
@@ -1660,7 +1799,21 @@ def phase_train_cli(dev, gpu_line, data, run_dir):
     orig = {"cache": mmrec.build_tower_cache, "epoch": mmrec.train_one_epoch,
             "evals": mmrec.run_evals, "write": ckpt._write, "step": Trainer.train_step,
             "generate": Generator.generate, "decode_step": Generator._decode_step,
-            "build": common.build_model}
+            "build": common.build_model, "export": mmrec.save_torch_checkpoint,
+            "convert": mmrec_eval.load_torch_checkpoint}
+
+    def export(model, path, family):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig["export"](model, path, family)
+        seen["export"] = (time.perf_counter() - t0, Path(path).stat().st_size, family)
+        return out
+
+    def convert(path, target):
+        t0 = time.perf_counter()
+        out = orig["convert"](path, target)
+        seen["convert"] = (time.perf_counter() - t0, Path(path).stat().st_size)
+        return out
 
     def cache(model, *args, **kw):
         before, t0 = counts(), time.perf_counter()
@@ -1725,20 +1878,22 @@ def phase_train_cli(dev, gpu_line, data, run_dir):
                                 "--gradient_accumulation_steps", "2", "--fused_accumulation",
                                 "--use_reweight", "--gamma", "2", "--frozen_bf16",
                                 "--cache_vision_latents", "--num_epochs", "1",
-                                "--logging_steps", "1"]
+                                "--logging_steps", "1", "--save_hf_model"]
     train_dir = run_dir / "train"
 
-    def reload_argv(run_name, *extra):
+    def reload_argv(run_name, *extra, name="final_weights"):
         return common_argv + ["--run_name", run_name, "--load_dir", str(train_dir),
-                              "--load_weights_name", "final_weights", *extra]
+                              "--load_weights_name", name, *extra]
 
     (mmrec.build_tower_cache, mmrec.train_one_epoch, mmrec.run_evals, ckpt._write,
-     Trainer.train_step, Generator.generate, Generator._decode_step, common.build_model) = (
-        cache, epoch, evals, write, step, generate, decode_step, build)
+     Trainer.train_step, Generator.generate, Generator._decode_step, common.build_model,
+     mmrec.save_torch_checkpoint, mmrec_eval.load_torch_checkpoint) = (
+        cache, epoch, evals, write, step, generate, decode_step, build, export, convert)
     try:
         kernel_lib.reset_launches()          # the main path starts here
         t0 = time.perf_counter()
-        trainer, state = mmrec.main(train_argv)
+        with unread_checkpoints(UNREAD_CHECKPOINTS) as unread:
+            trainer, state = mmrec.main(train_argv)
         torch.cuda.synchronize()
         train_main_s = time.perf_counter() - t0
         train_generates = list(seen["generates"])
@@ -1763,26 +1918,41 @@ def phase_train_cli(dev, gpu_line, data, run_dir):
         gc.collect()
         torch.cuda.empty_cache()
 
-        reload = {}
-        for label, dtype_args in (("bf16", ()), ("int8", ("--eval_param_dtype", "int8",
-                                                         "--kv_int8"))):
+        reload, pt_differ = {}, None
+        # the bf16 reload of final_weights, then of final_weights_torch.pt
+        # (phase 14 (a): the exporter's float32 of the same bf16 / float32
+        # tensors, converted back), then int8 weights and int8 KV
+        for label, dtype_args, name in (
+                ("bf16", (), "final_weights"), ("pt", (), "final_weights_torch.pt"),
+                ("int8", ("--eval_param_dtype", "int8", "--kv_int8"), "final_weights")):
             seen["generates"], seen["decode_steps"] = [], 0
             before = counts()
             t0 = time.perf_counter()
-            results = mmrec_eval.main(reload_argv(f"reload_{label}", *dtype_args))
+            results = mmrec_eval.main(reload_argv(f"reload_{label}", *dtype_args, name=name))
             torch.cuda.synchronize()
             reload[label] = (time.perf_counter() - t0, results["rec"], list(seen["generates"]),
                              between(before), seen["decode_steps"])
-            del seen["model"]
+            tensors = seen.pop("model").state_dict()
+            if label == "bf16":  # host copies, held to the .pt reload's tensors bit for bit
+                bf16_tensors = {k: t.cpu() for k, t in tensors.items()}
+            elif label == "pt":
+                pt_differ = sorted(k for k, t in tensors.items() if k not in bf16_tensors
+                                   or t.dtype != bf16_tensors[k].dtype
+                                   or not torch.equal(t.cpu(), bf16_tensors[k]))
+                pt_compared = len(tensors)
+                del bf16_tensors
+            del tensors
             gc.collect()
             torch.cuda.empty_cache()
         launches = counts()                  # the main path ends here
     finally:
         (mmrec.build_tower_cache, mmrec.train_one_epoch, mmrec.run_evals, ckpt._write,
          Trainer.train_step, Generator.generate, Generator._decode_step,
-         common.build_model) = (orig["cache"], orig["epoch"], orig["evals"], orig["write"],
-                                orig["step"], orig["generate"], orig["decode_step"],
-                                orig["build"])
+         common.build_model, mmrec.save_torch_checkpoint,
+         mmrec_eval.load_torch_checkpoint) = (
+            orig["cache"], orig["epoch"], orig["evals"], orig["write"], orig["step"],
+            orig["generate"], orig["decode_step"], orig["build"], orig["export"],
+            orig["convert"])
     rss_gib = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
     jsonl = [json.loads(line) for line in
              (train_dir / "train_metrics.jsonl").read_text().splitlines()]
@@ -1827,6 +1997,16 @@ def phase_train_cli(dev, gpu_line, data, run_dir):
     for label, (_, metrics, _, _, _) in reload.items():
         if metrics["n_users"] != TRAIN_CLI_RECORDS or not metrics["items_per_sec"] > 0:
             raise AssertionError(f"[train-cli] {label} reload: {metrics}")
+    pt_tokens = [g[1] for g in reload["pt"][2]]
+    bf16_tokens = [g[1] for g in reload["bf16"][2]]
+    pt_metrics = {k: v for k, v in reload["pt"][1].items() if k != "items_per_sec"}
+    bf16_metrics = {k: v for k, v in reload["bf16"][1].items() if k != "items_per_sec"}
+    if (pt_differ or len(pt_tokens) != len(bf16_tokens)
+            or not all(np.array_equal(a, b) for a, b in zip(pt_tokens, bf16_tokens))
+            or pt_metrics != bf16_metrics):
+        raise AssertionError(f"[tools] (a) the .pt reload differs from the final_weights "
+                             f"reload: tensors {pt_differ[:8] if pt_differ else pt_differ}, "
+                             f"metrics {pt_metrics} vs {bf16_metrics}")
     _, _, _, int8_launches, int8_steps = reload["int8"]
     check_int8_launches(cfg, int8_launches, 1, tag="[train-cli]")
     if int8_launches["decode_attn_int8"] != lm.num_layers * int8_steps:
@@ -1850,7 +2030,9 @@ def phase_train_cli(dev, gpu_line, data, run_dir):
         f"{[round(s[2], 4) for s in seen['steps']]}")
     log(f"[train-cli] checkpoint writes (file, s, bytes): "
         f"{[(n, round(t, 2), b) for n, t, b in writes]}; total {sum(w[1] for w in writes):.2f} "
-        f"s, {sum(w[2] for w in writes) / 2**30:.2f} GiB on {gpu_line}")
+        f"s, {sum(w[2] for w in writes) / 2**30:.2f} GiB; {unread['unwritten']} of "
+        f"{', '.join(UNREAD_CHECKPOINTS)} not written (nothing here reads them; phases 12 "
+        f"and 13 write checkpoint_0) on {gpu_line}")
     log(f"[train-cli] final_weights read back: {n_tensors} tensors, "
         f"{read_bytes / 2**30:.2f} GiB in {read_s:.2f} s (mmap + copy to the card), every "
         f"tensor equal to the trained one bit for bit")
@@ -1866,6 +2048,16 @@ def phase_train_cli(dev, gpu_line, data, run_dir):
             f"{steps} decode steps on {gpu_line}")
     log(f"[train-cli] bf16 reload tokens agree with the training run's test pass on "
         f"{agree:.4f}; int8 reload launches {json.dumps(reload['int8'][3])}")
+    ex_s, ex_bytes, family = seen["export"]
+    cv_s, cv_bytes = seen["convert"]
+    log(f"[tools] (a) --save_hf_model: final_weights_torch.pt ({family}) written in {ex_s:.2f} "
+        f"s, {ex_bytes / 2**30:.2f} GiB ({ex_bytes / 2**30 / ex_s:.2f} GiB/s: the float32 tree "
+        f"gathered on the host, then torch.save) on {gpu_line}")
+    log(f"[tools] (a) mmrec_eval --load_weights_name final_weights_torch.pt: read and converted "
+        f"in {cv_s:.2f} s ({cv_bytes / 2**30 / cv_s:.2f} GiB/s, mapped, not copied); "
+        f"{pt_compared} tensors equal the final_weights reload's bit for bit, "
+        f"{len(pt_tokens)} generates' tokens and the rec metrics equal; main "
+        f"{reload['pt'][0]:.1f} s on {gpu_line}")
     return launches
 
 
@@ -1873,6 +2065,7 @@ def phase_train_cli(dev, gpu_line, data, run_dir):
 # ------------------------------------------------------------ phase 10
 
 TASK_USERS = 24  # train users kept; test users a task (one batch of 24)
+IMG_GEN_DUMP = "img_gen_dump.json"  # phase 10's img_gen dump, kept for phase 14
 MULTI_TASKS = ("img_sel", "search", "rec", "exp")  # the reference's multi-task order
 # the metrics each evaluator must give, finite
 TASK_METRICS = {
@@ -2109,6 +2302,8 @@ def phase_tasks(dev, gpu_line, data, run_dir):
     dump = json.loads(Path(results["img_gen"]["dump_path"]).read_text())
     if len(dump) != TASK_USERS or not all(isinstance(g["generated"], str) for g in dump):
         raise AssertionError(f"[img_gen] dump of {len(dump)} generations")
+    # phase 14 (e) decodes it through the VQGAN decoder
+    (run_dir.parent / IMG_GEN_DUMP).write_text(json.dumps(dump))
     (ev,) = spies.evals
     log(f"[img_gen] main {main_s:.1f} s; {ev['steps']} greedy steps in {ev['s']:.2f} s "
         f"({ev['s'] / ev['steps'] * 1e3:.1f} ms a step), items/s "
@@ -2674,7 +2869,8 @@ def phase_headline_train(gpu_line, data, run_dir):
     so a resumed epoch sees the batches of a straight one):
 
       (a) epoch 0 (3 updates), the 10-beam test pass over 18 users,
-          ``weights_epoch_0`` and ``checkpoint_0``, then the first update
+          ``checkpoint_0`` (``weights_epoch_0``, which nothing reads, is
+          not written), then the first update
           of epoch 1, where the run is stopped;
       (b) the same command with ``--resume_from_checkpoint``: its first
           update (epoch 1's first), then stopped;
@@ -2689,12 +2885,11 @@ def phase_headline_train(gpu_line, data, run_dir):
     micro-batch: the dequantized matmul), (b)'s weights, both moments and
     int8 payloads equal what (a) saved bit for bit, and (b)'s loss is
     within 1e-3 relative of (a)'s at the same update. The decode of each
-    item image is memoized across the four runs (same files, same
-    result), so the catalogue is read once."""
+    item image is memoized (``item_decode_memo``, from phase 9 on), so the
+    catalogue is read once."""
     import resource
 
     from unimp_tpu_torch.cli import mmrec
-    from unimp_tpu_torch.data import dataset as dataset_mod
     from unimp_tpu_torch.train import checkpoint as ckpt
     from unimp_tpu_torch.utils.flops import vision_forward_flops
 
@@ -2702,14 +2897,8 @@ def phase_headline_train(gpu_line, data, run_dir):
     seen = {"run": None, "steps": {}, "writes": [], "decode_steps": 0}
     orig = {"cache": mmrec.build_tower_cache, "epoch": mmrec.train_one_epoch,
             "evals": mmrec.run_evals, "write": ckpt._write, "state": ckpt.save_train_state,
-            "step": Trainer.train_step, "decode_step": Generator._decode_step,
-            "image": dataset_mod.load_resized_uint8}
-    memo, stop_after = ITEM_IMAGES, {}  # phase 13 reuses the decode
-
-    def image(path, size):
-        if (path, size) not in memo:
-            memo[path, size] = orig["image"](path, size)
-        return memo[path, size]
+            "step": Trainer.train_step, "decode_step": Generator._decode_step}
+    stop_after = {}
 
     def cache(model, *args, **kw):
         before, t0 = counts(), time.perf_counter()
@@ -2798,9 +2987,8 @@ def phase_headline_train(gpu_line, data, run_dir):
             "no_remat": (["--run_name", "no_remat", "--frozen_int8", "--bf16_opt_state"], 2),
             "bf16_frozen": (["--run_name", "bf16_frozen", "--frozen_bf16"], 2)}
     (mmrec.build_tower_cache, mmrec.train_one_epoch, mmrec.run_evals, ckpt._write,
-     ckpt.save_train_state, Trainer.train_step, Generator._decode_step,
-     dataset_mod.load_resized_uint8) = (cache, epoch, evals, write, save_state, step,
-                                        decode_step, image)
+     ckpt.save_train_state, Trainer.train_step, Generator._decode_step) = (
+        cache, epoch, evals, write, save_state, step, decode_step)
     wall = {}
     try:
         kernel_lib.reset_launches()          # the main path starts here
@@ -2808,10 +2996,12 @@ def phase_headline_train(gpu_line, data, run_dir):
             seen["run"], stop_after[run] = run, n_updates
             t0 = time.perf_counter()
             try:
-                mmrec.main(base + extra)
+                with unread_checkpoints(("weights_epoch_0",)) as unread:
+                    mmrec.main(base + extra)
                 raise AssertionError(f"[headline] run {run} ended before {n_updates} updates")
             except StopRun:
                 pass
+            seen["unwritten"] = seen.get("unwritten", 0) + unread["unwritten"]
             gc.collect()
             torch.cuda.empty_cache()
             wall[run] = time.perf_counter() - t0
@@ -2820,10 +3010,9 @@ def phase_headline_train(gpu_line, data, run_dir):
         launches = counts()                  # the main path ends here
     finally:
         (mmrec.build_tower_cache, mmrec.train_one_epoch, mmrec.run_evals, ckpt._write,
-         ckpt.save_train_state, Trainer.train_step, Generator._decode_step,
-         dataset_mod.load_resized_uint8) = (orig["cache"], orig["epoch"], orig["evals"],
-                                            orig["write"], orig["state"], orig["step"],
-                                            orig["decode_step"], orig["image"])
+         ckpt.save_train_state, Trainer.train_step, Generator._decode_step) = (
+            orig["cache"], orig["epoch"], orig["evals"], orig["write"], orig["state"],
+            orig["step"], orig["decode_step"])
     rss_gib = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
     shutil.rmtree(run_dir, ignore_errors=True)
 
@@ -2899,8 +3088,9 @@ def phase_headline_train(gpu_line, data, run_dir):
     writes = seen["writes"]
     log(f"[headline] checkpoint writes (file, s, bytes): "
         f"{[(n, round(w, 2), b) for n, w, b in writes]}; total "
-        f"{sum(w[1] for w in writes):.2f} s, {sum(w[2] for w in writes) / 2**30:.2f} GiB on "
-        f"{gpu_line}")
+        f"{sum(w[1] for w in writes):.2f} s, {sum(w[2] for w in writes) / 2**30:.2f} GiB "
+        f"({seen.get('unwritten', 0)} weights_epoch_0 not written: nothing reads it) "
+        f"on {gpu_line}")
     peak = seen["peak_gib"]
     log(f"[headline] peak device memory over the training updates: all four levers "
         f"{peak['main']:.2f} GiB (resumed {peak['resume']:.2f}), without --remat "
@@ -2911,9 +3101,9 @@ def phase_headline_train(gpu_line, data, run_dir):
     return launches
 
 
-MULTI_RECORDS = 36     # train users: 3 updates of global batch 12; test users: 2 x 18
+MULTI_RECORDS = 24     # train users: 2 updates of global batch 12; test users: 2 x 12
 MULTI_UPDATES = MULTI_RECORDS // 12
-SHARDED_UPDATES = 2    # fsdp 2 / tp 2 runs, when gloo takes their collectives
+SHARDED_UPDATES = 1    # fsdp 2 / tp 2 runs (depth: one update each)
 # (b)'s and fsdp 2's losses vs (a)'s: each micro-batch's float32 gradient is
 # summed in another order before its bfloat16 cast, which moves the loss
 # after two updates by 5.9e-6 relative (H100 run, 700 W): 17 times below
@@ -2928,7 +3118,7 @@ TP_LOSS_REL = 1e-3
 # alone would pass a reduction off by a factor of 2; the norm would not.
 NORM_REL = 2.0 ** -7
 MULTI_DRAW_SEED = 13   # phase 13 keys each training sample's prompt draws by its index
-ITEM_IMAGES = {}       # (path, size) -> decoded item image, filled by phase 12
+ITEM_IMAGES = {}       # (path, size) -> decoded item image, filled from phase 9 on
 
 
 def replica_digest(t: torch.Tensor) -> torch.Tensor:
@@ -2995,10 +3185,25 @@ def rank_main(spec_path: str) -> int:
             return hit if hit is not None else orig_image(path, size)
 
         dataset_mod.load_resized_uint8 = image
+    # checkpoints this run's reader never opens: not written (the rank's
+    # spies below wrap the skipping versions)
+    stack = contextlib.ExitStack()
+    stack.enter_context(unread_checkpoints(spec.get("unread", ())))
     orig = {"step": Trainer.train_step, "state": ckpt.save_train_state,
             "params": ckpt.save_params, "evals": mmrec.run_evals,
-            "epoch": mmrec.train_one_epoch}
+            "epoch": mmrec.train_one_epoch, "norm": ClippedAdamWCast.grad_norm}
     seen = {}
+
+    def grad_norm(self):
+        # the logged norm, and beside it the clip's: the float32 sum of every
+        # tensor's float32 sum of squares (``ClippedAdamWCast.step``), a
+        # reading of how far the gradients themselves moved
+        if self.norm_reduce is None:
+            sq = sum((g.float() * g.float()).sum() for g in self.grads())
+        else:
+            sq = self.norm_reduce(_square_sums(self.grad, self.named)).sum()
+        seen["norm_f32"] = float(torch.sqrt(sq))
+        return orig["norm"](self)
 
     def step(self, batch):
         before, t0 = counts(), time.perf_counter()
@@ -3006,7 +3211,7 @@ def rank_main(spec_path: str) -> int:
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         rec = {"ms": ms, "loss": float(metrics["loss"]),
-               "grad_norm": float(metrics["grad_norm"]),
+               "grad_norm": float(metrics["grad_norm"]), "norm_f32": seen.pop("norm_f32"),
                "skipped": int(metrics["skipped_nonfinite"]), "launches": between(before),
                "rows": list(np.shape(batch["input_ids"]))}
         if world > 1:
@@ -3111,8 +3316,9 @@ def rank_main(spec_path: str) -> int:
         seen["trainer_ref"] = self
 
     (Trainer.train_step, ckpt.save_train_state, ckpt.save_params, mmrec.run_evals,
-     mmrec.train_one_epoch, Generator._decode_step, Trainer.__init__) = (
-        step, save_state, save_params, evals, epoch, decode_step, trainer_init)
+     mmrec.train_one_epoch, Generator._decode_step, Trainer.__init__,
+     ClippedAdamWCast.grad_norm) = (
+        step, save_state, save_params, evals, epoch, decode_step, trainer_init, grad_norm)
     kernel_lib.reset_launches()
     t0 = time.perf_counter()
     try:
@@ -3126,6 +3332,7 @@ def rank_main(spec_path: str) -> int:
     if trainer is not None:
         out["k_fwd"] = flash_per_micro_batch(trainer.model.cfg)
     Path(spec["out"], f"{spec['tag']}_rank{rank}.json").write_text(json.dumps(out))
+    stack.close()
     if dist.is_initialized():
         dist.barrier()
         dist.destroy_process_group()
@@ -3275,14 +3482,16 @@ def phase_multi_gpu(gpu_line, data, run_dir) -> dict:
     ``torch.distributed.run``, each rank a process, on phase 12's
     configuration (3b-mpt, ``--frozen_int8 --bf16_opt_state --remat
     --remat_policy dots --cache_vision_latents``, T 256, 6 images, a
-    10-beam test pass) with the train split cut to 36 users:
+    10-beam test pass) with the train split cut to 24 users:
 
       (a) one rank over NCCL (no one-rank shortcut: every collective of the
-          distributed path runs), micro-batch 6 x accum 2 fused: 3 updates
-          of the global batch 12, the test pass over 36 users,
-          ``weights_epoch_0`` and ``checkpoint_0``, then stopped;
+          distributed path runs), micro-batch 6 x accum 2 fused: 2 updates
+          of the global batch 12, the test pass over 24 users,
+          ``checkpoint_0`` (``weights_epoch_0``, which nothing reads, is
+          not written), then stopped;
       (b) two ranks sharing the card over gloo (dp 2), micro-batch 3 x
-          accum 2 fused from the same seed: the same global batches;
+          accum 2 fused from the same seed: the same global batches,
+          ``checkpoint_0`` as (a);
       (c) (b)'s ``checkpoint_0`` resumed in one rank (NCCL).
 
     NCCL refuses two ranks on one device, so (b) runs gloo, which moves
@@ -3299,10 +3508,12 @@ def phase_multi_gpu(gpu_line, data, run_dir) -> dict:
     checkpoint's weights and moments, (b)'s payloads written at its save)
     bit for bit, and every tensor's digest against (b)'s live state at its
     save. When gloo takes all-gather and reduce-scatter on CUDA tensors,
-    fsdp 2 and tp 2 run 2 updates each under the same gates (tp 2's losses
-    within ``TP_LOSS_REL``), both at once (their update times share the
-    card and the host), tp 2 without the vision cache; otherwise the
-    refused collective is printed."""
+    fsdp 2 and tp 2 run one update each (``SHARDED_UPDATES``) under the
+    same gates (tp 2's losses within ``TP_LOSS_REL``), both at once (their
+    update times share the card and the host), tp 2 without the vision
+    cache; otherwise the refused collective is printed. Each update also
+    reports the clip's float32 gradient norm beside the logged bfloat16
+    one."""
     run_dir.mkdir(parents=True, exist_ok=True)
     log(f"[multi-gpu] {host_memory_line(run_dir)}")
     memo_path = run_dir / "item_images.pt"
@@ -3310,7 +3521,8 @@ def phase_multi_gpu(gpu_line, data, run_dir) -> dict:
     base = ["--mmrec_path", str(data), "--pretrained_model_name_or_path", "3b-mpt",
             "--subset", "beauty", "--task", "rec", "--single_task", "--n_items",
             str(N_ITEM_TOKENS), "--history_len", "6", "--use_semantic", "--patch-image-size",
-            "224", "--max_records", str(MULTI_RECORDS), "--eval_batch_size", "18",
+            "224", "--max_records", str(MULTI_RECORDS), "--eval_batch_size",
+            str(MULTI_RECORDS // 2),
             "--num_beams", "10", "--workers", "2", "--device", "cuda",
             "--gradient_accumulation_steps", "2", "--fused_accumulation", "--use_reweight",
             "--gamma", "2", "--cache_vision_latents", "--logging_steps", "1",
@@ -3331,8 +3543,10 @@ def phase_multi_gpu(gpu_line, data, run_dir) -> dict:
         return finish(start(tag, nproc, base + argv, **spec), timeout)
 
     a_dir, b_dir = run_dir / "a", run_dir / "b"
+    # nothing reads the runs' weights_epoch_0: not written
     (a,) = run("a", 1, ["--external_save_dir", str(a_dir), "--run_name", "a",
-                        "--batch_size", "6", "--do_test"], 600, backend="nccl")
+                        "--batch_size", "6", "--do_test"], 600, backend="nccl",
+               unread=["weights_epoch_0"])
     losses_a = check_updates("a", a, MULTI_UPDATES, 12)
     want_a = {"losses": losses_a, "norms": [u["grad_norm"] for u in a["updates"]]}
     rec_a = check_test_pass("a", a, MULTI_RECORDS)
@@ -3341,7 +3555,8 @@ def phase_multi_gpu(gpu_line, data, run_dir) -> dict:
     shutil.rmtree(a_dir)
     digests = run_dir / "b_digests.json"
     b = run("b", 2, ["--external_save_dir", str(b_dir), "--run_name", "b", "--batch_size", "3",
-                     "--do_test"], 900, backend="gloo", digests_out=str(digests))
+                     "--do_test"], 900, backend="gloo", digests_out=str(digests),
+            unread=["weights_epoch_0"])
     losses_b = [check_updates("b", rep, MULTI_UPDATES, 6, want_a) for rep in b]
     if losses_b[0] != losses_b[1]:
         raise AssertionError(f"[multi-gpu] (b) the ranks' losses differ: {losses_b}")
@@ -3358,7 +3573,7 @@ def phase_multi_gpu(gpu_line, data, run_dir) -> dict:
         raise AssertionError(f"[multi-gpu] (c) resume: {c.get('resume')}")
     shutil.rmtree(b_dir)
     probe = b[0]["probe"]
-    sharded = {}
+    sharded, sharded_failed = {}, []
     if all(probe[name] == "ok" for name in probe):
         # both at once on the card (4 ranks): tp 2 on the pixel path, since
         # a vision cache of every item through a tp-sharded tower would
@@ -3370,12 +3585,16 @@ def phase_multi_gpu(gpu_line, data, run_dir) -> dict:
                 for tag, flags in (("fsdp2", ["--mesh_fsdp", "2"]), ("tp2", ["--mesh_tp", "2"]))}
         for tag, handle in runs.items():
             reps = finish(handle, 600)
-            sharded[tag] = [check_updates(tag, rep, SHARDED_UPDATES, 6 if tag == "fsdp2" else 12,
-                                          want_a, pixels=tag == "tp2",
-                                          loss_rel=TP_LOSS_REL if tag == "tp2" else
-                                          MULTI_LOSS_REL)
-                            for rep in reps]
             shutil.rmtree(run_dir / tag, ignore_errors=True)
+            try:  # a failed gate is raised after the readings below are printed
+                sharded[tag] = [check_updates(tag, rep, SHARDED_UPDATES,
+                                              6 if tag == "fsdp2" else 12, want_a,
+                                              pixels=tag == "tp2",
+                                              loss_rel=TP_LOSS_REL if tag == "tp2" else
+                                              MULTI_LOSS_REL)
+                                for rep in reps]
+            except AssertionError as e:
+                sharded_failed.append(str(e))
     else:
         refused = {k: v for k, v in probe.items() if v != "ok"}
         log(f"[multi-gpu] fsdp 2 and tp 2 not run on the card: gloo refused {refused} on "
@@ -3391,7 +3610,8 @@ def phase_multi_gpu(gpu_line, data, run_dir) -> dict:
             ups = rep["updates"]
             log(f"[multi-gpu] ({tag}) rank {rep['rank']} {rep['device']}: update ms "
                 f"{[round(u['ms'], 1) for u in ups]}, losses {[round(u['loss'], 6) for u in ups]}"
-                f", grad norms {[round(u['grad_norm'], 4) for u in ups]}, replicas equal "
+                f", grad norms {[round(u['grad_norm'], 4) for u in ups]} (float32 "
+                f"{[u['norm_f32'] for u in ups]}), replicas equal "
                 f"{[u.get('replicas_equal') for u in ups]} ({ups[0].get('compared') if ups else 0}"
                 f" tensors), peak {rep.get('peak_gib', 0):.2f} GiB, wall {rep['wall_s']:.1f} s"
                 f", checkpoint {rep.get('checkpoint', {}).get('s', 0):.2f} s on {gpu_line}")
@@ -3406,11 +3626,423 @@ def phase_multi_gpu(gpu_line, data, run_dir) -> dict:
         f"exactly (host copies: the checkpoint's weights and moments, (b)'s int8 payloads)")
     if sharded:
         log(f"[multi-gpu] sharded losses vs (a): {json.dumps(sharded)}")
+    # the logged norm is a bfloat16 sum over the tensors, rounded at each
+    # add (optax.global_norm's rounding); the float32 norm beside it shows
+    # how far the gradients themselves moved
+    f32 = {tag: [u["norm_f32"] for u in reps[0]["updates"]] for tag, reps in reports.items()
+           if reps[0]["updates"]}
+    log(f"[multi-gpu] first update's grad norm vs (a): "
+        + json.dumps({tag: {"logged": reports[tag][0]["updates"][0]["grad_norm"],
+                            "float32": v[0], "float32_rel": abs(v[0] - f32["a"][0]) / f32["a"][0]}
+                      for tag, v in f32.items()}))
+    if sharded_failed:
+        raise AssertionError("; ".join(sharded_failed))
     launches = {}
     for reps in reports.values():
         for rep in reps:
             for name, n in rep["launches"].items():
                 launches[name] = launches.get(name, 0) + n
+    return launches
+
+
+# ------------------------------------------------------------ phase 14
+
+TOOLS_USERS = 24        # (c) and (d): test users, one batch
+FEATURE_ITEMS = 640     # (d): its own synthetic set (depth), more items than the 512
+                        # codes of a semantic-ID level, so that k-means merges some
+BPE_MERGES = 400        # (c): merges learned from the synthetic corpus
+FEATURE_TOL = 2e-2      # (d): card (bf16) vs CPU features, of max |f|
+VQGAN_TOL = 1e-4        # (e): card vs CPU float32, absolute
+# taming-transformers configs/vqgan_imagenet_f16_1024.yaml
+VQGAN_F16_1024 = dict(ch=128, ch_mult=(1, 1, 2, 2, 4), num_res_blocks=2, attn_resolutions=(16,),
+                      z_channels=256, embed_dim=256, n_embed=1024, resolution=256)
+
+
+def taming_decoder_state_dict(seed, ch, ch_mult, num_res_blocks, attn_resolutions, z_channels,
+                              embed_dim, n_embed, resolution, out_ch=3) -> dict:
+    """A seeded state dict under taming-transformers' VQModel names (the
+    quantizer, ``post_quant_conv`` and the decoder): torch's default conv
+    init, GroupNorm affine near 1 / 0, a unit-normal codebook scaled down."""
+    gen = torch.Generator().manual_seed(seed)
+    sd = {}
+
+    def conv(name, cin, cout, k):
+        bound = 1 / math.sqrt(cin * k * k)
+        sd[f"{name}.weight"] = (torch.rand(cout, cin, k, k, generator=gen) * 2 - 1) * bound
+        sd[f"{name}.bias"] = (torch.rand(cout, generator=gen) * 2 - 1) * bound
+
+    def norm(name, c):
+        sd[f"{name}.weight"] = 1 + 0.1 * torch.randn(c, generator=gen)
+        sd[f"{name}.bias"] = 0.1 * torch.randn(c, generator=gen)
+
+    def resnet(name, cin, cout):
+        norm(f"{name}.norm1", cin)
+        conv(f"{name}.conv1", cin, cout, 3)
+        norm(f"{name}.norm2", cout)
+        conv(f"{name}.conv2", cout, cout, 3)
+        if cin != cout:
+            conv(f"{name}.nin_shortcut", cin, cout, 1)
+
+    def attn(name, c):
+        norm(f"{name}.norm", c)
+        for part in ("q", "k", "v", "proj_out"):
+            conv(f"{name}.{part}", c, c, 1)
+
+    sd["quantize.embedding.weight"] = torch.randn(n_embed, embed_dim, generator=gen) * 0.1
+    conv("post_quant_conv", embed_dim, z_channels, 1)
+    block_in = ch * ch_mult[-1]
+    res = resolution // 2 ** (len(ch_mult) - 1)
+    conv("decoder.conv_in", z_channels, block_in, 3)
+    resnet("decoder.mid.block_1", block_in, block_in)
+    attn("decoder.mid.attn_1", block_in)
+    resnet("decoder.mid.block_2", block_in, block_in)
+    for level in reversed(range(len(ch_mult))):
+        block_out = ch * ch_mult[level]
+        for j in range(num_res_blocks + 1):
+            resnet(f"decoder.up.{level}.block.{j}", block_in, block_out)
+            block_in = block_out
+            if res in attn_resolutions:
+                attn(f"decoder.up.{level}.attn.{j}", block_in)
+        if level != 0:
+            conv(f"decoder.up.{level}.upsample.conv", block_in, block_in, 3)
+            res *= 2
+    norm("decoder.norm_out", block_in)
+    conv("decoder.conv_out", block_in, out_ch, 3)
+    return sd
+
+
+def train_bpe_json(corpus, n_merges: int) -> dict:
+    """A byte-level BPE ``tokenizer.json`` in the ``tokenizers`` library's
+    format, learned here from ``corpus`` (the card's machine has no
+    ``tokenizers``): GPT-2's byte alphabet, then the most frequent pair of
+    the pre-tokenized corpus merged ``n_merges`` times (ties: the pair seen
+    first); the NFC normalizer, the ByteLevel pre-tokenizer without a
+    prefix space and its decoder; the framework's six specials added."""
+    from collections import Counter
+
+    from unimp_tpu_torch.data import tokenizer as tokmod
+
+    words = Counter("".join(tokmod.BYTE_CHAR[b] for b in w.encode("utf-8"))
+                    for line in corpus for w in tokmod.byte_level_split(line))
+    split = {w: list(w) for w in words}
+    alphabet = sorted(tokmod.BYTE_CHAR.values(), key=lambda c: tokmod.CHAR_BYTE[c])
+    vocab = {c: i for i, c in enumerate(alphabet)}
+    merges = []
+    for _ in range(n_merges):
+        pairs = Counter()
+        for w, syms in split.items():
+            for pair in zip(syms, syms[1:]):
+                pairs[pair] += words[w]
+        if not pairs:
+            break
+        (a, b), _ = pairs.most_common(1)[0]
+        merges.append([a, b])
+        vocab.setdefault(a + b, len(vocab))
+        for w, syms in split.items():
+            k, out = 0, []
+            while k < len(syms):
+                if k + 1 < len(syms) and syms[k] == a and syms[k + 1] == b:
+                    out.append(a + b)
+                    k += 2
+                else:
+                    out.append(syms[k])
+                    k += 1
+            split[w] = out
+    added = [{"id": len(vocab) + i, "content": t, "single_word": False, "lstrip": False,
+              "rstrip": False, "normalized": False, "special": True}
+             for i, t in enumerate((tokmod.PAD, tokmod.UNK, tokmod.BOS, tokmod.EOS,
+                                    tokmod.MEDIA_TOKEN, tokmod.ENDOFCHUNK_TOKEN))]
+    level = {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": True,
+             "use_regex": True}
+    return {"version": "1.0", "truncation": None, "padding": None, "added_tokens": added,
+            "normalizer": {"type": "NFC"}, "pre_tokenizer": level, "post_processor": level,
+            "decoder": level,
+            "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                      "continuing_subword_prefix": None, "end_of_word_suffix": None,
+                      "fuse_unk": False, "byte_fallback": False, "ignore_merges": False,
+                      "vocab": vocab, "merges": merges}}
+
+
+class _Tower(torch.nn.Module):
+    """A vision tower as ``extract_image_features`` takes a model."""
+
+    def __init__(self, vision):
+        super().__init__()
+        self.vision = vision
+
+
+def phase_tools(dev, gpu_line, data, run_dir):
+    """The tools through the port's CLIs at full width (phase 14; (a) runs
+    inside phase 9): (b) seeded 3b-mpt exported by ``export_torch``, then
+    ``mmrec --load_from_original_checkpoint`` with phase 12's levers, one
+    update and the test pass; (c) a byte-level BPE ``tokenizer.json``
+    through ``mmrec_eval --tokenizer_path`` at 4b-instruct; (d) image
+    features of a synthetic set's items through (c)'s tower, semantic IDs,
+    then ``mmrec_eval --use_semantic``; (e) a VQGAN decoder at taming's
+    f16-1024 shapes on phase 10's img_gen dump."""
+    from unimp_tpu_torch.cli import common, mmrec, mmrec_eval
+    from unimp_tpu_torch.cli.arguments import build_parser
+    from unimp_tpu_torch.tools import convert_torch, export_torch, features, from_flax
+    from unimp_tpu_torch.tools import synth_data, vqgan_decoder
+    from unimp_tpu_torch.train import checkpoint as ckpt
+
+    log(f"[tools] {host_memory_line(run_dir.parent)}")
+    run_dir.mkdir(parents=True, exist_ok=True)
+    seen = {"reports": [], "decode_steps": 0}
+    orig = {"convert": convert_torch.convert_state_dict,
+            "step": Trainer.train_step, "build": common.build_model,
+            "decode_step": Generator._decode_step,
+            "load": mmrec.load_torch_checkpoint, "requant": mmrec.apply_frozen_storage}
+    def convert(state_dict, target):
+        out, report = orig["convert"](state_dict, target)
+        seen["reports"].append(report)
+        return out, report
+
+    def load(path, target):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig["load"](path, target)
+        seen["load_s"] = time.perf_counter() - t0
+        return out
+
+    def requant(model, names):
+        t0 = time.perf_counter()
+        out = orig["requant"](model, names)
+        torch.cuda.synchronize()
+        seen["requant_s"] = time.perf_counter() - t0
+        return out
+
+    def step(self, batch):
+        if "loaded" not in seen:  # right after the load: held to freeze() of the source
+            want = from_flax.build_model(self.model.cfg, device=dev, train=True,
+                                         frozen_dtype="int8", weights=seen.pop("source_tree"))
+            got_state, want_state = self.model.state_dict(), want.state_dict()
+            seen["loaded"] = (len(want_state), sorted(
+                k for k in set(got_state) | set(want_state)
+                if k not in got_state or k not in want_state
+                or got_state[k].dtype != want_state[k].dtype
+                or not torch.equal(got_state[k], want_state[k])),
+                count_quantized(self.model))
+            del want, got_state, want_state
+            torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        metrics = orig["step"](self, batch)
+        torch.cuda.synchronize()
+        seen.setdefault("steps", []).append((time.perf_counter() - t0, float(metrics["loss"]),
+                                             int(metrics["skipped_nonfinite"]),
+                                             torch.cuda.max_memory_allocated() / 2**30))
+        return metrics
+
+    def build(args, tokenizer, **kw):
+        seen["model"] = orig["build"](args, tokenizer, **kw)
+        return seen["model"]
+
+    def decode_step(self, *args, **kw):
+        seen["decode_steps"] += 1
+        return orig["decode_step"](self, *args, **kw)
+
+    def eval_argv(mmrec_path, run_name, n_items, *extra):
+        return ["--mmrec_path", str(mmrec_path), "--external_save_dir", str(run_dir),
+                "--run_name", run_name, "--pretrained_model_name_or_path", "4b-instruct",
+                "--subset", "beauty", "--task", "rec", "--single_task", "--n_items",
+                str(n_items), "--history_len", "5", "--patch-image-size", "224",
+                "--max_records", str(TOOLS_USERS), "--eval_batch_size", str(TOOLS_USERS),
+                "--num_beams", "10", "--do_test", "--workers", "2", "--device", "cuda", *extra]
+
+    pt = run_dir / "reference_3b_mpt.pt"
+    mpt_argv = ["--mmrec_path", str(data), "--external_save_dir", str(run_dir),
+                "--run_name", "convert", "--pretrained_model_name_or_path", "3b-mpt",
+                "--subset", "beauty", "--task", "rec", "--single_task", "--n_items",
+                str(N_ITEM_TOKENS), "--history_len", "6", "--use_semantic",
+                "--patch-image-size", "224", "--max_records", "6", "--eval_batch_size", "6",
+                "--num_beams", "10", "--workers", "2", "--device", "cuda", "--batch_size", "3",
+                "--gradient_accumulation_steps", "2", "--fused_accumulation", "--use_reweight",
+                "--gamma", "2", "--cache_vision_latents", "--logging_steps", "1",
+                "--num_epochs", "1", "--do_test", *HEADLINE_LEVERS]
+    results, walls = {}, {}
+    (convert_torch.convert_state_dict, Trainer.train_step, common.build_model,
+     Generator._decode_step, mmrec.load_torch_checkpoint, mmrec.apply_frozen_storage) = (
+        convert, step, build, decode_step, load, requant)
+    try:
+        kernel_lib.reset_launches()          # the main path starts here
+        # --- (b) a seeded 3b-mpt exported, then loaded by the training CLI
+        t0 = time.perf_counter()
+        args = build_parser().parse_args(mpt_argv)
+        tok = common.build_tokenizer(args)
+        cfg = get_config("3b-mpt")
+        cfg = cfg.replace(lm=dataclasses.replace(cfg.lm, vocab_size=-(-len(tok) // 128) * 128))
+        source = from_flax.build_model(cfg, device=dev, seed=11)
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        export_torch.save_torch_checkpoint(source, str(pt), export_torch.family_of(
+            cfg.lm.positions))
+        export_s, export_bytes = time.perf_counter() - t0, pt.stat().st_size
+        seen["source_tree"] = ckpt.model_tree(source)
+        del source
+        t0 = time.perf_counter()
+        # (b) writes no checkpoint: phase 12 times them
+        with unread_checkpoints(("weights_epoch_0", "checkpoint_0", "final_weights")):
+            mmrec.main(mpt_argv + ["--load_from_original_checkpoint", str(pt)])
+        torch.cuda.synchronize()
+        walls["b"] = time.perf_counter() - t0
+        pt.unlink()
+        b_steps = seen.pop("steps")
+        seen.pop("model", None)
+        gc.collect()
+        torch.cuda.empty_cache()
+        b_launches = counts()
+
+        # --- (c) a byte-level BPE tokenizer.json through --tokenizer_path
+        corpus = (Path(data) / "corpus.txt").read_text().splitlines()
+        tok_path = run_dir / "tokenizer.json"
+        t0 = time.perf_counter()
+        tok_path.write_text(json.dumps(train_bpe_json(corpus, BPE_MERGES), ensure_ascii=False))
+        bpe_train_s = time.perf_counter() - t0
+        argv = eval_argv(data, "bpe", N_ITEM_TOKENS, "--tokenizer_path", str(tok_path))
+        bpe = common.build_tokenizer(build_parser(eval_only=True).parse_args(argv))
+        t0 = time.perf_counter()
+        bad_round = [line for line in corpus if bpe.decode(bpe.encode(line), False) != line]
+        n_tokens = sum(len(bpe.encode(line)) for line in corpus)
+        bad_atomic = [t for t, tid in bpe._added.items() if bpe.encode(t) != [tid]]
+        bpe_check_s = time.perf_counter() - t0
+        steps = seen["decode_steps"]
+        t0 = time.perf_counter()
+        results["c"] = mmrec_eval.main(argv)["rec"]
+        torch.cuda.synchronize()
+        walls["c"] = time.perf_counter() - t0
+        c_steps, tower_model = seen["decode_steps"] - steps, seen.pop("model")
+        c_launches = between(b_launches)
+
+        # --- (d) item features -> semantic IDs -> --use_semantic
+        small = run_dir / "features_data"
+        synth_data.generate(str(small), subset="beauty", n_items=FEATURE_ITEMS,
+                            n_users=6 * TOOLS_USERS, image_size=64, seed=3)
+        items = list(range(FEATURE_ITEMS))
+        before = counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        size = tower_model.cfg.vision.image_size
+        feats = features.extract_image_features(tower_model, str(small), "beauty", items,
+                                                image_size=size, batch_size=64)
+        torch.cuda.synchronize()
+        feat_s, feat_launches = time.perf_counter() - t0, between(before)
+        cpu = _Tower(copy.deepcopy(tower_model.vision).to("cpu"))
+        del tower_model
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        cpu_feats = features.extract_image_features(cpu, str(small), "beauty", items[:4],
+                                                    image_size=size, batch_size=4)
+        cpu_s = time.perf_counter() - t0
+        del cpu
+        feat_err = float(np.abs(feats[:4] - cpu_feats).max())
+        feat_scale = float(np.abs(cpu_feats).max())
+        t0 = time.perf_counter()
+        mapping = features.build_semantic_ids(feats, items, str(small / "id2semantic.json"))
+        sem_s = time.perf_counter() - t0
+        steps = seen["decode_steps"]
+        t0 = time.perf_counter()
+        results["d"] = mmrec_eval.main(eval_argv(small, "semantic", FEATURE_ITEMS,
+                                                 "--use_semantic"))["rec"]
+        torch.cuda.synchronize()
+        walls["d"] = time.perf_counter() - t0
+        d_steps = seen["decode_steps"] - steps
+        seen.pop("model", None)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # --- (e) the VQGAN decoder on phase 10's img_gen dump
+        sd = taming_decoder_state_dict(5, **VQGAN_F16_1024)
+        decoder = vqgan_decoder.VQGANDecoder.from_state_dict(sd).to(dev)
+        cpu_decoder = vqgan_decoder.VQGANDecoder.from_state_dict(sd)
+        codes = torch.from_numpy(np.random.default_rng(6).integers(0, 1024, (4, 256)))
+        with torch.no_grad():
+            card = decoder(codes[:1].to(dev)).cpu()
+            vq_err = float((card - cpu_decoder(codes[:1])).abs().max())
+            vq_ms = cuda_ms(lambda: decoder(codes.to(dev)), iters=5, warmup=2) / len(codes)
+        dump_path = run_dir.parent / IMG_GEN_DUMP
+        t0 = time.perf_counter()
+        n_dumped = vqgan_decoder.decode_img_gen_dump(str(dump_path), decoder,
+                                                     str(run_dir / "img_gen_png"))
+        dump_s = time.perf_counter() - t0
+        vq_params = sum(t.numel() for t in sd.values())
+        del decoder, cpu_decoder, sd
+        launches = counts()                  # the main path ends here
+    finally:
+        (convert_torch.convert_state_dict, Trainer.train_step, common.build_model,
+         Generator._decode_step, mmrec.load_torch_checkpoint, mmrec.apply_frozen_storage) = (
+            orig["convert"], orig["step"], orig["build"], orig["decode_step"], orig["load"],
+            orig["requant"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(run_dir, ignore_errors=True)
+
+    # --- checks
+    (report,) = seen["reports"]
+    n_compared, differ, n_int8 = seen["loaded"]
+    if report["missed"] or not report["matched"] or differ or not n_int8:
+        raise AssertionError(f"[tools] (b) missed {report['missed'][:8]}, state differs from "
+                             f"freeze(source, int8) at {differ[:8]}; {n_int8} int8 kernels")
+    if len(b_steps) != 1 or b_steps[0][2] or not np.isfinite(b_steps[0][1]):
+        raise AssertionError(f"[tools] (b) updates {b_steps}")
+    if b_launches["quant_matmul"] <= 0 or b_launches["flash_bwd_dkv"] <= 0:
+        raise AssertionError(f"[tools] (b) launches {b_launches}")
+    if bad_round or bad_atomic:
+        raise AssertionError(f"[tools] (c) BPE round trip fails on {bad_round[:3]}; task "
+                             f"tokens not atomic: {bad_atomic[:8]}")
+    for tag, n_steps in (("c", c_steps), ("d", d_steps)):
+        rec = results[tag]
+        bad = {k: v for k, v in rec.items() if not np.isfinite(v)}
+        if rec["n_users"] != TOOLS_USERS or bad or not 0 < n_steps <= 50:
+            raise AssertionError(f"[tools] ({tag}) eval {rec} over {n_steps} decode steps")
+    cfg4 = get_config("4b-instruct")
+    n_x = -(-cfg4.lm.num_layers // cfg4.cross_attn_every_n)
+    want_c = {"decode_attn": cfg4.lm.num_layers * c_steps, "single_query_attn": n_x * c_steps}
+    if any(c_launches[k] != n for k, n in want_c.items()) or c_launches["flash_fwd"] <= 0:
+        raise AssertionError(f"[tools] (c) launches {c_launches}, want {want_c}")
+    want_k1 = cfg4.vision.num_layers * -(-FEATURE_ITEMS // 64)
+    if feat_launches["flash_fwd"] != want_k1 or feats.shape != (FEATURE_ITEMS,
+                                                                 cfg4.vision.hidden_size):
+        raise AssertionError(f"[tools] (d) features {feats.shape}, K1 "
+                             f"{feat_launches['flash_fwd']} (want {want_k1})")
+    if not feat_err <= FEATURE_TOL * feat_scale or len(mapping) != FEATURE_ITEMS:
+        raise AssertionError(f"[tools] (d) card vs CPU features {feat_err} > {FEATURE_TOL} x "
+                             f"{feat_scale}; {len(mapping)} semantic IDs")
+    if not vq_err <= VQGAN_TOL or not np.isfinite(vq_ms):
+        raise AssertionError(f"[tools] (e) VQGAN card vs CPU {vq_err} > {VQGAN_TOL}")
+
+    # --- report
+    b_s, b_loss, _, b_peak = b_steps[0]
+    log(f"[tools] (b) 3b-mpt source (seed 11, float32) built in {build_s:.1f} s, exported "
+        f"({export_torch.family_of(cfg.lm.positions)} names) in {export_s:.2f} s: "
+        f"{export_bytes / 2**30:.2f} GiB, {export_bytes / 2**30 / export_s:.2f} GiB/s on "
+        f"{gpu_line}")
+    log(f"[tools] (b) [convert] report: {len(report['matched'])} tensors matched, "
+        f"{len(report['missed'])} missed, {len(report['skipped'])} skipped; read + convert "
+        f"{seen['load_s']:.2f} s ({export_bytes / 2**30 / seen['load_s']:.2f} GiB/s), int8 "
+        f"again in {seen['requant_s']:.2f} s; {n_compared} tensors equal freeze(source, "
+        f"int8) bit for bit ({n_int8} int8 kernels)")
+    log(f"[tools] (b) mmrec main {walls['b']:.1f} s (the cache, 1 update, the test pass; no "
+        f"checkpoint written): update {b_s * 1e3:.1f} ms, loss {b_loss:.6f}, peak "
+        f"{b_peak:.2f} GiB; launches {json.dumps(b_launches)} on {gpu_line}")
+    log(f"[tools] (c) BPE tokenizer.json: {len(bpe._bpe.ranks)} merges learned in "
+        f"{bpe_train_s:.2f} s; vocabulary {len(bpe)} with the task tokens; the corpus's "
+        f"{len(corpus)} lines round-trip exactly ({n_tokens} tokens, {bpe_check_s:.2f} s with "
+        f"the {len(bpe._added)} added tokens' atomicity); rec eval of {TOOLS_USERS} users "
+        f"{walls['c']:.1f} s, {c_steps} decode steps, items/s "
+        f"{results['c']['items_per_sec']:.3f} on {gpu_line}")
+    log(f"[tools] (d) features: {FEATURE_ITEMS} items in {feat_s:.2f} s "
+        f"({FEATURE_ITEMS / feat_s:.1f} items/s: host decode + resize, the ViT), K1 "
+        f"{feat_launches['flash_fwd']}; card vs CPU (4 items, {cpu_s:.1f} s on the CPU) max "
+        f"|d| {feat_err:.3e} of max |f| {feat_scale:.3f}; semantic IDs in {sem_s:.2f} s; "
+        f"--use_semantic eval {walls['d']:.1f} s, {d_steps} decode steps, items/s "
+        f"{results['d']['items_per_sec']:.3f} on {gpu_line}")
+    log(f"[tools] (e) VQGAN f16-1024 decoder ({vq_params / 1e6:.1f} M parameters), float32: "
+        f"{vq_ms:.2f} ms an image (batch of 4, 16 x 16 codes -> 256 x 256); card vs CPU max "
+        f"|d| {vq_err:.3e}; phase 10's dump: {n_dumped} images in {dump_s:.2f} s on {gpu_line}")
+    log(f"[tools] rec (c) {json.dumps(results['c'])}; (d) {json.dumps(results['d'])}")
     return launches
 
 
@@ -3514,6 +4146,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    # a SIGTERM unwinds, so run_tree removes its files
+    signal.signal(signal.SIGTERM, lambda signum, frame: sys.exit(128 + signum))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -3563,9 +4197,7 @@ def main() -> int:
     log(f"[4b-int8] done in {time.perf_counter() - t0:.1f} s")
     gc.collect()  # the int8 model is gone: give its memory back
     torch.cuda.empty_cache()
-    runs = Path(__file__).resolve().parent / "runs"
-    runs.mkdir(exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=runs) as tmp:
+    with run_tree() as tmp:
         data = Path(tmp) / "data"
         write_s = write_cli_data(data)
         t0 = time.perf_counter()
@@ -3573,30 +4205,34 @@ def main() -> int:
         log(f"[cli] done in {time.perf_counter() - t0:.1f} s")
         gc.collect()  # the CLI's eval model is gone: give its memory back
         torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        train_cli_launches = phase_train_cli(dev, gpu_line, data, Path(tmp) / "train")
-        log(f"[train-cli] done in {time.perf_counter() - t0:.1f} s")
-        gc.collect()  # the training CLI's models are gone: give their memory back
-        torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        task_launches = phase_tasks(dev, gpu_line, data, Path(tmp) / "tasks")
-        log(f"[tasks] phase 10 done in {time.perf_counter() - t0:.1f} s")
-        gc.collect()  # phase 10's models are gone: give their memory back
-        torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        serve_launches = phase_serve(dev, gpu_line, data)
-        log(f"[serve] phase 11 done in {time.perf_counter() - t0:.1f} s")
-        gc.collect()  # the workers are gone: give their memory back
-        torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        headline_launches = phase_headline_train(gpu_line, data, Path(tmp) / "headline")
-        log(f"[headline] phase 12 done in {time.perf_counter() - t0:.1f} s")
-        gc.collect()  # phase 12's models are gone: the ranks get the card
-        torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        multi_launches = phase_multi_gpu(gpu_line, data, Path(tmp) / "multi")
+        with item_decode_memo():  # phases 9-14 decode the catalogue once
+            t0 = time.perf_counter()
+            train_cli_launches = phase_train_cli(dev, gpu_line, data, Path(tmp) / "train")
+            log(f"[train-cli] done in {time.perf_counter() - t0:.1f} s")
+            gc.collect()  # the training CLI's models are gone: give their memory back
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            task_launches = phase_tasks(dev, gpu_line, data, Path(tmp) / "tasks")
+            log(f"[tasks] phase 10 done in {time.perf_counter() - t0:.1f} s")
+            gc.collect()  # phase 10's models are gone: give their memory back
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            serve_launches = phase_serve(dev, gpu_line, data)
+            log(f"[serve] phase 11 done in {time.perf_counter() - t0:.1f} s")
+            gc.collect()  # the workers are gone: give their memory back
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            headline_launches = phase_headline_train(gpu_line, data, Path(tmp) / "headline")
+            log(f"[headline] phase 12 done in {time.perf_counter() - t0:.1f} s")
+            gc.collect()  # phase 12's models are gone: the ranks get the card
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            multi_launches = phase_multi_gpu(gpu_line, data, Path(tmp) / "multi")
+            log(f"[multi-gpu] phase 13 done in {time.perf_counter() - t0:.1f} s")
+            t0 = time.perf_counter()
+            tools_launches = phase_tools(dev, gpu_line, data, Path(tmp) / "tools")
+            log(f"[tools] phase 14 done in {time.perf_counter() - t0:.1f} s")
         ITEM_IMAGES.clear()
-        log(f"[multi-gpu] phase 13 done in {time.perf_counter() - t0:.1f} s")
 
     # one headline shape per kernel: LM prefill, the LM self-attention
     # backward of training, decode at step 50, x-attn read, the MLP
@@ -3623,7 +4259,8 @@ def main() -> int:
             ("serve_int8", serve_launches["serve_int8"], INT8_KERNELS),
             ("serve_small_f32", serve_launches["serve_small_f32"], EVAL_KERNELS),
             ("headline_train", headline_launches, TASK_KERNELS + ("quant_matmul",)),
-            ("multi_gpu", multi_launches, TASK_KERNELS + ("quant_matmul",)))
+            ("multi_gpu", multi_launches, TASK_KERNELS + ("quant_matmul",)),
+            ("tools", tools_launches, TASK_KERNELS + ("quant_matmul",)))
             if name in kernels}
         row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                "launches": sum(by_path.values()), "launches_by_path": by_path,

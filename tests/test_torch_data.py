@@ -188,11 +188,14 @@ def test_tokenizer_add_tokens_like_the_library():
 
 
 def test_unported_tokenizers_raise(tmp_path):
-    with pytest.raises(NotImplementedError):
-        UniMPTokenizer.from_hf(str(tmp_path / "tokenizer.json"))
-    (tmp_path / "bpe.json").write_text(json.dumps({"model": {"type": "BPE"}}))
-    with pytest.raises(NotImplementedError):
-        UniMPTokenizer.load(str(tmp_path / "bpe.json"))
+    """Models other than WordLevel and byte-level BPE raise, naming
+    themselves, through ``load`` and ``from_hf`` alike (byte-level BPE
+    reads since it was ported: ``tests/test_torch_bpe.py``)."""
+    for kind in ("Unigram", "WordPiece"):
+        (tmp_path / f"{kind}.json").write_text(json.dumps({"model": {"type": kind}}))
+        for read in (UniMPTokenizer.load, UniMPTokenizer.from_hf):
+            with pytest.raises(NotImplementedError, match=kind):
+                read(str(tmp_path / f"{kind}.json"))
 
 
 @pytest.mark.parametrize("kw", [dict(subset="beauty"), dict(subset="netflix"),

@@ -170,15 +170,15 @@ def test_cli_writes_what_jax_writes(data, tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--mesh_fsdp", "2"], ["--mesh_tp", "2"], ["--seq_shard"], ["--load_weights_name", "w.pt"],
-    ["--report_to_wandb"],
+    ["--mesh_fsdp", "2"], ["--mesh_tp", "2"], ["--seq_shard"], ["--report_to_wandb"],
 ])
 def test_cli_unported_flags_raise(data, tmp_path, extra):
     """The flags the port lacks raise. The multi-GPU ones run since they
     were ported: in one process ``--mesh_fsdp 2`` / ``--mesh_tp 2`` raise
     ``make_mesh``'s error naming the sizes, and ``--seq_shard`` (no causal
     self-attention is routed in an eval, whose prefill has a window start)
-    gives the run's results without it."""
+    gives the run's results without it. ``--load_weights_name *.pt`` runs
+    since the converter was ported (``tests/test_torch_tools_cli.py``)."""
     argv = _argv(data, str(tmp_path), ["--device", "cpu"]) + extra
     if extra[0] in ("--mesh_fsdp", "--mesh_tp"):
         with pytest.raises(ValueError, match="does not divide world 1"):

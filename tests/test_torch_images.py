@@ -3,11 +3,16 @@
 Every kind of file of ROADMAP.md §3's fault 5, made here at odd sizes: by
 PIL (progressive JPEG with and without Huffman optimization, restart
 markers, gray, CMYK, 16-bit quantization tables, a baseline file cut by
-its last 200 bytes; PNG in RGB, RGBA, P with tRNS, L, LA, 16-bit gray) and
-by the small writers below, which PIL does not offer (baseline JPEGs with
-one component a scan: YCbCr, YCCK with the Adobe flag, RGB by the Adobe
-flag and by its component ids; PNG with each of the five filters,
-Adam7 interlacing, 1 / 2 / 4-bit gray and palette, 16-bit RGB and RGBA).
+its last 200 bytes; PNG in RGB, RGBA, P with tRNS, L, LA, 16-bit gray;
+GIF in P and L, with transparency, animated; BMP in RGB, P, L and 1 bit)
+and by the small writers below, which PIL does not offer (baseline JPEGs
+with one component a scan: YCbCr, YCCK with the Adobe flag, RGB by the
+Adobe flag and by its component ids; PNG with each of the five filters,
+Adam7 interlacing, 1 / 2 / 4-bit gray and palette, 16-bit RGB and RGBA;
+GIF interlaced, without a palette, with a local palette on a frame
+smaller or larger than the screen, with indices past the palette; BMP
+at 1 / 4 / 8 / 16 / 24 / 32 bits, top-down, OS/2 and v4 / v5 headers,
+BITFIELDS, RLE8, RLE4, a grey-ramp palette, a short palette, cut short).
 Each is held bit for bit to ``np.asarray(Image.open(f).convert("RGB"))``
 (``LOAD_TRUNCATED_IMAGES`` on), ``load_resized_uint8`` to the JAX
 package's (its native pipe or its PIL fallback, as it picks), and the
@@ -253,7 +258,209 @@ def _pil_gray16():
     return buf.getvalue()
 
 
-FILES = {**_jpegs(), **_pngs()}
+def _gif_lzw(idx, min_size):
+    """GIF LZW of ``idx`` with a clear code before the table would widen
+    the codes: every code is ``min_size + 1`` bits, a valid stream."""
+    clear, size = 1 << min_size, min_size + 1
+    codes, room = [clear], (1 << size) - clear - 2
+    for k, v in enumerate(idx.reshape(-1)):
+        if k and k % room == 0:
+            codes.append(clear)
+        codes.append(int(v))
+    codes.append(clear + 1)
+    acc = nbits = 0
+    out = bytearray()
+    for c in codes:
+        acc |= c << nbits
+        nbits += size
+        while nbits >= 8:
+            out.append(acc & 255)
+            acc >>= 8
+            nbits -= 8
+    if nbits:
+        out.append(acc)
+    blocks = b"".join(bytes((len(out[i:i + 255]),)) + bytes(out[i:i + 255])
+                      for i in range(0, len(out), 255))
+    return bytes((min_size,)) + blocks + b"\x00"
+
+
+def _gif(idx, screen=None, at=(0, 0), global_pal=None, local_pal=None, transparency=None,
+         interlace=False, min_size=None):
+    """A one-frame GIF: ``idx`` [h, w] indices placed ``at`` (x, y) on a
+    logical screen; palettes [2^k, 3]; rows stored in interlaced order
+    when asked."""
+    h, w = idx.shape
+    sw, sh = screen or (w, h)
+    def table_bits(pal):
+        return int(np.log2(len(pal))) - 1
+    flags = 0
+    if global_pal is not None:
+        flags = 0x80 | table_bits(global_pal)
+    out = b"GIF89a" + struct.pack("<HHBBB", sw, sh, flags, 0, 0)
+    if global_pal is not None:
+        out += np.asarray(global_pal, np.uint8).tobytes()
+    if transparency is not None:
+        out += b"\x21\xf9\x04" + bytes((1, 0, 0, transparency)) + b"\x00"
+    fflags = (0x40 if interlace else 0)
+    if local_pal is not None:
+        fflags |= 0x80 | table_bits(local_pal)
+    out += b"," + struct.pack("<HHHHB", at[0], at[1], w, h, fflags)
+    if local_pal is not None:
+        out += np.asarray(local_pal, np.uint8).tobytes()
+    rows = idx
+    if interlace:
+        order = np.concatenate([np.arange(s, h, st) for s, st in ((0, 8), (4, 8), (2, 4), (1, 2))])
+        rows = idx[order]
+    ms = min_size or max(2, int(idx.max()).bit_length())
+    return out + _gif_lzw(rows, ms) + b";"
+
+
+def _gifs():
+    pal = RNG.integers(0, 256, (16, 3))
+    pal4 = RNG.integers(0, 256, (4, 3))
+    idx = RNG.integers(0, 16, (21, 30))
+    a = _picture(23, 34)
+    first = Image.fromarray(a).convert("P", palette=Image.ADAPTIVE, colors=40)
+    second = Image.fromarray(_picture(23, 34)).convert("P", palette=Image.ADAPTIVE, colors=40)
+    anim = io.BytesIO()
+    first.save(anim, "GIF", save_all=True, append_images=[second], duration=50)
+    return {
+        "gif_pil": _pil_save(a, "P", "GIF"),
+        "gif_pil_gray": _pil_save(_picture(19, 26, 1), "L", "GIF"),
+        "gif_pil_transparency": _pil_save(a, "P", "GIF", transparency=3, optimize=False),
+        "gif_pil_animated": anim.getvalue(),
+        "gif_interlaced": _gif(idx, global_pal=pal, interlace=True),
+        "gif_local_palette_offset_transparent": _gif(
+            RNG.integers(0, 4, (9, 11)), screen=(20, 17), at=(5, 3), global_pal=pal,
+            local_pal=pal4, transparency=2),
+        "gif_no_palette": _gif(RNG.integers(0, 256, (13, 10)), min_size=8),
+        "gif_index_past_palette": _gif(RNG.integers(0, 8, (7, 9)), global_pal=pal4,
+                                       min_size=3),
+        "gif_frame_past_screen": _gif(idx[:8, :9], screen=(6, 5), at=(2, 1), global_pal=pal),
+    }
+
+
+def _bmp(pixels, bits, *, palette=None, header=40, compression=0, masks=None, top_down=False,
+         body=None):
+    """A BMP of ``pixels`` ([h, w] indices, or [h, w] packed 16-/32-bit
+    values, or [h, w, 3] RGB at 24 bits), or of a given ``body``."""
+    h, w = pixels.shape[:2]
+    if body is None:
+        rows = []
+        for r in pixels:
+            if bits < 8:
+                per = 8 // bits
+                v = np.zeros(-(-w // per) * per, np.uint8)
+                v[:w] = r
+                v = v.reshape(-1, per)
+                line = sum(v[:, k] << (8 - bits * (k + 1)) for k in range(per)).astype(np.uint8)
+            elif bits == 8:
+                line = r.astype(np.uint8)
+            elif bits == 16:
+                line = r.astype("<u2")
+            elif bits == 24:
+                line = r[:, ::-1].astype(np.uint8)
+            else:
+                line = r.astype("<u4")
+            line = line.tobytes()
+            rows.append(line + b"\x00" * ((-len(line)) % 4))
+        body = b"".join(rows if top_down else rows[::-1])
+    pal = b""
+    if palette is not None:
+        pal = b"".join(bytes((b, g, r)) + (b"" if header == 12 else b"\x00")
+                       for r, g, b in np.asarray(palette, np.uint8))
+    extra = b""
+    if header == 12:
+        info = struct.pack("<IHHHH", 12, w, h, 1, bits)
+    else:
+        info = struct.pack("<IiiHHIIiiII", header, w, -h if top_down else h, 1, bits,
+                           compression, len(body), 2835, 2835,
+                           0 if palette is None else len(palette), 0)
+        tail = b""
+        if masks is not None and header >= 52:
+            tail = struct.pack("<4I", *(list(masks) + [0] * (4 - len(masks))))
+        elif masks is not None:
+            extra = struct.pack("<3I", *masks[:3])
+        info += (tail + bytes(header - 40))[:header - 40]
+    off = 14 + len(info) + len(extra) + len(pal)
+    return b"BM" + struct.pack("<IHHI", off + len(body), 0, 0, off) + info + extra + pal + body
+
+
+def _rle8(idx):
+    """RLE8 rows, bottom-up: encoded runs and absolute runs, end-of-line
+    and end-of-bitmap escapes."""
+    out = bytearray()
+    for r in idx[::-1]:
+        r = [int(v) for v in r]
+        k = 0
+        while k < len(r):
+            run = 1
+            while k + run < len(r) and r[k + run] == r[k] and run < 255:
+                run += 1
+            if run >= 3 or len(r) - k < 3:
+                out += bytes((run, r[k]))
+                k += run
+            else:
+                n = min(len(r) - k, 5)
+                out += bytes((0, n)) + bytes(r[k:k + n]) + (b"\x00" if n % 2 else b"")
+                k += n
+        out += b"\x00\x00"
+    return bytes(out + b"\x00\x01")
+
+
+def _rle4(idx):
+    """RLE4 rows, bottom-up: two-index encoded runs and even absolute runs."""
+    out = bytearray()
+    for r in idx[::-1]:
+        r = [int(v) for v in r]
+        k = 0
+        while k < len(r):
+            if len(r) - k >= 4 and k % 3 == 0:
+                out += bytes((0, 4, (r[k] << 4) | r[k + 1], (r[k + 2] << 4) | r[k + 3]))
+                k += 4
+            else:
+                n = min(len(r) - k, 2)
+                out += bytes((n, (r[k] << 4) | (r[k + 1] if n == 2 else 0)))
+                k += n
+        out += b"\x00\x00"
+    return bytes(out + b"\x00\x01")
+
+
+def _bmps():
+    pal = RNG.integers(0, 256, (256, 3))
+    i8, i4, i1 = (RNG.integers(0, n, (17, 23)) for n in (256, 16, 2))
+    rgb = _picture(15, 21)
+    v16 = RNG.integers(0, 65536, (11, 13))
+    v32 = RNG.integers(0, 2**32, (9, 14), dtype=np.uint64)
+    gray = np.stack([np.arange(256)] * 3, 1)
+    return {
+        "bmp_pil_rgb": _pil_save(rgb, "RGB", "BMP"),
+        "bmp_pil_palette": _pil_save(_picture(16, 22), "P", "BMP"),
+        "bmp_pil_gray": _pil_save(_picture(14, 19, 1), "L", "BMP"),
+        "bmp_pil_1bit": _pil_save(_picture(13, 21, 1), "1", "BMP"),
+        "bmp_8bit_top_down": _bmp(i8, 8, palette=pal, top_down=True),
+        "bmp_4bit": _bmp(i4, 4, palette=pal[:16]),
+        "bmp_1bit_colour": _bmp(i1, 1, palette=pal[:2]),
+        "bmp_8bit_short_palette": _bmp(RNG.integers(0, 12, (6, 7)), 8, palette=pal[:9]),
+        "bmp_8bit_gray_ramp": _bmp(i8, 8, palette=gray),
+        "bmp_os2_8bit": _bmp(i8, 8, palette=pal, header=12),
+        "bmp_16bit_555": _bmp(v16, 16),
+        "bmp_16bit_565_bitfields": _bmp(v16, 16, compression=3, masks=(0xF800, 0x7E0, 0x1F)),
+        "bmp_24bit_v5_top_down": _bmp(rgb, 24, header=124, top_down=True),
+        "bmp_32bit": _bmp(v32, 32),
+        "bmp_32bit_bitfields_rgba_v4": _bmp(v32, 32, header=108, compression=3,
+                                            masks=(0xFF, 0xFF00, 0xFF0000, 0xFF000000)),
+        "bmp_32bit_bitfields_xbgr": _bmp(v32, 32, compression=3,
+                                         masks=(0xFF000000, 0xFF0000, 0xFF00)),
+        "bmp_rle8": _bmp(i8[:, :11] % 7, 8, palette=pal, compression=1,
+                         body=_rle8(np.repeat(i8[:, :11] % 7, 1, 1))),
+        "bmp_rle4": _bmp(i4[:, :13], 4, palette=pal[:16], compression=2,
+                         body=_rle4(i4[:, :13])),
+        "bmp_truncated": _bmp(rgb, 24)[:-100],
+    }
+
+
+FILES = {**_jpegs(), **_pngs(), **_gifs(), **_bmps()}
 
 
 def _pil_rgb(data):
@@ -289,6 +496,16 @@ def test_the_files_are_what_they_claim():
                                           ("png_la16", 4, 16, 0)):
         ihdr = files[name][16:29]
         assert (ihdr[9], ihdr[8], ihdr[12]) == (ctype, depth, interlace), name
+    for name in ("gif_pil_transparency", "gif_local_palette_offset_transparent"):
+        assert b"\x21\xf9\x04\x01" in files[name], name
+    assert Image.open(io.BytesIO(files["gif_pil_animated"])).n_frames == 2
+    assert files["gif_interlaced"][13 + 48 + 9] & 0x40  # after the header and palette
+    for name, compression in (("bmp_rle8", 1), ("bmp_rle4", 2), ("bmp_16bit_565_bitfields", 3),
+                              ("bmp_32bit_bitfields_rgba_v4", 3), ("bmp_24bit_v5_top_down", 0)):
+        assert struct.unpack_from("<I", files[name], 30)[0] == compression, name
+    assert struct.unpack_from("<i", files["bmp_24bit_v5_top_down"], 22)[0] < 0
+    assert struct.unpack_from("<I", files["bmp_os2_8bit"], 14)[0] == 12
+    assert len(files["bmp_truncated"]) < struct.unpack_from("<I", files["bmp_truncated"], 2)[0]
 
 
 @pytest.mark.parametrize("name", list(FILES))
@@ -326,8 +543,6 @@ def _patched_sof(marker=None, precision=None):
 
 
 UNREAD = {
-    "GIF": lambda: _pil_save(_picture(9, 9), "P", "GIF"),
-    "BMP": lambda: _pil_save(_picture(9, 9), "RGB", "BMP"),
     "TIFF": lambda: _pil_save(_picture(9, 9), "RGB", "TIFF"),
     "WebP": lambda: b"RIFF\x10\x00\x00\x00WEBPVP8 " + bytes(16),
     "arithmetic-coded": lambda: _patched_sof(marker=0xC9),

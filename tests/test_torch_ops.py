@@ -319,8 +319,8 @@ def test_port_imports_no_jax():
     """No module of the port, and not chip_smoke.py, imports jax, flax,
     optax, orbax or the JAX package, nor ``tokenizers``, PIL or
     ``requests``, which the card's machine lacks; the training CLI's,
-    the serving and the multi-GPU modules (and the multi-GPU tests' rank
-    worker) are among those walked."""
+    the serving, the multi-GPU and the tools' modules (and the multi-GPU
+    tests' rank worker) are among those walked."""
     banned = ("jax", "flax", "optax", "orbax", "unimp_tpu", "tokenizers", "PIL", "requests")
     bad = []
     for path in _port_python_files():
@@ -341,6 +341,9 @@ def test_port_imports_no_jax():
         "decode/streaming", "serve/constants", "serve/conversation", "serve/batching",
         "serve/worker", "serve/controller", "serve/cli_chat", "serve/register_worker",
         "serve/test_message", "serve/web_server", "parallel/mesh", "parallel/sharding",
-        "parallel/seq_shard", "ops/ring_attention", "evals/dist")} | {
+        "parallel/seq_shard", "ops/ring_attention", "evals/dist", "tools/convert_torch",
+        "tools/export_torch", "tools/vqgan", "tools/vqgan_decoder", "tools/features",
+        "tools/preprocess", "tools/task_data", "tools/misc_converters", "data/gif",
+        "data/bmp")} | {
         "tests/torch_parallel_worker.py"} <= walked
     assert not bad, bad

@@ -553,7 +553,6 @@ def test_reload_eval(data, runs, tmp_path, monkeypatch, dtype):
 
 @pytest.mark.parametrize("extra", [
     ["--mesh_fsdp", "2"], ["--mesh_tp", "2"], ["--seq_shard"], ["--mesh_fsdp", "2", "--mesh_tp", "2"],
-    ["--load_from_original_checkpoint", "w.pt"], ["--save_hf_model"],
     ["--save_checkpoints_to_wandb"],
 ])
 def test_unported_flags_raise_before_any_work(data, tmp_path, monkeypatch, extra):
@@ -563,7 +562,9 @@ def test_unported_flags_raise_before_any_work(data, tmp_path, monkeypatch, extra
     multi-GPU flags run since they were ported: in one process a mesh
     larger than the world raises ``make_mesh``'s error naming the sizes,
     and ``--seq_shard`` passes the checks and sets the ring-attention
-    context (``tests/test_torch_parallel.py`` runs them over ranks)."""
+    context (``tests/test_torch_parallel.py`` runs them over ranks).
+    ``--load_from_original_checkpoint`` and ``--save_hf_model`` run too:
+    ``tests/test_torch_tools_cli.py`` holds them to the JAX CLI."""
     def no_work(*args, **kw):
         raise AssertionError("work started before the check")
 
@@ -655,10 +656,13 @@ def test_task_runs_match_jax(data, tmp_path, monkeypatch, extra):
 
 
 def test_reload_of_a_jax_checkpoint_or_a_pt_name_raises(data, runs, tmp_path):
+    """An Orbax directory of the JAX package raises (its converter is not
+    ported); a ``.pt`` name goes to the torch converter, which raises on a
+    file that is not there (``tests/test_torch_tools_cli.py`` loads one)."""
     jax_dir = str(runs["root"] / "jax" / "cli")
     with pytest.raises(NotImplementedError, match="Orbax"):
         mmrec_eval.main(_eval_argv(data, str(tmp_path), "--load_dir", jax_dir))
-    with pytest.raises(NotImplementedError, match="converter"):
+    with pytest.raises(FileNotFoundError, match="final_weights.pt"):
         argv = _eval_argv(data, str(tmp_path), "--load_dir", jax_dir)
         argv[argv.index("--load_weights_name") + 1] = "final_weights.pt"
         mmrec_eval.main(argv)

@@ -34,9 +34,6 @@ from unimp_tpu_torch.tools import from_flax
 ALL_EVAL_TASKS = ["rec", "exp", "img_sel", "search"]  # run_evals' multi-task default
 # flag -> (what it needs, its ROADMAP.md §1 item)
 UNPORTED = {
-    "load_from_original_checkpoint": ("--load_from_original_checkpoint: the torch .pt "
-                                      "converter", "item 8"),
-    "save_hf_model": ("--save_hf_model: the torch .pt exporter", "item 8"),
     "save_checkpoints_to_wandb": ("--save_checkpoints_to_wandb: wandb artifacts",
                                   "where the port logs JSONL only"),
 }
@@ -48,9 +45,6 @@ def check_ported(args, *, train: bool = False) -> None:
     for flag, (what, item) in UNPORTED.items():
         if getattr(args, flag, False):
             raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md §1, {item})")
-    if (getattr(args, "load_weights_name", None) or "").endswith(".pt"):
-        raise NotImplementedError("--load_weights_name *.pt: the torch .pt converter is not "
-                                  "ported yet (ROADMAP.md §1, item 8)")
     if train and args.cache_vision_latents and args.unfreeze_backbone:
         raise SystemExit("--cache_vision_latents requires the frozen tower "
                          "(drop --unfreeze_backbone)")
@@ -120,7 +114,8 @@ def build_model(args, tokenizer, *, train: bool = False, weights=None, trainable
     """The variant (or ``--config_json``) with the CLI's overrides and the
     vocab sized to the extended tokenizer, rounded up to 128, on
     ``--device``, with the port's seeded weights (``--seed``) or
-    ``weights`` (a flat tree, ``train/checkpoint.py:restore_params``).
+    ``weights`` (a flat tree, ``train/checkpoint.py:restore_params``, or
+    a function of the seeded tree, ``tools/from_flax.py:build_model``).
     Inference: cast or quantized as ``--eval_param_dtype`` says, after
     ``weights`` are loaded. Training (``train``): the reference's freezing,
     frozen kernels int8 under ``--frozen_int8`` (which wins over

@@ -10,6 +10,11 @@ shuffled loader (``seed + epoch``), logging loss, CE, accuracy, gradient
 norm and the step timer's throughput every ``--logging_steps``, evaluates
 the eval and test splits with one latent cache, and writes
 ``weights_epoch_{e}`` and ``checkpoint_{e}``; ``final_weights`` at the end.
+``--load_from_original_checkpoint PATH.pt`` converts a reference
+``.pt`` onto the model first (``tools/convert_torch.py``; under
+``--frozen_int8`` onto its dequantized floats, then quantized again), and
+``--save_hf_model`` writes ``final_weights_torch.pt`` beside
+``final_weights`` (``tools/export_torch.py``).
 ``--resume_from_checkpoint`` continues from the latest ``checkpoint_{e}``
 of the run, and ``--cache_vision_latents`` encodes every item through the
 frozen tower once (``train/vision_cache.py``). The JAX package's headline
@@ -36,11 +41,14 @@ import shutil
 import torch
 
 from unimp_tpu_torch.cli import common
-from unimp_tpu_torch.cli.arguments import build_parser
+from unimp_tpu_torch.cli.arguments import build_parser, variant_name
 from unimp_tpu_torch.data.loader import prefetch_to_device
 from unimp_tpu_torch.evals.bertscore import make_model_bertscore
 from unimp_tpu_torch.evals.evaluators import EVALUATORS
+from unimp_tpu_torch.models import get_config
 from unimp_tpu_torch.parallel.sharding import ZeroShards, shard_tree_tp
+from unimp_tpu_torch.tools.convert_torch import load_torch_checkpoint
+from unimp_tpu_torch.tools.export_torch import family_of, save_torch_checkpoint
 from unimp_tpu_torch.tools.from_flax import load_flax_params
 from unimp_tpu_torch.train import checkpoint as ckpt
 from unimp_tpu_torch.train.optimizer import MultiSteps, decay_mask, make_optimizer
@@ -202,6 +210,18 @@ def main(argv=None):
         mask_lm_head=args.mask_lm_head, accum_steps=accum if args.fused_accumulation else 1,
         device=args.device, grad_dtype=bf16_state, mesh=mesh, zero=zero)
 
+    if args.load_from_original_checkpoint:
+        # the converter fits the file onto a float tree and keeps the
+        # model's value where it maps nothing: int8 kernels go in as their
+        # dequantized floats and are quantized again after the load
+        int8 = int8_kernel_names(model)
+        flat = load_torch_checkpoint(args.load_from_original_checkpoint,
+                                     ckpt.full_model_tree(model))
+        load_flax_params(model, flat)
+        del flat  # release the file's mapping
+        if int8:
+            apply_frozen_storage(model, int8)
+
     resume_epoch = 0
     if args.resume_from_checkpoint:
         latest = ckpt.latest_checkpoint(save_dir)
@@ -265,6 +285,11 @@ def main(argv=None):
             if os.path.isdir(prev):
                 shutil.rmtree(prev)
     ckpt.save_params(save_dir, model, "final_weights")
+    if args.save_hf_model:
+        # the decoder's naming follows the variant, as the JAX CLI picks it
+        out = save_torch_checkpoint(model, os.path.join(save_dir, "final_weights_torch.pt"),
+                                    family_of(get_config(variant_name(args)).lm.positions))
+        logger.print(f"Exported torch checkpoint: {out}")
     logger.print(f"Saved final weights under {save_dir}")
     return trainer, {"step": trainer.step, "epoch": epoch}
 

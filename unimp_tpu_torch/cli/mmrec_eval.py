@@ -8,7 +8,9 @@ Builds the tokenizer (corpus + task vocabulary), the model with the
 port's seeded weights or, with ``--load_weights_name``, the weights of a
 checkpoint of the port's ``mmrec`` (``train/checkpoint.py``; under
 ``{load_dir}``, or ``{external_save_dir}/{load_run_name or run_name}``),
-then cast, or quantized to int8 after the cast, as ``--eval_param_dtype``
+or of a reference ``.pt`` (a name ending in ``.pt``: converted onto the
+seeded weights by ``tools/convert_torch.py``, as the JAX CLI does), then
+cast, or quantized to int8 after the cast, as ``--eval_param_dtype``
 says (restore first, then quantize, as the JAX package does). It then
 evaluates the test split (and the eval split with ``--do_eval``): per-user
 metric dumps under ``{external_save_dir}/{run_name}/results/`` and
@@ -25,6 +27,7 @@ import os
 from unimp_tpu_torch.cli import common
 from unimp_tpu_torch.cli.arguments import build_parser
 from unimp_tpu_torch.cli.mmrec import run_evals
+from unimp_tpu_torch.tools.convert_torch import load_torch_checkpoint
 from unimp_tpu_torch.train import checkpoint as ckpt
 from unimp_tpu_torch.utils.logging import MetricLogger
 
@@ -35,7 +38,10 @@ def main(argv=None):
     mesh = common.build_mesh(args)
     tokenizer = common.build_tokenizer(args)
     weights = None
-    if args.load_weights_name:
+    if args.load_weights_name and args.load_weights_name.endswith(".pt"):
+        path = os.path.join(common.weights_dir(args), args.load_weights_name)
+        weights = lambda seeded: load_torch_checkpoint(path, seeded)  # noqa: E731
+    elif args.load_weights_name:
         weights = ckpt.restore_params(common.weights_dir(args), args.load_weights_name)
     model = common.build_model(args, tokenizer, weights=weights, mesh=mesh)
     del weights  # the model holds a copy: release the file's mapping

@@ -495,9 +495,10 @@ _READERS = {"baseline": _read_baseline, "dc_first": _read_dc_first,
             "ac_refine": _read_ac_refine}
 
 
-def _read_scan(data, end, frame, coefs, huff, seg, progressive, restart):
+def _read_scan(data, end, frame, coefs, huff, seg, progressive, restart, strict=False):
     """Decode one scan into the coefficient buffers; returns the offset
-    after its entropy-coded data."""
+    after its entropy-coded data. ``strict``: raise if the file ends
+    inside the scan."""
     h, w, comps, *_ = frame
     ids = [c[0] for c in comps]
     ns = seg[0]
@@ -524,6 +525,8 @@ def _read_scan(data, end, frame, coefs, huff, seg, progressive, restart):
     except KeyError as e:
         raise ValueError(f"corrupt JPEG: Huffman table {e} is not defined") from None
     segments, after, cut = _scan_segments(data, end)
+    if cut and strict:
+        raise ValueError("truncated JPEG (the file ends inside a scan)")
     mcus = _scan_mcus(frame, scan_comps)
     per = restart or len(mcus)
     flat = [coefs[c].reshape(-1) for c in scan_comps]
@@ -594,7 +597,7 @@ def component_count(data: bytes) -> int:
     return 0
 
 
-def decode_jpeg(data: bytes) -> np.ndarray:
+def decode_jpeg(data: bytes, strict: bool = False) -> np.ndarray:
     """JPEG bytes -> uint8 RGB [H, W, 3], as libjpeg-turbo decodes it with
     its defaults (islow IDCT, fancy upsampling) and PIL's
     ``convert("RGB")`` gives it: baseline and extended (SOF0 / SOF1) with
@@ -606,7 +609,8 @@ def decode_jpeg(data: bytes) -> np.ndarray:
     ``LOAD_TRUNCATED_IMAGES``): the MCU where the data ends reads zeros,
     the rest of that scan's interval stays zero (gray in a baseline file;
     a progressive file keeps what its earlier scans gave, without
-    libjpeg's block smoothing)."""
+    libjpeg's block smoothing); with ``strict`` such a file raises, as PIL
+    does without ``LOAD_TRUNCATED_IMAGES``."""
     if data[:2] != b"\xff\xd8":
         raise ValueError("not a JPEG (no SOI marker)")
     qt, latched, huff = {}, {}, {}
@@ -685,7 +689,7 @@ def decode_jpeg(data: bytes) -> np.ndarray:
                     if comp[3] not in qt:
                         raise ValueError(f"corrupt JPEG: quantization table {comp[3]} is missing")
                     latched[cid] = qt[comp[3]]
-            i = _read_scan(data, end, frame, coefs, huff, seg, progressive, restart)
+            i = _read_scan(data, end, frame, coefs, huff, seg, progressive, restart, strict)
             scans += 1
     if frame is None or not scans:
         raise ValueError("not a complete JPEG (no frame header or no scan)")

@@ -1,4 +1,4 @@
-"""PNG decoder in numpy and the standard library's ``zlib``.
+"""PNG decoder (and a plain RGB writer) in numpy and the standard library's ``zlib``.
 
 The JAX package reads PNG item images through PIL (``unimp_tpu/data/
 transforms.py:19-25``), which the card's machine does not have. This
@@ -149,3 +149,18 @@ def _to_rgb(img: np.ndarray, ctype: int, depth: int, palette) -> np.ndarray:
     if ctype in (0, 4):
         return np.repeat(img[..., :1], 3, axis=2)
     return np.ascontiguousarray(img[..., :3])
+
+
+def _chunk(kind: bytes, payload: bytes) -> bytes:
+    crc = zlib.crc32(kind + payload) & 0xFFFFFFFF
+    return len(payload).to_bytes(4, "big") + kind + payload + crc.to_bytes(4, "big")
+
+
+def encode_png(rgb: np.ndarray) -> bytes:
+    """uint8 RGB [H, W, 3] -> an 8-bit RGB PNG (no filter, zlib level 6)."""
+    h, w, _ = rgb.shape
+    rows = np.concatenate([np.zeros((h, 1), np.uint8),
+                           np.ascontiguousarray(rgb, np.uint8).reshape(h, w * 3)], axis=1)
+    ihdr = w.to_bytes(4, "big") + h.to_bytes(4, "big") + bytes((8, 2, 0, 0, 0))
+    return (SIGNATURE + _chunk(b"IHDR", ihdr) + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+            + _chunk(b"IEND", b""))

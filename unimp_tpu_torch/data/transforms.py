@@ -4,15 +4,16 @@ Counterpart of ``unimp_tpu/data/transforms.py`` (the reference's
 RandomResize -> ToTensor -> Normalize(FLAMINGO mean/std)). The host
 decodes and resizes to uint8 through the port's own decoders, chosen by
 the file's first bytes (``decode_image``): ``data/jpeg.py`` (libjpeg's
-decode, bit for bit) and ``data/png.py`` (PIL's ``convert("RGB")`` of a
-PNG). ``load_resized_uint8`` resizes as the JAX package does for the same
+decode, bit for bit), and ``data/png.py``, ``data/gif.py`` (the first
+frame) and ``data/bmp.py`` (PIL's ``convert("RGB")`` of each).
+``load_resized_uint8`` resizes as the JAX package does for the same
 file: a JPEG of 1 or 3 components goes through its native pipe's resize
-(``jpeg.resize_bilinear``), a PNG or a 4-component JPEG (which the pipe
-declines) through PIL's bilinear resize (``resize_bilinear_pil``). Images
+(``jpeg.resize_bilinear``), any other image (which the pipe declines)
+through PIL's bilinear resize (``resize_bilinear_pil``). Images
 travel to the card as uint8, a byte per channel, and are normalized
 there. The serving worker's ``preprocess_image`` resizes every format as
 PIL's ``Image.resize(BILINEAR)`` does, as the JAX worker does through PIL.
-Other formats raise a ``ValueError`` that names them.
+Other formats (WebP, TIFF) raise a ``ValueError`` that names them.
 """
 
 from __future__ import annotations
@@ -20,41 +21,59 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from unimp_tpu_torch.data import jpeg, png
+from unimp_tpu_torch.data import bmp, gif, jpeg, png
 
 FLAMINGO_MEAN = (0.48145466, 0.4578275, 0.40821073)
 FLAMINGO_STD = (0.26862954, 0.26130258, 0.27577711)
 
 
 # formats the port does not decode: their first bytes -> name
-_UNREAD_FORMATS = ((b"GIF87a", "GIF"), (b"GIF89a", "GIF"), (b"BM", "BMP"),
-                   (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"))
+_UNREAD_FORMATS = ((b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"))
+# decoders that read a cut file as PIL with LOAD_TRUNCATED_IMAGES does, or
+# raise with ``strict`` (a cut PNG raises either way)
+_DECODERS = {"jpeg": jpeg.decode_jpeg, "gif": gif.decode_gif, "bmp": bmp.decode_bmp}
 
 
 def image_format(data: bytes) -> str:
-    """"jpeg" or "png" by the file's first bytes; raises ``ValueError``
-    naming any other format."""
+    """"jpeg", "png", "gif" or "bmp" by the file's first bytes; raises
+    ``ValueError`` naming any other format."""
     if data[:2] == b"\xff\xd8":
         return "jpeg"
     if data.startswith(png.SIGNATURE):
         return "png"
+    if data[:6] in gif.SIGNATURES:
+        return "gif"
+    if data[:2] == b"BM":
+        return "bmp"
     name = next((n for magic, n in _UNREAD_FORMATS if data.startswith(magic)), None)
     if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
         name = "WebP"
     if name is None:
-        raise ValueError("not an image the port reads (JPEG or PNG)")
+        raise ValueError("not an image the port reads (JPEG, PNG, GIF or BMP)")
     raise ValueError(f"{name} images are not read by the port (ROADMAP.md §3, fault 5)")
 
 
-def decode_image(data: bytes) -> np.ndarray:
-    """JPEG or PNG bytes -> uint8 RGB [H, W, 3] (PIL's ``convert("RGB")``)."""
-    if image_format(data) == "png":
-        return png.decode_png(data)
-    return jpeg.decode_jpeg(data)
+def decode_image(data: bytes, strict: bool = False) -> np.ndarray:
+    """JPEG, PNG, GIF or BMP bytes -> uint8 RGB [H, W, 3] (PIL's
+    ``convert("RGB")``); ``strict``: a file cut short raises."""
+    fmt = image_format(data)
+    return png.decode_png(data) if fmt == "png" else _DECODERS[fmt](data, strict=strict)
+
+
+def image_ok(path: str) -> bool:
+    """Whether the file is an image the port reads whole: a decoder error,
+    an unread format or a file cut short says no, as PIL's
+    ``Image.open(path).convert("RGB")`` says no in a fresh process."""
+    try:
+        with open(path, "rb") as f:
+            decode_image(f.read(), strict=True)
+        return True
+    except Exception:
+        return False
 
 
 def load_image_rgb(path: str) -> np.ndarray:
-    """Decode a JPEG or PNG file to uint8 RGB [H, W, 3]."""
+    """Decode a JPEG, PNG, GIF or BMP file to uint8 RGB [H, W, 3]."""
     with open(path, "rb") as f:
         return decode_image(f.read())
 
@@ -68,8 +87,8 @@ def preprocess_uint8(img: np.ndarray, size: int = 224) -> np.ndarray:
 
 def load_resized_uint8(path: str, size: int) -> np.ndarray:
     """Decode + resize to uint8 [size, size, 3], as the JAX package gives
-    it: a JPEG of 1 or 3 components as its native pipe does, a PNG or a
-    4-component JPEG as its PIL fallback does."""
+    it: a JPEG of 1 or 3 components as its native pipe does, any other
+    image as its PIL fallback does."""
     with open(path, "rb") as f:
         data = f.read()
     if image_format(data) == "jpeg" and jpeg.component_count(data) in (1, 3):

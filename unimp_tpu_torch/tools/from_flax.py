@@ -106,7 +106,9 @@ def load_flax_params(model: nn.Module, flat: Mapping) -> None:
             if tuple(val.shape) != tuple(p.shape):
                 raise ValueError(f"{name}: flax shape {tuple(val.shape)} != port "
                                  f"{tuple(p.shape)}")
-            p.copy_(val)
+            # a transposed host view (a converted kernel) crosses as it lies
+            # in memory and is transposed on the device
+            p.copy_(val.to(p.device))
     fuse_decode_kernels(model)
 
 
@@ -143,7 +145,10 @@ def build_model(cfg: UniMPConfig, *, device="cuda", seed: int = 0,
     """A UniMPModel on ``device`` with seeded weights (``init_params``), or
     with ``weights`` (a flat float tree, {"a/b/c": tensor or array}, e.g.
     ``train/checkpoint.py:restore_params``) loaded in their place before
-    anything is cast or quantized.
+    anything is cast or quantized. ``weights`` may also be a function of
+    the seeded model's flat tree that returns the tree to load (the
+    ``.pt`` converter, which keeps the seeded value of a tensor its file
+    does not map).
 
     Inference (default): ``.eval()``, parameters as ``eval_param_dtype``
     says, in the order ``unimp_tpu/cli/mmrec_eval.py`` applies them:
@@ -168,9 +173,11 @@ def build_model(cfg: UniMPConfig, *, device="cuda", seed: int = 0,
     device = resolve_device(device)
     with device:
         model = UniMPModel(cfg)
-    if weights is None:
+    if weights is None or callable(weights):
         init_params(model, torch.Generator(device).manual_seed(seed))
-    else:
+    if callable(weights):
+        weights = weights({n.replace(".", "/"): t.detach() for n, t in model.state_dict().items()})
+    if weights is not None:
         load_flax_params(model, weights)
     if train:
         freeze(model, trainable_mask(model), frozen_dtype)

@@ -15,8 +15,9 @@ serves the port's checkpoints and trees carried over from JAX;
 storage at a time, so a save never stages a whole host copy of the model;
 a restore maps the file (``torch.load(mmap=True)``) and hands back host
 tensors that ``tools/from_flax.py:load_flax_params`` copies onto the
-model. An Orbax directory of the JAX package raises: its converter is not
-ported yet (ROADMAP.md §1, item 8). ``merge_with_growth`` grafts a restored
+model. An Orbax directory of the JAX package raises (ROADMAP.md §1, item
+8b); its weights come over as a reference ``.pt`` (``tools/
+convert_torch.py``). ``merge_with_growth`` grafts a restored
 tree onto a model whose vocabulary grew since (the transfer entry).
 
 Over several ranks (``parallel/mesh.py``) a checkpoint holds whole
@@ -77,8 +78,16 @@ def is_writer() -> bool:
 
 
 def _write(path: str, obj) -> None:
+    """``torch.save`` without the zip records' CRC-32: ``torch.load``
+    never checks it (a flipped byte loads as it is), and computing it held
+    writes to about 0.55 GiB/s."""
     tmp = path + ".tmp"
-    torch.save(obj, tmp)
+    crc = torch.serialization.get_crc32_options()
+    torch.serialization.set_crc32_options(False)
+    try:
+        torch.save(obj, tmp)
+    finally:
+        torch.serialization.set_crc32_options(crc)
     os.replace(tmp, path)
 
 
@@ -90,8 +99,10 @@ def _checkpoint_dir(save_dir: str, name: str) -> str:
     path = os.path.join(os.path.abspath(save_dir), name)
     if not os.path.exists(os.path.join(path, PARAMS_FILE)) and any(
             os.path.exists(os.path.join(path, m)) for m in ORBAX_MARKERS):
-        raise NotImplementedError(f"{path} is an Orbax checkpoint of the JAX package: its "
-                                  "converter is not ported yet (ROADMAP.md §1, item 8)")
+        raise NotImplementedError(f"{path} is an Orbax checkpoint of the JAX package, which "
+                                  "the port does not read (ROADMAP.md §1, item 8b): write it as "
+                                  "a .pt with the JAX CLI's --save_hf_model and pass that to "
+                                  "--load_weights_name or --load_from_original_checkpoint")
     return path
 
 
