@@ -26,7 +26,11 @@ Phases (any failure exits non-zero):
      medium with a fully masked row, K6 at the 4-row decode and 256-row
      prefill shapes; phase 12's 3b-mpt training: K1 / K2 / K3 at 3 x 16
      heads, 256 x 256, d128, causal + ALiBi + kv_len and the x-attn over
-     384 latents, K6 at its 180-row test-pass decode, and
+     384 latents, K6 at its 180-row test-pass decode; phase 15's K1
+     1,000-row ImageNet forward and its x-attn, K4 / K5 at the 3-beam
+     captioning decode; phase 16's ``CausalLM``: K4 at 24 prompts of 128,
+     K6 at M = 24 on the fused QKV, o, MLP up, down and the 2560 x 50432
+     head; and
      ``QuantMatmulFn``'s backward (the int8 frozen backbone's dx) against
      the gradient through the dequantized weight), in bfloat16 and
      float32, with the tolerances below; times each kernel (CUDA events)
@@ -46,7 +50,9 @@ Phases (any failure exits non-zero):
      --remat_policy dots``) and with all three; then, card vs CPU again,
      the other tasks'
      decodes (exp 5 beams to 256, img_sel 2 beams over 9 images, img_gen
-     greedy to 600; token agreement);
+     greedy to 600; token agreement); the CPU sides run in a spawned
+     process of their own (``SmallCpuSides``, half the host's cores) from
+     the start of the run, and the card sides after phase 7;
   5. the ``4b-instruct`` 10-beam rec eval at full width (random seeded
      weights, gates opened): a 256-item catalogue encoded once by the item
      latent cache, two batches of 24 prompts (T=128, 4 images each), beam
@@ -77,11 +83,9 @@ Phases (any failure exits non-zero):
      ran, K4 ran 32 and K5 16 times a decode step, and neither PIL nor
      ``tokenizers`` was imported; prints vocab sizes, prompt T, data /
      catalogue / batch seconds, items/s, peak memory, launches, a
-     profile of the second batch's generate, that generate again with the
-     garbage collector's seconds (``[gc]``, as after phase 5's profile),
-     and a control: phase 5's kind of prompts through the CLI's model;
+     profile of the second batch's generate;
   9. rec training from the same files through the port's own CLI:
-     ``unimp_tpu_torch.cli.mmrec.main`` at 4b-instruct width and depth
+     ``unimp_tpu_torch.cli.mmrec.main`` at 4b-instruct width, 16 of its 32 LM layers
      with the reference's training shape (micro-batch 3 x accum 2 fused,
      gamma 2 with reweight, bf16 frozen backbone, the vision-tower cache
      of all 4,167 items), one epoch of 24 train users (4 updates), the
@@ -93,7 +97,7 @@ Phases (any failure exits non-zero):
      back and held to the trained tensors bit for bit, and
      ``mmrec_eval --load_weights_name final_weights`` in bf16 (tokens
      agree >= 0.9 with the training run's test pass) and with int8
-     weights and int8 KV (K6 193 times a decode step and once a batch);
+     weights and int8 KV (K6 97 times a decode step at 16 layers and once a batch);
      fails unless K1 / K2 / K3 ran perceiver + x-attn + LM layers times
      each micro-batch and no ViT layer in a step, the cache ran the ViT
      once a chunk, every loss is finite and no step skipped; with
@@ -106,7 +110,7 @@ Phases (any failure exits non-zero):
      seconds and bytes, peak device memory, the host's peak RSS and both
      reload evals' items/s; deletes its run directory;
  10. the other tasks, multi-task training and the transfer entry through
-     the port's own CLIs at 4b-instruct width and depth, on phase 8's
+     the port's own CLIs at 4b-instruct width, 16 of its 32 LM layers, on phase 8's
      files with the train split cut to 24 users (``phase_tasks``): (a)
      ``mmrec.main`` on the default four-task list (6 records a task),
      micro-batch 3 x accum 2 fused, bf16 frozen, the pixel path, then the
@@ -166,8 +170,9 @@ Phases (any failure exits non-zero):
      ``checkpoint_0``); (b) two ranks
      sharing the card over gloo (dp 2) at 3 x 2, the same global batches;
      (c) (b)'s ``checkpoint_0`` resumed in one rank; fsdp 2 and tp 2 for
-     one update each when gloo takes their collectives on CUDA tensors.
-     Fails unless every update launched K1 / K2 / K3 as counted and the
+     one update each when gloo takes their collectives on CUDA tensors;
+     (a) and (b) at once, (c) launched when (a) ends and fsdp 2 / tp 2
+     when (b) ends, each waiting for the run before it to pass. Fails unless every update launched K1 / K2 / K3 as counted and the
      test passes K4 / K5 / K6 at every decode step, (b)'s replicas agree
      after every update, (b)'s and fsdp 2's losses are within 1e-4 of
      (a)'s (tp 2's within 1e-3) and their grad norms within one bfloat16
@@ -192,7 +197,29 @@ Phases (any failure exits non-zero):
      max |f|, (e)'s card vs CPU image is within 1e-4 (float32, TF32 off),
      and the evals give 24 users' finite metrics with K4 / K5 at every
      decode step; prints export / convert GiB/s, (b)'s update ms and peak,
-     items/s, ms an image.
+     items/s, ms an image;
+ 15. the few-shot harness (``phase_harness``): ``cli/evaluate.main`` on a
+     seeded 4b-instruct checkpoint (``save_params``) with COCO, VQA,
+     OK-VQA and 1,000-class ImageNet manifests of 8 records over the
+     committed image fixtures (WebP, TIFF, arithmetic and lossless JPEG;
+     each first decoded equal to its PIL array) and phase 8's JPEGs,
+     ``--shots 0 4``, bf16; fails unless every metric is in range and K1 /
+     K4 / K5 ran as the spies' counts of encodes, generates, decode steps
+     and class forwards give, then the same harness on ``small`` in float32
+     gives the card's and the CPU's tokens, classes and results alike;
+     prints items/s a benchmark, the busy share and the peak memory;
+ 16. ``CausalLM`` at RedPajama-3B width (``phase_causal_lm``): 24 prompts
+     of 128 tokens, 32 greedy new, bf16 then int8 weights with int8 KV;
+     fails unless K1 ran once a layer, K4 (int8) once a layer a step and
+     K6 4 times a layer a step plus the head, and ``small``'s LM gives the
+     same tokens on the card and the CPU, logits within 1e-4; prints
+     tokens/s and the peak memory.
+Phases 9 and 10 run 4b-instruct at 16 of its 32 LM layers (``lm_layers``).
+Every path is host-bound, so some phases run in spawned processes of their
+own (``PhaseProcess``) beside the main line, which waits for each before
+it needs the card's memory back: phase 4's CPU sides from the start of the
+run, phases 15-16 beside phases 9-10, phase 14 beside phase 11; each
+counts its own launches.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -203,6 +230,7 @@ import contextlib
 import copy
 import dataclasses
 import gc
+import itertools
 import json
 import math
 import os
@@ -446,6 +474,14 @@ def flash_cases(dev):
     qm, km = media_index(dev, 3, 256, 6, 64, 4, 31)
     cases.append(("mpt_xattn_train_3x256x384_d128_immediate", True,
                   *qkv(3, 256, 384, 16, 16, 128),
+                  dict(q_media=qm, kv_media=km, media_mode="immediate")))
+    # phase 15's ImageNet forward: 1,000 class prompts of 8 tokens (one
+    # image each) through the LM's causal self-attention and the x-attn over
+    # the image's 64 latents, "immediate"
+    cases.append(("cls_1000x8_d80_causal", True, *qkv(1000, 8, 8, 32, 32, 80),
+                  dict(causal=True)))
+    qm, km = media_index(dev, 1000, 8, 1, 64, 0, 8)
+    cases.append(("cls_xattn_1000x8x64_d80_immediate", True, *qkv(1000, 8, 64, 32, 32, 80),
                   dict(q_media=qm, kv_media=km, media_mode="immediate")))
     # extras
     cases.append(("mpt_256_d128_alibi_causal", False, *qkv(2, 256, 256, 16, 16, 128),
@@ -730,6 +766,11 @@ K4_SPECS = [
     # window is empty (kv_start = T)
     ("serve_b4_k1_t64_g32_d80_two_empty", True, (4, 1, 64, 32, 32, 32, 80), dict(empty=2),
      True),
+    # phase 15's captioning decode: one prompt of 4 shots (about 64 tokens),
+    # 3 beams, 24 new tokens; phase 16's CausalLM: 24 prompts of 128, greedy
+    # to 32
+    ("harness_b1_k3_t64_g24_d80", True, (1, 3, 64, 24, 32, 32, 80), dict(share=4), False),
+    ("lm_b24_k1_t128_g32_d80", True, (24, 1, 128, 32, 32, 32, 80), {}, True),
 ]
 # (name, main path, (b, kb, s, h, hkv, d), mask, int8 too): the 4b x-attn
 # decode read (4 media x 64 latents, "immediate": one 64-latent tile in four
@@ -750,6 +791,8 @@ K5_SPECS = [
     # without an image (nothing allowed)
     ("serve_b4_k1_s64_d80_masked_row", True, (4, 1, 64, 32, 32, 80), "immediate_masked_row",
      True),
+    # phase 15's captioning read: 5 images (4 shots and the query), 3 beams
+    ("harness_b1_k3_s320_d80", True, (1, 3, 320, 32, 32, 80), "immediate", False),
 ]
 
 
@@ -888,7 +931,9 @@ def phase_decode_kernels(dev, dtype, results, timings):
 def k6_cases():
     """(name, main_path, m, k, n, ldq): every 4b decode shape (M = 240 beam
     rows), the prefill head (M = 24), the serving wave's decode shapes (M =
-    4 slots) and prefill shapes (M = 4 x 64 = 256 rows), odd shapes, and the edges of the
+    4 slots) and prefill shapes (M = 4 x 64 = 256 rows), phase 16's
+    ``CausalLM`` decode (M = 24 prompts: the layer shapes and its 2560 x
+    50432 head), odd shapes, and the edges of the
     bf16 tiling: a full 256-row block, two blocks (300), ``quant_dot``'s
     largest (512), a split-K shape whose K is neither a multiple of its
     split count nor of 64, the same unaligned (N % 16 != 0: the masked
@@ -903,7 +948,10 @@ def k6_cases():
               for name, (k, n) in K6_SERVE_PREFILL.items()]
     cases += [(f"mpt_decode_m180_{name}", True, 180, k, n, None)
               for name, (k, n) in K6_MPT_DECODE.items()]
-    cases += [("4b_prefill_head_m24_2560x54656", True, 24, 2560, 54656, None),
+    cases += [(f"lm_decode_m24_{name}", True, 24, k, n, None)
+              for name, ((k, n), _) in K6_DECODE.items() if not name.startswith("head")]
+    cases += [("lm_head_m24_2560x50432", True, 24, 2560, 50432, None),
+              ("4b_prefill_head_m24_2560x54656", True, 24, 2560, 54656, None),
               ("greedy_m1_2560x7680", False, 1, 2560, 7680, None),
               ("odd_m37_100x70", False, 37, 100, 70, None),
               ("odd_m1_72x130", False, 1, 72, 130, None),
@@ -1055,46 +1103,50 @@ def prompts(rng, b, t, n_media, n_items, min_len, media_id=MEDIA_ID, item_base=I
     return ids, seq_len, image_ids, rng.integers(0, n_items, size=b)
 
 
-def phase_small(dev, int8: bool = False):
-    """small variant, f32, gates open: the same beam eval on the card
-    (kernels) and on the CPU (plain versions); ``int8``: weight-only int8
-    (every kernel of at least 65,536 elements, f32 compute) and int8 KV
-    caches."""
+def small_eval_side(device, int8: bool = False) -> tuple:
+    """One side of ``phase_small`` (card: kernels; CPU: plain versions):
+    small variant, f32, gates open, the beam eval's tokens over both
+    batches and the first batch's prefill logits; ``int8``: weight-only
+    int8 (every kernel of at least 65,536 elements, f32 compute) and int8
+    KV caches."""
     cfg = get_config("small", dtype="float32")
-    models = []
-    for _ in range(2):
-        model = build_model(cfg, device="cpu", seed=1)
-        open_gates(model)
-        if int8:
-            quantize_params_int8(model, dtype=torch.float32)
-        models.append(model)
-    cpu_model, card_model = models[0], models[1].to(dev)
+    model = build_model(cfg, device="cpu", seed=1)
+    open_gates(model)
+    if int8:
+        quantize_params_int8(model, dtype=torch.float32)
+    model = model.to(device)
     rng = np.random.default_rng(1)
     img = cfg.vision.image_size
     images = rng.integers(0, 256, size=(16, img, img, 3), dtype=np.uint8)
     gen_cfg = GenerationConfig(max_new_tokens=20, eos_id=EOS_ID, pad_id=EOS_ID,
                                num_beams=10, num_return_sequences=10, kv_int8=int8)
-    toks, prefill = {}, {}
-    for label, model, device in (("card", card_model, dev), ("cpu", cpu_model, torch.device("cpu"))):
-        cache = ItemLatentCache(model, lambda i: images[i], 16, chunk=8, device=device)
-        gen = Generator(model, gen_cfg, media_id=SMALL_MEDIA_ID)
-        rng = np.random.default_rng(2)
-        outs = []
-        for batch in range(2):
-            ids, seq_len, image_ids, _ = prompts(rng, 2, 64, 4, 16, 48, SMALL_MEDIA_ID,
-                                                 SMALL_MEDIA_ID + 1)
-            t_ids = torch.from_numpy(ids).to(device)
-            lat = cache.gather(image_ids)
-            tok, _ = gen.generate(t_ids, torch.from_numpy(seq_len).to(device), lat)
-            outs.append(tok.cpu())
-            if batch == 0:
-                with torch.no_grad():
-                    logits, _ = model(t_ids, latents=lat,
-                                      q_media=compute_q_media(t_ids, SMALL_MEDIA_ID))
-                prefill[label] = logits.cpu()
-        toks[label] = torch.cat(outs)
-    agree = float((toks["card"] == toks["cpu"]).float().mean())
-    diff = float((prefill["card"] - prefill["cpu"]).abs().max())
+    cache = ItemLatentCache(model, lambda i: images[i], 16, chunk=8, device=device)
+    gen = Generator(model, gen_cfg, media_id=SMALL_MEDIA_ID)
+    rng = np.random.default_rng(2)
+    outs, prefill = [], None
+    for batch in range(2):
+        ids, seq_len, image_ids, _ = prompts(rng, 2, 64, 4, 16, 48, SMALL_MEDIA_ID,
+                                             SMALL_MEDIA_ID + 1)
+        t_ids = torch.from_numpy(ids).to(device)
+        lat = cache.gather(image_ids)
+        tok, _ = gen.generate(t_ids, torch.from_numpy(seq_len).to(device), lat)
+        outs.append(tok.cpu())
+        if batch == 0:
+            with torch.no_grad():
+                logits, _ = model(t_ids, latents=lat,
+                                  q_media=compute_q_media(t_ids, SMALL_MEDIA_ID))
+            prefill = logits.cpu()
+    return torch.cat(outs), prefill
+
+
+def phase_small(dev, cpu_side, int8: bool = False):
+    """small variant, f32, gates open: the beam eval on the card (kernels)
+    against ``cpu_side``, the same eval on the CPU (plain versions; from
+    ``SmallCpuSides``)."""
+    toks, prefill = small_eval_side(dev, int8)
+    cpu_toks, cpu_prefill = cpu_side
+    agree = float((toks == cpu_toks).float().mean())
+    diff = float((prefill - cpu_prefill).abs().max())
     tag = "[small-int8]" if int8 else "[small]"
     log(f"{tag} card vs cpu: token agreement={agree:.4f} "
         f"prefill max_abs_logit_diff={diff:.3e} (limits: agreement >= 0.9, diff <= 2e-3)")
@@ -1152,38 +1204,40 @@ def phase_small_bf16(dev):
 SMALL_TASKS = {"exp": (5, 256, 4), "img_sel": (2, 40, 9), "img_gen": (1, 600, 4)}
 
 
-def phase_small_tasks(dev):
-    """small variant, f32, gates open: the other tasks' decodes, one returned
-    sequence each, on the card (kernels) and on the CPU (plain versions),
-    one batch of 2 prompts each; token agreement as for the rec eval."""
+def small_tasks_side(device) -> dict:
+    """One side of ``phase_small_tasks``: small variant, f32, gates open,
+    each other task's decode tokens (one returned sequence, one batch of 2
+    prompts)."""
     cfg = get_config("small", dtype="float32")
-    cpu_model = build_model(cfg, device="cpu", seed=1)
-    open_gates(cpu_model)
-    card_model = build_model(cfg, device="cpu", seed=1)
-    open_gates(card_model)
-    card_model = card_model.to(dev)
+    model = build_model(cfg, device="cpu", seed=1)
+    open_gates(model)
+    model = model.to(device)
     rng = np.random.default_rng(3)
     img = cfg.vision.image_size
     images = rng.integers(0, 256, size=(16, img, img, 3), dtype=np.uint8)
-    caches = {label: ItemLatentCache(model, lambda i: images[i], 16, chunk=8, device=device)
-              for label, model, device in (("card", card_model, dev),
-                                           ("cpu", cpu_model, torch.device("cpu")))}
+    cache = ItemLatentCache(model, lambda i: images[i], 16, chunk=8, device=device)
+    toks = {}
     for task, (beams, new, n_media) in SMALL_TASKS.items():
         ids, seq_len, image_ids, _ = prompts(rng, 2, 96, n_media, 16, 80, SMALL_MEDIA_ID,
                                              SMALL_MEDIA_ID + 1)
         gen_cfg = GenerationConfig(max_new_tokens=new, eos_id=EOS_ID, pad_id=EOS_ID,
                                    num_beams=beams, num_return_sequences=1)
-        toks = {}
-        for label, model, device in (("card", card_model, dev),
-                                     ("cpu", cpu_model, torch.device("cpu"))):
-            gen = Generator(model, gen_cfg, media_id=SMALL_MEDIA_ID)
-            tok, _ = gen.generate(torch.from_numpy(ids).to(device),
-                                  torch.from_numpy(seq_len).to(device),
-                                  caches[label].gather(image_ids))
-            toks[label] = tok.cpu()
-        agree = float((toks["card"] == toks["cpu"]).float().mean())
+        gen = Generator(model, gen_cfg, media_id=SMALL_MEDIA_ID)
+        tok, _ = gen.generate(torch.from_numpy(ids).to(device),
+                              torch.from_numpy(seq_len).to(device), cache.gather(image_ids))
+        toks[task] = tok.cpu()
+    return toks
+
+
+def phase_small_tasks(dev, cpu_side):
+    """small variant, f32, gates open: the other tasks' decodes on the card
+    (kernels) against ``cpu_side``, the same decodes on the CPU (plain
+    versions); token agreement as for the rec eval."""
+    toks = small_tasks_side(dev)
+    for task, (beams, new, n_media) in SMALL_TASKS.items():
+        agree = float((toks[task] == cpu_side[task]).float().mean())
         log(f"[small-{task}] card vs cpu, {beams} beam(s), {new} new tokens, {n_media} images: "
-            f"token agreement={agree:.4f} over {tuple(toks['card'].shape)} (limit >= 0.9)")
+            f"token agreement={agree:.4f} over {tuple(toks[task].shape)} (limit >= 0.9)")
         if agree < 0.9:
             raise AssertionError(f"[small-{task}] the card's decode disagrees with the CPU's")
 
@@ -1267,21 +1321,21 @@ def phase_4b(dev, gpu_line, int8: bool = False, timings=()):
                             cache.gather(image_ids))
 
     profile_run(f"{tag} batch", run, batch_s[1])
-    if not int8:
-        gc_report(f"{tag} batch 2 again", run)
     return launches
 
 
 def check_int8_launches(cfg, launches, n_batches, tag="[4b-int8]") -> None:
     """On the int8 path: the decode steps that ran, read from K4's int8
     launches (one per LM layer a step); then K5 int8 once per x-attn layer
-    a step, K6 193 times a step plus the prefill head once a batch, and
-    none of the float decode kernels."""
+    a step, K6 four times an LM block and an x-attn block a step and once
+    for the head (193 at 4b-instruct's depth), plus the prefill head once a
+    batch, and none of the float decode kernels."""
     lm = cfg.lm
     steps, rest = divmod(launches["decode_attn_int8"], lm.num_layers)
     n_xattn = -(-lm.num_layers // cfg.cross_attn_every_n)
+    per_step = 4 * lm.num_layers + 4 * n_xattn + 1
     want = {"decode_attn_int8": steps * lm.num_layers, "single_query_attn_int8": steps * n_xattn,
-            "quant_matmul": steps * K6_PER_STEP + n_batches,
+            "quant_matmul": steps * per_step + n_batches,
             "decode_attn": 0, "single_query_attn": 0}
     log(f"{tag} {steps} decode steps over {n_batches} batches; expected launches "
         f"{json.dumps(want)}")
@@ -1307,27 +1361,32 @@ def train_batch(rng, b, t, n_media, n_items, img, min_len, media_id=MEDIA_ID,
             "images": rng.integers(0, 256, size=(b, n_media, img, img, 3), dtype=np.uint8)}
 
 
-def phase_small_train(dev):
-    """small variant, f32, gates open: one Trainer step (accum 2) on the
-    card and on the CPU from the same weights and batch."""
+def small_train_side(device) -> tuple:
+    """One side of ``phase_small_train``: small variant, f32, gates open,
+    one Trainer step (accum 2): (loss, every trainable gradient, the
+    step's loss, skipped)."""
     cfg = get_config("small", dtype="float32")
     batch = train_batch(np.random.default_rng(3), 4, 64, 2, 16, cfg.vision.image_size, 48,
                         SMALL_MEDIA_ID, SMALL_MEDIA_ID + 1, SMALL_ANSWER_ID, SMALL_EOC_ID)
-    got = {}
-    for label, device in (("card", dev), ("cpu", torch.device("cpu"))):
-        model = build_model(cfg, device="cpu", seed=1, train=True).to(device)
-        open_gates(model)
-        params = trainable_params(model)
-        trainer = Trainer(model, make_optimizer(params), media_id=SMALL_MEDIA_ID,
-                          answer_id=SMALL_ANSWER_ID, endofchunk_id=SMALL_EOC_ID,
-                          pad_id=EOS_ID, gamma=2.0, use_reweight=True, accum_steps=2,
-                          device=device)
-        loss, _ = trainer.compute_grads(batch)
-        grads = {n: p.grad.detach().cpu().clone() for n, p in params.items()}
-        metrics = trainer.train_step(batch)
-        got[label] = (float(loss), grads, float(metrics["loss"]),
-                      int(metrics["skipped_nonfinite"]))
-    (l_card, g_card, s_card, k_card), (l_cpu, g_cpu, s_cpu, k_cpu) = got["card"], got["cpu"]
+    model = build_model(cfg, device="cpu", seed=1, train=True).to(device)
+    open_gates(model)
+    params = trainable_params(model)
+    trainer = Trainer(model, make_optimizer(params), media_id=SMALL_MEDIA_ID,
+                      answer_id=SMALL_ANSWER_ID, endofchunk_id=SMALL_EOC_ID,
+                      pad_id=EOS_ID, gamma=2.0, use_reweight=True, accum_steps=2,
+                      device=device)
+    loss, _ = trainer.compute_grads(batch)
+    grads = {n: p.grad.detach().cpu().clone() for n, p in params.items()}
+    metrics = trainer.train_step(batch)
+    return (float(loss), grads, float(metrics["loss"]), int(metrics["skipped_nonfinite"]))
+
+
+def phase_small_train(dev, cpu_side):
+    """small variant, f32, gates open: one Trainer step (accum 2) on the
+    card against ``cpu_side``, the same step on the CPU from the same
+    weights and batch."""
+    (l_card, g_card, s_card, k_card), (l_cpu, g_cpu, s_cpu, k_cpu) = (small_train_side(dev),
+                                                                      cpu_side)
     loss_rel = max(abs(l_card - l_cpu), abs(s_card - s_cpu)) / abs(l_cpu)
     worst, worst_name = 0.0, None
     for name, g in g_cpu.items():
@@ -1347,38 +1406,45 @@ SMALL_FLAGS = {"frozen_int8": dict(frozen="int8"), "bf16_opt_state": dict(bf16=T
 BF16_STEP = 2.0 ** -7  # one step of bfloat16's 8-bit significand, at most
 
 
-def phase_small_train_flags(dev):
+def small_flag_side(label, device) -> tuple:
+    """One side of ``phase_small_train_flags`` for one ``SMALL_FLAGS``
+    entry: (loss, every gradient as float32, the step's loss, skipped,
+    int8 kernels)."""
+    kw = SMALL_FLAGS[label]
+    cfg = get_config("small", dtype="float32")
+    batch = train_batch(np.random.default_rng(3), 2, 64, 2, 16, cfg.vision.image_size, 48,
+                        SMALL_MEDIA_ID, SMALL_MEDIA_ID + 1, SMALL_ANSWER_ID, SMALL_EOC_ID)
+    if "remat" in kw:
+        cfg = cfg.replace(remat=True, remat_policy=kw["remat"])
+    bf16 = torch.bfloat16 if kw.get("bf16") else None
+    model = build_model(cfg, device="cpu", seed=1, train=True,
+                        frozen_dtype=kw.get("frozen")).to(device)
+    open_gates(model)
+    params = trainable_params(model)
+    trainer = Trainer(model, make_optimizer(params, moment_dtype=bf16),
+                      media_id=SMALL_MEDIA_ID, answer_id=SMALL_ANSWER_ID,
+                      endofchunk_id=SMALL_EOC_ID, pad_id=EOS_ID, gamma=2.0,
+                      use_reweight=True, device=device, grad_dtype=bf16)
+    loss, _ = trainer.compute_grads(batch)
+    grads = {n: g.detach().float().cpu() for n, g in trainer.optimizer.named_grads().items()}
+    metrics = trainer.train_step(batch)
+    return (float(loss), grads, float(metrics["loss"]), int(metrics["skipped_nonfinite"]),
+            count_quantized(model))
+
+
+def phase_small_train_flags(dev, cpu_sides):
     """small variant, f32, gates open: one Trainer step with each headline
     training flag alone (``--frozen_int8``, ``--bf16_opt_state``, ``--remat
-    --remat_policy dots``), then all three, on the card and on the CPU from
-    the same weights and batch. Limits of ``phase_small_train``: the loss
-    1e-5 relative, each gradient 5e-4 of its largest entry; a bfloat16
-    gradient also one bfloat16 step of the entry (the two sides' float32
-    gradients may straddle a rounding boundary)."""
-    cfg0 = get_config("small", dtype="float32")
-    batch = train_batch(np.random.default_rng(3), 2, 64, 2, 16, cfg0.vision.image_size, 48,
-                        SMALL_MEDIA_ID, SMALL_MEDIA_ID + 1, SMALL_ANSWER_ID, SMALL_EOC_ID)
+    --remat_policy dots``), then all three, on the card against
+    ``cpu_sides`` (the same steps on the CPU from the same weights and
+    batch). Limits of ``phase_small_train``: the loss 1e-5 relative, each
+    gradient 5e-4 of its largest entry; a bfloat16 gradient also one
+    bfloat16 step of the entry (the two sides' float32 gradients may
+    straddle a rounding boundary)."""
     for label, kw in SMALL_FLAGS.items():
-        cfg = cfg0.replace(remat=True, remat_policy=kw["remat"]) if "remat" in kw else cfg0
-        bf16 = torch.bfloat16 if kw.get("bf16") else None
-        got = {}
-        for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
-            model = build_model(cfg, device="cpu", seed=1, train=True,
-                                frozen_dtype=kw.get("frozen")).to(device)
-            open_gates(model)
-            params = trainable_params(model)
-            trainer = Trainer(model, make_optimizer(params, moment_dtype=bf16),
-                              media_id=SMALL_MEDIA_ID, answer_id=SMALL_ANSWER_ID,
-                              endofchunk_id=SMALL_EOC_ID, pad_id=EOS_ID, gamma=2.0,
-                              use_reweight=True, device=device, grad_dtype=bf16)
-            loss, _ = trainer.compute_grads(batch)
-            grads = {n: g.detach().float().cpu() for n, g in
-                     trainer.optimizer.named_grads().items()}
-            metrics = trainer.train_step(batch)
-            got[where] = (float(loss), grads, float(metrics["loss"]),
-                          int(metrics["skipped_nonfinite"]), count_quantized(model))
+        bf16 = kw.get("bf16")
         (l_card, g_card, s_card, k_card, q_card), (l_cpu, g_cpu, s_cpu, k_cpu, q_cpu) = (
-            got["card"], got["cpu"])
+            small_flag_side(label, dev), cpu_sides[label])
         loss_rel = max(abs(l_card - l_cpu), abs(s_card - s_cpu)) / abs(l_cpu)
         worst, worst_name = 0.0, None
         for name, g in g_cpu.items():
@@ -1394,6 +1460,82 @@ def phase_small_train_flags(dev):
                 and q_card == q_cpu and (q_card > 0) == ("frozen" in kw)):
             raise AssertionError(f"small-variant {label} training step on the card disagrees "
                                  "with the CPU")
+
+
+def small_cpu_sides() -> dict:
+    """The CPU side of every card-vs-CPU check of phase 4 (run apart, in a
+    ``PhaseProcess``), tensors as numpy arrays."""
+    cpu = torch.device("cpu")
+    sides = {"eval": small_eval_side(cpu), "eval_int8": small_eval_side(cpu, int8=True),
+             "train": small_train_side(cpu),
+             "flags": {label: small_flag_side(label, cpu) for label in SMALL_FLAGS},
+             "tasks": small_tasks_side(cpu)}
+    return _tree_map(lambda t: t.numpy() if isinstance(t, torch.Tensor) else t, sides)
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def _phase_process_main(conn, fn, args, threads: int) -> None:
+    import traceback
+
+    torch.set_num_threads(threads)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        msg = {"ok": fn(*args)}
+    except BaseException:
+        msg = {"error": traceback.format_exc()}
+    conn.send(msg)
+    conn.close()
+
+
+class PhaseProcess:
+    """``fn(*args)`` in a spawned process of its own with ``threads``
+    intra-op threads, started now, so that it runs beside the phases that
+    follow (the card and the host are mostly idle in each: the paths are
+    host-bound); ``get`` waits for its result and raises its failure;
+    ``close`` stops the process (on any exit of the run)."""
+
+    def __init__(self, tag: str, fn, *args, threads: int):
+        import multiprocessing
+
+        ctx = multiprocessing.get_context("spawn")
+        self._conn, child = ctx.Pipe(duplex=False)
+        self.proc = ctx.Process(target=_phase_process_main, args=(child, fn, args, threads))
+        self.tag, self.threads, self.t0 = tag, threads, time.perf_counter()
+        self.proc.start()
+        child.close()
+        self._result, self._done = None, False
+
+    def get(self):
+        if not self._done:
+            t0 = time.perf_counter()
+            try:
+                msg = self._conn.recv()
+            except EOFError:
+                self.proc.join()
+                raise AssertionError(f"{self.tag} its process exited {self.proc.exitcode} "
+                                     f"before sending its result")
+            if "error" in msg:
+                raise AssertionError(f"{self.tag} failed in its process:\n{msg['error']}")
+            self._result, self._done = msg["ok"], True
+            log(f"{self.tag} done {time.perf_counter() - self.t0:.1f} s after its start, in a "
+                f"process of its own ({self.threads} threads); waited "
+                f"{time.perf_counter() - t0:.1f} s for it")
+            self.close()
+        return self._result
+
+    def close(self) -> None:
+        self._conn.close()
+        if self.proc.is_alive():
+            self.proc.terminate()
+        self.proc.join()
 
 
 def phase_4b_train(dev, gpu_line):
@@ -1529,11 +1671,9 @@ def phase_cli(dev, gpu_line, data, run_dir, write_s):
     def batches(*args, **kw):
         for answers, batch, ips in orig_batches(*args, **kw):
             seen["batches"].append((batch["input_ids"].shape, ips))
-            seen["image_ids"] = batch["image_ids"]
             yield answers, batch, ips
 
     def ensure(self, ids):
-        seen["cache"] = self
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         orig_ensure(self, ids)
@@ -1628,22 +1768,36 @@ def phase_cli(dev, gpu_line, data, run_dir, write_s):
         f"PIL / tokenizers not imported")
     gen, args = seen["last"]
     profile_run("[cli] batch 2 generate", lambda: gen.generate(*args), seen["generate_s"][-1])
-    gc_report("[cli] batch 2 generate again", lambda: gen.generate(*args))
-    # control: phase 5's kind of prompts (random text, 100-128 tokens) through
-    # the CLI's model and generator, on the second batch's (cached) items
-    tok = seen["tokenizer"]
-    ids, seq_len, _, _ = prompts(np.random.default_rng(0), CLI_BATCH, 128, 4, N_ITEM_TOKENS,
-                                 100, tok.media_token_id, tok.convert_tokens_to_ids("item_0"))
-    latents = seen["cache"].gather(seen["image_ids"])
-    gc_report("[cli] phase 5's prompts, the CLI's model",
-              lambda: gen.generate(torch.from_numpy(ids).to(dev), torch.from_numpy(seq_len).to(dev),
-                                   latents))
     return launches
 
 
 # ------------------------------------------------------------ phase 9
 
 TRAIN_CLI_RECORDS = 24  # train users (4 updates of 3 x 2) and test users (one batch)
+# phases 9 and 10 run 4b-instruct at full width and 16 of its 32 LM layers
+# (8 of its 16 x-attn blocks; all 32 until phases 15-16 took their time)
+LM_LAYERS_9_10 = 16
+
+
+@contextlib.contextmanager
+def lm_layers(n: int):
+    """The CLIs' variant lookup (``cli/common.py``) gives 4b-instruct with
+    its first ``n`` LM layers: depth cut, width kept."""
+    from unimp_tpu_torch.cli import common
+
+    orig = common.get_config
+
+    def cut(name, **kw):
+        cfg = orig(name, **kw)
+        if name == "4b-instruct":
+            cfg = cfg.replace(lm=dataclasses.replace(cfg.lm, num_layers=n))
+        return cfg
+
+    common.get_config = cut
+    try:
+        yield
+    finally:
+        common.get_config = orig
 # phase 9's checkpoints that nothing reads again: not written, to keep the
 # script within its time (phases 12 and 13 write checkpoint_0;
 # weights_epoch_0 is final_weights' writer under another name)
@@ -1684,12 +1838,27 @@ def unread_checkpoints(names):
 
 
 @contextlib.contextmanager
-def item_decode_memo():
+def item_decode_memo(data, size: int = 224):
     """The datasets' item decode memoized in ``ITEM_IMAGES`` (the same file
     and size give the same image), so phases 9-14 decode the catalogue of
-    phase 8's files once."""
-    from unimp_tpu_torch.data import dataset as dataset_mod
+    phase 8's files once; the memo is filled first, by one process a host
+    core (phase 9's vision cache then reads decoded items)."""
+    import multiprocessing
 
+    from unimp_tpu_torch.data import dataset as dataset_mod
+    from unimp_tpu_torch.data.transforms import load_resized_uint8
+
+    keys = [(os.path.join(str(data), "beauty", f"{i}.jpg"), size)
+            for i in range(N_ITEM_TOKENS)]
+    todo = [k for k in keys if k not in ITEM_IMAGES]
+    if todo:
+        t0 = time.perf_counter()
+        workers = min(8, os.cpu_count() or 1)
+        with multiprocessing.get_context("spawn").Pool(workers) as pool:
+            for key, img in zip(todo, pool.starmap(load_resized_uint8, todo, chunksize=32)):
+                ITEM_IMAGES[key] = img
+        log(f"[memo] {len(todo)} item images decoded and resized to {size} px in "
+            f"{time.perf_counter() - t0:.2f} s on {workers} host processes")
     orig = dataset_mod.load_resized_uint8
 
     def image(path, size):
@@ -1778,7 +1947,7 @@ def between(before: dict) -> dict:
 
 def phase_train_cli(dev, gpu_line, data, run_dir):
     """Rec training from files through the port's own CLI, at 4b-instruct
-    width and depth: ``unimp_tpu_torch.cli.mmrec.main`` on
+    width, 16 of its 32 LM layers: ``unimp_tpu_torch.cli.mmrec.main`` on
     ``write_cli_data``'s files with the reference's training shape (micro-
     batch 3 x accum 2 fused, focal loss gamma 2 with reweight, bf16 frozen
     backbone, the vision-tower cache), one epoch over 24 train users (4
@@ -2016,10 +2185,12 @@ def phase_train_cli(dev, gpu_line, data, run_dir):
     # --- report
     writes = seen["writes"]
     log(f"[train-cli] 4b-instruct, vocab {lm.vocab_size}, {n_trainable / 1e9:.3f} B "
-        f"trainable (f32), frozen bf16; main {train_main_s:.1f} s (build, cache, 4 steps, "
+        f"trainable (f32), frozen bf16; main {train_main_s:.1f} s (build, cache, "
+        f"{TRAIN_CLI_RECORDS // 6} steps, "
         f"the test pass, checkpoints) on {gpu_line}")
-    log(f"[train-cli] vision cache: {cache_shape[0]} items in {cache_s:.2f} s (host JPEG "
-        f"decode + resize, ViT), {cache_bytes / 2**30:.3f} GiB {list(cache_shape)} on {gpu_line}")
+    log(f"[train-cli] vision cache: {cache_shape[0]} items in {cache_s:.2f} s (the ViT; the "
+        f"items read from the memo), {cache_bytes / 2**30:.3f} GiB {list(cache_shape)} on "
+        f"{gpu_line}")
     step_ms = [round(s[0] * 1e3, 1) for s in seen["steps"]]
     timer_sps = [r["samples_per_second"] for r in jsonl if "samples_per_second" in r]
     log(f"[train-cli] step ms {step_ms} (host clock, synchronized); StepTimer "
@@ -2214,7 +2385,7 @@ def check_epoch(tag, epoch, cfg, tower_trained: bool, gpu_line) -> None:
 
 def phase_tasks(dev, gpu_line, data, run_dir):
     """The other tasks, multi-task training and the transfer entry through the
-    port's own CLIs at 4b-instruct width and depth, bf16 compute, on
+    port's own CLIs at 4b-instruct width, 16 of its 32 LM layers, bf16 compute, on
     ``write_cli_data``'s files with the train split cut to 24 users:
     (a) ``mmrec.main`` on the default four-task list (img_sel, search, rec,
     exp; 6 records each: ``--max_records 24`` of the 25% subsamples and
@@ -3118,6 +3289,7 @@ TP_LOSS_REL = 1e-3
 # alone would pass a reduction off by a factor of 2; the norm would not.
 NORM_REL = 2.0 ** -7
 MULTI_DRAW_SEED = 13   # phase 13 keys each training sample's prompt draws by its index
+RANK_WAIT_S = 900      # the longest a rank started early waits for the run before it
 ITEM_IMAGES = {}       # (path, size) -> decoded item image, filled from phase 9 on
 
 
@@ -3319,6 +3491,15 @@ def rank_main(spec_path: str) -> int:
      mmrec.train_one_epoch, Generator._decode_step, Trainer.__init__,
      ClippedAdamWCast.grad_norm) = (
         step, save_state, save_params, evals, epoch, decode_step, trainer_init, grad_norm)
+    if spec.get("wait_for"):
+        # started before the run it follows has ended, so that this start-up
+        # overlaps it: the phase writes this file when that run has passed
+        t0, go = time.perf_counter(), Path(spec["wait_for"])
+        while not go.exists():
+            if time.perf_counter() - t0 > RANK_WAIT_S:
+                raise TimeoutError(f"({spec['tag']}) rank {rank}: no {go} after {RANK_WAIT_S} s")
+            time.sleep(0.1)
+        out["wait_s"] = time.perf_counter() - t0
     kernel_lib.reset_launches()
     t0 = time.perf_counter()
     try:
@@ -3494,9 +3675,13 @@ def phase_multi_gpu(gpu_line, data, run_dir) -> dict:
           ``checkpoint_0`` as (a);
       (c) (b)'s ``checkpoint_0`` resumed in one rank (NCCL).
 
-    NCCL refuses two ranks on one device, so (b) runs gloo, which moves
-    CUDA tensors through the host. Every rank draws each sample's prompt
-    window from a generator keyed by the sample's index (``rank_main``),
+    (a) and (b) run at once. NCCL refuses two ranks on one
+    device, so (b) runs gloo, which moves CUDA tensors through the host.
+    (c) starts when (a) ends and fsdp 2 / tp 2 when (b) ends, so that their
+    process start-up overlaps the run before them; each then waits for a
+    go file that the phase writes once that run has passed its gates.
+    Every rank draws each sample's prompt window from a generator keyed by
+    the sample's index (``rank_main``),
     so that (a) and (b) train on the same prompts, not only on the same
     users. Fails unless every update is finite,
     K1 / K2 / K3 ran what the model counts in every update and K4 / K5 / K6
@@ -3539,52 +3724,72 @@ def phase_multi_gpu(gpu_line, data, run_dir) -> dict:
         reports[run["tag"]] = reps
         return reps
 
-    def run(tag, nproc, argv, timeout, **spec):
-        return finish(start(tag, nproc, base + argv, **spec), timeout)
-
     a_dir, b_dir = run_dir / "a", run_dir / "b"
-    # nothing reads the runs' weights_epoch_0: not written
-    (a,) = run("a", 1, ["--external_save_dir", str(a_dir), "--run_name", "a",
-                        "--batch_size", "6", "--do_test"], 600, backend="nccl",
-               unread=["weights_epoch_0"])
-    losses_a = check_updates("a", a, MULTI_UPDATES, 12)
-    want_a = {"losses": losses_a, "norms": [u["grad_norm"] for u in a["updates"]]}
-    rec_a = check_test_pass("a", a, MULTI_RECORDS)
-    if not Path(a["checkpoint"]["path"], "train_state.pt").exists():
-        raise AssertionError("[multi-gpu] (a) wrote no checkpoint_0")
-    shutil.rmtree(a_dir)
     digests = run_dir / "b_digests.json"
-    b = run("b", 2, ["--external_save_dir", str(b_dir), "--run_name", "b", "--batch_size", "3",
-                     "--do_test"], 900, backend="gloo", digests_out=str(digests),
-            unread=["weights_epoch_0"])
-    losses_b = [check_updates("b", rep, MULTI_UPDATES, 6, want_a) for rep in b]
-    if losses_b[0] != losses_b[1]:
-        raise AssertionError(f"[multi-gpu] (b) the ranks' losses differ: {losses_b}")
-    rec_b = [check_test_pass("b", rep, MULTI_RECORDS) for rep in b]
-    if not Path(b[0]["checkpoint"]["path"], "train_state.pt").exists():
-        raise AssertionError("[multi-gpu] (b) rank 0 wrote no checkpoint_0")
+    c_go, sharded_go = run_dir / "c.go", run_dir / "sharded.go"
     # (c) trains nothing: no vision cache
     uncached = [a for a in base if a != "--cache_vision_latents"]
-    (c,) = finish(start("c", 1, uncached + ["--external_save_dir", str(b_dir), "--run_name",
-                                            "b", "--batch_size", "6",
-                                            "--resume_from_checkpoint"],
-                        backend="nccl", resume_check=str(digests)), 600)
-    if not c.get("resume") or c["resume"]["n_differ"]:
-        raise AssertionError(f"[multi-gpu] (c) resume: {c.get('resume')}")
-    shutil.rmtree(b_dir)
-    probe = b[0]["probe"]
-    sharded, sharded_failed = {}, []
-    if all(probe[name] == "ok" for name in probe):
-        # both at once on the card (4 ranks): tp 2 on the pixel path, since
-        # a vision cache of every item through a tp-sharded tower would
-        # all-reduce each ViT layer's activations through the host
-        runs = {tag: start(tag, 2, (base if tag == "fsdp2" else uncached) + [
-                    "--external_save_dir", str(run_dir / tag), "--run_name", tag,
-                    "--batch_size", "3" if tag == "fsdp2" else "6", *flags],
-                    backend="gloo", stop_after_updates=SHARDED_UPDATES)
-                for tag, flags in (("fsdp2", ["--mesh_fsdp", "2"]), ("tp2", ["--mesh_tp", "2"]))}
+    pending = []  # runs started and not finished: killed if the phase fails
+
+    def begin(tag, nproc, argv, **spec):
+        run = start(tag, nproc, argv, **spec)
+        pending.append(run)
+        return run
+
+    def end(run, timeout):
+        pending.remove(run)
+        return finish(run, timeout)
+
+    probe, sharded, sharded_failed = {}, {}, []
+    try:
+        # nothing reads the runs' weights_epoch_0: not written. (a) and (b)
+        # run at once (their update times share the card and the host)
+        run_a = begin("a", 1, base + ["--external_save_dir", str(a_dir), "--run_name", "a",
+                                      "--batch_size", "6", "--do_test"], backend="nccl",
+                      unread=["weights_epoch_0"])
+        run_b = begin("b", 2, base + ["--external_save_dir", str(b_dir), "--run_name", "b",
+                                      "--batch_size", "3", "--do_test"], backend="gloo",
+                      digests_out=str(digests), unread=["weights_epoch_0"])
+        (a,) = end(run_a, 600)
+        losses_a = check_updates("a", a, MULTI_UPDATES, 12)
+        want_a = {"losses": losses_a, "norms": [u["grad_norm"] for u in a["updates"]]}
+        rec_a = check_test_pass("a", a, MULTI_RECORDS)
+        if not Path(a["checkpoint"]["path"], "train_state.pt").exists():
+            raise AssertionError("[multi-gpu] (a) wrote no checkpoint_0")
+        shutil.rmtree(a_dir)
+        # each later run starts while the one before it ends, and waits for
+        # its go file (``rank_main``): (c) for (b), fsdp 2 and tp 2 for (c)
+        run_c = begin("c", 1, uncached + ["--external_save_dir", str(b_dir), "--run_name", "b",
+                                          "--batch_size", "6", "--resume_from_checkpoint"],
+                      backend="nccl", resume_check=str(digests), wait_for=str(c_go))
+        b = end(run_b, 900)
+        losses_b = [check_updates("b", rep, MULTI_UPDATES, 6, want_a) for rep in b]
+        if losses_b[0] != losses_b[1]:
+            raise AssertionError(f"[multi-gpu] (b) the ranks' losses differ: {losses_b}")
+        rec_b = [check_test_pass("b", rep, MULTI_RECORDS) for rep in b]
+        if not Path(b[0]["checkpoint"]["path"], "train_state.pt").exists():
+            raise AssertionError("[multi-gpu] (b) rank 0 wrote no checkpoint_0")
+        c_go.write_text("")
+        probe = b[0]["probe"]
+        runs = {}
+        if all(probe[name] == "ok" for name in probe):
+            # both at once on the card (4 ranks): tp 2 on the pixel path, since
+            # a vision cache of every item through a tp-sharded tower would
+            # all-reduce each ViT layer's activations through the host
+            runs = {tag: begin(tag, 2, (base if tag == "fsdp2" else uncached) + [
+                        "--external_save_dir", str(run_dir / tag), "--run_name", tag,
+                        "--batch_size", "3" if tag == "fsdp2" else "6", *flags],
+                        backend="gloo", stop_after_updates=SHARDED_UPDATES,
+                        wait_for=str(sharded_go))
+                    for tag, flags in (("fsdp2", ["--mesh_fsdp", "2"]),
+                                       ("tp2", ["--mesh_tp", "2"]))}
+        (c,) = end(run_c, 600)
+        if not c.get("resume") or c["resume"]["n_differ"]:
+            raise AssertionError(f"[multi-gpu] (c) resume: {c.get('resume')}")
+        shutil.rmtree(b_dir)
+        sharded_go.write_text("")
         for tag, handle in runs.items():
-            reps = finish(handle, 600)
+            reps = end(handle, 600)
             shutil.rmtree(run_dir / tag, ignore_errors=True)
             try:  # a failed gate is raised after the readings below are printed
                 sharded[tag] = [check_updates(tag, rep, SHARDED_UPDATES,
@@ -3595,15 +3800,23 @@ def phase_multi_gpu(gpu_line, data, run_dir) -> dict:
                                 for rep in reps]
             except AssertionError as e:
                 sharded_failed.append(str(e))
-    else:
+    finally:
+        for run in pending:  # no run outlives a failed phase
+            os.killpg(run["proc"].pid, signal.SIGKILL)
+            run["proc"].wait()
+            run["logf"].close()
+    if not sharded and not sharded_failed:
         refused = {k: v for k, v in probe.items() if v != "ok"}
         log(f"[multi-gpu] fsdp 2 and tp 2 not run on the card: gloo refused {refused} on "
             f"CUDA tensors (torch {torch.__version__}); tests/test_torch_parallel.py holds "
             f"them to the JAX package on the CPU")
 
     # --- report
-    log(f"[multi-gpu] runs (s) { {k: round(v, 1) for k, v in walls.items()} } on {gpu_line}; "
-        f"NCCL above one rank not measured (one card: NCCL refuses two ranks on one device)")
+    log(f"[multi-gpu] runs (s, from each start; (c), fsdp 2 and tp 2 start early and wait "
+        f"for the run before them) { {k: round(v, 1) for k, v in walls.items()} }; ranks' "
+        f"waits (s) { {k: round(r[0].get('wait_s', 0.0), 1) for k, r in reports.items()} } "
+        f"on {gpu_line}; NCCL above one rank not measured (one card: NCCL refuses two ranks "
+        f"on one device)")
     log(f"[multi-gpu] gloo on CUDA tensors: {json.dumps(probe)}")
     for tag, reps in reports.items():
         for rep in reps:
@@ -4046,6 +4259,377 @@ def phase_tools(dev, gpu_line, data, run_dir):
     return launches
 
 
+# ------------------------------------------------------------ phase 15
+
+HARNESS_RECORDS = 8        # records a manifest
+HARNESS_CLASSES = 1000     # ImageNet's class count: one forward of 1,000 rows an image
+HARNESS_SHOTS = (0, 4)
+SMALL_HARNESS_RECORDS = 1  # the small card-vs-CPU run: records a benchmark
+SMALL_HARNESS_CLASSES = 100
+FIXTURE_DIR = Path(__file__).resolve().parent / "tests" / "data" / "images"
+
+
+def image_fixtures() -> list:
+    """(image file, its PIL array) of each committed fixture: ``name.ext``
+    beside ``name.npy``, the array PIL's ``convert("RGB")`` gave."""
+    return sorted((p, p.with_suffix(".npy")) for p in FIXTURE_DIR.iterdir()
+                  if p.suffix != ".npy" and p.with_suffix(".npy").exists())
+
+
+def check_fixtures() -> list:
+    """Decode every fixture with the port's decoders and hold it equal to
+    its committed PIL array (the card's machine has no PIL)."""
+    from unimp_tpu_torch.data import transforms
+
+    fixtures = image_fixtures()
+    if not fixtures:
+        raise AssertionError(f"[harness] no image fixtures under {FIXTURE_DIR}")
+    for img, arr in fixtures:
+        got = transforms.load_image_rgb(str(img))
+        want = np.load(arr)
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError(f"[harness] {img.name} decodes unlike PIL's array "
+                                 f"({got.shape} vs {want.shape})")
+    log(f"[harness] {len(fixtures)} image fixtures decode equal to their PIL arrays: "
+        + ", ".join(p.name for p, _ in fixtures))
+    return [p for p, _ in fixtures]
+
+
+def write_harness_data(data, out) -> dict:
+    """COCO-, VQA-, OK-VQA- and ImageNet-style manifests of HARNESS_RECORDS
+    records over the committed fixtures and phase 8's JPEGs, captions and
+    answers from the synth corpus, HARNESS_CLASSES class names (pairs of
+    corpus words); returns the paths."""
+    out.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(15)
+    corpus = (data / "corpus.txt").read_text().splitlines()
+    words = sorted({w for line in corpus for w in line.split() if not w.isdigit()})
+    fixtures = [str(p) for p in check_fixtures()]
+    synth = [str(data / "beauty" / f"{i}.jpg") for i in range(HARNESS_RECORDS)]
+    # fixtures and JPEGs alternate: the first 8 records (the queries) hold both
+    recs = [p for pair in itertools.zip_longest(fixtures, synth) for p in pair if p]
+
+    def title(i):
+        return " ".join(corpus[i].split()[:-1])
+
+    cap = [{"image": p, "captions": [title(2 * i), title(2 * i + 1)]} for i, p in enumerate(recs)]
+    vqa = [{"image": p, "question": f"what is the {words[i % len(words)]}",
+            "answers": [str(a) for a in rng.choice(corpus[i].split()[:-1], 10)]}
+           for i, p in enumerate(recs)]
+    pairs = [f"{a} {b}" for a in words for b in words if a != b]
+    classes = [pairs[i] for i in rng.permutation(len(pairs))[:HARNESS_CLASSES]]
+    if len(classes) != HARNESS_CLASSES:
+        raise AssertionError(f"[harness] {len(classes)} class names, want {HARNESS_CLASSES}")
+    cls = [{"image": p, "label": int(rng.integers(HARNESS_CLASSES))} for p in recs]
+    paths = {}
+    for name, rows in (("coco", cap), ("vqa", vqa), ("ok_vqa", vqa), ("imagenet", cls),
+                       ("classes", classes), ("small_classes", classes[:SMALL_HARNESS_CLASSES])):
+        paths[name] = out / f"{name}.json"
+        paths[name].write_text(json.dumps(rows))
+    return paths
+
+
+def harness_argv(ckpt_dir, tok_path, paths, variant, precision, device, shots, n, classes):
+    return ["--checkpoint_dir", str(ckpt_dir), "--checkpoint_name", "final_weights",
+            "--variant", variant, "--tokenizer_path", str(tok_path),
+            "--shots", *map(str, shots), "--trial_seeds", "0", "--num_samples", str(n),
+            "--image_size", "224", "--precision", precision, "--device", device,
+            "--eval_coco", "--coco_manifest", str(paths["coco"]),
+            "--eval_vqa", "--vqa_manifest", str(paths["vqa"]),
+            "--eval_ok_vqa", "--ok_vqa_manifest", str(paths["ok_vqa"]),
+            "--eval_imagenet", "--imagenet_manifest", str(paths["imagenet"]),
+            "--imagenet_classes", str(paths[classes])]
+
+
+class HarnessSpies:
+    """Around ``cli/evaluate.main``: seconds and records of each benchmark
+    call, the vision encodes, generates and decode steps (the launch counts
+    follow from them), each generate's tokens and each image's class."""
+
+    def __init__(self):
+        from unimp_tpu_torch.cli import evaluate
+        from unimp_tpu_torch.evals import benchmark_harness as bh
+        from unimp_tpu_torch.models import UniMPModel
+
+        self.bh, self.model_cls, self.cli = bh, UniMPModel, evaluate
+        self.orig = {"cap": bh.evaluate_captioning, "vqa": bh.evaluate_vqa,
+                     "cls": bh.evaluate_classification, "enc": UniMPModel.encode_vision,
+                     "gen": Generator.generate, "step": Generator._decode_step,
+                     "build": evaluate.build_model}
+        self.calls, self.tokens, self.classes = [], [], []
+        self.encodes = self.generates = self.steps = 0
+        self.model = None
+
+    def __enter__(self):
+        bh, o = self.bh, self.orig
+
+        def timed(name, fn, **extra):
+            def run(*args, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*args, **kw, **extra)
+                torch.cuda.synchronize()
+                label = "ok_vqa" if kw.get("ok_vqa") else name
+                self.calls.append((label, kw.get("num_shots", 0), out["n"],
+                                   time.perf_counter() - t0, out))
+                return out
+            return run
+
+        def encode(model, *args):
+            self.encodes += 1
+            return o["enc"](model, *args)
+
+        def generate(gen, *args):
+            self.generates += 1
+            toks, scores = o["gen"](gen, *args)
+            self.tokens.append(toks.cpu())
+            return toks, scores
+
+        def step(gen, *args, **kw):
+            self.steps += 1
+            return o["step"](gen, *args, **kw)
+
+        def build(*args):
+            self.model = o["build"](*args)
+            return self.model
+
+        self.cli.build_model = build
+        bh.evaluate_captioning = timed("coco", o["cap"])
+        bh.evaluate_vqa = timed("vqa", o["vqa"])
+        bh.evaluate_classification = timed("imagenet", o["cls"], predictions=self.classes)
+        self.model_cls.encode_vision = encode
+        Generator.generate, Generator._decode_step = generate, step
+        return self
+
+    def __exit__(self, *exc):
+        bh, o = self.bh, self.orig
+        bh.evaluate_captioning, bh.evaluate_vqa = o["cap"], o["vqa"]
+        bh.evaluate_classification = o["cls"]
+        self.model_cls.encode_vision = o["enc"]
+        Generator.generate, Generator._decode_step = o["gen"], o["step"]
+        self.cli.build_model = o["build"]
+
+
+def seeded_checkpoint(variant, vocab, ckpt_dir, dev, dtype: str) -> float:
+    """A seeded ``variant`` (gates opened, vocabulary ``vocab``) written by
+    the port's ``save_params`` as ``final_weights``; its matrices in
+    ``dtype`` ("bf16" or "fp32"). Returns the write's seconds."""
+    from unimp_tpu_torch.train import checkpoint as ckpt
+
+    cfg = get_config(variant)
+    cfg = cfg.replace(lm=dataclasses.replace(cfg.lm, vocab_size=vocab))
+    model = build_model(cfg, device=dev, seed=15, eval_param_dtype=dtype)
+    open_gates(model)
+    t0 = time.perf_counter()
+    ckpt.save_params(str(ckpt_dir), model)
+    write_s = time.perf_counter() - t0
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return write_s
+
+
+def phase_harness(dev, gpu_line, data, run_dir) -> dict:
+    """The few-shot harness through ``cli/evaluate.main`` (phase 15): a
+    seeded 4b-instruct checkpoint (bf16 matrices, gates opened) written by
+    the port's ``save_params``, the synth corpus' tokenizer as a
+    ``tokenizer.json``, COCO / VQA / OK-VQA / ImageNet manifests of 8
+    records (the committed WebP, TIFF, arithmetic and lossless JPEG
+    fixtures among their images, each decoded equal to its PIL array
+    first), ``--shots 0 4``, one trial seed, bf16. Gates: every metric in
+    range, K1 / K4 / K5 launches as the spies' counts give them (no K6, no
+    int8 kernel), PIL not imported; then the same harness on ``small`` in
+    float32 on the card and on the CPU (1 record, 100 classes): the same
+    tokens, classes and results."""
+    from unimp_tpu_torch.cli import evaluate
+    from unimp_tpu_torch.tools import synth_data
+
+    run_dir.mkdir(parents=True, exist_ok=True)
+    paths = write_harness_data(data, run_dir / "manifests")
+    tok = synth_data.build_tokenizer(str(data), n_items=N_ITEM_TOKENS)
+    tok_path = run_dir / "tokenizer.json"
+    tok.save(str(tok_path))
+    vocab = -(-len(tok) // 128) * 128
+    write_s = seeded_checkpoint("4b-instruct", vocab, run_dir / "4b", dev, "bf16")
+    argv = harness_argv(run_dir / "4b", tok_path, paths, "4b-instruct", "bf16", "cuda",
+                        HARNESS_SHOTS, HARNESS_RECORDS, "classes")
+    with HarnessSpies() as spy:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        kernel_lib.reset_launches()  # the main path starts here
+        results = evaluate.main(argv + ["--results_file", str(run_dir / "results.json")])
+        torch.cuda.synchronize()
+        launches = dict(kernel_lib.LAUNCHES)  # the main path ends here
+        main_s = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    cfg = get_config("4b-instruct")
+    lm = cfg.lm
+    n_xattn = -(-lm.num_layers // cfg.cross_attn_every_n)
+    n_cls = sum(c[2] for c in spy.calls if c[0] == "imagenet")
+    per_encode = cfg.vision.num_layers + cfg.resampler.depth
+    want = {"flash_fwd": spy.encodes * per_encode + (spy.generates + n_cls) * (lm.num_layers
+                                                                              + n_xattn),
+            "decode_attn": spy.steps * lm.num_layers, "single_query_attn": spy.steps * n_xattn}
+    want.update({k: 0 for k in launches if k not in want})
+    bad = {k: (launches[k], n) for k, n in want.items() if launches[k] != n}
+    keys = [f"{b}_shots_{s}" for b in ("coco_cider", "vqa_accuracy", "ok_vqa_accuracy")
+            for s in HARNESS_SHOTS] + ["imagenet_top1"]
+    if list(results) != keys or not all(math.isfinite(v) and v >= 0 for v in results.values()) \
+            or any(results[k] > 1 for k in keys if "cider" not in k):
+        raise AssertionError(f"[harness] results out of range or missing: {results}")
+    if bad or not spy.steps:
+        raise AssertionError(f"[harness] launches differ (got, expected): {bad}; "
+                             f"{spy.steps} decode steps")
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("PIL", "tokenizers"))
+    if loaded:
+        raise AssertionError(f"[harness] modules the card's machine lacks were imported: {loaded}")
+    log(f"[harness] 4b-instruct bf16, vocab {vocab}: checkpoint written in {write_s:.2f} s; "
+        f"main {main_s:.2f} s, peak_mem={peak_gib:.2f} GiB on {gpu_line}")
+    for name, shots, n, secs, out in spy.calls:
+        log(f"[harness] {name} shots={shots}: {n} records in {secs:.3f} s = {n / secs:.3f} "
+            f"items/s; {json.dumps(out)}")
+    log(f"[harness] results {json.dumps(results)}")
+    log(f"[harness] {spy.encodes} vision encodes, {spy.generates} generates, {spy.steps} decode "
+        f"steps, {n_cls} classification forwards of {HARNESS_CLASSES} rows; launches "
+        f"{json.dumps({k: v for k, v in launches.items() if v})}; expected "
+        f"{json.dumps({k: v for k, v in want.items() if v})}")
+    # the device's share of one VQA answer (4 shots) and one 1,000-row
+    # classification, on the main run's model, under the profiler
+    tokenizer = evaluate.UniMPTokenizer.load(str(tok_path))
+    args = evaluate.build_parser().parse_args(argv)
+    model = spy.model
+    classes = json.loads(paths["classes"].read_text())
+
+    def sample():
+        evaluate.bh.evaluate_vqa(model, tokenizer, str(paths["vqa"]), num_shots=4, limit=1,
+                                 image_size=args.image_size)
+        evaluate.bh.evaluate_classification(model, tokenizer, str(paths["imagenet"]), classes,
+                                            limit=1, image_size=args.image_size)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sample()
+    torch.cuda.synchronize()
+    profile_run("[harness] 1 VQA answer at 4 shots + 1 classification", sample,
+                time.perf_counter() - t0)
+    del model, spy
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(run_dir / "4b")
+
+    # small, float32: the card against the CPU
+    seeded_checkpoint("small", vocab, run_dir / "small", torch.device("cpu"), "fp32")
+    seen = {}
+    for device in ("cuda", "cpu"):
+        with HarnessSpies() as spy:
+            t0 = time.perf_counter()
+            res = evaluate.main(harness_argv(run_dir / "small", tok_path, paths, "small", "fp32",
+                                             device, HARNESS_SHOTS, SMALL_HARNESS_RECORDS,
+                                             "small_classes"))
+            seen[device] = (res, spy.tokens, spy.classes, time.perf_counter() - t0)
+    (res_c, tok_c, cls_c, s_c), (res_h, tok_h, cls_h, s_h) = seen["cuda"], seen["cpu"]
+    same_tokens = len(tok_c) == len(tok_h) and all(torch.equal(a, b) for a, b in zip(tok_c, tok_h))
+    log(f"[harness] small fp32, card {s_c:.2f} s vs CPU {s_h:.2f} s: {len(tok_c)} generates "
+        f"{'equal' if same_tokens else 'DIFFER'} token for token; classes {cls_c} vs {cls_h}; "
+        f"results card {json.dumps(res_c)} cpu {json.dumps(res_h)}")
+    if not same_tokens or cls_c != cls_h or res_c != res_h:
+        raise AssertionError("[harness] small float32 on the card differs from the CPU")
+    shutil.rmtree(run_dir)
+    return launches
+
+
+# ------------------------------------------------------------ phase 16
+
+LM_PROMPTS, LM_PROMPT_LEN, LM_NEW = 24, 128, 32
+K6_PER_LM_STEP = 4  # the fused q/k/v, o, MLP up and down a layer, M = 24 rows
+
+
+def lm_generate(model, ids, new, kv_int8=False):
+    gen = Generator(model, GenerationConfig(max_new_tokens=new, eos_id=-1, pad_id=EOS_ID,
+                                            kv_int8=kv_int8), media_id=-1)
+    seq_len = torch.full((ids.shape[0],), ids.shape[1], device=ids.device)
+    return gen.generate(ids, seq_len)[0][:, 0]
+
+
+def phase_causal_lm(dev, gpu_line) -> dict:
+    """The pure-text ``CausalLM`` at RedPajama-3B width (phase 16): seeded
+    weights, 24 prompts of 128 tokens, 32 greedy new tokens through the
+    port's ``Generator``, bf16 (K1 once a layer for the prefill, K4 once a
+    layer a step); then int8 weights with int8 KV (K6 four times a layer a
+    step and once for the head, plus the prefill head once; K4 int8 once a
+    layer a step); then ``small``'s LM in float32 on the card and on the CPU:
+    the same tokens, prefill logits within 1e-4."""
+    from unimp_tpu_torch.models import CausalLM
+
+    lm = get_config("4b-instruct").lm
+    rng = np.random.default_rng(16)
+    ids = torch.from_numpy(rng.integers(1, lm.vocab_size, (LM_PROMPTS, LM_PROMPT_LEN))).to(dev)
+    out = {}
+    for tag, int8 in (("bf16", False), ("int8", True)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        model = build_model(lm, device=dev, seed=16, eval_param_dtype="int8" if int8 else "bf16")
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        if not isinstance(model, CausalLM):
+            raise AssertionError(f"[lm] build_model gave a {type(model).__name__}")
+        lm_generate(model, ids[:2], 2, int8)  # warm-up, not counted
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        kernel_lib.reset_launches()  # the main path starts here
+        toks = lm_generate(model, ids, LM_NEW, int8)
+        torch.cuda.synchronize()
+        launches = dict(kernel_lib.LAUNCHES)  # the main path ends here
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        k4 = "decode_attn_int8" if int8 else "decode_attn"
+        # K6 a step: each layer's int8 matmuls and the head; the prefill's
+        # rows go to K6 up to 512 (the head's alone: last_logit_only)
+        per_layer = k6_per_decode_step(model)
+        head = int(isinstance(getattr(model, "lm_head", None) and model.lm_head.kernel,
+                              QuantizedKernel))
+        prefill = (per_layer if LM_PROMPTS * LM_PROMPT_LEN <= 512 else 0) + head
+        want = {"flash_fwd": lm.num_layers, k4: lm.num_layers * LM_NEW,
+                "quant_matmul": LM_NEW * (per_layer + head) + prefill}
+        if int8 and per_layer != K6_PER_LM_STEP * lm.num_layers:
+            raise AssertionError(f"[lm] {per_layer} int8 matmuls a step, want "
+                                 f"{K6_PER_LM_STEP * lm.num_layers}")
+        want.update({k: 0 for k in launches if k not in want})
+        bad = {k: (launches[k], n) for k, n in want.items() if launches[k] != n}
+        if bad or tuple(toks.shape) != (LM_PROMPTS, LM_NEW):
+            raise AssertionError(f"[lm] {tag}: launches differ (got, expected) {bad}; tokens "
+                                 f"{tuple(toks.shape)}")
+        log(f"[lm] RedPajama-3B CausalLM {tag}{' + int8 KV' if int8 else ''}: build "
+            f"{build_s:.2f} s; {LM_PROMPTS} x {LM_PROMPT_LEN} prompt tokens, {LM_NEW} greedy new "
+            f"in {secs:.3f} s = {LM_PROMPTS * LM_NEW / secs:.1f} tokens/s; peak_mem={peak:.2f} "
+            f"GiB on {gpu_line}; launches {json.dumps({k: v for k, v in launches.items() if v})}")
+        out[tag] = launches
+        del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    small = get_config("small").lm
+    sids = torch.from_numpy(rng.integers(1, small.vocab_size, (LM_PROMPTS, LM_PROMPT_LEN)))
+    got = {}
+    # one seeded init (on the CPU: a generator's stream differs by device),
+    # copied to the card
+    cpu_model = build_model(small, device="cpu", seed=16, dtype=torch.float32)
+    for label, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        model = copy.deepcopy(cpu_model).to(device) if label == "card" else cpu_model
+        with torch.no_grad():
+            logits, _ = model(sids.to(device))
+        got[label] = (lm_generate(model, sids.to(device), LM_NEW).cpu(), logits.cpu())
+    (tc, lc), (th, lh) = got["card"], got["cpu"]
+    diff = float((lc - lh).abs().max())
+    agree = float((tc == th).float().mean())
+    log(f"[lm] small LM fp32 card vs CPU: token agreement {agree:.4f}, prefill max |logit diff| "
+        f"{diff:.3e} (gates: 1.0, 1e-4)")
+    if agree != 1.0 or diff > 1e-4:
+        raise AssertionError("[lm] small float32 CausalLM on the card differs from the CPU")
+    return out
+
+
 def kernel_name(ptxas_line: str) -> str:
     """The kernel's name and its mangled template arguments, as in
     'flash_fwd_mma_kernel ILi80ELb1EE' (80, true), from ptxas's
@@ -4114,34 +4698,6 @@ def profile_run(label: str, run, unprofiled_s: float) -> None:
         log(f"[profile] {ms:9.2f} ms {count:7d}x {name[:100]}")
 
 
-def gc_report(label: str, run) -> None:
-    """One more run of ``run`` (after the launch counts are read), timed
-    with the seconds the garbage collector spent inside it, by generation,
-    and the number of objects it tracks: the host's share that the
-    collector takes on this path."""
-    spent, count, start = [0.0] * 3, [0] * 3, {}
-
-    def on_gc(phase, info):
-        if phase == "start":
-            start["t"] = time.perf_counter()
-        else:
-            spent[info["generation"]] += time.perf_counter() - start["t"]
-            count[info["generation"]] += 1
-
-    torch.cuda.synchronize()
-    gc.callbacks.append(on_gc)
-    try:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    finally:
-        gc.callbacks.remove(on_gc)
-    log(f"[gc] {label}: wall {wall:.3f} s; collector {sum(spent):.3f} s (by generation "
-        f"{[round(x, 3) for x in spent]} s over {count} passes); "
-        f"{len(gc.get_objects())} objects tracked")
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4157,6 +4713,38 @@ def main() -> int:
     log(f"[card] {torch.cuda.get_device_name(0)}; torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
 
+    # processes that run phases apart, beside the main line: stopped on any
+    # exit of the run
+    apart = []
+    try:
+        return run_phases(dev, gpu_line, apart)
+    finally:
+        for proc in apart:
+            proc.close()
+
+
+def phases_15_16(dev, gpu_line, data, run_dir) -> dict:
+    """Phases 15 and 16, run apart (a ``PhaseProcess``)."""
+    harness = phase_harness(dev, gpu_line, data, run_dir)
+    gc.collect()  # the harness' models are gone: give their memory back
+    torch.cuda.empty_cache()
+    return {"harness": harness, "lm": phase_causal_lm(dev, gpu_line)}
+
+
+def phase_tools_apart(dev, gpu_line, data, run_dir, memo_path) -> dict:
+    """Phase 14, run apart (a ``PhaseProcess``) on the main line's item
+    decode memo (``memo_path``)."""
+    ITEM_IMAGES.update(torch.load(memo_path, weights_only=False))
+    with item_decode_memo(data):
+        return phase_tools(dev, gpu_line, data, run_dir)
+
+
+def run_phases(dev, gpu_line, apart) -> int:
+    half = max(1, (os.cpu_count() or 2) // 2)
+    # phase 4's CPU sides from here, while the card builds and runs phases 3
+    # and 5-7
+    small_cpu = PhaseProcess("[small] CPU sides", small_cpu_sides, threads=half)
+    apart.append(small_cpu)
     t0 = time.perf_counter()
     libs = kernel_lib.build_all()
     log(f"[build] {len(libs)} libraries in {time.perf_counter() - t0:.1f} s: "
@@ -4175,14 +4763,6 @@ def main() -> int:
     results, timings = phase_kernels(dev)
     log(f"[kernels] checked in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    phase_small(dev)
-    phase_small(dev, int8=True)
-    phase_small_bf16(dev)
-    phase_small_train(dev)
-    phase_small_train_flags(dev)
-    phase_small_tasks(dev)
-    log(f"[small] done in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
     eval_launches = phase_4b(dev, gpu_line)
     log(f"[4b] done in {time.perf_counter() - t0:.1f} s")
     gc.collect()  # the eval model is gone: give its memory back before training
@@ -4197,6 +4777,16 @@ def main() -> int:
     log(f"[4b-int8] done in {time.perf_counter() - t0:.1f} s")
     gc.collect()  # the int8 model is gone: give its memory back
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_small_bf16(dev)
+    cpu_sides = _tree_map(lambda a: torch.from_numpy(a) if isinstance(a, np.ndarray) else a,
+                          small_cpu.get())
+    phase_small(dev, cpu_sides["eval"])
+    phase_small(dev, cpu_sides["eval_int8"], int8=True)
+    phase_small_train(dev, cpu_sides["train"])
+    phase_small_train_flags(dev, cpu_sides["flags"])
+    phase_small_tasks(dev, cpu_sides["tasks"])
+    log(f"[small] done in {time.perf_counter() - t0:.1f} s")
     with run_tree() as tmp:
         data = Path(tmp) / "data"
         write_s = write_cli_data(data)
@@ -4205,22 +4795,39 @@ def main() -> int:
         log(f"[cli] done in {time.perf_counter() - t0:.1f} s")
         gc.collect()  # the CLI's eval model is gone: give its memory back
         torch.cuda.empty_cache()
-        with item_decode_memo():  # phases 9-14 decode the catalogue once
+        # phases 15-16 apart, beside phases 9-10 (peak card memory 15.5 + 36.1
+        # GiB at most)
+        late = PhaseProcess("[harness+lm] phases 15-16", phases_15_16, dev, gpu_line, data,
+                            Path(tmp) / "harness", threads=half)
+        apart.append(late)
+        with item_decode_memo(data):  # phases 9-14 decode the catalogue once
             t0 = time.perf_counter()
-            train_cli_launches = phase_train_cli(dev, gpu_line, data, Path(tmp) / "train")
+            with lm_layers(LM_LAYERS_9_10):
+                train_cli_launches = phase_train_cli(dev, gpu_line, data, Path(tmp) / "train")
             log(f"[train-cli] done in {time.perf_counter() - t0:.1f} s")
             gc.collect()  # the training CLI's models are gone: give their memory back
             torch.cuda.empty_cache()
             t0 = time.perf_counter()
-            task_launches = phase_tasks(dev, gpu_line, data, Path(tmp) / "tasks")
+            with lm_layers(LM_LAYERS_9_10):
+                task_launches = phase_tasks(dev, gpu_line, data, Path(tmp) / "tasks")
             log(f"[tasks] phase 10 done in {time.perf_counter() - t0:.1f} s")
             gc.collect()  # phase 10's models are gone: give their memory back
             torch.cuda.empty_cache()
+            late_launches = late.get()
+            # phase 14 apart (after phase 10: it decodes phase 10's img_gen
+            # dump), beside phase 11 (peak card memory 19.9 + 7.9 GiB)
+            memo_path = Path(tmp) / "item_images.pt"
+            torch.save(dict(ITEM_IMAGES), memo_path)
+            tools = PhaseProcess("[tools] phase 14", phase_tools_apart, dev, gpu_line, data,
+                                 Path(tmp) / "tools", memo_path, threads=half)
+            apart.append(tools)
             t0 = time.perf_counter()
             serve_launches = phase_serve(dev, gpu_line, data)
             log(f"[serve] phase 11 done in {time.perf_counter() - t0:.1f} s")
             gc.collect()  # the workers are gone: give their memory back
             torch.cuda.empty_cache()
+            tools_launches = tools.get()
+            memo_path.unlink()
             t0 = time.perf_counter()
             headline_launches = phase_headline_train(gpu_line, data, Path(tmp) / "headline")
             log(f"[headline] phase 12 done in {time.perf_counter() - t0:.1f} s")
@@ -4229,10 +4836,8 @@ def main() -> int:
             t0 = time.perf_counter()
             multi_launches = phase_multi_gpu(gpu_line, data, Path(tmp) / "multi")
             log(f"[multi-gpu] phase 13 done in {time.perf_counter() - t0:.1f} s")
-            t0 = time.perf_counter()
-            tools_launches = phase_tools(dev, gpu_line, data, Path(tmp) / "tools")
-            log(f"[tools] phase 14 done in {time.perf_counter() - t0:.1f} s")
         ITEM_IMAGES.clear()
+    harness_launches, lm_launches = late_launches["harness"], late_launches["lm"]
 
     # one headline shape per kernel: LM prefill, the LM self-attention
     # backward of training, decode at step 50, x-attn read, the MLP
@@ -4260,7 +4865,11 @@ def main() -> int:
             ("serve_small_f32", serve_launches["serve_small_f32"], EVAL_KERNELS),
             ("headline_train", headline_launches, TASK_KERNELS + ("quant_matmul",)),
             ("multi_gpu", multi_launches, TASK_KERNELS + ("quant_matmul",)),
-            ("tools", tools_launches, TASK_KERNELS + ("quant_matmul",)))
+            ("tools", tools_launches, TASK_KERNELS + ("quant_matmul",)),
+            ("harness", harness_launches, EVAL_KERNELS),
+            ("causal_lm", lm_launches["bf16"], ("flash_fwd", "decode_attn")),
+            ("causal_lm_int8", lm_launches["int8"], ("flash_fwd", "decode_attn_int8",
+                                                     "quant_matmul")))
             if name in kernels}
         row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                "launches": sum(by_path.values()), "launches_by_path": by_path,

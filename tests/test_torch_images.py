@@ -12,12 +12,24 @@ Adam7 interlacing, 1 / 2 / 4-bit gray and palette, 16-bit RGB and RGBA;
 GIF interlaced, without a palette, with a local palette on a frame
 smaller or larger than the screen, with indices past the palette; BMP
 at 1 / 4 / 8 / 16 / 24 / 32 bits, top-down, OS/2 and v4 / v5 headers,
-BITFIELDS, RLE8, RLE4, a grey-ramp palette, a short palette, cut short).
+BITFIELDS, RLE8, RLE4, a grey-ramp palette, a short palette, cut short;
+TIFF in strips and tiles, chunky and planar, BigTIFF, 1-16 bits, gray,
+palette, RGB(A) with either alpha, 16-bit big-endian; arithmetic-coded
+JPEG from a QM encoder over random coefficients, each beside a Huffman
+twin that PIL must decode to the same pixels; lossless JPEG with each
+predictor; WebP with its ALPH chunk rewritten raw under each filter and
+VP8 frames whose first partition is re-coded with another loop-filter
+header). PIL writes TIFF under every compression it has (CCITT with both
+fill orders and both photometrics, Group 3 2-D, JPEG, LZMA) and WebP
+lossy, lossless, with alpha and animated.
 Each is held bit for bit to ``np.asarray(Image.open(f).convert("RGB"))``
 (``LOAD_TRUNCATED_IMAGES`` on), ``load_resized_uint8`` to the JAX
 package's (its native pipe or its PIL fallback, as it picks), and the
 serving worker's frames to the JAX worker's; formats still outside the
-port raise a ``ValueError`` that names them.
+port raise a ``ValueError`` that names them, and PIL refuses the same
+bytes or ROADMAP.md's fault 5 lists them. The committed fixtures under
+``tests/data/images`` (the card's oracle) are held to PIL and to the files
+``make_fixtures`` writes.
 """
 
 import base64
@@ -25,6 +37,7 @@ import io
 import struct
 import types
 import zlib
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -32,7 +45,7 @@ from PIL import Image, ImageFile
 
 from unimp_tpu.data import transforms as j_transforms
 from unimp_tpu.serve import worker as j_worker
-from unimp_tpu_torch.data import jpeg, png, transforms
+from unimp_tpu_torch.data import jpeg, png, tiff, transforms, vp8, webp
 from unimp_tpu_torch.serve.worker import ModelWorker
 
 RNG = np.random.default_rng(7)
@@ -460,7 +473,749 @@ def _bmps():
     }
 
 
-FILES = {**_jpegs(), **_pngs(), **_gifs(), **_bmps()}
+def _tiff(samples, photometric, *, bps=8, planar=1, tile=None, compression=1,
+          big_endian=False, extra=(), colormap=None, rows_per_strip=None, fill_order=None,
+          bigtiff=False):
+    """A TIFF (or BigTIFF) of ``samples`` [H, W, S] in strips
+    (``rows_per_strip``) or tiles, chunky or planar, none / Deflate /
+    PackBits (literal runs)."""
+    bo = ">" if big_endian else "<"
+    h, w, spp = samples.shape
+    tw, th = tile or (w, rows_per_strip or h)
+    boxes = [(x, y) for y in range(0, h, th) for x in range(0, w, tw)]
+    planes = [samples[..., k:k + 1] for k in range(spp)] if planar == 2 else [samples]
+
+    def pack(block):
+        rows = []
+        for row in block.reshape(block.shape[0], -1).astype(np.int64):
+            if bps == 16:
+                rows.append(row.astype(bo + "u2").tobytes())
+            elif bps == 8:
+                rows.append(row.astype(np.uint8).tobytes())
+            else:
+                bits = ((row[:, None] >> np.arange(bps - 1, -1, -1)) & 1).reshape(-1)
+                rows.append(np.packbits(bits.astype(np.uint8)).tobytes())
+        raw = b"".join(rows)
+        if compression == 8:
+            return zlib.compress(raw)
+        if compression == 32773:
+            return b"".join(bytes([len(raw[i:i + 128]) - 1]) + raw[i:i + 128]
+                            for i in range(0, len(raw), 128))
+        return raw
+
+    chunks = []
+    for plane in planes:
+        for x, y in boxes:
+            block = plane[y:y + th, x:x + tw]
+            if tile:
+                block = np.pad(block, ((0, th - block.shape[0]), (0, tw - block.shape[1]),
+                                       (0, 0)))
+            chunks.append(pack(block))
+    body = b"".join(chunks)
+    head_len = 16 if bigtiff else 8
+    offsets = np.cumsum([head_len] + [len(c) for c in chunks[:-1]]).tolist()
+    tags = {256: (4, [w]), 257: (4, [h]), 258: (3, [bps] * spp), 259: (3, [compression]),
+            262: (3, [photometric]), 277: (3, [spp]), 284: (3, [planar])}
+    if tile:
+        tags.update({322: (3, [tw]), 323: (3, [th]), 324: (4, offsets),
+                     325: (4, [len(c) for c in chunks])})
+    else:
+        tags.update({273: (4, offsets), 278: (4, [th]), 279: (4, [len(c) for c in chunks])})
+    if extra:
+        tags[338] = (3, list(extra))
+    if colormap is not None:
+        tags[320] = (3, list(colormap))
+    if fill_order:
+        tags[266] = (3, [fill_order])
+    ifd_at = head_len + len(body) + len(body) % 2
+    heap = bytearray()
+    entries = []
+    # BigTIFF: 8-byte counts, values and offsets (LONG8, type 16)
+    entry, inline, off = (20, 8, "Q") if bigtiff else (12, 4, "I")
+    heap_at = ifd_at + (8 if bigtiff else 2) + entry * len(tags) + inline
+    for tag in sorted(tags):
+        typ, vals = tags[tag]
+        if bigtiff and typ == 4:
+            typ = 16
+        payload = struct.pack(f"{bo}{len(vals)}{ {3: 'H', 4: 'I', 16: 'Q'}[typ]}", *vals)
+        if len(payload) <= inline:
+            field = payload.ljust(inline, b"\0")
+        else:
+            field = struct.pack(bo + off, heap_at + len(heap))
+            heap += payload
+        entries.append(struct.pack(f"{bo}HH{off}", tag, typ, len(vals)) + field)
+    magic = b"MM\x00+" if big_endian else b"II+\x00"
+    if bigtiff:
+        head = magic + struct.pack(bo + "HHQ", 8, 0, ifd_at)
+        count = struct.pack(bo + "Q", len(tags))
+    else:
+        head = (b"MM\x00*" if big_endian else b"II*\x00") + struct.pack(bo + "I", ifd_at)
+        count = struct.pack(bo + "H", len(tags))
+    return (head + body + bytes(len(body) % 2) + count + b"".join(entries) + bytes(inline)
+            + bytes(heap))
+
+
+def _bilevel(h, w, block):
+    """Bilevel blocks with long runs (CCITT make-up codes) and edges."""
+    cells = RNG.integers(0, 2, (-(-h // block), -(-w // block)))
+    return np.kron(cells, np.ones((block, block), np.int64))[:h, :w].astype(np.uint8) * 255
+
+
+def _tiffs():
+    a, rgb16 = _picture(37, 53), RNG.integers(0, 65536, (19, 23, 3))
+    rgba = _picture(21, 26, 4)
+    pal = RNG.integers(0, 65536, 3 * 16)
+    files = {}
+    for comp in ("raw", "tiff_lzw", "tiff_adobe_deflate", "packbits", "lzma"):
+        for mode in ("RGB", "L", "P", "CMYK", "RGBA", "LA", "1"):
+            files[f"tiff_pil_{comp}_{mode.lower()}"] = _pil_save(a, mode, "TIFF",
+                                                                 compression=comp)
+    for mode in ("RGB", "L", "CMYK", "YCbCr"):
+        files[f"tiff_pil_jpeg_{mode.lower()}"] = _pil_save(a, mode, "TIFF", compression="jpeg",
+                                                           quality=80)
+    gray16 = (_picture(23, 29, 1)[..., 0].astype(np.uint16) * 257
+              + RNG.integers(0, 256, (23, 29))).astype(np.uint16)
+    files["tiff_pil_gray16"] = _pil_bytes(Image.fromarray(gray16), "TIFF",
+                                          compression="tiff_lzw")
+    files["tiff_pil_lzw_predictor"] = _pil_save(a, "RGB", "TIFF", compression="tiff_lzw",
+                                                tiffinfo={317: 2})
+    files["tiff_pil_deflate_predictor_gray"] = _pil_save(a, "L", "TIFF",
+                                                         compression="tiff_adobe_deflate",
+                                                         tiffinfo={317: 2})
+    files["tiff_pil_lzw_strips_of_5"] = _pil_save(a, "RGB", "TIFF", compression="tiff_lzw",
+                                                  tiffinfo={278: 5})
+    bilevel = _bilevel(41, 300, 23)[..., None]
+    for comp in ("group3", "group4", "tiff_ccitt"):
+        for info, tag in (({}, ""), ({266: 2}, "_lsb_first"), ({262: 0}, "_white_is_zero")):
+            files[f"tiff_pil_{comp}{tag}"] = _pil_save(bilevel, "1", "TIFF", compression=comp,
+                                                       tiffinfo=info)
+    files["tiff_pil_group3_2d"] = _pil_save(bilevel, "1", "TIFF", compression="group3",
+                                            tiffinfo={292: 1})
+    files["tiff_pil_group3_2d_noise"] = _pil_save(_picture(33, 77, 1), "1", "TIFF",
+                                                  compression="group3", tiffinfo={292: 1})
+    files["tiff_pil_group4_noise"] = _pil_save(_picture(33, 77, 1), "1", "TIFF",
+                                               compression="group4")
+    files.update({
+        "tiff_planar_deflate": _tiff(a, 2, planar=2, compression=8, rows_per_strip=10),
+        "tiff_tiles_deflate": _tiff(a, 2, tile=(16, 16), compression=8),
+        "tiff_tiles_planar_packbits": _tiff(a, 2, tile=(16, 16), planar=2,
+                                            compression=32773),
+        "tiff_rgb16_big_endian": _tiff(rgb16, 2, bps=16, big_endian=True),
+        "tiff_rgb16_little_endian_packbits": _tiff(rgb16, 2, bps=16, compression=32773),
+        "tiff_rgba_associated": _tiff(rgba, 2, extra=(1,)),
+        "tiff_rgba_unassociated": _tiff(rgba, 2, extra=(2,)),
+        "tiff_gray2_white_is_zero": _tiff(RNG.integers(0, 4, (17, 27, 1)), 0, bps=2),
+        "tiff_gray4": _tiff(RNG.integers(0, 16, (17, 27, 1)), 1, bps=4),
+        "tiff_gray16_big_endian": _tiff(RNG.integers(0, 65536, (13, 18, 1)), 1, bps=16,
+                                        big_endian=True),
+        "tiff_palette4": _tiff(RNG.integers(0, 16, (15, 21, 1)), 3, bps=4, colormap=pal),
+        "tiff_palette8_tiles": _tiff(RNG.integers(0, 16, (35, 40, 1)), 3, tile=(16, 16),
+                                     colormap=np.pad(pal.reshape(3, 16), ((0, 0), (0, 240)))
+                                     .reshape(-1)),
+        "tiff_bigtiff_tiles_deflate": _tiff(a, 2, tile=(16, 32), compression=8, bigtiff=True),
+        "tiff_bigtiff_strips": _tiff(a, 2, rows_per_strip=7, bigtiff=True),
+        "tiff_bilevel_raw": _tiff(_bilevel(13, 29, 3)[..., None] // 255, 1, bps=1),
+    })
+    return files
+
+
+# ---------------------------------------------------------------- arithmetic and lossless JPEG
+
+def _seg(marker, payload):
+    return bytes((0xFF, marker)) + (len(payload) + 2).to_bytes(2, "big") + payload
+
+
+class _QMEncoder:
+    """The QM coder's encoder (T.81 Annex D as libjpeg's ``jcarith.c``
+    writes it), for the arithmetic-coded test files."""
+
+    def __init__(self):
+        self.out, self.c, self.a, self.sc, self.zc, self.ct, self.buf = [], 0, 0x10000, 0, 0, 11, -1
+
+    def _flush_zeros(self):
+        self.out += [0] * self.zc
+        self.zc = 0
+
+    def encode(self, st, i, val):
+        sv = st[i]
+        qe = jpeg._ARITAB[sv & 0x7F]
+        nl, nm, qe = qe & 0xFF, (qe >> 8) & 0xFF, qe >> 16
+        self.a -= qe
+        if val != sv >> 7:
+            if self.a >= qe:
+                self.c += self.a
+                self.a = qe
+            st[i] = (sv & 0x80) ^ nl
+        else:
+            if self.a >= 0x8000:
+                return
+            if self.a < qe:
+                self.c += self.a
+                self.a = qe
+            st[i] = (sv & 0x80) ^ nm
+        while True:
+            self.a <<= 1
+            self.c <<= 1
+            self.ct -= 1
+            if self.ct == 0:
+                temp = self.c >> 19
+                if temp > 0xFF:
+                    if self.buf >= 0:
+                        self._flush_zeros()
+                        self.out.append(self.buf + 1)
+                        if self.buf + 1 == 0xFF:
+                            self.out.append(0)
+                    self.zc += self.sc
+                    self.sc = 0
+                    self.buf = temp & 0xFF
+                elif temp == 0xFF:
+                    self.sc += 1
+                else:
+                    if self.buf == 0:
+                        self.zc += 1
+                    elif self.buf >= 0:
+                        self._flush_zeros()
+                        self.out.append(self.buf)
+                    if self.sc:
+                        self._flush_zeros()
+                        self.out += [0xFF, 0] * self.sc
+                        self.sc = 0
+                    self.buf = temp & 0xFF
+                self.c &= 0x7FFFF
+                self.ct += 8
+            if self.a >= 0x8000:
+                break
+
+    def finish(self) -> bytes:
+        temp = (self.a - 1 + self.c) & 0xFFFF0000
+        self.c = temp + 0x8000 if temp < self.c else temp
+        self.c <<= self.ct
+        if self.c & 0xF8000000:
+            if self.buf >= 0:
+                self._flush_zeros()
+                self.out.append(self.buf + 1)
+                if self.buf + 1 == 0xFF:
+                    self.out.append(0)
+            self.zc += self.sc
+            self.sc = 0
+        else:
+            if self.buf == 0:
+                self.zc += 1
+            elif self.buf >= 0:
+                self._flush_zeros()
+                self.out.append(self.buf)
+            if self.sc:
+                self._flush_zeros()
+                self.out += [0xFF, 0] * self.sc
+                self.sc = 0
+        if self.c & 0x7FFF800:
+            self._flush_zeros()
+            for shift, mask in ((19, 0x7FFF800), (11, 0x7F800)):
+                if self.c & mask:
+                    b = (self.c >> shift) & 0xFF
+                    self.out += [b, 0] if b == 0xFF else [b]
+        return bytes(self.out)
+
+
+def _qm_magnitude(enc, st, i, v, big):
+    """F.8 / F.9: the category of v (> 0) from ``st[i]``, then its bits;
+    ``big`` the statistics the categories above one continue in."""
+    m, v = 0, v - 1
+    if v:
+        enc.encode(st, i, 1)
+        m, v2 = 1, v >> 1
+        if big is not None and v2:  # AC: a second category bit in the same bin
+            enc.encode(st, i, 1)
+            m, i, v2 = 2, big, v2 >> 1
+        elif big is None:
+            i = 20
+        while v2:
+            enc.encode(st, i, 1)
+            m <<= 1
+            i += 1
+            v2 >>= 1
+    enc.encode(st, i, 0)
+    i += 14
+    m >>= 1
+    while m:
+        enc.encode(st, i, 1 if m & v else 0)
+        m >>= 1
+
+
+def _qm_dc(enc, st, ctx, diff, cond=(0, 1)):
+    s = ctx[0]
+    if not diff:
+        enc.encode(st, s, 0)
+        ctx[0] = 0
+        return
+    enc.encode(st, s, 1)
+    sign = diff < 0
+    enc.encode(st, s + 1, int(sign))
+    v = abs(diff)
+    m = 1 << (v - 1).bit_length() >> 1 if v > 1 else 0
+    lo, hi = cond
+    ctx[0] = 0 if m < (1 << lo) >> 1 else (12 if m > (1 << hi) >> 1 else 4) + 4 * sign
+    _qm_magnitude(enc, st, s + 2 + sign, v, None)
+
+
+def _qm_ac(enc, st, fixed, zz, ss, se, al, k_cond=5):
+    """F.5 / G.10 first pass: coefficients ss..se of one block, >> al."""
+    vals = [(abs(int(v)) >> al) * (1 if v >= 0 else -1) for v in zz]
+    ke = se
+    while ke >= ss and not vals[ke]:
+        ke -= 1
+    k = ss
+    while k <= ke:
+        i = 3 * (k - 1)
+        enc.encode(st, i, 0)
+        while not vals[k]:
+            enc.encode(st, i + 1, 0)
+            i += 3
+            k += 1
+        enc.encode(st, i + 1, 1)
+        enc.encode(fixed, 0, int(vals[k] < 0))
+        _qm_magnitude(enc, st, i + 2, abs(vals[k]), 189 if k <= k_cond else 217)
+        k += 1
+    if k <= se:
+        enc.encode(st, 3 * (k - 1), 1)
+
+
+def _qm_ac_refine(enc, st, fixed, zz, ss, se, al):
+    """G.10 refinement at bit al of coefficients first coded above it."""
+    mag = [abs(int(v)) for v in zz]
+    ke = se
+    while ke > 0 and not mag[ke] >> al:
+        ke -= 1
+    kex = ke
+    while kex > 0 and not mag[kex] >> (al + 1):
+        kex -= 1
+    k = ss
+    while k <= ke:
+        i = 3 * (k - 1)
+        if k > kex:
+            enc.encode(st, i, 0)
+        while True:
+            v = mag[k] >> al
+            if v:
+                if v >> 1:
+                    enc.encode(st, i + 2, v & 1)
+                else:
+                    enc.encode(st, i + 1, 1)
+                    enc.encode(fixed, 0, int(zz[k] < 0))
+                break
+            enc.encode(st, i + 1, 0)
+            i += 3
+            k += 1
+        k += 1
+    if k <= se:
+        enc.encode(st, 3 * (k - 1), 1)
+
+
+def _coef_blocks(h, w, comps):
+    """Random zigzag coefficients [rows, cols, 64] for each component."""
+    hmax, vmax = max(c[1] for c in comps), max(c[2] for c in comps)
+    mcux, mcuy = -(-w // (8 * hmax)), -(-h // (8 * vmax))
+    out = []
+    for _, hs, vs, _ in comps:
+        b = np.zeros((mcuy * vs, mcux * hs, 64), np.int64)
+        b[..., 0] = RNG.integers(-60, 60, b.shape[:2])
+        b[..., 1:15] = RNG.integers(-9, 10, b.shape[:2] + (14,)) * (
+            RNG.random(b.shape[:2] + (14,)) < 0.5)
+        b[..., 15:40] = RNG.integers(-3, 4, b.shape[:2] + (25,)) * (
+            RNG.random(b.shape[:2] + (25,)) < 0.15)
+        out.append(b)
+    return out
+
+
+def _frame_head(h, w, comps, sof, app=b""):
+    return [b"\xff\xd8", app, _seg(0xDB, bytes([0]) + bytes(range(2, 66))),
+            _seg(0xDB, bytes([1]) + bytes([9] * 64)),
+            _seg(sof, bytes([8]) + h.to_bytes(2, "big") + w.to_bytes(2, "big")
+                 + bytes([len(comps)]) + b"".join(bytes([c, (hs << 4) | vs, t])
+                                                  for c, hs, vs, t in comps))]
+
+
+def _huffman_of(h, w, comps, blocks, app=b""):
+    """The same coefficients as a baseline Huffman file, one component a
+    scan (the oracle's twin)."""
+    out = _frame_head(h, w, comps, 0xC0, app)
+    for (cls, tid), (bits, values) in jpeg.STD_HUFFMAN.items():
+        out.append(_seg(0xC4, bytes([(cls << 4) | tid, *bits, *values])))
+    hmax, vmax = max(c[1] for c in comps), max(c[2] for c in comps)
+    for (cid, hs, vs, t), b in zip(comps, blocks):
+        rows = -(-(-(-h * vs // vmax)) // 8)
+        cols = -(-(-(-w * hs // hmax)) // 8)
+        out.append(_seg(0xDA, bytes([1, cid, t * 0x11, 0, 63, 0])))
+        out.append(_scan_bytes(b[:rows, :cols].reshape(-1, 64),
+                               _huff_codes(*jpeg.STD_HUFFMAN[(0, t)]),
+                               _huff_codes(*jpeg.STD_HUFFMAN[(1, t)])))
+    return b"".join(out + [b"\xff\xd9"])
+
+
+def _arith_jpeg(h, w, comps, blocks, *, progressive=False, interleaved=True, restart=0,
+                dac=None, app=b""):
+    """An arithmetic-coded file of the coefficients: sequential (SOF9, one
+    interleaved scan or one a component, with restart intervals) or
+    progressive (SOF10: DC first at Al 1 and its refinement, AC 1-5 at Al 1
+    and 6-63 at Al 0 per component, then AC 1-5's refinement); ``dac``:
+    {(class, table): value}."""
+    out = _frame_head(h, w, comps, 0xCA if progressive else 0xC9, app)
+    cond = dict(dac or {})
+    if dac:
+        out.append(_seg(0xCC, b"".join(bytes([(c << 4) | t, v]) for (c, t), v in dac.items())))
+    if restart:
+        out.append(_seg(0xDD, restart.to_bytes(2, "big")))
+    hmax, vmax = max(c[1] for c in comps), max(c[2] for c in comps)
+    mcux, mcuy = -(-w // (8 * hmax)), -(-h // (8 * vmax))
+
+    def units(ci_list):
+        """MCUs of a scan over ``ci_list``: lists of (component, row, col)."""
+        if len(ci_list) == 1:
+            ci = ci_list[0]
+            _, hs, vs, _ = comps[ci]
+            rows = -(-(-(-h * vs // vmax)) // 8)
+            cols = -(-(-(-w * hs // hmax)) // 8)
+            return [[(ci, r, c)] for r in range(rows) for c in range(cols)]
+        return [[(ci, my * comps[ci][2] + v, mx * comps[ci][1] + u) for ci in ci_list
+                 for v in range(comps[ci][2]) for u in range(comps[ci][1])]
+                for my in range(mcuy) for mx in range(mcux)]
+
+    def scan(ci_list, ss, se, ah, al, code):
+        out.append(_seg(0xDA, bytes([len(ci_list)]) + b"".join(
+            bytes([comps[ci][0], comps[ci][3] * 0x11]) for ci in ci_list)
+            + bytes([ss, se, (ah << 4) | al])))
+        mcus = units(ci_list)
+        per = restart or len(mcus)
+        for r, start in enumerate(range(0, len(mcus), per)):
+            enc = _QMEncoder()
+            dc_st = {t: bytearray(64) for t in range(2)}
+            ac_st = {t: bytearray(256) for t in range(2)}
+            fixed = bytearray([113])
+            ctx = {ci: [0] for ci in ci_list}
+            pred = {ci: 0 for ci in ci_list}
+            for mcu in mcus[start:start + per]:
+                for ci, r_, c_ in mcu:
+                    code(enc, dc_st, ac_st, fixed, ctx, pred, ci, blocks[ci][r_, c_])
+            if r:
+                out.append(bytes([0xFF, 0xD0 + (r - 1) % 8]))
+            out.append(enc.finish())
+
+    def dc_cond(ci):
+        v = cond.get((0, comps[ci][3]), 0x10)
+        return v & 15, v >> 4
+
+    def seq(enc, dc_st, ac_st, fixed, ctx, pred, ci, zz):
+        t = comps[ci][3]
+        _qm_dc(enc, dc_st[t], ctx[ci], int(zz[0]) - pred[ci], dc_cond(ci))
+        pred[ci] = int(zz[0])
+        _qm_ac(enc, ac_st[t], fixed, zz, 1, 63, 0, cond.get((1, t), 5))
+
+    def dc_first(enc, dc_st, ac_st, fixed, ctx, pred, ci, zz):
+        v = int(zz[0]) >> 1
+        _qm_dc(enc, dc_st[comps[ci][3]], ctx[ci], v - pred[ci], dc_cond(ci))
+        pred[ci] = v
+
+    def dc_refine(enc, dc_st, ac_st, fixed, ctx, pred, ci, zz):
+        enc.encode(fixed, 0, int(zz[0]) & 1)
+
+    def ac_first(ss, se, al):
+        def code(enc, dc_st, ac_st, fixed, ctx, pred, ci, zz):
+            t = comps[ci][3]
+            _qm_ac(enc, ac_st[t], fixed, zz, ss, se, al, cond.get((1, t), 5))
+        return code
+
+    def ac_refine(enc, dc_st, ac_st, fixed, ctx, pred, ci, zz):
+        _qm_ac_refine(enc, ac_st[comps[ci][3]], fixed, zz, 1, 5, 0)
+
+    every = list(range(len(comps)))
+    if not progressive:
+        for group in ([every] if interleaved else [[ci] for ci in every]):
+            scan(group, 0, 63, 0, 0, seq)
+    else:
+        scan(every, 0, 0, 0, 1, dc_first)
+        for ci in every:
+            scan([ci], 1, 5, 0, 1, ac_first(1, 5, 1))
+        scan(every, 0, 0, 1, 0, dc_refine)
+        for ci in every:
+            scan([ci], 6, 63, 0, 0, ac_first(6, 63, 0))
+            scan([ci], 1, 5, 1, 0, ac_refine)
+    return b"".join(out + [b"\xff\xd9"])
+
+
+_LOSSLESS_BITS = (0, 0, 0, 0, 17) + (0,) * 11  # 17 codes of 5 bits: categories 0-16
+
+
+def _lossless_jpeg(samples, predictor, pt=0, app=b"", ids=None):
+    """A lossless (SOF3) file: one interleaved scan of the components of
+    ``samples`` [H, W, C] (8 bits), predictor 1-7, point transform pt."""
+    h, w, n = samples.shape
+    x = samples.astype(np.int64) >> pt
+    d = np.zeros_like(x)
+    for c in range(n):
+        p = np.zeros((h, w), np.int64)
+        p[0, 0] = 1 << (8 - pt - 1)
+        p[0, 1:] = x[0, :-1, c]
+        p[1:, 0] = x[:-1, 0, c]
+        ra, rb, rc = x[1:, :-1, c], x[:-1, 1:, c], x[:-1, :-1, c]
+        p[1:, 1:] = {1: ra, 2: rb, 3: rc, 4: ra + rb - rc, 5: ra + ((rb - rc) >> 1),
+                     6: rb + ((ra - rc) >> 1), 7: (ra + rb) >> 1}[predictor]
+        d[..., c] = x[..., c] - p
+    codes = _huff_codes(_LOSSLESS_BITS, list(range(17)))
+    bits = []
+    for v in (((d + 32768) & 0xFFFF) - 32768).reshape(-1).tolist():
+        s, e = _extra(v)
+        code, length = codes[s]
+        bits += [(code >> (length - 1 - i)) & 1 for i in range(length)]
+        bits += [(e >> (s - 1 - i)) & 1 for i in range(s)]
+    bits += [1] * (-len(bits) % 8)
+    data = np.packbits(np.asarray(bits, np.uint8)).tobytes().replace(b"\xff", b"\xff\x00")
+    ids = ids or list(range(1, n + 1))
+    return b"".join([b"\xff\xd8", app,
+                     _seg(0xC3, bytes([8]) + h.to_bytes(2, "big") + w.to_bytes(2, "big")
+                          + bytes([n]) + b"".join(bytes([i, 0x11, 0]) for i in ids)),
+                     _seg(0xC4, bytes([0x00, *_LOSSLESS_BITS, *range(17)])),
+                     _seg(0xDA, bytes([n]) + b"".join(bytes([i, 0x00]) for i in ids)
+                          + bytes([predictor, 0, pt])), data, b"\xff\xd9"])
+
+
+_JFIF = _seg(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+ARITH_PAIRS = {}  # arithmetic file name -> its Huffman twin
+REFUSED = {}  # files PIL and the port both refuse
+
+
+def _arith_and_lossless():
+    ycc = [(1, 2, 2, 0), (2, 1, 1, 1), (3, 1, 1, 1)]
+    gray = [(1, 1, 1, 0)]
+    files = {}
+    for name, (h, w, comps, kw) in {
+            "seq_ycc420": (35, 51, ycc, {}),
+            "seq_ycc420_per_component": (35, 51, ycc, dict(interleaved=False)),
+            "seq_restart": (35, 51, ycc, dict(restart=2)),
+            "seq_dac": (29, 44, ycc, dict(dac={(0, 0): 0x52, (0, 1): 0x31, (1, 0): 9,
+                                                (1, 1): 2})),
+            "seq_gray": (27, 38, gray, {}),
+            "progressive_ycc420": (35, 51, ycc, dict(progressive=True)),
+            "progressive_gray_restart": (27, 38, gray, dict(progressive=True, restart=3)),
+    }.items():
+        blocks = _coef_blocks(h, w, comps)
+        files[f"jpeg_arith_{name}"] = _arith_jpeg(h, w, comps, blocks, **kw)
+        ARITH_PAIRS[f"jpeg_arith_{name}"] = _huffman_of(h, w, comps, blocks)
+    rgb, g = _picture(23, 31), _picture(21, 26, 1)
+    for p in range(1, 8):
+        files[f"jpeg_lossless_rgb_p{p}"] = _lossless_jpeg(rgb, p, app=_adobe(0))
+    files["jpeg_lossless_gray_p4_pt2"] = _lossless_jpeg(g, 4, pt=2)
+    REFUSED["jpeg_lossless_ycc_p1"] = _lossless_jpeg(rgb, 1, app=_JFIF)
+    files["jpeg_lossless_rgb_ids_p7"] = _lossless_jpeg(rgb, 7, ids=[82, 71, 66])
+    return files
+
+
+# ---------------------------------------------------------------- WebP
+
+def _riff(chunks):
+    body = b"".join(tag + struct.pack("<I", len(b)) + b + bytes(len(b) & 1) for tag, b in chunks)
+    return b"RIFF" + struct.pack("<I", 4 + len(body)) + b"WEBP" + body
+
+
+def _with_raw_alpha(data, alpha, filt):
+    """``data`` (VP8X + ALPH + VP8) with its ALPH chunk rewritten uncompressed
+    under filter ``filt`` (1 horizontal, 2 vertical, 3 gradient), filtered
+    as libwebp's ``filters.c`` does."""
+    a = alpha.astype(np.int64)
+    f = a.copy()
+    f[0, 1:] = a[0, 1:] - a[0, :-1]
+    if filt:
+        f[1:, 0] = a[1:, 0] - a[:-1, 0]
+        if filt == 1:
+            f[1:, 1:] = a[1:, 1:] - a[1:, :-1]
+        elif filt == 2:
+            f[1:] = a[1:] - a[:-1]
+        else:
+            f[1:, 1:] = a[1:, 1:] - np.clip(a[1:, :-1] + a[:-1, 1:] - a[:-1, :-1], 0, 255)
+    else:
+        f = a
+    chunks = list(webp._chunks(data))
+    alph = bytes([filt << 2]) + (f & 255).astype(np.uint8).tobytes()
+    return _riff([(t, alph if t == b"ALPH" else b) for t, b in chunks])
+
+
+class _RecordingBool(vp8._Bool):
+    """The first boolean decoder of a frame (its first partition), keeping
+    every (probability, bit) it reads."""
+
+    record = None
+
+    def __init__(self, data):
+        super().__init__(data)
+        if _RecordingBool.record is None:
+            _RecordingBool.record = self.seen = []
+        else:
+            self.seen = None
+
+    def bit(self, prob):
+        b = super().bit(prob)
+        if self.seen is not None:
+            self.seen.append((prob, b))
+        return b
+
+
+def _bool_encode(pairs) -> bytes:
+    """RFC 6386 §7.3's boolean encoder over (probability, bit) pairs."""
+    out, rng, bottom, count = bytearray(), 255, 0, 24
+    for prob, bit in pairs:
+        split = 1 + (((rng - 1) * prob) >> 8)
+        if bit:
+            bottom += split
+            rng -= split
+        else:
+            rng = split
+        while rng < 128:
+            rng <<= 1
+            if bottom & (1 << 31):
+                k = len(out) - 1
+                while out[k] == 255:
+                    out[k] = 0
+                    k -= 1
+                out[k] += 1
+            bottom = (bottom << 1) & 0xFFFFFFFF
+            count -= 1
+            if not count:
+                out.append(bottom >> 24)
+                bottom &= (1 << 24) - 1
+                count = 8
+    v = bottom
+    if v & (1 << (32 - count)):
+        k = len(out) - 1
+        while out[k] == 255:
+            out[k] = 0
+            k -= 1
+        out[k] += 1
+    v = (v << (count & 7)) & 0xFFFFFFFF
+    for _ in range(count >> 3):
+        v = (v << 8) & 0xFFFFFFFF
+    for _ in range(4):
+        out.append(v >> 24)
+        v = (v << 8) & 0xFFFFFFFF
+    return bytes(out)
+
+
+def _vp8_with_filter(data, simple, sharpness, deltas=None):
+    """A lossy WebP whose first partition is re-encoded with another loop
+    filter header: the filter type, the sharpness and, with ``deltas`` (ref,
+    mode), loop-filter deltas for intra frames and 4x4 macroblocks. Every
+    other symbol is coded as it was."""
+    frame = dict(webp._chunks(data))[b"VP8 "]
+    _RecordingBool.record = None
+    orig, vp8._Bool = vp8._Bool, _RecordingBool
+    try:
+        vp8.decode_vp8(frame)
+    finally:
+        vp8._Bool = orig
+    pairs = _RecordingBool.record
+    i = 3  # colour space, clamping, segmentation on
+    if pairs[2][1]:
+        update_map, update_data = pairs[3][1], pairs[4][1]
+        i = 5
+        if update_data:
+            i += 1  # absolute or delta
+            for bits in (7,) * 4 + (6,) * 4:
+                i += 1 + (bits + 1 if pairs[i][1] else 0)
+        if update_map:
+            for _ in range(3):
+                i += 1 + (8 if pairs[i][1] else 0)
+    level_bits = pairs[i + 1:i + 7]
+    use_delta = pairs[i + 10][1]
+    if use_delta:
+        raise AssertionError("the source frame already has loop-filter deltas")
+    head = [(128, simple)] + level_bits + [(128, (sharpness >> k) & 1) for k in (2, 1, 0)]
+    if deltas:
+        ref, mode = deltas
+        head.append((128, 1))  # use deltas
+        head.append((128, 1))  # update them
+        for v in (ref, 0, 0, 0, mode, 0, 0, 0):
+            head.append((128, int(v != 0)))
+            if v:
+                head += [(128, (abs(v) >> k) & 1) for k in range(5, -1, -1)]
+                head.append((128, int(v < 0)))
+    else:
+        head.append((128, 0))
+    part0 = _bool_encode(pairs[:i] + head + pairs[i + 11:])
+    bits = frame[0] | (frame[1] << 8) | (frame[2] << 16)
+    rest = frame[10 + (bits >> 5):]
+    tag = ((bits & 0x1F) | (len(part0) << 5)).to_bytes(3, "little")
+    return _riff([(b"VP8 ", tag + frame[3:10] + part0 + rest)])
+
+
+def _webp_save(arr, mode, **kw):
+    return _pil_save(arr, mode, "WEBP", **kw)
+
+
+def _webps():
+    a, a4 = _picture(37, 53), _picture(30, 41, 4)
+    a4[..., 3] = (np.mgrid[0:30, 0:41][1] * 6 + RNG.integers(0, 3, (30, 41))) % 256
+    y, x = np.mgrid[0:96, 0:128]
+    mixed = np.zeros((96, 128, 3), np.int64)
+    mixed[:48] = np.stack([x * 2, y * 3, x + y], -1)[:48]
+    mixed[48:, :64] = np.array([[10, 200, 30], [40, 50, 220], [250, 250, 0]])[
+        RNG.integers(0, 3, (48, 64))]
+    mixed[48:, 64:] = np.stack([x, x, x], -1)[48:, 64:] * 3 + RNG.integers(0, 60, (48, 64, 3))
+    g = (np.mgrid[0:40, 0:44][0] * 4 + RNG.integers(0, 40, (40, 44))) % 256
+    corr = np.stack([(g + 30 + RNG.integers(0, 3, g.shape)) % 256, g,
+                     (g + 70 + RNG.integers(0, 3, g.shape)) % 256], -1)
+    flat = a.copy()
+    flat[:18, :26] = 200  # a flat corner: skipped macroblocks, 16x16 modes
+    files = {
+        "webp_lossless": _webp_save(a, "RGB", lossless=True),
+        "webp_lossless_fast": _webp_save(a, "RGB", lossless=True, method=0, quality=0),
+        "webp_lossless_cache_meta": _webp_save((mixed % 256).astype(np.uint8), "RGB",
+                                               lossless=True, method=4),
+        "webp_lossless_subtract_green": _webp_save(corr.astype(np.uint8), "RGB",
+                                                   lossless=True, method=4, quality=50),
+        "webp_lossless_palette6": _webp_save(
+            RNG.integers(0, 256, (6, 3))[RNG.integers(0, 6, (29, 31))].astype(np.uint8), "RGB",
+            lossless=True),
+        "webp_lossless_palette2": _webp_save(
+            RNG.integers(0, 256, (2, 3))[RNG.integers(0, 2, (23, 45))].astype(np.uint8), "RGB",
+            lossless=True),
+        "webp_lossless_rgba": _webp_save(a4, "RGBA", lossless=True),
+        "webp_lossy_q80": _webp_save(a, "RGB", quality=80),
+        "webp_lossy_q5_flat": _webp_save(flat, "RGB", quality=5),
+        "webp_lossy_q100_method6": _webp_save(a, "RGB", quality=100, method=6),
+        "webp_lossy_1x1": _webp_save(a[:1, :1], "RGB"),
+        "webp_lossy_odd_17x33": _webp_save(_picture(17, 33), "RGB", quality=60),
+        "webp_lossy_even_48x64": _webp_save(_picture(48, 64), "RGB", quality=40, method=0),
+        "webp_lossy_alpha": _webp_save(a4, "RGBA", quality=70),
+    }
+    frames = [Image.fromarray(_picture(30, 40)) for _ in range(2)]
+    for lossless in (False, True):
+        buf = io.BytesIO()
+        frames[0].save(buf, "WEBP", save_all=True, append_images=frames[1:], lossless=lossless,
+                       duration=40)
+        files[f"webp_animated_{'lossless' if lossless else 'lossy'}"] = buf.getvalue()
+    buf = io.BytesIO()
+    rgba = [Image.fromarray(_picture(26, 34, 4)) for _ in range(2)]
+    rgba[0].save(buf, "WEBP", save_all=True, append_images=rgba[1:], quality=60)
+    files["webp_animated_rgba"] = buf.getvalue()
+    for name, simple, sharpness, deltas in (("simple_filter", 1, 0, None),
+                                            ("normal_sharpness6", 0, 6, None),
+                                            ("simple_sharpness3_deltas", 1, 3, (5, -3)),
+                                            ("normal_sharpness2_deltas", 0, 2, (-4, 9))):
+        files[f"webp_lossy_{name}"] = _vp8_with_filter(files["webp_lossy_q5_flat"], simple,
+                                                       sharpness, deltas)
+    alpha = np.asarray(Image.open(io.BytesIO(files["webp_lossy_alpha"])).convert("RGBA"))[..., 3]
+    for filt in range(4):
+        files[f"webp_alpha_raw_filter{filt}"] = _with_raw_alpha(files["webp_lossy_alpha"], alpha,
+                                                                filt)
+    return files
+
+
+def _pil_bytes(im, fmt, **kw):
+    buf = io.BytesIO()
+    im.save(buf, fmt, **kw)
+    return buf.getvalue()
+
+
+FILES = {**_jpegs(), **_pngs(), **_gifs(), **_bmps(), **_tiffs(), **_arith_and_lossless(),
+         **_webps()}
 
 
 def _pil_rgb(data):
@@ -482,8 +1237,43 @@ def test_the_files_are_what_they_claim():
     """The markers and headers that make each case what it is named."""
     files = FILES
     sof = {name: next(files[name][i + 1] for i in range(len(files[name]) - 1)
-                      if files[name][i] == 0xFF and files[name][i + 1] in (0xC0, 0xC1, 0xC2))
+                      if files[name][i] == 0xFF
+                      and files[name][i + 1] in (0xC0, 0xC1, 0xC2, 0xC3, 0xC9, 0xCA))
            for name in files if name.startswith("jpeg")}
+    for name in files:
+        if name.startswith("jpeg_arith_seq"):
+            assert sof[name] == 0xC9, name
+        elif name.startswith("jpeg_arith_progressive"):
+            assert sof[name] == 0xCA, name
+        elif name.startswith("jpeg_lossless"):
+            assert sof[name] == 0xC3, name
+    assert b"\xff\xcc" in files["jpeg_arith_seq_dac"]
+    assert b"\xff\xd0" in files["jpeg_arith_seq_restart"]
+    tiff_comp = {name: tiff._ifd(files[name])[0][259][0] for name in files
+                 if name.startswith("tiff")}
+    for name, want in (("tiff_pil_group3_2d", 3), ("tiff_pil_group4", 4),
+                       ("tiff_pil_tiff_ccitt", 2),
+                       ("tiff_pil_lzma_rgb", 34925), ("tiff_pil_jpeg_ycbcr", 7),
+                       ("tiff_pil_tiff_lzw_rgb", 5), ("tiff_pil_packbits_rgb", 32773),
+                       ("tiff_planar_deflate", 8)):
+        assert tiff_comp[name] == want, name
+    assert tiff._ifd(files["tiff_pil_group3_2d"])[0][292] == (1,)
+    assert tiff._ifd(files["tiff_pil_lzw_predictor"])[0][317] == (2,)
+    assert files["tiff_bigtiff_tiles_deflate"][2] == 43
+    assert files["tiff_rgb16_big_endian"][:2] == b"MM"
+    assert files["tiff_bigtiff_strips"][:4] == b"II+\x00"
+    assert 322 in tiff._ifd(files["tiff_tiles_planar_packbits"])[0]
+    kinds = {name: [t for t, _ in webp._chunks(files[name])] for name in files
+             if name.startswith("webp")}
+    for name, first in kinds.items():
+        want = (b"VP8L" if "lossless" in name and "animated" not in name else
+                b"VP8X" if "alpha" in name or "animated" in name else b"VP8 ")
+        assert first[0] == want, name
+    assert b"ALPH" in kinds["webp_lossy_alpha"] and b"ANMF" in kinds["webp_animated_rgba"]
+    for name in ("simple_filter", "normal_sharpness6", "simple_sharpness3_deltas",
+                 "normal_sharpness2_deltas"):  # the new filter header changes the pixels
+        assert not np.array_equal(_pil_rgb(files[f"webp_lossy_{name}"]),
+                                  _pil_rgb(files["webp_lossy_q5_flat"])), name
     assert sof["jpeg_progressive"] == sof["jpeg_gray_progressive"] == 0xC2
     assert sof["jpeg_16bit_tables"] == 0xC1 and sof["jpeg_baseline"] == 0xC0
     assert b"\xff\xdd" in files["jpeg_restart_every_mcu"]
@@ -506,6 +1296,53 @@ def test_the_files_are_what_they_claim():
     assert struct.unpack_from("<i", files["bmp_24bit_v5_top_down"], 22)[0] < 0
     assert struct.unpack_from("<I", files["bmp_os2_8bit"], 14)[0] == 12
     assert len(files["bmp_truncated"]) < struct.unpack_from("<I", files["bmp_truncated"], 2)[0]
+
+
+@pytest.mark.parametrize("name", [n for n in FILES if n.startswith("webp")
+                                  and Image.open(io.BytesIO(FILES[n])).mode == "RGBA"])
+def test_webp_alpha_equals_pil(name):
+    """The alpha ``convert("RGB")`` drops: ALPH (compressed or raw, each
+    filter) and VP8L alpha equal PIL's RGBA, not premultiplied."""
+    data = FILES[name]
+    want = np.asarray(Image.open(io.BytesIO(data)).convert("RGBA"))
+    np.testing.assert_array_equal(webp.decode_webp_rgba(data), want)
+    assert len(np.unique(want[..., 3])) > 2
+
+
+CUT_PROGRESSIVE = {"jpeg_progressive_optimized": (0.2, 0.5, 0.65),
+                   "jpeg_gray_progressive": (0.65,), "jpeg_progressive": (0.5,)}
+
+
+@pytest.mark.parametrize("name,frac", [(n, f) for n, fs in CUT_PROGRESSIVE.items() for f in fs])
+def test_cut_progressive_jpeg_is_block_smoothed(tmp_path, name, frac):
+    """A progressive JPEG cut inside a scan is block-smoothed as
+    libjpeg-turbo does it: equal to the JAX package's ``load_resized_uint8``
+    (its native pipe, libjpeg-turbo with a fake EOI at the cut) and, where
+    PIL's incremental feed outputs the image, to PIL."""
+    data = FILES[name][:int(len(FILES[name]) * frac)]
+    path = tmp_path / "cut.jpg"
+    path.write_bytes(data)
+    for size in (28, 64):
+        np.testing.assert_array_equal(transforms.load_resized_uint8(str(path), size),
+                                      j_transforms.load_resized_uint8(str(path), size))
+    got, want = transforms.decode_image(data), _pil_rgb(data)
+    if (name, frac) != ("jpeg_progressive", 0.5):  # here PIL's image differs by 1 (untraced)
+        np.testing.assert_array_equal(got, want)
+    unsmoothed = jpeg._block_smoothing
+    try:
+        jpeg._block_smoothing = lambda frame, coefs, *a: coefs
+        assert not np.array_equal(transforms.decode_image(data), got)  # smoothing mattered
+    finally:
+        jpeg._block_smoothing = unsmoothed
+
+
+@pytest.mark.parametrize("name", ["webp_lossy_q80", "webp_lossless", "webp_lossy_alpha"])
+def test_cut_webp_raises_as_pil_does(name):
+    data = FILES[name][:-40]
+    with pytest.raises(ValueError, match="truncated WebP"):
+        transforms.decode_image(data)
+    with pytest.raises(OSError):  # LOAD_TRUNCATED_IMAGES is on
+        _pil_rgb(data)
 
 
 @pytest.mark.parametrize("name", list(FILES))
@@ -532,31 +1369,142 @@ def test_worker_frames_equal_jax(name):
     np.testing.assert_array_equal(got, want)
 
 
-def _patched_sof(marker=None, precision=None):
+def _patched_sof(marker=None, precision=None, height=None):
     data = bytearray(FILES["jpeg_baseline"])
     i = data.index(b"\xff\xc0")
     if marker is not None:
         data[i + 1] = marker
     if precision is not None:
         data[i + 4] = precision
+    if height is not None:
+        data[i + 5:i + 7] = height.to_bytes(2, "big")
     return bytes(data)
 
 
+def _tiff_with_compression(code):
+    """A small deflate TIFF with its Compression tag set to ``code``."""
+    data = bytearray(_tiff(_picture(9, 9), 2, compression=8))
+    i = data.index(struct.pack("<HHI", 259, 3, 1))
+    data[i + 8:i + 10] = struct.pack("<H", code)
+    return bytes(data)
+
+
+# formats the port refuses: name -> (the file, whether PIL reads it); one
+# that PIL reads stands in ROADMAP.md's fault 5 as still to do
 UNREAD = {
-    "TIFF": lambda: _pil_save(_picture(9, 9), "RGB", "TIFF"),
-    "WebP": lambda: b"RIFF\x10\x00\x00\x00WEBPVP8 " + bytes(16),
-    "arithmetic-coded": lambda: _patched_sof(marker=0xC9),
-    "lossless": lambda: _patched_sof(marker=0xC3),
-    "12-bit": lambda: _patched_sof(precision=12),
+    "ZSTD": (lambda: _pil_save(_picture(9, 9), "RGB", "TIFF", compression="zstd"), True),
+    "floating-point": (lambda: _pil_bytes(Image.fromarray(
+        RNG.random((8, 8)).astype(np.float32), "F"), "TIFF"), True),
+    "WebP": (lambda: _tiff_with_compression(50001), False),
+    "SGILog": (lambda: _tiff_with_compression(34676), False),
+    "old-style JPEG": (lambda: _tiff_with_compression(6), False),
+    "hierarchical JPEG": (lambda: _patched_sof(marker=0xC5), False),
+    "arithmetic-coded lossless JPEG": (lambda: _patched_sof(marker=0xCB), False),
+    "12-bit": (lambda: _patched_sof(precision=12), False),
+    "DNL": (lambda: _patched_sof(height=0), False),
+    "lossless JPEG in YCbCr": (lambda: REFUSED["jpeg_lossless_ycc_p1"], False),
 }
 
 
 @pytest.mark.parametrize("name", list(UNREAD))
 def test_unread_formats_raise_and_name_themselves(name):
+    make, pil_reads = UNREAD[name]
+    data = make()
     with pytest.raises(ValueError, match=name) as e:
-        transforms.decode_image(UNREAD[name]())
+        transforms.decode_image(data)
     assert "fault 5" in str(e.value)
+    if pil_reads:  # still to do: ROADMAP.md's fault 5 names it
+        assert name in (Path(__file__).parents[1] / "ROADMAP.md").read_text()
+    else:  # parity: PIL refuses the same bytes
+        ImageFile.LOAD_TRUNCATED_IMAGES = False
+        try:
+            with pytest.raises(Exception):
+                Image.open(io.BytesIO(data)).load()
+        finally:
+            ImageFile.LOAD_TRUNCATED_IMAGES = True
     with pytest.raises(ValueError, match="not an image the port reads"):
         transforms.decode_image(b"plain text")
     with pytest.raises(ValueError, match="no SOI"):
         jpeg.decode_jpeg(b"\x00" + FILES["jpeg_baseline"])
+
+
+# ---------------------------------------------------------------- committed fixtures
+
+FIXTURE_DIR = Path(__file__).parent / "data" / "images"
+
+
+def _fixture_picture(h=48, w=64):
+    """A smooth scene with edges: gradients, a disc and bars."""
+    y, x = np.mgrid[0:h, 0:w]
+    img = np.stack([x * 255 // w, y * 255 // h, (x + y) * 127 // (w + h) + 64], -1)
+    disc = (y - h / 2) ** 2 + (x - w / 3) ** 2 < (h / 4) ** 2
+    img[disc] = (220, 40, 60)
+    img[:, (x[0] // 6) % 2 == 1 & (x[0] > 2 * w // 3)] //= 2
+    return img.astype(np.uint8)
+
+
+def make_fixtures() -> dict:
+    """The committed fixtures (name -> bytes): what the card's machine,
+    which has no PIL, decodes in ``chip_smoke.py``'s phase 15."""
+    a = _fixture_picture()
+    a4 = np.concatenate([a, (np.mgrid[0:48, 0:64][1] * 4)[..., None].astype(np.uint8)], -1)
+    frames = [Image.fromarray(a4), Image.fromarray(255 - a4)]
+    buf = io.BytesIO()
+    frames[0].save(buf, "WEBP", save_all=True, append_images=frames[1:], quality=70)
+    comps = [(1, 2, 2, 0), (2, 1, 1, 1), (3, 1, 1, 1)]
+    rgb_planes = jpeg.rgb_to_ycc(a.astype(np.int64))
+    blocks = []
+    for (cid, hs, vs, t), plane in zip(comps, rgb_planes):
+        if hs == 1:  # 2x2 chroma averaging
+            plane = (plane[0::2, 0::2] + plane[1::2, 0::2] + plane[0::2, 1::2]
+                     + plane[1::2, 1::2] + 2) >> 2
+        rows, cols = plane.shape[0] // 8, plane.shape[1] // 8
+        q = np.asarray(range(2, 66)) if t == 0 else np.full(64, 9)
+        coef = jpeg.fdct_islow(plane.reshape(rows, 8, cols, 8).transpose(0, 2, 1, 3)
+                               .reshape(-1, 8, 8) - 128).reshape(-1, 64)
+        zz = np.round(coef[:, jpeg.ZIGZAG] / 8 / q[np.arange(64)]).astype(np.int64)
+        b = np.zeros((3 * vs, 4 * hs, 64), np.int64)
+        b[:rows, :cols] = zz.reshape(rows, cols, 64)
+        blocks.append(b)
+    return {
+        "webp_lossy.webp": _webp_save(a, "RGB", quality=75),
+        "webp_lossless.webp": _webp_save(a, "RGB", lossless=True),
+        "webp_animated_alpha.webp": buf.getvalue(),
+        "tiff_lzw_predictor.tif": _pil_save(a, "RGB", "TIFF", compression="tiff_lzw",
+                                            tiffinfo={317: 2}),
+        "tiff_group4.tif": _pil_save(a, "1", "TIFF", compression="group4"),
+        "tiff_jpeg_ycbcr.tif": _pil_save(a, "YCbCr", "TIFF", compression="jpeg", quality=85),
+        "jpeg_arithmetic.jpg": _arith_jpeg(48, 64, comps, blocks, restart=4),
+        "jpeg_arithmetic_progressive.jpg": _arith_jpeg(48, 64, comps, blocks, progressive=True),
+        "jpeg_lossless.jpg": _lossless_jpeg(a, 4, app=_adobe(0)),
+    }
+
+
+def _fixture_names():
+    return sorted(p.name for p in FIXTURE_DIR.iterdir() if p.suffix != ".npy")
+
+
+@pytest.mark.parametrize("name", _fixture_names())
+def test_committed_fixtures_equal_pil_and_their_arrays(name):
+    """Each committed fixture decodes, in PIL and in the port, to its
+    committed array (the card's oracle)."""
+    data = (FIXTURE_DIR / name).read_bytes()
+    want = np.load(FIXTURE_DIR / (Path(name).stem + ".npy"))
+    np.testing.assert_array_equal(_pil_rgb(data), want)
+    np.testing.assert_array_equal(transforms.decode_image(data), want)
+
+
+def test_committed_fixtures_are_the_made_ones():
+    """The committed files are what ``make_fixtures`` writes (none missing,
+    none extra), so a change to a writer shows here."""
+    made = make_fixtures()
+    assert sorted(made) == _fixture_names()
+    for name, data in made.items():
+        assert _pil_rgb(data).shape == np.load(FIXTURE_DIR / (Path(name).stem + ".npy")).shape
+
+
+if __name__ == "__main__":  # rewrite them: PYTHONPATH=. python tests/test_torch_images.py
+    FIXTURE_DIR.mkdir(parents=True, exist_ok=True)
+    for fname, fdata in make_fixtures().items():
+        (FIXTURE_DIR / fname).write_bytes(fdata)
+        np.save(FIXTURE_DIR / (Path(fname).stem + ".npy"), _pil_rgb(fdata))

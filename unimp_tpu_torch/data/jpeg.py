@@ -22,8 +22,15 @@ Decode reads every Huffman-coded 8-bit JPEG that libjpeg reads: baseline
 and extended, interleaved or one component a scan, progressive (DC and AC
 first and refinement scans with end-of-band runs, ``jdphuff.c``), restart
 intervals, 16-bit quantization tables, gray / YCbCr / RGB / CMYK / YCCK,
-and files cut short. Arithmetic-coded, 12-bit, lossless and hierarchical
-files raise a ``ValueError`` that names them (ROADMAP.md §3, fault 5).
+and files cut short; arithmetic-coded too (the QM decoder of T.81 Annex
+D as ``jdarith.c`` runs it: sequential and progressive, DAC conditioning,
+restart intervals), and lossless (SOF3: predictors 1-7, the point
+transform; gray or RGB, components not subsampled, no restart interval).
+A progressive file cut short is block-smoothed as libjpeg-turbo does it
+(``jdcoefct.c decompress_smooth_data``). 12-bit, hierarchical, arithmetic
+lossless, a DNL height, chroma sampling that does not divide the largest
+and a lossless file in YCbCr (libjpeg-turbo refuses to convert it) raise
+a ``ValueError`` that names them (ROADMAP.md §3, fault 5).
 Huffman decoding is a Python loop (about a microsecond a coefficient);
 everything else is vectorized over blocks.
 """
@@ -241,9 +248,8 @@ def _upsample_h2v2(x: np.ndarray) -> np.ndarray:
 # ---------------------------------------------------------------- decode
 
 # the JPEG processes the port does not read (ROADMAP.md §3, fault 5)
-_UNREAD_SOF = {0xC3: "lossless JPEG (SOF3)", 0xC5: "hierarchical JPEG (SOF5)",
+_UNREAD_SOF = {0xC5: "hierarchical JPEG (SOF5)",
                0xC6: "hierarchical JPEG (SOF6)", 0xC7: "hierarchical lossless JPEG (SOF7)",
-               0xC9: "arithmetic-coded JPEG (SOF9)", 0xCA: "arithmetic-coded JPEG (SOF10)",
                0xCB: "arithmetic-coded lossless JPEG (SOF11)",
                0xCD: "arithmetic-coded hierarchical JPEG (SOF13)",
                0xCE: "arithmetic-coded hierarchical JPEG (SOF14)",
@@ -303,7 +309,7 @@ def _read_baseline(win, mcus, flat, dc, ac, preds, al, ss, se, nbits):
     zero bits): the rest of the segment keeps what it had (zero here).
     The other readers stop alike."""
     pos = 0
-    for mcu in mcus:
+    for n_mcu, mcu in enumerate(mcus):
         for ci, base in mcu:
             out, dc_lut, ac_lut = flat[ci], dc[ci], ac[ci]
             e = dc_lut[(win[pos >> 3] >> (16 - (pos & 7))) & 0xFFFF]
@@ -337,13 +343,14 @@ def _read_baseline(win, mcus, flat, dc, ac, preds, al, ss, se, nbits):
                 else:
                     break
         if pos > nbits:
-            return
+            return n_mcu
+    return None
 
 
 def _read_dc_first(win, mcus, flat, dc, ac, preds, al, ss, se, nbits):
     """Progressive DC first scan (``jdphuff.c decode_mcu_DC_first``)."""
     pos = 0
-    for mcu in mcus:
+    for n_mcu, mcu in enumerate(mcus):
         for ci, base in mcu:
             e = dc[ci][(win[pos >> 3] >> (16 - (pos & 7))) & 0xFFFF]
             if not e:
@@ -356,26 +363,28 @@ def _read_dc_first(win, mcus, flat, dc, ac, preds, al, ss, se, nbits):
                 preds[ci] += r if r >= 1 << (s - 1) else r - (1 << s) + 1
             flat[ci][base] = preds[ci] * (1 << al)
         if pos > nbits:
-            return
+            return n_mcu
+    return None
 
 
 def _read_dc_refine(win, mcus, flat, dc, ac, preds, al, ss, se, nbits):
     """Progressive DC refinement: one bit a block (``decode_mcu_DC_refine``)."""
     pos, p1 = 0, 1 << al
-    for mcu in mcus:
+    for n_mcu, mcu in enumerate(mcus):
         for ci, base in mcu:
             if (win[pos >> 3] >> (31 - (pos & 7))) & 1:
                 flat[ci][base] |= p1
             pos += 1
         if pos > nbits:
-            return
+            return n_mcu
+    return None
 
 
 def _read_ac_first(win, mcus, flat, dc, ac, preds, al, ss, se, nbits):
     """Progressive AC first scan over one component, with end-of-band runs
     (``decode_mcu_AC_first``)."""
     pos, eobrun = 0, 0
-    for mcu in mcus:
+    for n_mcu, mcu in enumerate(mcus):
         (ci, base), = mcu
         if eobrun:
             eobrun -= 1
@@ -407,7 +416,8 @@ def _read_ac_first(win, mcus, flat, dc, ac, preds, al, ss, se, nbits):
                 eobrun -= 1
                 break
         if pos > nbits:
-            return
+            return n_mcu
+    return None
 
 
 def _read_ac_refine(win, mcus, flat, dc, ac, preds, al, ss, se, nbits):
@@ -416,7 +426,7 @@ def _read_ac_refine(win, mcus, flat, dc, ac, preds, al, ss, se, nbits):
     end-of-band runs (``decode_mcu_AC_refine``)."""
     pos, eobrun = 0, 0
     p1, m1 = 1 << al, -1 << al
-    for mcu in mcus:
+    for n_mcu, mcu in enumerate(mcus):
         (ci, base), = mcu
         out, lut = flat[ci], ac[ci]
         k = ss
@@ -461,7 +471,268 @@ def _read_ac_refine(win, mcus, flat, dc, ac, preds, al, ss, se, nbits):
                 k += 1
             eobrun -= 1
         if pos > nbits:
+            return n_mcu
+    return None
+
+
+# the QM coder's probability estimation (T.81 Table D.2, as libjpeg's
+# ``jaricom.c`` packs it): Qe << 16 | next index after an MPS << 8 |
+# switch << 7 | next index after an LPS; entry 113 is the fixed 0.5 bin
+_ARITAB = (
+    0x5a1d0181, 0x2586020e, 0x11140310, 0x80b0412, 0x3d80514, 0x1da0617, 0xe50719, 0x6f081c,
+    0x36091e, 0x1a0a21, 0xd0b23, 0x60c09, 0x30d0a, 0x10d0c, 0x5a7f0f8f, 0x3f251024, 0x2cf21126,
+    0x207c1227, 0x17b91328, 0x1182142a, 0xcef152b, 0x9a1162d, 0x72f172e, 0x55c1830, 0x4061931,
+    0x3031a33, 0x2401b34, 0x1b11c36, 0x1441d38, 0xf51e39, 0xb71f3b, 0x8a203c, 0x68213e, 0x4e223f,
+    0x3b2320, 0x2c0921, 0x5ae125a5, 0x484c2640, 0x3a0d2741, 0x2ef12843, 0x261f2944, 0x1f332a45,
+    0x19a82b46, 0x15182c48, 0x11772d49, 0xe742e4a, 0xbfb2f4b, 0x9f8304d, 0x861314e, 0x706324f,
+    0x5cd3330, 0x4de3432, 0x40f3532, 0x3633633, 0x2d43734, 0x25c3835, 0x1f83936, 0x1a43a37,
+    0x1603b38, 0x1253c39, 0xf63d3a, 0xcb3e3b, 0xab3f3d, 0x8f203d, 0x5b1241c1, 0x4d044250,
+    0x412c4351, 0x37d84452, 0x2fe84553, 0x293c4654, 0x23794756, 0x1edf4857, 0x1aa94957, 0x174e4a48,
+    0x14244b48, 0x119c4c4a, 0xf6b4d4a, 0xd514e4b, 0xbb64f4d, 0xa40304d, 0x583251d0, 0x4d1c5258,
+    0x438e5359, 0x3bdd545a, 0x34ee555b, 0x2eae565c, 0x299a575d, 0x25164756, 0x557059d8, 0x4ca95a5f,
+    0x44d95b60, 0x3e225c61, 0x38245d63, 0x32b45e63, 0x2e17565d, 0x56a860df, 0x4f466165, 0x47e56266,
+    0x41cf6367, 0x3c3d6468, 0x375e5d63, 0x52316669, 0x4c0f676a, 0x4639686b, 0x415e6367, 0x56276ae9,
+    0x50e76b6c, 0x4b85676d, 0x55976d6e, 0x504f6b6f, 0x5a106fee, 0x55226d70, 0x59eb6ff0, 0x5a1d7171)
+
+
+class _Arith:
+    """The QM decoder of one entropy-coded segment (``jdarith.c
+    arith_decode``): zero bytes once the segment's data is spent, as libjpeg
+    supplies after a marker."""
+
+    def __init__(self, seg: np.ndarray):
+        self.data, self.pos, self.c, self.a, self.ct = seg.tolist(), 0, 0, 0, -16
+
+    def __call__(self, st: bytearray, i: int) -> int:
+        a, c, ct = self.a, self.c, self.ct
+        while a < 0x8000:
+            ct -= 1
+            if ct < 0:
+                data = self.data[self.pos] if self.pos < len(self.data) else 0
+                self.pos += 1
+                c = (c << 8) | data
+                ct += 8
+                if ct < 0:
+                    ct += 1
+                    if ct == 0:
+                        a = 0x8000
+            a <<= 1
+        sv = st[i]
+        qe = _ARITAB[sv & 0x7F]
+        nl, nm, qe = qe & 0xFF, (qe >> 8) & 0xFF, qe >> 16
+        a -= qe
+        temp = a << ct
+        if c >= temp:
+            c -= temp
+            if a < qe:
+                a = qe
+                st[i] = (sv & 0x80) ^ nm
+            else:
+                a = qe
+                st[i] = (sv & 0x80) ^ nl
+                sv ^= 0x80
+        elif a < 0x8000:
+            if a < qe:
+                st[i] = (sv & 0x80) ^ nl
+                sv ^= 0x80
+            else:
+                st[i] = (sv & 0x80) ^ nm
+        self.a, self.c, self.ct = a, c, ct
+        return sv >> 7
+
+
+def _arith_dc(dec, st, ctx, ci, cond):
+    """One DC difference (T.81 F.19-F.24, ``jdarith.c``), with the
+    component's conditioning context updated; ``cond`` is (L, U)."""
+    s = ctx[ci]
+    if not dec(st, s):
+        ctx[ci] = 0
+        return 0
+    sign = dec(st, s + 1)
+    i = s + 2 + sign
+    m = dec(st, i)
+    if m:
+        i = 20
+        while dec(st, i):
+            m <<= 1
+            if m == 0x8000:
+                raise ValueError("corrupt JPEG: arithmetic DC magnitude overflow")
+            i += 1
+    lo, hi = cond
+    if m < (1 << lo) >> 1:
+        ctx[ci] = 0
+    elif m > (1 << hi) >> 1:
+        ctx[ci] = 12 + sign * 4
+    else:
+        ctx[ci] = 4 + sign * 4
+    v = m
+    i += 14
+    m >>= 1
+    while m:
+        if dec(st, i):
+            v |= m
+        m >>= 1
+    v += 1
+    return -v if sign else v
+
+
+def _arith_ac_value(dec, st, i, k, kx, fixed):
+    """The value of a nonzero AC coefficient at band position k whose
+    statistics start at ``st[i]``."""
+    sign = dec(fixed, 0)
+    i += 2
+    m = dec(st, i)
+    if m and dec(st, i):
+        m <<= 1
+        i = 189 if k <= kx else 217
+        while dec(st, i):
+            m <<= 1
+            if m == 0x8000:
+                raise ValueError("corrupt JPEG: arithmetic AC magnitude overflow")
+            i += 1
+    v = m
+    i += 14
+    m >>= 1
+    while m:
+        if dec(st, i):
+            v |= m
+        m >>= 1
+    v += 1
+    return -v if sign else v
+
+
+def _arith_ac_band(dec, st, out, base, ss, se, kx, fixed, al):
+    """AC coefficients ss..se of one block (F.20): end-of-block flags, zero
+    runs, values scaled by 2^al."""
+    k = ss
+    while k <= se:
+        i = 3 * (k - 1)
+        if dec(st, i):
             return
+        while not dec(st, i + 1):
+            i += 3
+            k += 1
+            if k > se:
+                raise ValueError("corrupt JPEG: arithmetic spectral overflow")
+        out[base + k] = _arith_ac_value(dec, st, i, k, kx, fixed) * (1 << al)
+        k += 1
+
+
+def _read_arith(seg_bytes, mcus, flat, kind, tables, ss, se, al):
+    """One restart interval of an arithmetic-coded scan: fresh statistics
+    (``jdarith.c`` start_pass / process_restart), then its MCUs."""
+    dec = _Arith(seg_bytes)
+    dct, act, dc_cond, ac_k = tables
+    dc_st = {t: bytearray(64) for t in set(dct)}
+    ac_st = {t: bytearray(256) for t in set(act)}
+    fixed = bytearray([113])
+    ctx = [0] * len(flat)
+    preds = [0] * len(flat)
+    for mcu in mcus:
+        for ci, base in mcu:
+            out = flat[ci]
+            if kind in ("baseline", "dc_first"):
+                diff = _arith_dc(dec, dc_st[dct[ci]], ctx, ci, dc_cond[ci])
+                preds[ci] = (preds[ci] + diff) & 0xFFFF
+                v = preds[ci] - 0x10000 if preds[ci] & 0x8000 else preds[ci]
+                out[base] = v if kind == "baseline" else v * (1 << al)
+                if kind == "baseline":
+                    _arith_ac_band(dec, ac_st[act[ci]], out, base, 1, 63, ac_k[ci], fixed, 0)
+            elif kind == "dc_refine":
+                if dec(fixed, 0):
+                    out[base] |= 1 << al
+            elif kind == "ac_first":
+                _arith_ac_band(dec, ac_st[act[ci]], out, base, ss, se, ac_k[ci], fixed, al)
+            else:
+                _arith_ac_refine(dec, ac_st[act[ci]], out, base, ss, se, fixed, al)
+
+
+def _arith_ac_refine(dec, st, out, base, ss, se, fixed, al):
+    """A progressive AC refinement of one block (``decode_mcu_AC_refine``)."""
+    p1, m1 = 1 << al, -1 << al
+    kex = se
+    while kex > 0 and not out[base + kex]:
+        kex -= 1
+    k = ss
+    while k <= se:
+        i = 3 * (k - 1)
+        if k > kex and dec(st, i):
+            return
+        while True:
+            c = out[base + k]
+            if c:
+                if dec(st, i + 2):
+                    out[base + k] = c + (m1 if c < 0 else p1)
+                break
+            if dec(st, i + 1):
+                out[base + k] = m1 if dec(fixed, 0) else p1
+                break
+            i += 3
+            k += 1
+            if k > se:
+                raise ValueError("corrupt JPEG: arithmetic spectral overflow")
+        k += 1
+
+
+def _read_lossless(segments, frame, scan_comps, huff, td, pred, pt, restart):
+    """The samples of a lossless (SOF3) scan whose components are not
+    subsampled: Huffman-coded differences (a DC-style category, 16 for
+    32768), then libjpeg-turbo's predictor ``pred`` (``jdlossls.c``)."""
+    h, w, comps, *_ = frame
+    if restart:
+        raise ValueError("lossless JPEG with restart intervals " + UNREAD)
+    n = len(scan_comps)
+    diffs = np.zeros((h * w, n), np.int64)
+    seg = segments[0]
+    win = _windows(seg, _ZERO_TAIL)
+    luts = [huff[(0, t)] for t in td]
+    pos, out = 0, diffs.reshape(-1).tolist()
+    for j in range(h * w * n):
+        lut = luts[j % n]
+        e = lut[(win[pos >> 3] >> (16 - (pos & 7))) & 0xFFFF]
+        if not e:
+            _bad_code()
+        pos += e >> 8
+        s = e & 0xFF
+        if s == 16:
+            out[j] = 32768
+        elif s:
+            r = (win[pos >> 3] >> (32 - (pos & 7) - s)) & ((1 << s) - 1)
+            pos += s
+            out[j] = r if r >= 1 << (s - 1) else r - (1 << s) + 1
+    diffs = np.asarray(out, np.int64).reshape(h, w, n)
+    planes = []
+    for c in range(n):
+        d = diffs[..., c]
+        x = np.zeros((h, w), np.int64)
+        x[0] = (np.cumsum(d[0]) + (1 << (8 - pt - 1))) & 0xFFFF
+        for y in range(1, h):
+            prev, row = x[y - 1], x[y]
+            row[0] = (d[y, 0] + prev[0]) & 0xFFFF
+            if pred == 1:
+                row[:] = (np.cumsum(np.concatenate([[row[0]], d[y, 1:]]))) & 0xFFFF
+            elif pred == 2:
+                row[1:] = (d[y, 1:] + prev[1:]) & 0xFFFF
+            elif pred == 3:
+                row[1:] = (d[y, 1:] + prev[:-1]) & 0xFFFF
+            else:
+                ra, dy, pl = int(row[0]), d[y].tolist(), prev.tolist()
+                vals = [ra]
+                for i in range(1, w):
+                    rb, rc = pl[i], pl[i - 1]
+                    if pred == 4:
+                        p = ra + rb - rc
+                    elif pred == 5:
+                        p = ra + ((rb - rc) >> 1)
+                    elif pred == 6:
+                        p = rb + ((ra - rc) >> 1)
+                    else:
+                        p = (ra + rb) >> 1
+                    ra = (dy[i] + p) & 0xFFFF
+                    vals.append(ra)
+                row[:] = vals
+        planes.append((x << pt) & 0xFF)
+    return planes
 
 
 def _scan_mcus(frame, scan_comps):
@@ -495,10 +766,14 @@ _READERS = {"baseline": _read_baseline, "dc_first": _read_dc_first,
             "ac_refine": _read_ac_refine}
 
 
-def _read_scan(data, end, frame, coefs, huff, seg, progressive, restart, strict=False):
+def _read_scan(data, end, frame, coefs, huff, seg, progressive, restart, strict=False,
+               arith=None, trace=None):
     """Decode one scan into the coefficient buffers; returns the offset
     after its entropy-coded data. ``strict``: raise if the file ends
-    inside the scan."""
+    inside the scan. ``arith``: the scan is arithmetic-coded, under these
+    DAC conditioning values ({(class, table): value}). ``trace`` (a dict)
+    gets "cut": (the scan's components, the MCU in which the data ran
+    out) when the file ends inside a Huffman scan."""
     h, w, comps, *_ = frame
     ids = [c[0] for c in comps]
     ns = seg[0]
@@ -519,17 +794,28 @@ def _read_scan(data, end, frame, coefs, huff, seg, progressive, restart, strict=
         if ns != 1 or se > 63 or ss > se:
             raise ValueError("corrupt JPEG: bad progressive AC scan")
         kind = "ac_first" if ah == 0 else "ac_refine"
-    try:
-        dc = [huff[(0, t)] if kind in ("baseline", "dc_first") else None for t in td]
-        ac = [huff[(1, t)] if kind in ("baseline", "ac_first", "ac_refine") else None for t in ta]
-    except KeyError as e:
-        raise ValueError(f"corrupt JPEG: Huffman table {e} is not defined") from None
     segments, after, cut = _scan_segments(data, end)
     if cut and strict:
         raise ValueError("truncated JPEG (the file ends inside a scan)")
     mcus = _scan_mcus(frame, scan_comps)
     per = restart or len(mcus)
     flat = [coefs[c].reshape(-1) for c in scan_comps]
+    if arith is not None:  # defaults L 0, U 1, K 5 (``jdarith.c``)
+        dc_cond = [(arith.get((0, t), 0x10) & 15, arith.get((0, t), 0x10) >> 4) for t in td]
+        tables = (td, ta, dc_cond, [arith.get((1, t), 5) for t in ta])
+        lists = [f.tolist() for f in flat]
+        for s, seg_bytes in enumerate(segments):
+            chunk = mcus[s * per:(s + 1) * per]
+            if chunk:
+                _read_arith(seg_bytes, chunk, lists, kind, tables, ss, se, al)
+        for f, v in zip(flat, lists):
+            f[:] = v
+        return after
+    try:
+        dc = [huff[(0, t)] if kind in ("baseline", "dc_first") else None for t in td]
+        ac = [huff[(1, t)] if kind in ("baseline", "ac_first", "ac_refine") else None for t in ta]
+    except KeyError as e:
+        raise ValueError(f"corrupt JPEG: Huffman table {e} is not defined") from None
     read = _READERS[kind]
     for s, seg_bytes in enumerate(segments):
         chunk = mcus[s * per:(s + 1) * per]
@@ -538,9 +824,34 @@ def _read_scan(data, end, frame, coefs, huff, seg, progressive, restart, strict=
         last = cut and s == len(segments) - 1
         win = _windows(seg_bytes, _ZERO_TAIL if last else 8)
         try:
-            read(win, chunk, flat, dc, ac, [0] * ns, al, ss, se, 8 * seg_bytes.size)
+            ran_out = read(win, chunk, flat, dc, ac, [0] * ns, al, ss, se, 8 * seg_bytes.size)
         except IndexError:
             raise ValueError("corrupt JPEG: scan data ended early") from None
+        if last and ran_out is not None and trace is not None:
+            trace["cut"] = (scan_comps, s * per + ran_out)
+    return after
+
+
+def _lossless_scan(data, end, frame, coefs, huff, seg, restart, strict):
+    """Decode one lossless scan into its components' sample buffers;
+    returns the offset after its data."""
+    h, w, comps, *_ = frame
+    ids = [c[0] for c in comps]
+    ns = seg[0]
+    scan_comps = [ids.index(seg[1 + 2 * k]) for k in range(ns)]
+    td = [seg[2 + 2 * k] >> 4 for k in range(ns)]
+    pred, pt = seg[1 + 2 * ns], seg[3 + 2 * ns] & 15
+    if not 1 <= pred <= 7:
+        raise ValueError(f"lossless JPEG with predictor {pred} {UNREAD}")
+    segments, after, cut = _scan_segments(data, end)
+    if cut and strict:
+        raise ValueError("truncated JPEG (the file ends inside a scan)")
+    try:
+        planes = _read_lossless(segments, frame, scan_comps, huff, td, pred, pt, restart)
+    except KeyError as e:
+        raise ValueError(f"corrupt JPEG: Huffman table {e} is not defined") from None
+    for c, plane in zip(scan_comps, planes):
+        coefs[c][:h, :w, 0] = plane
     return after
 
 
@@ -580,6 +891,19 @@ def _cmyk_to_rgb(c, m, y, k) -> np.ndarray:
 def component_count(data: bytes) -> int:
     """The number of components in a JPEG's frame header (0 if it has
     none before its first scan)."""
+    return _frame_header(data)[1]
+
+
+def is_lossless(data: bytes) -> bool:
+    """Whether a JPEG's frame is lossless (SOF3), which the JAX package's
+    native pipe declines (libjpeg-turbo converts no colour in lossless
+    mode, and the pipe asks for RGB)."""
+    return _frame_header(data)[0] == 0xC3
+
+
+def _frame_header(data: bytes) -> tuple:
+    """(SOF marker, component count) of a JPEG's frame header ((0, 0) if it
+    has none before its first scan)."""
     i = 2
     while i + 4 <= len(data):
         if data[i] != 0xFF:
@@ -590,14 +914,146 @@ def component_count(data: bytes) -> int:
             i += 1 if marker == 0xFF else 2
             continue
         if 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
-            return data[i + 9] if i + 9 < len(data) else 0
+            return marker, data[i + 9] if i + 9 < len(data) else 0
         if marker in (0xD9, 0xDA):
-            return 0
+            return 0, 0
         i += 2 + int.from_bytes(data[i + 2:i + 4], "big")
-    return 0
+    return 0, 0
 
 
-def decode_jpeg(data: bytes, strict: bool = False) -> np.ndarray:
+# block smoothing estimates zigzag coefficients 1-9 (``jdcoefct.c``
+# Q01_POS ... Q30_POS) from the DC values
+_SMOOTH_COEFS = 10
+
+
+def _note_scan_bits(frame, seg, bits, scans):
+    """libjpeg's ``coef_bits`` before a progressive scan: for each of its
+    components, the point transform left on each coefficient of the band
+    (-1: never coded), and the state before this scan ("prev")."""
+    comps = frame[2]
+    ns = seg[0]
+    ss, se, al = seg[1 + 2 * ns], seg[2 + 2 * ns], seg[3 + 2 * ns] & 15
+    for k in range(ns):
+        ci = next((j for j, c in enumerate(comps) if c[0] == seg[1 + 2 * k]), None)
+        if ci is None:
+            continue
+        cur, prev = bits.setdefault(ci, ([-1] * 64, [-1] * 64))
+        for coefi in range(min(ss, 1), max(se, 9) + 1):
+            prev[coefi] = cur[coefi] if scans else 0
+        for coefi in range(ss, se + 1):
+            cur[coefi] = al
+
+
+def _smooth_pred(num, q, al):
+    """``decompress_smooth_data``'s estimate: num / (q << 8), rounded, C
+    division toward zero, capped below 2^al when al > 0."""
+    pred = ((q << 7) + abs(num)) // (q << 8)
+    if al > 0 and pred >= 1 << al:
+        pred = (1 << al) - 1
+    return pred if num >= 0 else -pred
+
+
+def _block_smoothing(frame, coefs, tables, bits, trace, scans):
+    """libjpeg-turbo's interblock smoothing of a progressive file whose
+    coefficients are not all known (a file cut short): the first 9 AC
+    coefficients, still zero and not known to full precision, estimated
+    from the 5 x 5 neighbourhood of DC values; with no AC data at all, the
+    DC too, by its Gaussian-like kernel (``jdcoefct.c smoothing_ok`` /
+    ``decompress_smooth_data``). Rows past the last iMCU row the cut scan
+    completed use the unknown bits as they were before that scan."""
+    h, w, comps, hmax, vmax, mcux, mcuy = frame
+    if len(bits) != len(comps) or any(t is None for t in tables):
+        return coefs
+    for cur, _ in bits.values():
+        if cur[0] < 0:
+            return coefs
+    for t in tables:
+        if any(t[k] == 0 for k in range(_SMOOTH_COEFS)):
+            return coefs
+    if all(cur[k] == 0 for cur, _ in bits.values() for k in range(1, _SMOOTH_COEFS)):
+        return coefs  # every estimated coefficient is known exactly
+    last_good = mcuy - 1
+    if "cut" in trace:
+        scan_comps, mcu = trace["cut"]
+        if len(scan_comps) == 1:
+            _, hs, vs, _ = comps[scan_comps[0]]
+            cols = -(-(-(-w * hs // hmax)) // 8)
+            row = (mcu // cols) // vs
+        else:
+            row = mcu // mcux
+        last_good = row
+    out = []
+    for ci, ((_, hs, vs, _), c, q) in enumerate(zip(comps, coefs, tables)):
+        cur, prev = bits[ci]
+        prev_latch = [prev[k] if scans > 1 else -1 for k in range(_SMOOTH_COEFS)]
+        rows = -(-(-(-h * vs // vmax)) // 8)
+        cols = -(-(-(-w * hs // hmax)) // 8)
+        q = [int(v) for v in q[:_SMOOTH_COEFS]]
+        dc = c[..., 0].tolist()
+        new = c.copy()
+        for r in range(rows):
+            imcu, block_row = divmod(r, vs)
+            last_imcu = mcuy - 1
+            block_rows = vs if imcu < last_imcu else (rows % vs or vs)
+            cb = prev_latch if imcu > last_good else cur
+            change_dc = all(cb[k] == -1 for k in range(1, _SMOOTH_COEFS))
+            pr = r - 1 if block_row > 0 or imcu > 0 else r
+            ppr = r - 2 if block_row > 1 or imcu > 1 else pr
+            nr = r + 1 if block_row < block_rows - 1 or imcu < last_imcu else r
+            nnr = r + 2 if block_row < block_rows - 2 or imcu + 1 < last_imcu else nr
+            grid = [dc[x] for x in (ppr, pr, r, nr, nnr)]
+            for col in range(cols):
+                cc = [max(col - 2, 0), max(col - 1, 0), col, min(col + 1, cols - 1),
+                      min(col + 2, cols - 1)]
+                if cols == 1:
+                    cc = [0] * 5
+                d = [[g[x] for x in cc] for g in grid]
+                (D01, D02, D03, D04, D05), (D06, D07, D08, D09, D10), \
+                    (D11, D12, D13, D14, D15), (D16, D17, D18, D19, D20), \
+                    (D21, D22, D23, D24, D25) = d
+                ws = new[r, col]
+                est = []
+                if change_dc:
+                    est = [
+                        (1, -D01 - D02 + D04 + D05 - 3 * D06 + 13 * D07 - 13 * D09 + 3 * D10
+                         - 3 * D11 + 38 * D12 - 38 * D14 + 3 * D15 - 3 * D16 + 13 * D17
+                         - 13 * D19 + 3 * D20 - D21 - D22 + D24 + D25),
+                        (2, -D01 - 3 * D02 - 3 * D03 - 3 * D04 - D05 - D06 + 13 * D07
+                         + 38 * D08 + 13 * D09 - D10 + D16 - 13 * D17 - 38 * D18 - 13 * D19
+                         + D20 + D21 + 3 * D22 + 3 * D23 + 3 * D24 + D25),
+                        (3, D03 + 2 * D07 + 7 * D08 + 2 * D09 - 5 * D12 - 14 * D13 - 5 * D14
+                         + 2 * D17 + 7 * D18 + 2 * D19 + D23),
+                        (4, -D01 + D05 + 9 * D07 - 9 * D09 - 9 * D17 + 9 * D19 + D21 - D25),
+                        (5, 2 * D07 - 5 * D08 + 2 * D09 + D11 + 7 * D12 - 14 * D13 + 7 * D14
+                         + D15 + 2 * D17 - 5 * D18 + 2 * D19),
+                        (6, D07 - D09 + 2 * D12 - 2 * D14 + D17 - D19),
+                        (7, D07 - 3 * D08 + D09 - D17 + 3 * D18 - D19),
+                        (8, D07 - D09 - 3 * D12 + 3 * D14 + D17 - D19),
+                        (9, D07 + 2 * D08 + D09 - D17 - 2 * D18 - D19)]
+                else:
+                    est = [
+                        (1, -7 * D11 + 50 * D12 - 50 * D14 + 7 * D15),
+                        (2, -7 * D03 + 50 * D08 - 50 * D18 + 7 * D23),
+                        (3, -D03 + 13 * D08 - 24 * D13 + 13 * D18 - D23),
+                        (4, D10 + D16 - 10 * D17 + 10 * D19 - D02 - D20 + D22 - D24 + D04
+                         - D06 + 10 * D07 - 10 * D09),
+                        (5, -D11 + 13 * D12 - 24 * D13 + 13 * D14 - D15)]
+                for k, kernel in est:
+                    al = cb[k]
+                    if al != 0 and ws[k] == 0:
+                        ws[k] = _smooth_pred(q[0] * kernel, q[k], al)
+                if change_dc:
+                    num = q[0] * (
+                        -2 * D01 - 6 * D02 - 8 * D03 - 6 * D04 - 2 * D05 - 6 * D06 + 6 * D07
+                        + 42 * D08 + 6 * D09 - 6 * D10 - 8 * D11 + 42 * D12 + 152 * D13
+                        + 42 * D14 - 8 * D15 - 6 * D16 + 6 * D17 + 42 * D18 + 6 * D19
+                        - 6 * D20 - 2 * D21 - 6 * D22 - 8 * D23 - 6 * D24 - 2 * D25)
+                    ws[0] = _smooth_pred(num, q[0], 0)
+        out.append(new)
+    return out
+
+
+def decode_jpeg(data: bytes, strict: bool = False, inverted_cmyk: bool = True) -> np.ndarray:
     """JPEG bytes -> uint8 RGB [H, W, 3], as libjpeg-turbo decodes it with
     its defaults (islow IDCT, fancy upsampling) and PIL's
     ``convert("RGB")`` gives it: baseline and extended (SOF0 / SOF1) with
@@ -608,14 +1064,18 @@ def decode_jpeg(data: bytes, strict: bool = False) -> np.ndarray:
     with the end of its data replaced by zero bits (PIL with
     ``LOAD_TRUNCATED_IMAGES``): the MCU where the data ends reads zeros,
     the rest of that scan's interval stays zero (gray in a baseline file;
-    a progressive file keeps what its earlier scans gave, without
-    libjpeg's block smoothing); with ``strict`` such a file raises, as PIL
-    does without ``LOAD_TRUNCATED_IMAGES``."""
+    a progressive file keeps what its earlier scans gave, block-smoothed
+    as libjpeg-turbo smooths it); with ``strict`` such a file raises, as PIL
+    does without ``LOAD_TRUNCATED_IMAGES``. ``inverted_cmyk``: PIL reads a
+    CMYK JPEG file's samples as Adobe-inverted; a JPEG-coded CMYK TIFF
+    holds them as they are (False)."""
     if data[:2] != b"\xff\xd8":
         raise ValueError("not a JPEG (no SOI marker)")
-    qt, latched, huff = {}, {}, {}
+    qt, latched, huff, conditioning = {}, {}, {}, {}
+    coef_bits, trace = {}, {}  # progressive: unknown bits a coefficient; where data ran out
     frame = coefs = None
     progressive, restart, adobe, jfif, scans = False, 0, None, False, 0
+    arith = lossless = False
     i, n = 2, len(data)
     while i < n:
         if data[i] != 0xFF:  # bytes between segments: skipped, as libjpeg does
@@ -656,7 +1116,7 @@ def decode_jpeg(data: bytes, strict: bool = False) -> np.ndarray:
                 m = sum(bits)
                 huff[(seg[j] >> 4, seg[j] & 15)] = _huff_lut(bits, tuple(seg[j + 17:j + 17 + m]))
                 j += 17 + m
-        elif marker in (0xC0, 0xC1, 0xC2):
+        elif marker in (0xC0, 0xC1, 0xC2, 0xC3, 0xC9, 0xCA):
             if seg[0] != 8:
                 raise ValueError(f"{seg[0]}-bit JPEG {UNREAD}")
             h, w = int.from_bytes(seg[1:3], "big"), int.from_bytes(seg[3:5], "big")
@@ -669,10 +1129,18 @@ def decode_jpeg(data: bytes, strict: bool = False) -> np.ndarray:
             hmax, vmax = max(c[1] for c in comps), max(c[2] for c in comps)
             mcux, mcuy = -(-w // (8 * hmax)), -(-h // (8 * vmax))
             frame = (h, w, comps, hmax, vmax, mcux, mcuy)
-            coefs = [np.zeros((mcuy * c[2], mcux * c[1], 64), np.int64) for c in comps]
-            progressive = marker == 0xC2
-        elif marker in _UNREAD_SOF or marker == 0xCC:
-            raise ValueError(f"{_UNREAD_SOF.get(marker, 'arithmetic-coded JPEG (DAC)')} {UNREAD}")
+            progressive = marker in (0xC2, 0xCA)
+            arith, lossless = marker in (0xC9, 0xCA), marker == 0xC3
+            # a lossless frame's buffers hold its samples
+            coefs = [np.zeros((h, w, 1) if lossless else (mcuy * c[2], mcux * c[1], 64),
+                              np.int64) for c in comps]
+            if lossless and (hmax, vmax) != (1, 1):
+                raise ValueError(f"lossless JPEG with subsampled components {UNREAD}")
+        elif marker in _UNREAD_SOF:
+            raise ValueError(f"{_UNREAD_SOF[marker]} {UNREAD}")
+        elif marker == 0xCC:  # DAC: arithmetic conditioning, (class, table) -> value
+            for j in range(0, len(seg) - 1, 2):
+                conditioning[(seg[j] >> 4, seg[j] & 15)] = seg[j + 1]
         elif marker == 0xDD:
             restart = int.from_bytes(seg[:2], "big")
         elif marker == 0xE0 and seg[:5] == b"JFIF\x00":
@@ -682,20 +1150,32 @@ def decode_jpeg(data: bytes, strict: bool = False) -> np.ndarray:
         elif marker == 0xDA:
             if frame is None:
                 raise ValueError("corrupt JPEG: a scan before the frame header")
-            for k in range(seg[0]):  # tables are latched at a component's first scan
+            for k in range(0 if lossless else seg[0]):  # tables latch at a first scan
                 cid = seg[1 + 2 * k]
                 comp = next((c for c in frame[2] if c[0] == cid), None)
                 if comp is not None and cid not in latched:
                     if comp[3] not in qt:
                         raise ValueError(f"corrupt JPEG: quantization table {comp[3]} is missing")
                     latched[cid] = qt[comp[3]]
-            i = _read_scan(data, end, frame, coefs, huff, seg, progressive, restart, strict)
+            if progressive:  # what each scan leaves unknown (``jdphuff.c`` start_pass)
+                _note_scan_bits(frame, seg, coef_bits, scans)
+            if lossless:
+                i = _lossless_scan(data, end, frame, coefs, huff, seg, restart, strict)
+            else:
+                i = _read_scan(data, end, frame, coefs, huff, seg, progressive, restart, strict,
+                               conditioning if arith else None, trace)
             scans += 1
     if frame is None or not scans:
         raise ValueError("not a complete JPEG (no frame header or no scan)")
     h, w, comps, hmax, vmax, *_ = frame
+    if progressive and not arith:
+        coefs = _block_smoothing(frame, coefs, [latched.get(c[0]) for c in comps], coef_bits,
+                                 trace, scans)
     planes = []
     for (cid, hs, vs, _), c in zip(comps, coefs):
+        if lossless:  # the samples themselves, in the buffer's first plane
+            planes.append(c[:h, :w, 0])
+            continue
         deq = np.zeros(c.shape, np.int64)
         if cid in latched:  # a component no scan reached stays zero
             deq[..., ZIGZAG] = c * latched[cid]
@@ -719,10 +1199,15 @@ def decode_jpeg(data: bytes, strict: bool = False) -> np.ndarray:
             rgb = tuple(c[0] for c in comps) == (82, 71, 66)  # 'R', 'G', 'B'
         if rgb:
             return np.stack(planes, axis=-1).astype(np.uint8)
+        if lossless:  # libjpeg-turbo converts no colour in lossless mode; PIL fails
+            raise ValueError("lossless JPEG in YCbCr (libjpeg-turbo refuses to convert it) "
+                             + UNREAD)
         return ycc_to_rgb(*planes)
     if adobe not in (None, 0):  # YCCK -> CMYK (``jdcolor.c ycck_cmyk_convert``)
         c, m, y = (255 - ycc_to_rgb(*planes[:3]).astype(np.int64)).transpose(2, 0, 1)
         planes = [c, m, y, planes[3]]
+    if not inverted_cmyk:
+        planes = [255 - p.astype(np.int64) for p in planes]
     return _cmyk_to_rgb(*planes)
 
 

@@ -5,15 +5,19 @@ RandomResize -> ToTensor -> Normalize(FLAMINGO mean/std)). The host
 decodes and resizes to uint8 through the port's own decoders, chosen by
 the file's first bytes (``decode_image``): ``data/jpeg.py`` (libjpeg's
 decode, bit for bit), and ``data/png.py``, ``data/gif.py`` (the first
-frame) and ``data/bmp.py`` (PIL's ``convert("RGB")`` of each).
+frame), ``data/bmp.py``, ``data/tiff.py`` (the first page) and
+``data/webp.py`` (the first frame; ``data/vp8.py`` for lossy frames):
+PIL's ``convert("RGB")`` of each.
 ``load_resized_uint8`` resizes as the JAX package does for the same
 file: a JPEG of 1 or 3 components goes through its native pipe's resize
-(``jpeg.resize_bilinear``), any other image (which the pipe declines)
-through PIL's bilinear resize (``resize_bilinear_pil``). Images
+(``jpeg.resize_bilinear``), any other image (which the pipe declines: a
+CMYK or lossless JPEG, every other format) through PIL's bilinear resize
+(``resize_bilinear_pil``). Images
 travel to the card as uint8, a byte per channel, and are normalized
 there. The serving worker's ``preprocess_image`` resizes every format as
 PIL's ``Image.resize(BILINEAR)`` does, as the JAX worker does through PIL.
-Other formats (WebP, TIFF) raise a ``ValueError`` that names them.
+What these decoders still refuse (ROADMAP.md §3, fault 5) raises a
+``ValueError`` that names it.
 """
 
 from __future__ import annotations
@@ -21,21 +25,20 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from unimp_tpu_torch.data import bmp, gif, jpeg, png
+from unimp_tpu_torch.data import bmp, gif, jpeg, png, tiff, webp
 
 FLAMINGO_MEAN = (0.48145466, 0.4578275, 0.40821073)
 FLAMINGO_STD = (0.26862954, 0.26130258, 0.27577711)
 
 
-# formats the port does not decode: their first bytes -> name
-_UNREAD_FORMATS = ((b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"))
 # decoders that read a cut file as PIL with LOAD_TRUNCATED_IMAGES does, or
 # raise with ``strict`` (a cut PNG raises either way)
-_DECODERS = {"jpeg": jpeg.decode_jpeg, "gif": gif.decode_gif, "bmp": bmp.decode_bmp}
+_DECODERS = {"jpeg": jpeg.decode_jpeg, "gif": gif.decode_gif, "bmp": bmp.decode_bmp,
+             "tiff": tiff.decode_tiff, "webp": webp.decode_webp}
 
 
 def image_format(data: bytes) -> str:
-    """"jpeg", "png", "gif" or "bmp" by the file's first bytes; raises
+    """"jpeg", "png", "gif", "bmp", "tiff" or "webp" by the file's first bytes; raises
     ``ValueError`` naming any other format."""
     if data[:2] == b"\xff\xd8":
         return "jpeg"
@@ -45,16 +48,15 @@ def image_format(data: bytes) -> str:
         return "gif"
     if data[:2] == b"BM":
         return "bmp"
-    name = next((n for magic, n in _UNREAD_FORMATS if data.startswith(magic)), None)
+    if data[:4] in tiff.SIGNATURES:
+        return "tiff"
     if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
-        name = "WebP"
-    if name is None:
-        raise ValueError("not an image the port reads (JPEG, PNG, GIF or BMP)")
-    raise ValueError(f"{name} images are not read by the port (ROADMAP.md §3, fault 5)")
+        return "webp"
+    raise ValueError("not an image the port reads (JPEG, PNG, GIF, BMP, TIFF or WebP)")
 
 
 def decode_image(data: bytes, strict: bool = False) -> np.ndarray:
-    """JPEG, PNG, GIF or BMP bytes -> uint8 RGB [H, W, 3] (PIL's
+    """JPEG, PNG, GIF, BMP, TIFF or WebP bytes -> uint8 RGB [H, W, 3] (PIL's
     ``convert("RGB")``); ``strict``: a file cut short raises."""
     fmt = image_format(data)
     return png.decode_png(data) if fmt == "png" else _DECODERS[fmt](data, strict=strict)
@@ -73,7 +75,7 @@ def image_ok(path: str) -> bool:
 
 
 def load_image_rgb(path: str) -> np.ndarray:
-    """Decode a JPEG, PNG, GIF or BMP file to uint8 RGB [H, W, 3]."""
+    """Decode a JPEG, PNG, GIF, BMP, TIFF or WebP file to uint8 RGB [H, W, 3]."""
     with open(path, "rb") as f:
         return decode_image(f.read())
 
@@ -91,7 +93,8 @@ def load_resized_uint8(path: str, size: int) -> np.ndarray:
     image as its PIL fallback does."""
     with open(path, "rb") as f:
         data = f.read()
-    if image_format(data) == "jpeg" and jpeg.component_count(data) in (1, 3):
+    if (image_format(data) == "jpeg" and jpeg.component_count(data) in (1, 3)
+            and not jpeg.is_lossless(data)):
         return jpeg.decode_resize(data, size)
     img = decode_image(data)
     if img.shape[0] != size or img.shape[1] != size:

@@ -200,7 +200,7 @@ class Generator:
             ids, latents=latents, q_media=q_media, kv_start=start,
             positions=positions, return_kv=True, last_logit_only=True,
         )
-        self_kv, xattn_kv = kv["self"], kv["xattn"]
+        self_kv, xattn_kv = kv["self"], kv.get("xattn", [])  # none from a CausalLM
         if cfg.kv_int8:
             self_kv = [quantize_kv_cache(c) for c in self_kv]
             xattn_kv = [quantize_kv_cache(c) for c in xattn_kv]

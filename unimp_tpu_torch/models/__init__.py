@@ -1,4 +1,5 @@
-"""PyTorch model zoo: vision tower, perceiver resampler, gated-xattn LM."""
+"""PyTorch model zoo: vision tower, perceiver resampler, gated-xattn LM, and the
+pure-text causal LM."""
 
 from unimp_tpu_torch.models.config import (
     LMConfig,
@@ -8,6 +9,7 @@ from unimp_tpu_torch.models.config import (
     get_config,
 )
 from unimp_tpu_torch.models.flamingo import UniMPModel, compute_q_media
+from unimp_tpu_torch.models.lm import CausalLM
 
 __all__ = [
     "LMConfig",
@@ -16,5 +18,6 @@ __all__ = [
     "VisionConfig",
     "get_config",
     "UniMPModel",
+    "CausalLM",
     "compute_q_media",
 ]

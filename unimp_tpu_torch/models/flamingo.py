@@ -152,7 +152,7 @@ class GatedCrossAttnBlock(nn.Module):
 class UniMPModel(nn.Module):
     def __init__(self, cfg: UniMPConfig):
         super().__init__()
-        self.cfg = cfg
+        self.cfg, self.compute_dtype = cfg, cfg.compute_dtype
         dt = cfg.compute_dtype
         lm = cfg.lm
         dv = cfg.vision.hidden_size

@@ -1,4 +1,5 @@
-"""Decoder blocks (counterpart of ``unimp_tpu/models/lm.py``).
+"""Decoder blocks and the pure-text ``CausalLM`` (counterpart of
+``unimp_tpu/models/lm.py``).
 
 One parameterized block covers MPT (layernorm + ALiBi, sequential
 residual, no biases), GPT-NeoX / RedPajama (layernorm + partial RoPE,
@@ -65,3 +66,76 @@ def init_gen_cache(batch: int, max_new: int, cfg: LMConfig, dtype=torch.bfloat16
                 "v_scale": torch.zeros(shape[:-1], dtype=torch.float32, device=device)}
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+class CausalLM(nn.Module):
+    """Pure-text causal LM (counterpart of ``unimp_tpu/models/lm.py:CausalLM``;
+    the multimodal model in ``flamingo.py`` builds its own interleaved
+    stack): embed, the ``DecoderBlock``s, ``final_ln``, then the tied
+    embedding product or an ``lm_head`` through ``quant_dot`` (K6 when the
+    head is int8).
+
+    ``forward`` modes, as the JAX module's:
+      * full forward:              logits, None
+      * prefill (return_kv=True):  logits, {"self": [prompt caches]}
+      * decode (decode_state=...): logits, [gen caches, updated in place]
+    with ``decode_state`` {"self", "gen", "step", "kv_start", "gen_index"}.
+    Logits are float32. It also takes the keywords ``decode/sampler.py``'s
+    ``Generator`` passes (``latents`` / ``q_media`` must be None;
+    ``last_logit_only``), so the Generator decodes it greedily or by beams.
+    """
+
+    def __init__(self, cfg: LMConfig, dtype=torch.bfloat16):
+        super().__init__()
+        from unimp_tpu_torch.models.flamingo import Embed
+        from unimp_tpu_torch.models.layers import DenseWeights
+
+        self.cfg, self.compute_dtype = cfg, dtype
+        self.embed = Embed(cfg.vocab_size, cfg.hidden_size, dtype)
+        for i in range(cfg.num_layers):
+            self.add_module(f"block_{i}", DecoderBlock(cfg, dtype))
+        self.final_ln = make_norm(cfg.norm, cfg.hidden_size, cfg.layernorm_eps, dtype)
+        if not cfg.tie_embeddings:
+            self.lm_head = DenseWeights(cfg.hidden_size, cfg.vocab_size, use_bias=False)
+
+    def blocks(self):
+        return [getattr(self, f"block_{i}") for i in range(self.cfg.num_layers)]
+
+    def forward(self, input_ids, *, kv_len=None, kv_start=None, positions=None,
+                return_kv: bool = False, decode_state: Optional[dict] = None,
+                latents=None, q_media=None, last_logit_only: bool = False):
+        from unimp_tpu_torch.ops.quant_matmul import quant_dot
+
+        if latents is not None or q_media is not None:
+            raise ValueError("CausalLM takes no media")
+        x = self.embed(input_ids)
+        caches = []
+        for i, block in enumerate(self.blocks()):
+            layer_ds = None
+            if decode_state is not None:
+                layer_ds = {"prompt": decode_state["self"][i], "gen": decode_state["gen"][i],
+                            "step": decode_state["step"],
+                            "kv_start": decode_state.get("kv_start"),
+                            "gen_index": decode_state.get("gen_index")}
+            x, cache = block(x, kv_len=kv_len, kv_start=kv_start, positions=positions,
+                             causal=input_ids.shape[1] > 1, return_cache=return_kv,
+                             decode_state=layer_ds)
+            caches.append(cache)
+        if last_logit_only:
+            x = x[:, -1:]
+        x = self.final_ln(x)
+        if self.cfg.tie_embeddings:
+            logits = (x @ self.embed.embedding.to(x.dtype).t()).float()
+        else:
+            logits = quant_dot(x.to(self.compute_dtype), self.lm_head.kernel).float()
+        if return_kv:
+            return logits, {"self": caches}
+        if decode_state is not None:
+            return logits, caches  # updated gen caches
+        return logits, None
+
+    def init_gen_caches(self, batch: int, max_new: int, device=None,
+                        quantized: bool = False):
+        device = device or self.embed.embedding.device
+        return [init_gen_cache(batch, max_new, self.cfg, self.compute_dtype, device, quantized)
+                for _ in range(self.cfg.num_layers)]

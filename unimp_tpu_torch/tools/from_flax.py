@@ -26,8 +26,9 @@ import torch
 from torch import nn
 
 from unimp_tpu_torch.device import resolve_device
-from unimp_tpu_torch.models.config import UniMPConfig
+from unimp_tpu_torch.models.config import LMConfig, UniMPConfig
 from unimp_tpu_torch.models.flamingo import UniMPModel
+from unimp_tpu_torch.models.lm import CausalLM
 from unimp_tpu_torch.parallel.sharding import shard_model_tp, shard_tree_tp
 from unimp_tpu_torch.train.partition import backbone_trainable_mask, freeze
 from unimp_tpu_torch.utils.inference import cast_params_for_inference
@@ -61,7 +62,6 @@ def flatten_tree(tree: Mapping, prefix: str = "") -> dict:
 def _match_quantized(model: nn.Module, flat: Mapping[str, np.ndarray]) -> None:
     """Make each kernel int8 where the tree's is (``.../kernel/q`` and
     ``.../kernel/scale`` leaves), float where the tree's is float."""
-    dtype = model.cfg.compute_dtype
     for name, mod in list(model.named_modules()):
         k = getattr(mod, "kernel", None)
         if k is None:
@@ -71,7 +71,8 @@ def _match_quantized(model: nn.Module, flat: Mapping[str, np.ndarray]) -> None:
             mod._parameters.pop("kernel")
             mod.kernel = QuantizedKernel(  # filled by the load
                 torch.zeros(np.shape(flat[f"{path}/q"]), dtype=torch.int8, device=k.device),
-                torch.zeros(np.shape(flat[f"{path}/scale"]), device=k.device), dtype)
+                torch.zeros(np.shape(flat[f"{path}/scale"]), device=k.device),
+                model.compute_dtype)
         elif path in flat and isinstance(k, QuantizedKernel):
             del mod.kernel
             mod.kernel = nn.Parameter(torch.zeros(k.shape, device=k.q.device))
@@ -138,11 +139,16 @@ def init_params(model: nn.Module, generator: torch.Generator) -> None:
                 raise KeyError(f"no initializer for parameter {name}")
 
 
-def build_model(cfg: UniMPConfig, *, device="cuda", seed: int = 0,
+def build_model(cfg: UniMPConfig | LMConfig, *, device="cuda", seed: int = 0,
                 eval_param_dtype: str = "fp32", train: bool = False,
                 frozen_dtype=None, weights: Mapping | None = None,
-                trainable_mask=backbone_trainable_mask, mesh=None) -> UniMPModel:
-    """A UniMPModel on ``device`` with seeded weights (``init_params``), or
+                trainable_mask=backbone_trainable_mask, mesh=None,
+                dtype: torch.dtype | None = None) -> UniMPModel | CausalLM:
+    """A UniMPModel on ``device`` (a ``CausalLM`` when ``cfg`` is an
+    ``LMConfig``: inference only, no mesh, computing in ``dtype``, default
+    bfloat16; a UniMPConfig carries its own, ``cfg.dtype``, and a ``dtype``
+    given with one raises) with seeded
+    weights (``init_params``), or
     with ``weights`` (a flat float tree, {"a/b/c": tensor or array}, e.g.
     ``train/checkpoint.py:restore_params``) loaded in their place before
     anything is cast or quantized. ``weights`` may also be a function of
@@ -170,9 +176,14 @@ def build_model(cfg: UniMPConfig, *, device="cuda", seed: int = 0,
                          f"{sorted(EVAL_PARAM_DTYPES)}")
     if train and eval_param_dtype != "fp32":
         raise ValueError("a training build takes frozen_dtype, not eval_param_dtype")
+    is_lm = isinstance(cfg, LMConfig)
+    if is_lm and (train or mesh is not None):
+        raise ValueError("a CausalLM is built for inference on one device")
+    if not is_lm and dtype is not None:
+        raise ValueError("a UniMPConfig sets its compute dtype itself (cfg.dtype)")
     device = resolve_device(device)
     with device:
-        model = UniMPModel(cfg)
+        model = CausalLM(cfg, dtype or torch.bfloat16) if is_lm else UniMPModel(cfg)
     if weights is None or callable(weights):
         init_params(model, torch.Generator(device).manual_seed(seed))
     if callable(weights):
