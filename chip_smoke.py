@@ -3311,6 +3311,24 @@ def state_digests(trainer, names=None) -> dict:
             if names is None or k in names}
 
 
+def predicted_zero_bytes(cfg, fsdp: int, frozen) -> dict:
+    """ZeRO-3's resident parameter bytes a rank, from the shapes alone: the
+    model built on the meta device (no memory, no weights), frozen as the
+    training CLI freezes it (``frozen``: "int8" under ``--frozen_int8``),
+    and the port's copy of the JAX rule table over its whole shapes
+    (``parallel/sharding.py:predicted_resident_bytes``)."""
+    from unimp_tpu_torch.models import UniMPModel
+    from unimp_tpu_torch.parallel.sharding import predicted_resident_bytes
+    from unimp_tpu_torch.train.partition import backbone_trainable_mask, freeze
+
+    with torch.device("meta"):
+        model = UniMPModel(cfg)
+        freeze(model, backbone_trainable_mask(model), frozen)
+    shapes = {k.replace(".", "/"): (tuple(t.shape), t.element_size())
+              for k, t in model.state_dict().items()}
+    return {**predicted_resident_bytes(shapes, fsdp), "tensors": len(shapes)}
+
+
 def rank_main(spec_path: str) -> int:
     """One rank of phase 13, launched by ``torch.distributed.run``: runs
     ``mmrec.main`` with the spies the phase reads and writes
@@ -3378,6 +3396,9 @@ def rank_main(spec_path: str) -> int:
         return orig["norm"](self)
 
     def step(self, batch):
+        zero = self.zero
+        if zero is not None:
+            zero.reset_counters()
         before, t0 = counts(), time.perf_counter()
         metrics = orig["step"](self, batch)
         torch.cuda.synchronize()
@@ -3386,11 +3407,19 @@ def rank_main(spec_path: str) -> int:
                "grad_norm": float(metrics["grad_norm"]), "norm_f32": seen.pop("norm_f32"),
                "skipped": int(metrics["skipped_nonfinite"]), "launches": between(before),
                "rows": list(np.shape(batch["input_ids"]))}
+        if zero is not None:
+            # ZeRO-3's traffic over the update, and the gathered whole tensors
+            # alive at once at the worst moment (``ZeroShards`` counters)
+            rec["zero"] = {"gathered_gib": zero.gathered_bytes / 2**30,
+                           "scattered_gib": zero.scattered_bytes / 2**30,
+                           "gathers": zero.gathers, "gather_s": zero.gather_s,
+                           "peak_alive_gib": zero.peak_alive_bytes / 2**30}
         if world > 1:
             # the replicas' whole tensors after the update: one digest each,
             # gathered from every rank and compared
             layout = self.model.tp_layout
-            names = [f"param {n}" for n in self.params if n.replace(".", "/") not in layout]
+            names = [f"param {n}" for n in self.params if n.replace(".", "/") not in layout
+                     and not (zero is not None and zero.sharded(n))]
             if self.zero is None and not layout:
                 names += [f"{m} {n}" for m in ("mu", "nu") for n in self.params]
             mine = torch.tensor(list(state_digests(self, set(names)).values()),
@@ -3486,6 +3515,20 @@ def rank_main(spec_path: str) -> int:
     def trainer_init(self, *args, **kw):
         orig_trainer_init(self, *args, **kw)
         seen["trainer_ref"] = self
+        if self.zero is not None:
+            from unimp_tpu_torch.parallel.sharding import resident_bytes
+
+            units = self.zero.unit_bytes()
+            out["zero"] = {
+                "resident": resident_bytes(self.model),
+                "predicted": predicted_zero_bytes(
+                    self.model.cfg, self.mesh.fsdp,
+                    "int8" if "--frozen_int8" in spec["argv"] else None),
+                "sharded_tensors": len(self.zero.entries),
+                "pad_bytes": sum((e.chunk * self.zero.n - e.numel) * e.itemsize
+                                 for e in self.zero.entries.values()),
+                "two_units_gib": sum(sorted(units.values())[-2:]) / 2**30,
+                "largest_units": sorted(units.items(), key=lambda kv: kv[1])[-2:]}
 
     (Trainer.train_step, ckpt.save_train_state, ckpt.save_params, mmrec.run_evals,
      mmrec.train_one_epoch, Generator._decode_step, Trainer.__init__,
@@ -3511,7 +3554,7 @@ def rank_main(spec_path: str) -> int:
     out["launches"] = counts()
     trainer = seen.get("trainer_ref")
     if trainer is not None:
-        out["k_fwd"] = flash_per_micro_batch(trainer.model.cfg)
+        out["k_fwd"] = flash_per_micro_batch(trainer.model.cfg, trainer.zero is not None)
     Path(spec["out"], f"{spec['tag']}_rank{rank}.json").write_text(json.dumps(out))
     stack.close()
     if dist.is_initialized():
@@ -3532,6 +3575,10 @@ def probe_gloo(dev) -> dict:
                                                               dtype=torch.bfloat16)),
         "all_gather_into_tensor f32": lambda: dist.all_gather_into_tensor(
             torch.empty(4 * world, device=dev), torch.ones(4, device=dev)),
+        # ZeRO-3's int8 frozen payloads
+        "all_gather_into_tensor int8": lambda: dist.all_gather_into_tensor(
+            torch.empty(4 * world, device=dev, dtype=torch.int8),
+            torch.ones(4, device=dev, dtype=torch.int8)),
         "reduce_scatter_tensor f32": lambda: dist.reduce_scatter_tensor(
             torch.empty(4, device=dev), torch.ones(4 * world, device=dev)),
     }
@@ -3546,13 +3593,15 @@ def probe_gloo(dev) -> dict:
     return result
 
 
-def flash_per_micro_batch(cfg) -> dict:
+def flash_per_micro_batch(cfg, zero=False) -> dict:
     """(forward blocks, checkpointed blocks) of one micro-batch: K1 / K2 /
-    K3 run once a block, K1 again for each recomputed block."""
+    K3 run once a block, K1 again for each recomputed block (under ZeRO-3,
+    ``zero``, the perceiver's blocks recompute too)."""
     lm = cfg.lm
     n_xattn = -(-lm.num_layers // cfg.cross_attn_every_n)
     return {"fwd": cfg.resampler.depth + n_xattn + lm.num_layers,
-            "recompute": n_xattn + lm.num_layers, "n_xattn": n_xattn,
+            "recompute": n_xattn + lm.num_layers + (cfg.resampler.depth if zero else 0),
+            "n_xattn": n_xattn,
             "layers": lm.num_layers, "vision": cfg.vision.num_layers}
 
 
@@ -3658,6 +3707,45 @@ def check_test_pass(tag, rep, n_users) -> dict:
     return rec
 
 
+def check_zero(reps, b_reps, gpu_line) -> None:
+    """fsdp 2's ZeRO-3 gates, each rank: resident parameter bytes equal to
+    what the table predicts from the shapes (the sharded ones within the
+    padding, at most fsdp - 1 elements a tensor), the gathered whole
+    tensors alive at once at or under the two largest units' bytes in every
+    update, and a peak below every rank of (b) (dp 2, the same rows a
+    rank) in the same call. Prints the readings first."""
+    b_peak = min(rep["peak_gib"] for rep in b_reps)
+    failed = []
+    for rep in reps:
+        z = rep["zero"]
+        res, pred = z["resident"], z["predicted"]
+        ups = [u["zero"] for u in rep["updates"]]
+        log(f"[multi-gpu] (fsdp2) rank {rep['rank']} ZeRO-3: resident parameters "
+            f"{res['sharded'] / 2**30:.4f} GiB sharded + {res['replicated'] / 2**30:.4f} GiB "
+            f"replicated; predicted from the shapes {pred['sharded'] / 2**30:.4f} + "
+            f"{pred['replicated'] / 2**30:.4f} GiB ({z['sharded_tensors']} of "
+            f"{pred['tensors']} tensors sharded, {z['pad_bytes']} B of padding); peak "
+            f"{rep['peak_gib']:.2f} GiB vs (b)'s dp-2 ranks "
+            f"{[round(r['peak_gib'], 2) for r in b_reps]} GiB; per update gathered {[round(u['gathered_gib'], 3) for u in ups]} GiB in "
+            f"{[u['gathers'] for u in ups]} gathers, {[round(u['gather_s'], 2) for u in ups]} s, "
+            f"reduce-scattered {[round(u['scattered_gib'], 3) for u in ups]} GiB; whole tensors "
+            f"alive at most {[round(u['peak_alive_gib'], 4) for u in ups]} GiB (two largest "
+            f"units {z['two_units_gib']:.4f} GiB: {z['largest_units']}) on {gpu_line}")
+        pad = res["sharded"] - pred["sharded"]
+        if res["replicated"] != pred["replicated"] or not (
+                0 <= pad == z["pad_bytes"] <= 4 * z["sharded_tensors"]):
+            failed.append(f"rank {rep['rank']} resident {res} vs predicted {pred}")
+        if any(u["peak_alive_gib"] > z["two_units_gib"] for u in ups):
+            failed.append(f"rank {rep['rank']} whole tensors alive "
+                          f"{[u['peak_alive_gib'] for u in ups]} GiB > two units "
+                          f"{z['two_units_gib']} GiB")
+        if not rep["peak_gib"] < b_peak:
+            failed.append(f"rank {rep['rank']} peak {rep['peak_gib']:.2f} GiB not below (b)'s "
+                          f"{b_peak:.2f} GiB")
+    if failed:
+        raise AssertionError(f"[multi-gpu] (fsdp2) ZeRO-3: {failed}")
+
+
 def phase_multi_gpu(gpu_line, data, run_dir) -> dict:
     """Multi-GPU through the port's CLI (phase 13): ``mmrec.main`` under
     ``torch.distributed.run``, each rank a process, on phase 12's
@@ -3677,9 +3765,9 @@ def phase_multi_gpu(gpu_line, data, run_dir) -> dict:
 
     (a) and (b) run at once. NCCL refuses two ranks on one
     device, so (b) runs gloo, which moves CUDA tensors through the host.
-    (c) starts when (a) ends and fsdp 2 / tp 2 when (b) ends, so that their
-    process start-up overlaps the run before them; each then waits for a
-    go file that the phase writes once that run has passed its gates.
+    (c) starts when (a) ends, so that its process start-up overlaps (b),
+    and waits for a go file that the phase writes once (b) has passed its
+    gates; fsdp 2 and tp 2 start then too, and run beside (c).
     Every rank draws each sample's prompt window from a generator keyed by
     the sample's index (``rank_main``),
     so that (a) and (b) train on the same prompts, not only on the same
@@ -3726,7 +3814,7 @@ def phase_multi_gpu(gpu_line, data, run_dir) -> dict:
 
     a_dir, b_dir = run_dir / "a", run_dir / "b"
     digests = run_dir / "b_digests.json"
-    c_go, sharded_go = run_dir / "c.go", run_dir / "sharded.go"
+    c_go = run_dir / "c.go"
     # (c) trains nothing: no vision cache
     uncached = [a for a in base if a != "--cache_vision_latents"]
     pending = []  # runs started and not finished: killed if the phase fails
@@ -3757,8 +3845,8 @@ def phase_multi_gpu(gpu_line, data, run_dir) -> dict:
         if not Path(a["checkpoint"]["path"], "train_state.pt").exists():
             raise AssertionError("[multi-gpu] (a) wrote no checkpoint_0")
         shutil.rmtree(a_dir)
-        # each later run starts while the one before it ends, and waits for
-        # its go file (``rank_main``): (c) for (b), fsdp 2 and tp 2 for (c)
+        # (c) starts while (b) ends and waits for its go file (``rank_main``);
+        # fsdp 2 and tp 2 start once (b) has passed, beside (c)
         run_c = begin("c", 1, uncached + ["--external_save_dir", str(b_dir), "--run_name", "b",
                                           "--batch_size", "6", "--resume_from_checkpoint"],
                       backend="nccl", resume_check=str(digests), wait_for=str(c_go))
@@ -3779,15 +3867,13 @@ def phase_multi_gpu(gpu_line, data, run_dir) -> dict:
             runs = {tag: begin(tag, 2, (base if tag == "fsdp2" else uncached) + [
                         "--external_save_dir", str(run_dir / tag), "--run_name", tag,
                         "--batch_size", "3" if tag == "fsdp2" else "6", *flags],
-                        backend="gloo", stop_after_updates=SHARDED_UPDATES,
-                        wait_for=str(sharded_go))
+                        backend="gloo", stop_after_updates=SHARDED_UPDATES)
                     for tag, flags in (("fsdp2", ["--mesh_fsdp", "2"]),
                                        ("tp2", ["--mesh_tp", "2"]))}
         (c,) = end(run_c, 600)
         if not c.get("resume") or c["resume"]["n_differ"]:
             raise AssertionError(f"[multi-gpu] (c) resume: {c.get('resume')}")
         shutil.rmtree(b_dir)
-        sharded_go.write_text("")
         for tag, handle in runs.items():
             reps = end(handle, 600)
             shutil.rmtree(run_dir / tag, ignore_errors=True)
@@ -3798,6 +3884,8 @@ def phase_multi_gpu(gpu_line, data, run_dir) -> dict:
                                               loss_rel=TP_LOSS_REL if tag == "tp2" else
                                               MULTI_LOSS_REL)
                                 for rep in reps]
+                if tag == "fsdp2":
+                    check_zero(reps, b, gpu_line)
             except AssertionError as e:
                 sharded_failed.append(str(e))
     finally:
@@ -4389,8 +4477,8 @@ class HarnessSpies:
             self.steps += 1
             return o["step"](gen, *args, **kw)
 
-        def build(*args):
-            self.model = o["build"](*args)
+        def build(*args, **kw):
+            self.model = o["build"](*args, **kw)
             return self.model
 
         self.cli.build_model = build

@@ -33,8 +33,11 @@ bytes or ROADMAP.md's fault 5 lists them. The committed fixtures under
 """
 
 import base64
+import functools
 import io
+import os
 import struct
+import sys
 import types
 import zlib
 from pathlib import Path
@@ -45,7 +48,7 @@ from PIL import Image, ImageFile
 
 from unimp_tpu.data import transforms as j_transforms
 from unimp_tpu.serve import worker as j_worker
-from unimp_tpu_torch.data import jpeg, png, tiff, transforms, vp8, webp
+from unimp_tpu_torch.data import jpeg, png, tiff, transforms, vp8, webp, zstd
 from unimp_tpu_torch.serve.worker import ModelWorker
 
 RNG = np.random.default_rng(7)
@@ -475,10 +478,10 @@ def _bmps():
 
 def _tiff(samples, photometric, *, bps=8, planar=1, tile=None, compression=1,
           big_endian=False, extra=(), colormap=None, rows_per_strip=None, fill_order=None,
-          bigtiff=False):
+          bigtiff=False, sample_format=None, chunks=None):
     """A TIFF (or BigTIFF) of ``samples`` [H, W, S] in strips
     (``rows_per_strip``) or tiles, chunky or planar, none / Deflate /
-    PackBits (literal runs)."""
+    PackBits (literal runs), or ``chunks`` given coded."""
     bo = ">" if big_endian else "<"
     h, w, spp = samples.shape
     tw, th = tile or (w, rows_per_strip or h)
@@ -503,7 +506,9 @@ def _tiff(samples, photometric, *, bps=8, planar=1, tile=None, compression=1,
                             for i in range(0, len(raw), 128))
         return raw
 
-    chunks = []
+    if chunks is not None:
+        planes = []
+    chunks = list(chunks or [])
     for plane in planes:
         for x, y in boxes:
             block = plane[y:y + th, x:x + tw]
@@ -527,6 +532,8 @@ def _tiff(samples, photometric, *, bps=8, planar=1, tile=None, compression=1,
         tags[320] = (3, list(colormap))
     if fill_order:
         tags[266] = (3, [fill_order])
+    if sample_format:
+        tags[339] = (3, [sample_format] * spp)
     ifd_at = head_len + len(body) + len(body) % 2
     heap = bytearray()
     entries = []
@@ -1214,8 +1221,111 @@ def _pil_bytes(im, fmt, **kw):
     return buf.getvalue()
 
 
+def _natural(rng, h, w):
+    """A smooth picture with a little noise (sky, shading): long literal
+    runs with few matches."""
+    y, x = np.mgrid[0:h, 0:w] / 16.0
+    base = [np.sin(x * (1 + k) + np.cos(y * (2 - k * 0.3))) * 60 + 120
+            + 20 * np.sin(x * y / 9 + k) for k in range(3)]
+    return np.clip(np.stack(base, -1) + rng.normal(0, 3, (h, w, 3)), 0, 255).astype(np.uint8)
+
+
+def _zstd_strip_tiff(samples) -> bytes:
+    """An RGB TIFF in one ZSTD strip (a frame of the test's writing, which
+    libtiff's encoder does not make): a compressed block holding the
+    leading run of one byte as RLE literals and no sequences, a raw block,
+    an RLE block of the trailing run, and the content checksum."""
+    from unimp_tpu_torch.data.zstd import _xxh64
+
+    content = samples.tobytes()
+    run = len(content) - len(content.lstrip(content[:1]))
+    tail = len(content) - len(content.rstrip(content[-1:]))
+    assert 32 <= run < 4096 and tail > 0
+    lit = bytes([1 | (1 << 2) | ((run & 15) << 4), run >> 4]) + content[:1] + b"\0"
+    mid = content[run:len(content) - tail]
+
+    def head(size, kind, last=0):
+        return struct.pack("<I", (size << 3) | (kind << 1) | last)[:3]
+
+    frame = (struct.pack("<IB", 0xFD2FB528, (2 << 6) | (1 << 5) | 4)  # 4-byte size, checksum
+             + struct.pack("<I", len(content)) + head(len(lit), 2) + lit + head(len(mid), 0)
+             + mid + head(tail, 1, 1) + content[-1:]
+             + struct.pack("<I", _xxh64(content) & 0xFFFFFFFF))
+    return _tiff(samples, 2, compression=50000, chunks=[frame])
+
+
+def _zstd_and_float_tiffs():
+    """ZSTD TIFFs (libtiff's encoder through PIL, the predictor off and
+    on; the pictures chosen so that together they reach every kind of
+    block, literals and sequence table, ``ZSTD_KINDS``) and 32-bit float
+    TIFFs (NaN, infinities, values outside 0-255), from a generator of
+    their own: the other fixtures keep their bytes."""
+    rng = np.random.default_rng(15)
+    tiles = np.tile(rng.integers(0, 256, (16, 16, 3)), (20, 25, 1))
+    tiles += rng.integers(0, 3, tiles.shape) * (rng.random(tiles.shape[:2]) < 0.05)[..., None]
+    pictures = {
+        "flat": (np.full((37, 53, 3), 97, np.uint8), None),
+        "noisy": (rng.integers(0, 256, (37, 53, 3), dtype=np.uint8), None),
+        "natural": (_natural(rng, 64, 80), None),
+        # one strip past a 128 KiB block: the second block is one byte
+        "flat_one_strip": (np.full((190, 256, 3), 97, np.uint8), 190),
+        "small": ((rng.integers(0, 4, (6, 12, 3)) * 60).astype(np.uint8), None),
+        "stripes": (np.repeat(np.repeat(rng.integers(0, 4, (20, 1, 1)), 8, 0), 300, 1)
+                    .astype(np.uint8).repeat(3, 2), 160),
+        "steps": ((np.arange(256)[None, :, None] // 32 * 30).repeat(120, 0).repeat(3, 2)
+                  .astype(np.uint8), 120),
+        "sixteen_levels": (rng.integers(0, 16, (300, 400, 3)).astype(np.uint8), 300),
+        "tiles": (tiles.astype(np.uint8), 320),
+        # a draw (seed 35) whose sequences, under the predictor, share one offset code
+        "small_one_offset": ((np.random.default_rng(35).integers(0, 4, (6, 12, 3)) * 60)
+                             .astype(np.uint8), None),
+    }
+    files = {}
+    for name, (pic, rows) in pictures.items():
+        for predictor in (1, 2):
+            info = {} if rows is None else {278: rows}
+            if predictor == 2:
+                info[317] = 2
+            files[f"tiff_pil_zstd_{name}" + ("_predictor" if predictor == 2 else "")] = \
+                _pil_save(pic, "RGB", "TIFF", compression="zstd", tiffinfo=info)
+    hand = np.concatenate([np.full(200, 40, np.uint8), rng.integers(0, 256, 216, np.uint8),
+                           np.full(64, 200, np.uint8)]).reshape(10, 16, 3)
+    files["tiff_zstd_rle_literals"] = _zstd_strip_tiff(hand)
+    special = np.array([np.nan, np.inf, -np.inf, 255.0, 254.99, 0.5, -0.0, 1e-40, -3.5,
+                        255.5, 1e30, 127.9], np.float32)
+    floats = np.concatenate([rng.random(209).astype(np.float32) * 400 - 50, special])
+    floats = rng.permutation(floats).reshape(13, 17)
+    for comp, info, tag in (("raw", {}, ""), ("tiff_adobe_deflate", {}, ""),
+                            ("tiff_adobe_deflate", {317: 3}, "_predictor"), ("zstd", {}, ""),
+                            ("tiff_lzw", {317: 3}, "_predictor")):
+        files[f"tiff_pil_float_{comp}{tag}"] = _pil_bytes(Image.fromarray(floats, "F"), "TIFF",
+                                                          compression=comp, tiffinfo=info)
+    return files
+
+
+ZSTD_DECOMPRESS = zstd.decompress
 FILES = {**_jpegs(), **_pngs(), **_gifs(), **_bmps(), **_tiffs(), **_arith_and_lossless(),
-         **_webps()}
+         **_webps(), **_zstd_and_float_tiffs()}
+# which kinds of Zstandard data (``data/zstd.py``'s names) each ZSTD
+# fixture's strips reach; together: every kind of block, literals, Huffman
+# weights and sequence table, repeat offsets and checksums (skippable and
+# several frames: ``test_zstd_frames_equal_libzstd``)
+ZSTD_KINDS = {
+    "tiff_pil_zstd_flat": {"literals raw", "literal lengths predefined", "offsets predefined",
+                           "match lengths predefined", "block compressed"},
+    "tiff_pil_zstd_flat_predictor": {"offset repeat"},
+    "tiff_pil_zstd_noisy": {"block raw"},
+    "tiff_pil_zstd_natural": {"literals huffman", "literals 4 streams", "weights fse"},
+    "tiff_pil_zstd_flat_one_strip": {"block rle"},
+    "tiff_pil_zstd_small": {"literals 1 stream", "match lengths fse"},
+    "tiff_pil_zstd_small_predictor": {"match lengths rle"},
+    "tiff_pil_zstd_small_one_offset_predictor": {"offsets rle"},
+    "tiff_pil_zstd_stripes": {"literal lengths rle", "offsets fse", "offsets repeat"},
+    "tiff_pil_zstd_sixteen_levels": {"literals treeless", "weights direct",
+                                     "literal lengths fse", "match lengths fse"},
+    "tiff_pil_zstd_tiles": {"literal lengths repeat", "match lengths repeat"},
+    "tiff_zstd_rle_literals": {"literals rle", "checksum", "block raw", "block rle"},
+}
 
 
 def _pil_rgb(data):
@@ -1336,6 +1446,183 @@ def test_cut_progressive_jpeg_is_block_smoothed(tmp_path, name, frac):
         jpeg._block_smoothing = unsmoothed
 
 
+# random cuts (one draw) of the four progressive files that still differ
+# from the JAX package's native pipe after block smoothing and the black
+# image of a cut table: (file, length) -> max |Δ| at 28 and 64 px
+PROGRESSIVE_CUTS_UNEQUAL = {("jpeg_progressive", 1695): 15,
+                            ("jpeg_progressive_optimized", 1850): 14,
+                            ("jpeg_progressive_restart", 1020): 99,
+                            ("jpeg_progressive_restart", 1430): 91,
+                            ("jpeg_gray_progressive", 377): 226}
+
+
+def test_cut_progressive_jpeg_random_cuts(tmp_path):
+    """87 random cuts of the four progressive files against the JAX
+    package's ``load_resized_uint8`` (its native pipe: libjpeg-turbo with
+    a fake EOI): 82 equal; the 5 in ``PROGRESSIVE_CUTS_UNEQUAL`` (all
+    inside a scan's data) differ by the amounts recorded there, the cause
+    untraced (ROADMAP.md §3, fault 5). Cuts inside a later table or scan
+    header are equal (``test_cut_inside_a_later_table_or_scan_header_is_black``)."""
+    rng = np.random.default_rng(0)
+    unequal = {}
+    for name in ("jpeg_progressive", "jpeg_progressive_optimized", "jpeg_progressive_restart",
+                 "jpeg_gray_progressive"):
+        data = FILES[name]
+        for n in sorted(set(rng.integers(data.index(b"\xff\xda") + 10, len(data) - 2,
+                                         22).tolist())):
+            path = tmp_path / f"{name}_{n}.jpg"
+            path.write_bytes(data[:n])
+            worst = max(int(np.abs(transforms.load_resized_uint8(str(path), size).astype(int)
+                                   - j_transforms.load_resized_uint8(str(path), size)).max())
+                        for size in (28, 64))
+            if worst:
+                unequal[name, n] = worst
+    assert unequal == PROGRESSIVE_CUTS_UNEQUAL
+
+
+def _marker_after_first_scan(data: bytes, marker: bytes) -> int:
+    """The offset of the first ``marker`` segment after the first scan."""
+    return data.index(marker, data.index(b"\xff\xda") + 2)
+
+
+@pytest.mark.parametrize("name", ["jpeg_progressive", "jpeg_progressive_optimized",
+                                  "jpeg_progressive_restart", "jpeg_gray_progressive"])
+@pytest.mark.parametrize("where", ["table_length", "table_counts", "scan_header"])
+def test_cut_inside_a_later_table_or_scan_header_is_black(tmp_path, name, where):
+    """A progressive file cut inside the Huffman table or scan header
+    that follows a scan: libjpeg reads its source's fake EOI bytes as the
+    rest of the segment, refuses the table's counts or the scan's
+    components and stops; PIL and the JAX package keep a black image."""
+    data = FILES[name]
+    dht = _marker_after_first_scan(data, b"\xff\xc4")
+    sos = data.index(b"\xff\xda", dht)
+    cut = data[:{"table_length": dht + 3, "table_counts": dht + 8, "scan_header": sos + 7}[where]]
+    path = tmp_path / "cut.jpg"
+    path.write_bytes(cut)
+    got = transforms.decode_image(cut)
+    assert not got.any()
+    np.testing.assert_array_equal(got, _pil_rgb(cut))
+    for size in (28, 64):
+        np.testing.assert_array_equal(transforms.load_resized_uint8(str(path), size),
+                                      j_transforms.load_resized_uint8(str(path), size))
+
+
+@pytest.mark.parametrize("frac", [0.3, 0.6, 0.9])
+@pytest.mark.parametrize("name", ["jpeg_lossless_rgb_p1", "jpeg_lossless_rgb_p5",
+                                  "jpeg_lossless_gray_p4_pt2", "jpeg_lossless_rgb_ids_p7"])
+def test_cut_lossless_jpeg_equals_pil_and_jax(tmp_path, name, frac):
+    """A lossless JPEG cut inside its data: the row whose decoding reads
+    past the data reads zero bits; every later row is CENTERJSAMPLE, as
+    libjpeg-turbo's ``decode_mcus`` resets the undifferencer on each row
+    once the data ran out. Equal to PIL (with its fake EOI) and to the
+    JAX package (which reads lossless files through PIL)."""
+    cut = FILES[name][:int(len(FILES[name]) * frac)]
+    got = transforms.decode_image(cut)
+    np.testing.assert_array_equal(got, _pil_rgb(cut))
+    assert (got[-1] == 128).all()
+    path = tmp_path / "cut.jpg"
+    path.write_bytes(cut)
+    for size in (28, 64):
+        np.testing.assert_array_equal(transforms.load_resized_uint8(str(path), size),
+                                      j_transforms.load_resized_uint8(str(path), size))
+
+
+@pytest.mark.parametrize("frac", [0.3, 0.7])
+@pytest.mark.parametrize("mode", ["rgb", "l", "cmyk"])
+def test_cut_uncompressed_tiff_keeps_whole_rows(tmp_path, mode, frac):
+    """An uncompressed TIFF cut inside its strip: whole rows decoded, the
+    cut row and the rest zero samples (black; white in CMYK), as PIL's raw
+    decoder leaves them. The JAX
+    package reads the RGB file through PIL to the same pixels; for the
+    gray and CMYK files its own buffer handling raises."""
+    cut = FILES[f"tiff_pil_raw_{mode}"][:int(len(FILES[f"tiff_pil_raw_{mode}"]) * frac)]
+    got = transforms.decode_image(cut)
+    np.testing.assert_array_equal(got, _pil_rgb(cut))
+    assert len(np.unique(got[-1])) == 1
+    path = tmp_path / "cut.tif"
+    path.write_bytes(cut)
+    for size in (28, 64):
+        if mode == "rgb":
+            np.testing.assert_array_equal(transforms.load_resized_uint8(str(path), size),
+                                          j_transforms.load_resized_uint8(str(path), size))
+        else:
+            with pytest.raises(ValueError, match="buffer is not large enough"):
+                j_transforms.load_resized_uint8(str(path), size)
+
+
+def _libjpeg_c_path(datas) -> list:
+    """PIL's decodes of ``datas`` with libjpeg-turbo's SIMD off
+    (``JSIMD_FORCENONE``, read when the library loads: a process of its
+    own), each with a fake EOI after it as the JAX package's pipe gives
+    libjpeg one."""
+    import subprocess
+
+    import pickle
+
+    script = ("import io, sys, pickle, numpy\n"
+              "from PIL import Image, ImageFile\n"
+              "ImageFile.LOAD_TRUNCATED_IMAGES = True\n"
+              "out = []\n"
+              "for x in pickle.load(sys.stdin.buffer):\n"
+              "    with Image.open(io.BytesIO(x + b'\\xff\\xd9')) as im:\n"
+              "        out.append(numpy.asarray(im.convert('RGB')))\n"
+              "sys.stdout.buffer.write(pickle.dumps(out))\n")
+
+    out = subprocess.run([sys.executable, "-c", script], input=pickle.dumps(list(datas)),
+                         capture_output=True, check=True,
+                         env={**os.environ, "JSIMD_FORCENONE": "1"})
+    return pickle.loads(out.stdout)
+
+
+def _scan_cuts(data: bytes, step: int) -> list:
+    """``data`` cut at every ``step``-th byte from its first scan's data on."""
+    sos = data.index(b"\xff\xda")
+    start = sos + 3 + int.from_bytes(data[sos + 2:sos + 4], "big")
+    return [data[:k] for k in range(start, len(data) - 2, step)]
+
+
+ARITH_CUT_EQUAL = ["jpeg_arith_seq_ycc420", "jpeg_arith_seq_ycc420_per_component",
+                   "jpeg_arith_seq_restart", "jpeg_arith_seq_dac", "jpeg_arith_seq_gray",
+                   "jpeg_arith_progressive_gray_restart"]
+
+
+@pytest.mark.parametrize("name", ARITH_CUT_EQUAL)
+def test_cut_arithmetic_jpeg_equals_libjpeg(name):
+    """An arithmetic-coded JPEG cut at every 5th byte of its scans: the QM
+    decoder reads zero bytes past the cut, a bad code (an overflow) ends
+    its restart interval as ``jdarith.c`` sets ``ct = -1``, the intervals
+    after the cut are read from zero bytes with fresh statistics, and a
+    progressive file is block-smoothed (a cut arithmetic scan is no
+    "insufficient data" to libjpeg: every row counts as good). Equal at
+    every cut to libjpeg-turbo's C decoder.
+
+    Against libjpeg-turbo as PIL and the JAX package run it (its SIMD
+    IDCT) some cuts differ by up to 255: 12 of 106, 7 of 96, 7 of 129, 5
+    of 57 and 2 of 31 of the sequential files' cuts at every 7th byte, 0
+    of 50 of the progressive one's. Traced: the zero bytes decode to
+    coefficients in the thousands (6,190 at one cut of the 4:2:0 file),
+    which the AVX2 islow IDCT saturates in 16-bit lanes where the C IDCT
+    does not. PIL's incremental feed besides cannot suspend an arithmetic
+    scan (``JERR_CANT_SUSPEND``: a black or partial image), so the C path
+    is the oracle here."""
+    cuts = _scan_cuts(FILES[name], 5)
+    for k, (cut, want) in enumerate(zip(cuts, _libjpeg_c_path(cuts))):
+        np.testing.assert_array_equal(transforms.decode_image(cut), want, err_msg=str(k))
+
+
+def test_cut_arithmetic_progressive_420_jpeg_differs_by_at_most_19():
+    """The 4:2:0 progressive arithmetic file, cut at every 5th byte of its
+    scans, still differs from libjpeg-turbo's C decoder at most cuts, by
+    up to 19 in its second iMCU row (rows 16-31). Traced so far: not the
+    good-row rule (rows 0-15 and 32-34 equal), not the 16-bit coefficient
+    stores, not the SIMD IDCT; the cause is open (ROADMAP.md §3, fault 5).
+    The figures below are those measured."""
+    cuts = _scan_cuts(FILES["jpeg_arith_progressive_ycc420"], 5)
+    diffs = np.array([int(np.abs(transforms.decode_image(c).astype(int) - w).max())
+                      for c, w in zip(cuts, _libjpeg_c_path(cuts))])
+    assert diffs.max() <= 19 and (diffs == 0).mean() >= 0.42, diffs
+
+
 @pytest.mark.parametrize("name", ["webp_lossy_q80", "webp_lossless", "webp_lossy_alpha"])
 def test_cut_webp_raises_as_pil_does(name):
     data = FILES[name][:-40]
@@ -1389,12 +1676,95 @@ def _tiff_with_compression(code):
     return bytes(data)
 
 
+def _float_tiff(bps):
+    """A gray floating-point TIFF of ``bps``-bit samples (16 or 64), which
+    libtiff writes and PIL does not open."""
+    vals = np.arange(12, dtype={16: "<f2", 64: "<f8"}[bps]).reshape(3, 4, 1) * 20
+    return _tiff(vals.view(f"<u{bps // 8}").astype(np.int64), 1, bps=bps, sample_format=3)
+
+
+ZSTD_EVERY_KIND = {f"{table} {mode}" for table in ("literal lengths", "offsets", "match lengths")
+                   for mode in ("predefined", "rle", "fse", "repeat")} | {
+    f"block {k}" for k in ("raw", "rle", "compressed")} | {
+    f"literals {k}" for k in ("raw", "rle", "huffman", "treeless", "1 stream", "4 streams")} | {
+    "weights direct", "weights fse", "offset repeat", "checksum"}
+
+
+def test_zstd_tiff_fixtures_reach_every_kind(monkeypatch):
+    """Each ZSTD fixture reaches the kinds ``ZSTD_KINDS`` names for it (its
+    equality to PIL and to the JAX package is ``test_decode_equals_pil``
+    and ``test_load_resized_uint8_equals_jax``), and together they reach
+    every kind."""
+    seen_all = set()
+    for name, want in ZSTD_KINDS.items():
+        seen = set()
+        monkeypatch.setattr(zstd, "decompress", functools.partial(ZSTD_DECOMPRESS, kinds=seen))
+        transforms.decode_image(FILES[name])
+        assert want <= seen, (name, sorted(want - seen))
+        seen_all |= seen
+    assert ZSTD_EVERY_KIND <= seen_all, sorted(ZSTD_EVERY_KIND - seen_all)
+
+
+def _libzstd():
+    """PIL's bundled libzstd (its TIFF codec), through ctypes."""
+    import ctypes
+    import PIL
+
+    (path,) = Path(PIL.__file__).parents[1].glob("pillow.libs/libzstd*")
+    lib = ctypes.CDLL(str(path))
+    lib.ZSTD_compressBound.restype = lib.ZSTD_compress2.restype = ctypes.c_size_t
+    lib.ZSTD_decompress.restype = lib.ZSTD_getFrameContentSize.restype = ctypes.c_size_t
+    lib.ZSTD_createCCtx.restype = ctypes.c_void_p
+    return lib
+
+
+@pytest.mark.parametrize("level", [1, 19])
+@pytest.mark.parametrize("kind", ["text", "noise", "runs", "geometric"])
+def test_zstd_frames_equal_libzstd(kind, level):
+    """libzstd's frames at two levels, with content checksums, two of them
+    around a skippable frame: ``data/zstd.py`` gives what libzstd's own
+    decoder gives, and the input; a flipped checksum byte raises."""
+    import ctypes
+
+    lib = _libzstd()
+    rng = np.random.default_rng(3)
+    data = {"text": b" ".join(rng.choice([b"the", b"item", b"beauty", b"review", b"of"], 30000)),
+            "noise": rng.integers(0, 256, 70000, np.uint8).tobytes(),
+            "runs": np.repeat(rng.integers(0, 3, 5000), rng.integers(1, 40, 5000))
+            .astype(np.uint8).tobytes(),
+            "geometric": np.minimum(rng.geometric(0.02, 150000), 255).astype(np.uint8)
+            .tobytes()}[kind]
+
+    def compress(raw):
+        cctx = ctypes.c_void_p(lib.ZSTD_createCCtx())
+        lib.ZSTD_CCtx_setParameter(cctx, 100, level)  # ZSTD_c_compressionLevel
+        lib.ZSTD_CCtx_setParameter(cctx, 201, 1)  # ZSTD_c_checksumFlag
+        cap = lib.ZSTD_compressBound(len(raw))
+        buf = ctypes.create_string_buffer(cap)
+        n = lib.ZSTD_compress2(cctx, buf, ctypes.c_size_t(cap), raw, ctypes.c_size_t(len(raw)))
+        lib.ZSTD_freeCCtx(cctx)
+        return buf.raw[:n]
+
+    half = len(data) // 2
+    frames = (compress(data[:half]) + struct.pack("<II", 0x184D2A5F, 3) + b"pad"
+              + compress(data[half:]))
+    out = ctypes.create_string_buffer(len(data))
+    n = lib.ZSTD_decompress(out, ctypes.c_size_t(len(data)), frames, ctypes.c_size_t(len(frames)))
+    assert out.raw[:n] == data
+    kinds = set()
+    assert zstd.decompress(frames, kinds) == data
+    assert {"checksum", "skippable frame", "frames"} <= kinds
+    bad = bytearray(frames)
+    bad[len(compress(data[:half])) - 1] ^= 1  # the first frame's checksum
+    with pytest.raises(ValueError, match="checksum"):
+        zstd.decompress(bytes(bad))
+
+
 # formats the port refuses: name -> (the file, whether PIL reads it); one
 # that PIL reads stands in ROADMAP.md's fault 5 as still to do
 UNREAD = {
-    "ZSTD": (lambda: _pil_save(_picture(9, 9), "RGB", "TIFF", compression="zstd"), True),
-    "floating-point": (lambda: _pil_bytes(Image.fromarray(
-        RNG.random((8, 8)).astype(np.float32), "F"), "TIFF"), True),
+    "16-bit floating-point": (lambda: _float_tiff(16), False),
+    "64-bit floating-point": (lambda: _float_tiff(64), False),
     "WebP": (lambda: _tiff_with_compression(50001), False),
     "SGILog": (lambda: _tiff_with_compression(34676), False),
     "old-style JPEG": (lambda: _tiff_with_compression(6), False),

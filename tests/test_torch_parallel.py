@@ -52,6 +52,7 @@ from unimp_tpu.models import compute_q_media as j_compute_q_media
 from unimp_tpu.models import get_config as j_get_config
 from unimp_tpu.ops.ring_attention import ring_attention_sharded as j_ring
 from unimp_tpu.parallel import make_mesh as j_make_mesh
+from unimp_tpu.parallel.sharding import param_sharding as j_param_sharding
 from unimp_tpu.parallel.sharding import param_specs as j_param_specs
 from unimp_tpu.tools import synth_data as j_synth
 from unimp_tpu.train import optimizer as j_opt
@@ -68,7 +69,9 @@ from unimp_tpu_torch.evals import evaluators
 from unimp_tpu_torch.models import UniMPModel, get_config
 from unimp_tpu_torch.data.transforms import normalize_on_device
 from unimp_tpu_torch.models.flamingo import compute_q_media
-from unimp_tpu_torch.parallel.sharding import param_specs, tensor_tp_dim, tp_layout
+from unimp_tpu_torch.parallel.mesh import Mesh
+from unimp_tpu_torch.parallel.sharding import (param_specs, predicted_resident_bytes,
+                                              resident_bytes, tensor_tp_dim, tp_layout)
 from unimp_tpu_torch.tools import synth_data
 from unimp_tpu_torch.tools.from_flax import build_model, flatten_tree, load_flax_params
 from unimp_tpu_torch.train import checkpoint as ckpt
@@ -196,17 +199,31 @@ def _batch(b=8, seed=5):
             "images": rng.integers(0, 256, size=(b, 2, 28, 28, 3), dtype=np.uint8)}
 
 
-def _jax_mesh_step(bf16):
+def _jflat(tree) -> dict:
+    """{flat path: numpy} of a JAX tree, an int8 kernel as its q / scale."""
+    leaves = jax.tree_util.tree_flatten_with_path(tree)[0]
+    return {"/".join(str(getattr(k, "key", getattr(k, "name", k))) for k in path): np.asarray(v)
+            for path, v in leaves if v is not None}
+
+
+def _jax_mesh_step(bf16, int8=False):
     """The JAX Trainer's step (accum 2) on the global batch, sharded over
     make_mesh(dp=2, fsdp=2, tp=2): (metrics, new params, the reduced
     gradients, the |gradient| bound of their bfloat16 sum, flat init).
-    ``bf16``: ``--bf16_opt_state`` (bfloat16 gradients and moments)."""
+    ``bf16``: ``--bf16_opt_state`` (bfloat16 gradients and moments);
+    ``int8``: also ``--frozen_int8 --remat --remat_policy dots``, and the
+    flat init is the tree with the JAX package's int8 frozen kernels."""
     jmodel, params = _jax_debug()
-    flat = {k: np.asarray(v) for k, v in flatten_tree(params).items()}
+    if int8:
+        jmodel = JModel(dataclasses.replace(jmodel.cfg, remat=True, remat_policy="dots"))
     mesh = j_make_mesh(dp=2, fsdp=2, tp=2)
     jt = JTrainer(jmodel, None, trainable_mask=j_trainable_mask, accum_steps=2, mesh=mesh,
-                  grad_dtype="bfloat16" if bf16 else None, **IDS)
-    trainable, _ = partition_params(params, j_trainable_mask(params))
+                  grad_dtype="bfloat16" if bf16 else None,
+                  frozen_dtype="int8" if int8 else None, **IDS)
+    trainable, frozen = partition_params(params, j_trainable_mask(params))
+    if int8:
+        params = merge_params(trainable, jt._apply_frozen_dtype(frozen))
+    flat = _jflat(params)
     moments = "bfloat16" if bf16 else None
     jt.optimizer = j_opt.make_optimizer(trainable, learning_rate=LR, mu_dtype=moments,
                                         nu_dtype=moments)
@@ -242,6 +259,11 @@ def jax_step():
 @pytest.fixture(scope="module")
 def jax_step_bf16():
     return _jax_mesh_step(bf16=True)
+
+
+@pytest.fixture(scope="module")
+def jax_step_int8():
+    return _jax_mesh_step(bf16=True, int8=True)
 
 
 def test_tp_layout_follows_the_jax_rules():
@@ -281,19 +303,23 @@ TWO_RANK_MESHES = [(2, 1, 1), (1, 2, 1), (1, 1, 2)]
 # under --bf16_opt_state: bfloat16 gradients (each micro-batch's float32
 # gradient summed over the data axis, then rounded) and moments
 BF16_MESHES = [(2, 1, 1, "bf16"), (1, 2, 1, "bf16")]
+# the headline levers at fsdp 2: --frozen_int8 --bf16_opt_state --remat
+# --remat_policy dots (int8 frozen payloads sharded beside the trainables)
+INT8_MESHES = [(1, 2, 1, "bf16", "int8", "remat")]
 BF16_STEP = 2.0 ** -7  # one step of bfloat16's 8-bit significand, at most
 
 
 @pytest.fixture(scope="module")
-def two_rank_steps(jax_step, tmp_path_factory):
+def two_rank_steps(jax_step, jax_step_int8, tmp_path_factory):
     """The step at each 2-rank mesh, one after the other in one group."""
-    inputs = {"meshes": TWO_RANK_MESHES + BF16_MESHES, "weights": jax_step[-1],
-              "batch": _batch(), "lr": LR, "ids": IDS}
+    inputs = {"meshes": TWO_RANK_MESHES + BF16_MESHES + INT8_MESHES, "weights": jax_step[-1],
+              "weights_int8": jax_step_int8[-1], "batch": _batch(), "lr": LR, "ids": IDS}
     return _spawn(tmp_path_factory.mktemp("steps"), "step", 2, inputs)
 
 
-@pytest.mark.parametrize("mesh", TWO_RANK_MESHES + [(2, 2, 2)] + BF16_MESHES,
-                         ids=["dp2", "fsdp2", "tp2", "dp2_fsdp2_tp2", "dp2_bf16", "fsdp2_bf16"])
+@pytest.mark.parametrize("mesh", TWO_RANK_MESHES + [(2, 2, 2)] + BF16_MESHES + INT8_MESHES,
+                         ids=["dp2", "fsdp2", "tp2", "dp2_fsdp2_tp2", "dp2_bf16", "fsdp2_bf16",
+                              "fsdp2_int8_bf16_remat"])
 def test_trainer_step_matches_jax_mesh(request, tmp_path, two_rank_steps, mesh):
     """Under bf16 the gradients are held as ``tests/test_torch_train_flags.py``
     holds one process's: within one bfloat16 step of each rounded operand
@@ -302,13 +328,13 @@ def test_trainer_step_matches_jax_mesh(request, tmp_path, two_rank_steps, mesh):
     mean for a sum, a second sum) is off by a factor of 2 there."""
     bf16 = len(mesh) > 3
     j_metrics, j_new, j_grads, j_abs, flat = request.getfixturevalue(
-        "jax_step_bf16" if bf16 else "jax_step")
+        "jax_step_int8" if "int8" in mesh else "jax_step_bf16" if bf16 else "jax_step")
     batch = _batch()
     data_size = mesh[0] * mesh[1]
     if data_size > 1:
         counts = _local_counts(batch, data_size)
         assert all(len({c[m] for c in counts}) > 1 for m in range(2)), counts
-    if mesh in TWO_RANK_MESHES + BF16_MESHES:
+    if mesh in TWO_RANK_MESHES + BF16_MESHES + INT8_MESHES:
         out = [res[mesh] for res in two_rank_steps]
     else:
         inputs = {"meshes": [mesh], "weights": flat, "batch": batch, "lr": LR, "ids": IDS}
@@ -338,6 +364,79 @@ def test_trainer_step_matches_jax_mesh(request, tmp_path, two_rank_steps, mesh):
         np.testing.assert_allclose(got[sure], want[sure], rtol=0, atol=1e-2 * LR,
                                    err_msg=path)
         np.testing.assert_allclose(got, want, rtol=0, atol=2.01 * LR, err_msg=path)
+
+
+@pytest.mark.parametrize("mesh", [(1, 2, 1), (1, 2, 1, "bf16"), (1, 2, 1, "bf16", "int8", "remat")],
+                         ids=["fsdp2", "fsdp2_bf16", "fsdp2_int8_bf16_remat"])
+def test_fsdp_gathers_stay_within_two_blocks(two_rank_steps, mesh):
+    """ZeRO-3 frees what it gathers: over one step's gradient computation
+    (two micro-batches, forward and backward) the bytes of gathered whole
+    tensors alive at once (weak references on every gather's buffer) stay
+    at or under the two largest units' (a block, the tied embedding) and
+    well under the model's sharded total; every rank reads the same."""
+    for res in two_rank_steps:
+        alive = res[mesh]["alive"]
+        units = sorted(alive["units"].values())
+        assert len(units) > 4 and alive["peak"] > 0
+        assert alive["peak"] <= units[-1] + units[-2], (alive["peak"], units[-2:])
+        assert alive["peak"] < sum(units) / 2
+        # each unit gathered at least once a micro-batch forward
+        assert alive["gathered"] >= 2 * sum(units)
+    assert two_rank_steps[0][mesh]["alive"] == two_rank_steps[1][mesh]["alive"]
+
+
+def _jax_shard_numels(params, mesh) -> dict:
+    """{flat path: elements a device keeps} under the JAX rule table."""
+    shardings = jax.tree_util.tree_leaves(j_param_sharding(params, mesh),
+                                          is_leaf=lambda x: isinstance(x, jax.sharding.Sharding))
+    leaves = jax.tree_util.tree_flatten_with_path(params)[0]
+    out = {}
+    for (path, leaf), sharding in zip(leaves, shardings):
+        key = "/".join(str(getattr(k, "key", getattr(k, "name", k))) for k in path)
+        out[key] = int(np.prod(sharding.shard_shape(leaf.shape)))
+    return out
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["float", "frozen_int8"])
+@pytest.mark.parametrize("dims", [(1, 2, 1), (2, 2, 2)], ids=["fsdp2", "dp2_fsdp2_tp2"])
+def test_fsdp_resident_elements_match_jax_shard_shapes(dims, int8):
+    """Each rank's resident elements of every leaf of the ``debug`` model
+    (``build_model(train=True)`` on the mesh: tp slicing, then ZeRO-3) are
+    the JAX ``param_sharding`` shard shape's, up to padding (at most
+    fsdp - 1 more): the chunk of a tensor the table shards over fsdp, the
+    whole (tp block of a) tensor otherwise; under ``--frozen_int8`` the
+    JAX package's frozen int8 tree, payloads by their kernels' rule. A
+    column-parallel int8 scale is the one leaf held otherwise: the port
+    slices it with its columns (tp), JAX keeps it whole and XLA slices it.
+    The placement needs no collective, so every rank's model is built in
+    this process; ``resident_bytes`` equals ``predicted_resident_bytes``
+    (the port's table on the whole shapes)."""
+    jmodel, params = _jax_debug()
+    if int8:
+        trainable, frozen = partition_params(params, j_trainable_mask(params))
+        jt = JTrainer(jmodel, None, trainable_mask=j_trainable_mask, frozen_dtype="int8", **IDS)
+        params = merge_params(trainable, jt._apply_frozen_dtype(frozen))
+    dp, fsdp, tp = dims
+    want = _jax_shard_numels(params, j_make_mesh(dp=8 // (fsdp * tp), fsdp=fsdp, tp=tp))
+    flat = _jflat(params)
+    cfg = get_config("debug", dtype="float32")
+    sharded = 0
+    for rank in range(dp * fsdp * tp):
+        model = build_model(cfg, device="cpu", train=True, weights=flat,
+                            frozen_dtype="int8" if int8 else None,
+                            mesh=Mesh(dp, fsdp, tp, rank=rank))
+        got = {k.replace(".", "/"): t.numel() for k, t in model.state_dict().items()}
+        assert set(got) == set(want)
+        for path, n in got.items():
+            jn = want[path]
+            if path.endswith("kernel/scale") and tensor_tp_dim(model.tp_layout, path) is not None:
+                jn //= tp
+            assert 0 <= n - jn < fsdp, (rank, path, n, jn)
+            sharded += model.zero.sharded(path)
+        shapes = {p: (tuple(np.shape(v)), np.asarray(v).itemsize) for p, v in flat.items()}
+        assert resident_bytes(model) == predicted_resident_bytes(shapes, fsdp, tp,
+                                                                 model.tp_layout)
+    assert sharded >= 20 * dp * fsdp * tp  # q/k/v/o and the MLPs of every block, ...
 
 
 def test_weight_bridge_places_a_jax_tree_on_tp(tmp_path):
@@ -391,6 +490,53 @@ def test_weight_bridge_places_a_jax_tree_on_tp(tmp_path):
                                    atol=1e-5 * scale)
         assert torch.equal(res["tokens"], want_tokens)
     assert sliced_scales > 0
+
+
+def test_weight_bridge_places_a_jax_tree_on_fsdp(tmp_path):
+    """The same JAX trees on 2 fsdp ranks (ZeRO-3): the int8 tree loaded
+    into a sharded float model turns its kernels into int8 chunks (scales
+    whole), each rank's chunk the flat slice of the JAX payload; the
+    gathered trees are the one-process models' (int8 dequantized); logits
+    within 1e-5 and the 3-beam tokens equal, the ranks' forwards and
+    decode steps gathering every block."""
+    _, params = _jax_debug()
+    flat = {k: np.asarray(v) for k, v in flatten_tree(params).items()}
+    int8 = _jflat(j_quantize_params_int8(params, min_size=1, dtype=jnp.float32))
+    cfg = get_config("debug", dtype="float32")
+    one = UniMPModel(cfg).eval()
+    load_flax_params(one, int8)
+    one_float = build_model(cfg, device="cpu", weights=flat)
+    rng = np.random.default_rng(4)
+    ids = torch.from_numpy(rng.integers(10, VOCAB, size=(2, 12)))
+    ids[:, 1] = ids[:, 6] = MEDIA
+    ids[1, 9:] = PAD
+    inputs = {"int8": int8, "float": flat, "ids": ids, "seq_len": torch.tensor([12, 9]),
+              "pixels": torch.from_numpy(rng.integers(0, 256, size=(2, 2, 28, 28, 3),
+                                                      dtype=np.uint8)), "media": MEDIA}
+    with torch.no_grad():
+        want_logits = one(ids, vision_x=normalize_on_device(inputs["pixels"]),
+                          q_media=compute_q_media(ids, MEDIA), kv_len=inputs["seq_len"])[0]
+        want_tokens = _port_generate(one, inputs)
+    out = _spawn(tmp_path, "bridge_fsdp", 2, inputs)
+    assert any(p.endswith("kernel/q") for p in out[0]["sharded"])
+    for rank, res in enumerate(out):
+        for name, t in res["int8"].items():
+            path = name.replace(".", "/")
+            want = torch.from_numpy(np.array(int8[path])).reshape(-1)
+            if path in res["sharded"]:
+                chunk = -(-want.numel() // 2)
+                want = torch.cat([want, want.new_zeros(2 * chunk - want.numel())])
+                want = want[rank * chunk:(rank + 1) * chunk]
+            assert torch.equal(t.reshape(-1), want.to(t.dtype)), (rank, path)
+        for got, model in ((res["whole_int8"], one), (res["whole_float"], one_float)):
+            whole = ckpt.model_tree(model)
+            assert set(got) == set(whole)
+            for path, t in whole.items():
+                assert torch.equal(got[path], t.cpu()), path
+        scale = float(want_logits.abs().max())
+        np.testing.assert_allclose(res["logits"].numpy(), want_logits.numpy(), rtol=0,
+                                   atol=1e-5 * scale)
+        assert torch.equal(res["tokens"], want_tokens)
 
 
 def _port_generate(model, inputs):
@@ -525,9 +671,13 @@ def _assert_state_equal(got, want, what):
 
 @pytest.mark.parametrize("writer,reader,flags", [
     (("--mesh_tp", "2", "--do_test"), (), ("--frozen_int8", "--bf16_opt_state")),
+    # (a micro-batch of 1 a rank: the global batch and steps of the others)
+    (("--mesh_fsdp", "2", "--batch_size", "1"), (), ("--frozen_int8", "--bf16_opt_state")),
     ((), ("--mesh_fsdp", "2"), ()),
+    ((), ("--mesh_fsdp", "2"), ("--frozen_int8", "--bf16_opt_state")),
     ((), ("--mesh_tp", "2"), ("--frozen_int8",)),
-], ids=["tp2_to_1_int8_bf16", "1_to_fsdp2", "1_to_tp2_int8"])
+], ids=["tp2_to_1_int8_bf16", "fsdp2_to_1_int8_bf16", "1_to_fsdp2", "1_to_fsdp2_int8_bf16",
+        "1_to_tp2_int8"])
 def test_checkpoint_resumes_across_world_sizes(tmp_path, data, writer, reader, flags):
     """``mmrec.main`` writes ``checkpoint_0`` on one world size; a resume on
     the other reads weights and optimizer state bit for bit: its

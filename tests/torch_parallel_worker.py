@@ -32,7 +32,10 @@ def case_dist(inputs, rank):
     return out
 
 
-def _debug_model(inputs, mesh, train=True):
+def _debug_model(inputs, mesh, train=True, flags=()):
+    """The debug model on ``mesh``; ``flags`` "int8" (``--frozen_int8``,
+    from the JAX-quantized tree ``inputs["weights_int8"]``) and "remat"
+    (``--remat --remat_policy dots``)."""
     from unimp_tpu_torch.models import get_config
     from unimp_tpu_torch.tools.from_flax import build_model
 
@@ -41,8 +44,12 @@ def _debug_model(inputs, mesh, train=True):
         import dataclasses
 
         cfg = cfg.replace(lm=dataclasses.replace(cfg.lm, vocab_size=inputs["vocab"]))
+    if "remat" in flags:
+        cfg = cfg.replace(remat=True, remat_policy="dots")
+    int8 = "int8" in flags
     return build_model(cfg, device=inputs.get("device", "cpu"), train=train,
-                       weights=inputs["weights"], mesh=mesh)
+                       weights=inputs["weights_int8" if int8 else "weights"],
+                       frozen_dtype="int8" if int8 else None, mesh=mesh)
 
 
 def case_step(inputs, rank):
@@ -53,8 +60,12 @@ def case_step(inputs, rank):
 
 def _step(inputs, mesh_dims):
     """One Trainer step on this rank's rows of the global batch (accum 2:
-    micro-batch m of every rank together is the global micro-batch m)."""
-    from unimp_tpu_torch.parallel.sharding import ZeroShards, gather_tp
+    micro-batch m of every rank together is the global micro-batch m);
+    ``mesh_dims`` (dp, fsdp, tp, flags...) with the flags "bf16"
+    (``--bf16_opt_state``), "int8" and "remat" (``_debug_model``). Under
+    fsdp it also reports the ZeRO-3 gathers' high-water mark over the
+    gradient computation and each unit's gathered bytes."""
+    from unimp_tpu_torch.parallel.sharding import gather_tp, whole_like
     from unimp_tpu_torch.train import checkpoint as ckpt
     from unimp_tpu_torch.train.optimizer import decay_mask, make_optimizer
     from unimp_tpu_torch.train.partition import trainable_params
@@ -65,23 +76,28 @@ def _step(inputs, mesh_dims):
     device = inputs.get("device", "cpu")
     mesh = make_mesh(dp, fsdp, tp, device=device)
     set_mesh(mesh)
-    model = _debug_model(inputs, mesh)
+    model = _debug_model(inputs, mesh, flags=mesh_dims[3:])
     trainable = trainable_params(model)
-    zero = ZeroShards(trainable, mesh) if fsdp > 1 else None
-    opt = make_optimizer(zero.shards if zero else trainable, learning_rate=inputs["lr"],
-                         moment_dtype=bf16, decay=decay_mask(trainable))
-    trainer = Trainer(model, opt, device=device, accum_steps=2, mesh=mesh, zero=zero,
-                      grad_dtype=bf16, **inputs["ids"])
+    zero = model.zero
+    opt = make_optimizer(trainable, learning_rate=inputs["lr"], moment_dtype=bf16,
+                         decay=decay_mask(whole_like(model, trainable)))
+    trainer = Trainer(model, opt, device=device, accum_steps=2, mesh=mesh, grad_dtype=bf16,
+                      **inputs["ids"])
     batch, accum, p = inputs["batch"], 2, mesh.data_size
     g = batch["input_ids"].shape[0] // accum
     rows = np.concatenate([np.arange(m * g, (m + 1) * g)[mesh.data_rank::p]
                            for m in range(accum)])
     local = {k: v[rows] for k, v in batch.items()}
     # the reduced gradient, whole (before the step's clip scales it)
+    if zero is not None:
+        zero.reset_counters()
     trainer.compute_grads(local)
+    alive = None if zero is None else {"peak": zero.peak_alive_bytes,
+                                       "units": zero.unit_bytes(),
+                                       "gathered": zero.gathered_bytes}
     grads = {}
     for name, t in trainer.optimizer.named_grads().items():
-        if zero is not None:
+        if zero is not None and zero.sharded(name):
             t = zero.full(name, t)
         dim = model.tp_layout.get(name.replace(".", "/"))
         if dim is not None:
@@ -90,7 +106,7 @@ def _step(inputs, mesh_dims):
     metrics = trainer.train_step(local)
     tree = ckpt.full_model_tree(model)
     return {"metrics": {k: float(v) for k, v in metrics.items()}, "grads": grads,
-            "params": {n: tree[n].detach().cpu().clone() for n in grads}}
+            "params": {n: tree[n].detach().cpu().clone() for n in grads}, "alive": alive}
 
 
 def case_ring(inputs, rank):
@@ -143,6 +159,9 @@ def _eval(inputs, mesh_dims):
     class Retarget:
         dataset = loader.dataset
 
+        def __len__(self):
+            return len(loader)
+
         def __iter__(self):
             it = iter(targets)
             for batch in loader:
@@ -188,6 +207,32 @@ def case_bridge(inputs, rank):
             "logits": logits, "tokens": tokens, "whole": ckpt.full_model_tree(int8)}
 
 
+def case_bridge_fsdp(inputs, rank):
+    """A JAX tree placed on an fsdp 2 mesh two ways: the int8 tree loaded
+    into a ZeRO-3 float model (its kernels become int8 chunks), the float
+    tree through ``build_model(mesh=)``."""
+    from unimp_tpu_torch.data.transforms import normalize_on_device
+    from unimp_tpu_torch.models import get_config
+    from unimp_tpu_torch.models.flamingo import compute_q_media
+    from unimp_tpu_torch.tools.from_flax import build_model, load_flax_params
+    from unimp_tpu_torch.train import checkpoint as ckpt
+
+    mesh = make_mesh(1, 2, 1, device="cpu")
+    set_mesh(mesh)
+    cfg = get_config("debug", dtype="float32")
+    int8 = build_model(cfg, device="cpu", weights=inputs["float"], mesh=mesh)
+    load_flax_params(int8, inputs["int8"])
+    fp = build_model(cfg, device="cpu", weights=inputs["float"], mesh=mesh)
+    with torch.no_grad():
+        logits = int8(inputs["ids"], vision_x=normalize_on_device(inputs["pixels"]),
+                      q_media=compute_q_media(inputs["ids"], inputs["media"]),
+                      kv_len=inputs["seq_len"])[0]
+        tokens = _generate(int8, inputs)
+    return {"int8": {k: t.clone() for k, t in int8.state_dict().items()},
+            "sharded": sorted(int8.zero.entries), "logits": logits, "tokens": tokens,
+            "whole_int8": ckpt.full_model_tree(int8), "whole_float": ckpt.full_model_tree(fp)}
+
+
 def case_probe(inputs, rank):
     """Which collectives gloo takes on CUDA tensors: {name: None or the
     error}."""
@@ -231,8 +276,9 @@ def case_cli(inputs, rank):
         if isinstance(mod, QuantizedKernel) and mod.persistent:
             path = f"{name.replace('.', '/')}/q"
             dim = tensor_tp_dim(model.tp_layout, path)
-            payloads[path] = (mod.q if dim is None else
-                              gather_tp(mod.q, dim, model.tp_group, "cpu")).cpu()
+            q = model.zero.full(path, mod.q) if model.zero and model.zero.sharded(path) else mod.q
+            payloads[path] = (q if dim is None else
+                              gather_tp(q, dim, model.tp_group, "cpu")).cpu()
     return {"opt_state": trainer.optimizer_state(), "state": state, "payloads": payloads,
             "evals": evals}
 

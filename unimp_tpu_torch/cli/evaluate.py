@@ -7,6 +7,11 @@ The model is a checkpoint of the port's own (``train/checkpoint.py``: a
 directory that ``mmrec`` wrote, e.g. ``final_weights``); a JAX Orbax
 directory raises (ROADMAP.md §1, item 8b). Datasets are JSON manifests
 (``evals/benchmark_harness.py``). Runs on the card unless ``--device cpu``.
+Under ``torchrun`` with ``--mesh_fsdp N`` the model is ZeRO-3 over fsdp
+(``parallel/sharding.py:ZeroShards``: each rank keeps its chunk of every
+tensor the JAX table shards over fsdp and gathers a block's tensors per
+forward call); every rank runs the same examples and rank 0 writes the
+results file.
 
 Usage:
     python -m unimp_tpu_torch.cli.evaluate \\
@@ -25,8 +30,9 @@ import json
 from unimp_tpu_torch.data.tokenizer import UniMPTokenizer
 from unimp_tpu_torch.evals import benchmark_harness as bh
 from unimp_tpu_torch.models import get_config
+from unimp_tpu_torch.parallel import mesh as pmesh
 from unimp_tpu_torch.tools import from_flax
-from unimp_tpu_torch.train.checkpoint import restore_params
+from unimp_tpu_torch.train.checkpoint import is_writer, restore_params
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -50,6 +56,9 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["bf16", "fp32"])
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; cuda unless cpu is asked for")
+    p.add_argument("--mesh_fsdp", type=int, default=1,
+                   help="ranks that shard the parameters (ZeRO-3); the rest of the "
+                        "world replicates")
     # benchmark switches + manifests
     p.add_argument("--eval_coco", action="store_true")
     p.add_argument("--coco_manifest", type=str, default=None)
@@ -64,7 +73,7 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def build_model(args, tokenizer):
+def build_model(args, tokenizer, mesh=None):
     """The variant at the CLI's precision, vocabulary (the tokenizer's,
     rounded up to 128) and image size, with the checkpoint's weights. Under
     ``--precision bf16`` the matrices are cast to bfloat16 once at the load
@@ -78,7 +87,7 @@ def build_model(args, tokenizer):
         vision=dataclasses.replace(cfg.vision, image_size=args.image_size),
     )
     weights = restore_params(args.checkpoint_dir, args.checkpoint_name)
-    return from_flax.build_model(cfg, device=args.device, weights=weights,
+    return from_flax.build_model(cfg, device=args.device, weights=weights, mesh=mesh,
                                  eval_param_dtype="fp32" if args.precision == "fp32" else "bf16")
 
 
@@ -90,7 +99,9 @@ def _mean_over_seeds(args, run, key: str) -> float:
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
     tokenizer = UniMPTokenizer.load(args.tokenizer_path)
-    model = build_model(args, tokenizer)
+    pmesh.init_distributed(device=args.device)
+    mesh = pmesh.make_mesh(dp=None, fsdp=args.mesh_fsdp, device=args.device)
+    model = build_model(args, tokenizer, mesh=mesh)
     common = dict(image_size=args.image_size, limit=args.num_samples)
 
     results: dict = {}
@@ -124,7 +135,7 @@ def main(argv=None) -> dict:
         results["imagenet_top1"] = m["top1"]
         print(f"imagenet top1={m['top1']:.3f}")
 
-    if args.results_file:
+    if args.results_file and is_writer():
         with open(args.results_file, "w") as f:
             json.dump(results, f, indent=2)
     return results

@@ -46,7 +46,7 @@ from unimp_tpu_torch.data.loader import prefetch_to_device
 from unimp_tpu_torch.evals.bertscore import make_model_bertscore
 from unimp_tpu_torch.evals.evaluators import EVALUATORS
 from unimp_tpu_torch.models import get_config
-from unimp_tpu_torch.parallel.sharding import ZeroShards, shard_tree_tp
+from unimp_tpu_torch.parallel.sharding import shard_tree_tp, whole_like
 from unimp_tpu_torch.tools.convert_torch import load_torch_checkpoint
 from unimp_tpu_torch.tools.export_torch import family_of, save_torch_checkpoint
 from unimp_tpu_torch.tools.from_flax import load_flax_params
@@ -58,7 +58,6 @@ from unimp_tpu_torch.train.trainer import Trainer
 from unimp_tpu_torch.train.vision_cache import build_tower_cache
 from unimp_tpu_torch.utils.logging import MetricLogger
 from unimp_tpu_torch.utils.profiling import StepTimer, maybe_trace
-from unimp_tpu_torch.utils.quant import abstract_dequantized
 
 
 def train_one_epoch(args, trainer, loader, epoch, logger, timer):
@@ -194,13 +193,13 @@ def main(argv=None):
 
     bf16_state = torch.bfloat16 if args.bf16_opt_state else None
     trainable = trainable_params(model)
-    # under fsdp the optimizer updates this rank's shard of each tensor
-    zero = ZeroShards(trainable, mesh) if mesh.fsdp > 1 else None
-    optimizer = make_optimizer(zero.shards if zero else trainable,
+    # under fsdp (ZeRO-3) the optimizer updates this rank's chunks
+    optimizer = make_optimizer(trainable,
                                learning_rate=args.learning_rate,
                                lr_scheduler=args.lr_scheduler, total_steps=total_steps,
                                warmup_steps=warmup, weight_decay=args.weight_decay,
-                               moment_dtype=bf16_state, decay=decay_mask(trainable))
+                               moment_dtype=bf16_state,
+                               decay=decay_mask(whole_like(model, trainable)))
     if accum > 1 and not args.fused_accumulation:
         optimizer = MultiSteps(optimizer, accum)
     trainer = Trainer(
@@ -208,7 +207,7 @@ def main(argv=None):
         answer_id=tokenizer.answer_token_id, endofchunk_id=tokenizer.endofchunk_token_id,
         pad_id=tokenizer.pad_token_id, gamma=args.gamma, use_reweight=args.use_reweight,
         mask_lm_head=args.mask_lm_head, accum_steps=accum if args.fused_accumulation else 1,
-        device=args.device, grad_dtype=bf16_state, mesh=mesh, zero=zero)
+        device=args.device, grad_dtype=bf16_state, mesh=mesh)
 
     if args.load_from_original_checkpoint:
         # the converter fits the file onto a float tree and keeps the
@@ -233,7 +232,7 @@ def main(argv=None):
                 # checkpoints are float trees: check the file against the
                 # dequantized layout, load it, then quantize the frozen
                 # kernels again
-                like = abstract_dequantized(model)
+                like = ckpt.abstract_tree(model)
                 # under tp the model holds its blocks of the file's tensors
                 view = {p: torch.empty(t.shape, device="meta") for p, t in restored.items()}
                 if model.tp_layout:

@@ -28,7 +28,7 @@ import os
 from unimp_tpu_torch.cli import common
 from unimp_tpu_torch.cli.arguments import build_parser
 from unimp_tpu_torch.cli.mmrec import run_evals, train_one_epoch
-from unimp_tpu_torch.parallel.sharding import ZeroShards
+from unimp_tpu_torch.parallel.sharding import whole_like
 from unimp_tpu_torch.tools.from_flax import load_flax_params
 from unimp_tpu_torch.train import checkpoint as ckpt
 from unimp_tpu_torch.train.optimizer import MultiSteps, decay_mask, make_optimizer
@@ -93,12 +93,12 @@ def main(argv=None):
     warmup = (int(total_steps * args.warmup_steps_ratio)
               if args.warmup_steps_ratio is not None else args.warmup_steps)
     trainable = trainable_params(model)
-    zero = ZeroShards(trainable, mesh) if mesh.fsdp > 1 else None
-    optimizer = make_optimizer(zero.shards if zero else trainable,
+    # under fsdp (ZeRO-3) the optimizer updates this rank's chunks
+    optimizer = make_optimizer(trainable,
                                learning_rate=args.learning_rate,
                                lr_scheduler=args.lr_scheduler, total_steps=total_steps,
                                warmup_steps=warmup, weight_decay=args.weight_decay,
-                               decay=decay_mask(trainable))
+                               decay=decay_mask(whole_like(model, trainable)))
     if accum > 1 and not args.fused_accumulation:
         optimizer = MultiSteps(optimizer, accum)
     trainer = Trainer(
@@ -106,7 +106,7 @@ def main(argv=None):
         answer_id=tokenizer.answer_token_id, endofchunk_id=tokenizer.endofchunk_token_id,
         pad_id=tokenizer.pad_token_id, gamma=args.gamma, use_reweight=args.use_reweight,
         accum_steps=accum if args.fused_accumulation else 1, device=args.device,
-        mesh=mesh, zero=zero)
+        mesh=mesh)
 
     if args.cache_vision_latents:
         # from the restored tower, as the JAX entry builds it

@@ -541,6 +541,11 @@ class _Arith:
         return sv >> 7
 
 
+class _BadArithCode(Exception):
+    """``jdarith.c``'s JWRN_ARITH_BAD_CODE: libjpeg warns and decodes
+    nothing more in the restart interval (``ct = -1``)."""
+
+
 def _arith_dc(dec, st, ctx, ci, cond):
     """One DC difference (T.81 F.19-F.24, ``jdarith.c``), with the
     component's conditioning context updated; ``cond`` is (L, U)."""
@@ -556,7 +561,7 @@ def _arith_dc(dec, st, ctx, ci, cond):
         while dec(st, i):
             m <<= 1
             if m == 0x8000:
-                raise ValueError("corrupt JPEG: arithmetic DC magnitude overflow")
+                raise _BadArithCode
             i += 1
     lo, hi = cond
     if m < (1 << lo) >> 1:
@@ -588,7 +593,7 @@ def _arith_ac_value(dec, st, i, k, kx, fixed):
         while dec(st, i):
             m <<= 1
             if m == 0x8000:
-                raise ValueError("corrupt JPEG: arithmetic AC magnitude overflow")
+                raise _BadArithCode
             i += 1
     v = m
     i += 14
@@ -613,15 +618,25 @@ def _arith_ac_band(dec, st, out, base, ss, se, kx, fixed, al):
             i += 3
             k += 1
             if k > se:
-                raise ValueError("corrupt JPEG: arithmetic spectral overflow")
+                raise _BadArithCode
         out[base + k] = _arith_ac_value(dec, st, i, k, kx, fixed) * (1 << al)
         k += 1
 
 
 def _read_arith(seg_bytes, mcus, flat, kind, tables, ss, se, al):
     """One restart interval of an arithmetic-coded scan: fresh statistics
-    (``jdarith.c`` start_pass / process_restart), then its MCUs."""
-    dec = _Arith(seg_bytes)
+    (``jdarith.c`` start_pass / process_restart), then its MCUs, until a
+    bad code (an overflow: libjpeg then leaves the interval's other MCUs
+    as they are). Zero bytes past the data are no "insufficient data" to
+    ``jdarith.c``: a cut arithmetic scan leaves the smoothing's
+    ``last_good_iMCU_row`` where it was (no ``trace``)."""
+    try:
+        _arith_mcus(_Arith(seg_bytes), mcus, flat, kind, tables, ss, se, al)
+    except _BadArithCode:
+        pass
+
+
+def _arith_mcus(dec, mcus, flat, kind, tables, ss, se, al):
     dct, act, dc_cond, ac_k = tables
     dc_st = {t: bytearray(64) for t in set(dct)}
     ac_st = {t: bytearray(256) for t in set(act)}
@@ -670,7 +685,7 @@ def _arith_ac_refine(dec, st, out, base, ss, se, fixed, al):
             i += 3
             k += 1
             if k > se:
-                raise ValueError("corrupt JPEG: arithmetic spectral overflow")
+                raise _BadArithCode
         k += 1
 
 
@@ -687,6 +702,7 @@ def _read_lossless(segments, frame, scan_comps, huff, td, pred, pt, restart):
     win = _windows(seg, _ZERO_TAIL)
     luts = [huff[(0, t)] for t in td]
     pos, out = 0, diffs.reshape(-1).tolist()
+    limit, ran_out = 8 * seg.size, None
     for j in range(h * w * n):
         lut = luts[j % n]
         e = lut[(win[pos >> 3] >> (16 - (pos & 7))) & 0xFFFF]
@@ -700,6 +716,8 @@ def _read_lossless(segments, frame, scan_comps, huff, td, pred, pt, restart):
             r = (win[pos >> 3] >> (32 - (pos & 7) - s)) & ((1 << s) - 1)
             pos += s
             out[j] = r if r >= 1 << (s - 1) else r - (1 << s) + 1
+        if pos > limit and ran_out is None:
+            ran_out = j // (w * n)  # the row whose decoding read past the data
     diffs = np.asarray(out, np.int64).reshape(h, w, n)
     planes = []
     for c in range(n):
@@ -731,6 +749,11 @@ def _read_lossless(segments, frame, scan_comps, huff, td, pred, pt, restart):
                     ra = (dy[i] + p) & 0xFFFF
                     vals.append(ra)
                 row[:] = vals
+        if ran_out is not None:
+            # libjpeg-turbo (``jdlhuff.c decode_mcus``): once a row has read
+            # past the data (as zero bits), each later row decodes no
+            # differences and resets the undifferencer: CENTERJSAMPLE
+            x[ran_out + 1:] = 1 << (8 - pt - 1)
         planes.append((x << pt) & 0xFF)
     return planes
 
@@ -804,10 +827,12 @@ def _read_scan(data, end, frame, coefs, huff, seg, progressive, restart, strict=
         dc_cond = [(arith.get((0, t), 0x10) & 15, arith.get((0, t), 0x10) >> 4) for t in td]
         tables = (td, ta, dc_cond, [arith.get((1, t), 5) for t in ta])
         lists = [f.tolist() for f in flat]
-        for s, seg_bytes in enumerate(segments):
-            chunk = mcus[s * per:(s + 1) * per]
-            if chunk:
-                _read_arith(seg_bytes, chunk, lists, kind, tables, ss, se, al)
+        # intervals past the cut are read from zero bytes with fresh
+        # statistics, as libjpeg reads them after the fake EOI
+        empty = np.zeros(0, np.uint8)
+        for s in range(-(-len(mcus) // per)):
+            seg_bytes = segments[s] if s < len(segments) else empty
+            _read_arith(seg_bytes, mcus[s * per:(s + 1) * per], lists, kind, tables, ss, se, al)
         for f, v in zip(flat, lists):
             f[:] = v
         return after
@@ -1053,6 +1078,28 @@ def _block_smoothing(frame, coefs, tables, bits, trace, scans):
     return out
 
 
+def _cut_segment_fails(marker: int, head: bytes, length: int) -> bool:
+    """Whether libjpeg stops with an error on a marker segment that the end
+    of the file cut, its missing bytes read as the fake EOI markers the
+    data source supplies (``jdatasrc.c``, FF D9 again and again): a scan
+    header always (a component id or spectral range it refuses), a
+    Huffman table whose counts then pass 256 or the segment
+    (``jdmarker.c get_dht``); other segments are skipped or read
+    harmlessly."""
+    if marker == 0xDA:
+        return True
+    if marker != 0xC4:
+        return False
+    seg = (head + b"\xff\xd9" * length)[:length]
+    j = 0
+    while j + 17 <= len(seg):
+        count = sum(seg[j + 1:j + 17])
+        if count > 256 or 17 + count > len(seg) - j:
+            return True
+        j += 17 + count
+    return False
+
+
 def decode_jpeg(data: bytes, strict: bool = False, inverted_cmyk: bool = True) -> np.ndarray:
     """JPEG bytes -> uint8 RGB [H, W, 3], as libjpeg-turbo decodes it with
     its defaults (islow IDCT, fancy upsampling) and PIL's
@@ -1091,13 +1138,19 @@ def decode_jpeg(data: bytes, strict: bool = False, inverted_cmyk: bool = True) -
             break
         if marker in (0x00, 0x01, 0xD8) or 0xD0 <= marker <= 0xD7:
             continue  # no payload
-        if i + 2 > n:
-            break
-        end = i + int.from_bytes(data[i:i + 2], "big")
+        # a length cut short reads on into the fake EOI's bytes
+        end = i + int.from_bytes((data[i:n] + b"\xff\xd9")[:2], "big")
         seg = data[i + 2:end]
         if end > n:
-            if frame is None:
+            if frame is None and i + 2 <= n:
                 raise ValueError("truncated JPEG (cut before its first scan)")
+            if frame is None:
+                break
+            if scans and _cut_segment_fails(marker, seg, end - i - 2):
+                # libjpeg reads the source's fake EOI bytes as the rest of
+                # the segment and stops with an error: PIL (and so the JAX
+                # package) keep the image they allocated, black
+                return np.zeros((frame[0], frame[1], 3), np.uint8)
             break
         i = end
         if marker == 0xDB:
@@ -1168,7 +1221,7 @@ def decode_jpeg(data: bytes, strict: bool = False, inverted_cmyk: bool = True) -
     if frame is None or not scans:
         raise ValueError("not a complete JPEG (no frame header or no scan)")
     h, w, comps, hmax, vmax, *_ = frame
-    if progressive and not arith:
+    if progressive:
         coefs = _block_smoothing(frame, coefs, [latched.get(c[0]) for c in comps], coef_bits,
                                  trace, scans)
     planes = []

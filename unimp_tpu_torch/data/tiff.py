@@ -9,16 +9,21 @@ gives (PIL's mode for the file, then its conversion).
   * photometrics: bilevel and gray (white or black is zero), palette, RGB
     and RGBA (unassociated or associated alpha), CMYK, YCbCr (JPEG-coded);
     1, 2, 4, 8 and 16 bits a sample, little- or big-endian;
+  * 32-bit floating-point gray samples (SampleFormat 3): PIL's mode F,
+    then its F -> L conversion (0 at or below 0 and for NaN, 255 at or
+    above 255, the integer part between), with or without the
+    floating-point predictor (3);
   * compressions: none, PackBits, LZW (MSB codes, with or without the
     horizontal predictor), Deflate (8 and 32946, ``zlib``), LZMA (34925,
-    ``lzma``), JPEG (7, with its JPEGTables, through ``data/jpeg.py``),
-    CCITT modified Huffman (2), Group 3 (1-D and 2-D) and Group 4 (4) for
-    bilevel images, both fill orders.
+    ``lzma``), ZSTD (50000, ``data/zstd.py``), JPEG (7, with its
+    JPEGTables, through ``data/jpeg.py``), CCITT modified Huffman (2),
+    Group 3 (1-D and 2-D) and Group 4 (4) for bilevel images, both fill
+    orders.
 
-ZSTD (50000), WebP (50001), SGILog (34676 / 34677), old-style JPEG (6)
-and every other compression raise a ``ValueError`` that names it
-(ROADMAP.md §3, fault 5), as do floating-point samples and YCbCr that
-is not JPEG-coded.
+WebP (50001), SGILog (34676 / 34677), old-style JPEG (6) and every other
+compression raise a ``ValueError`` that names it (ROADMAP.md §3, fault
+5), as do floating-point samples PIL does not open (16 or 64 bits, or
+more than one a pixel) and YCbCr that is not JPEG-coded.
 """
 
 from __future__ import annotations
@@ -28,6 +33,8 @@ import struct
 import zlib
 
 import numpy as np
+
+from unimp_tpu_torch.data import zstd
 
 UNREAD = "is not read by the port (ROADMAP.md §3, fault 5)"
 SIGNATURES = (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+")
@@ -340,14 +347,17 @@ def decode_tiff(data: bytes, strict: bool = False) -> np.ndarray:
     planar = tags.get(284, (1,))[0]
     predictor = tags.get(317, (1,))[0]
     lsb_first = tags.get(266, (1,))[0] == 2
-    if comp not in (1, 2, 3, 4, 5, 7, 8, 32773, 32946, 34925):
+    if comp not in (1, 2, 3, 4, 5, 7, 8, 32773, 32946, 34925, 50000):
         raise ValueError(f"TIFF with {_COMPRESSIONS.get(comp, f'compression {comp}')} "
                          f"compression {UNREAD}")
-    if fmt == 3:
-        raise ValueError(f"TIFF with floating-point samples {UNREAD}")
-    if fmt not in (1, 2) or len(set(bps)) != 1 or bps[0] not in (1, 2, 4, 8, 16):
+    if fmt == 3 and (bps != (32,) or photo not in (0, 1) or comp in (2, 3, 4, 7)):
+        # PIL opens 32-bit gray floats alone (mode F)
+        raise ValueError(f"TIFF with {'/'.join(map(str, bps))}-bit floating-point samples, "
+                         f"photometric {photo}, {UNREAD}")
+    if fmt not in (1, 2, 3) or len(set(bps)) != 1 or bps[0] not in (1, 2, 4, 8, 16, 32) or (
+            bps[0] == 32 and fmt != 3):
         raise ValueError(f"TIFF with {bps}-bit samples of format {fmt} {UNREAD}")
-    if predictor not in (1, 2):
+    if predictor not in ((1, 3) if fmt == 3 else (1, 2)):
         raise ValueError(f"TIFF with predictor {predictor} {UNREAD}")
     if photo == 6 and comp != 7:
         raise ValueError(f"TIFF with YCbCr samples that are not JPEG-coded {UNREAD}")
@@ -392,11 +402,18 @@ def decode_tiff(data: bytes, strict: bool = False) -> np.ndarray:
                     raw = _packbits(chunk)
                 elif comp == 34925:
                     raw = lzma.decompress(chunk)
+                elif comp == 50000:
+                    raw = zstd.decompress(chunk)
                 else:
-                    raw = chunk
+                    # PIL's raw decoder keeps whole rows of a cut strip
+                    row = -(-cw * per_chunk * bps // 8)
+                    raw = chunk[:len(chunk) // row * row]
                 need = ch * -(-cw * per_chunk * bps // 8)
                 raw = raw[:need] + bytes(max(0, need - len(raw)))
-                vals = _unpack(raw, ch, cw, per_chunk, bps, bo)
+                if fmt == 3:
+                    vals = _float_to_l(_floats(raw, ch, cw, bo, predictor == 3))
+                else:
+                    vals = _unpack(raw, ch, cw, per_chunk, bps, bo)
                 if predictor == 2:
                     vals = _undo_predictor(vals, bps)
             ys, xs = slice(y0, min(y0 + ch, h)), slice(x0, min(x0 + cw, w))
@@ -405,7 +422,29 @@ def decode_tiff(data: bytes, strict: bool = False) -> np.ndarray:
                 img[ys, xs, p] = vals[..., 0]
             else:
                 img[ys, xs, :vals.shape[-1]] = vals
+    if fmt == 3:  # PIL's F -> L, already applied; no photometric inversion
+        return np.repeat(img.astype(np.uint8), 3, axis=2)
     return _to_rgb(img, tags, photo, bps, spp, jpeg_out)
+
+
+def _floats(raw: bytes, rows: int, cols: int, bo: str, predicted: bool) -> np.ndarray:
+    """float32 gray samples [rows, cols, 1]. ``predicted``: libtiff's
+    floating-point predictor (3): each row's bytes summed along the row
+    (modulo 256), then read as byte planes, most significant first."""
+    a = np.frombuffer(raw, np.uint8, rows * cols * 4).reshape(rows, cols * 4)
+    if not predicted:
+        return a.copy().view(bo + "f4").reshape(rows, cols, 1)
+    planes = np.cumsum(a, axis=1, dtype=np.uint8).reshape(rows, 4, cols)
+    return planes.transpose(0, 2, 1).copy().view(">f4").reshape(rows, cols, 1)
+
+
+def _float_to_l(v: np.ndarray) -> np.ndarray:
+    """PIL's F -> L: 0 at or below 0 (and NaN), 255 at or above 255, else
+    the integer part."""
+    v = v.astype(np.float64)
+    inside = np.nan_to_num(v, nan=0.0, posinf=0.0, neginf=0.0)
+    out = np.trunc(np.clip(inside, 0, 255)).astype(np.int64)
+    return np.where(v >= 255, 255, np.where((v > 0) & ~np.isnan(v), out, 0))
 
 
 def _to_rgb(img, tags, photo, bps, spp, jpeg_out) -> np.ndarray:

@@ -22,6 +22,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from unimp_tpu_torch.parallel.mesh import lockstep_calls
+
 
 def greedy_match_scores(cand_emb, cand_mask, ref_emb, ref_mask):
     """Batched greedy-matching P/R/F1.
@@ -73,6 +75,12 @@ def make_model_bertscore(model, tokenizer, *, max_len: int = 64, batch_size: int
             ids[i, : len(e)] = e
             lens[i] = len(e)
         embs = []
+        # a ZeRO-3 model's forwards gather over fsdp: every rank encodes as
+        # many batches as the rank with the most (the extra ones dropped)
+        n = -(-len(texts) // batch_size)
+        for _ in range(lockstep_calls(model, n) - n):
+            encode(np.full((batch_size, max_len), pad_id, np.int32),
+                   np.ones((batch_size,), np.int32))
         for s in range(0, len(texts), batch_size):
             chunk = slice(s, s + batch_size)
             n = ids[chunk].shape[0]
@@ -87,6 +95,8 @@ def make_model_bertscore(model, tokenizer, *, max_len: int = 64, batch_size: int
     def score(cands, refs):
         assert len(cands) == len(refs)
         if not cands:
+            if getattr(model, "zero", None) is not None:
+                embed_texts([]), embed_texts([])  # keep step with the other ranks
             return np.zeros((0,))
         c_emb, c_mask = embed_texts(list(cands))
         r_emb, r_mask = embed_texts(list(refs))

@@ -56,6 +56,7 @@ from unimp_tpu_torch.evals import text_metrics
 from unimp_tpu_torch.evals.dist import gather_metric_lists
 from unimp_tpu_torch.evals.latent_cache import ItemLatentCache
 from unimp_tpu_torch.evals.metrics import f1_score, rank_metrics_for_hits
+from unimp_tpu_torch.parallel.mesh import lockstep_calls
 
 
 def _norm(s: str) -> str:
@@ -94,18 +95,26 @@ def _generate_batches(model, loader, tokenizer, gen_cfg, cache_holder=None):
                 return model.encode_vision(normalize_on_device(pixels))
         return None  # text-only batch: the vision path is skipped
 
-    t0 = time.perf_counter()
+    def generate(batch):
+        return gen.generate(torch.from_numpy(batch["input_ids"]).long().to(device),
+                            torch.from_numpy(batch["seq_len"]).long().to(device),
+                            batch_latents(batch))[0].cpu().numpy()
+
+    # a ZeRO-3 model's forwards gather over fsdp: a rank with fewer batches
+    # repeats its last one (the result dropped) while the others run
+    calls = lockstep_calls(model, len(loader)) if getattr(model, "zero", None) else 0
+    t0, batch = time.perf_counter(), None
     for batch in loader:
-        latents = batch_latents(batch)
-        tokens, _ = gen.generate(
-            torch.from_numpy(batch["input_ids"]).long().to(device),
-            torch.from_numpy(batch["seq_len"]).long().to(device),
-            latents,
-        )
-        tokens = tokens.cpu().numpy()
+        tokens = generate(batch)
+        calls -= 1
         dt = time.perf_counter() - t0
         yield _answers(tokenizer, tokens), batch, len(tokens) / dt
         t0 = time.perf_counter()
+    if calls > 0 and batch is None:
+        raise ValueError("a rank with no eval rows cannot keep step with a ZeRO-3 model's "
+                         "other ranks")
+    for _ in range(calls):
+        generate(batch)
 
 
 def _rank_eval(model, loader, tokenizer, *, max_new_tokens, ks=(3, 5, 10), num_beams=10,

@@ -16,6 +16,7 @@ import torch
 
 from unimp_tpu_torch.data.transforms import normalize_on_device
 from unimp_tpu_torch.device import resolve_device
+from unimp_tpu_torch.parallel.mesh import lockstep_calls
 
 # refuse a cache larger than this (n_items x latents x width x dtype size)
 MAX_BYTES = 6 << 30
@@ -36,7 +37,15 @@ class ItemLatentCache:
     def _ensure(self, ids: np.ndarray) -> None:
         ids = ids[(ids >= 0) & (ids < self.n_items)]
         new = np.unique(ids[~self._cached[ids]])
-        for off in range(0, new.size, self.chunk):
+        offsets = list(range(0, new.size, self.chunk))
+        # a ZeRO-3 model's forwards gather over fsdp: every rank encodes as
+        # many chunks as the rank with the most misses (the extra ones
+        # encode this call's last miss, or item 0, again)
+        extra = lockstep_calls(self.model, len(offsets)) - len(offsets)
+        if extra:
+            new = new if new.size else np.zeros(1, np.int64)
+            offsets += [new.size - 1] * extra
+        for off in offsets:
             part = new[off : off + self.chunk]
             # pad to the fixed chunk shape (repeat the last id)
             pad = np.concatenate([part, np.full(self.chunk - part.size, part[-1], part.dtype)])

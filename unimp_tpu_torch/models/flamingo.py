@@ -43,7 +43,6 @@ from unimp_tpu_torch.models.lm import DecoderBlock, init_gen_cache
 from unimp_tpu_torch.models.perceiver import PerceiverResampler
 from unimp_tpu_torch.models.vit import VisionTower
 from unimp_tpu_torch.ops import AttnMask
-from unimp_tpu_torch.ops.quant_matmul import quant_dot
 from unimp_tpu_torch.parallel.sharding import copy_to_tp, gather_from_tp, reduce_from_tp
 
 
@@ -173,6 +172,8 @@ class UniMPModel(nn.Module):
         # gathers the logits
         self.tp_layout, self.logits_tp_group = {}, None
         self.tp_group, self.tp_rank, self.tp_size = None, 0, 1
+        # ZeRO-3 over fsdp (``parallel/sharding.py:shard_model_fsdp``)
+        self.zero = None
 
     def _layers(self):
         for i in range(self.cfg.lm.num_layers):
@@ -209,7 +210,8 @@ class UniMPModel(nn.Module):
             return gather_from_tp((x @ self.embed.embedding.to(x.dtype).t()).float(), group)
         # untied head: logits in the compute dtype; an int8 head streams
         # through K6 at decode rows and at the prefill's last position
-        return gather_from_tp(quant_dot(x, self.lm_head.kernel), group)
+        # (called as a module, so that ZeRO-3 gathers its kernel)
+        return gather_from_tp(self.lm_head(x), group)
 
     @staticmethod
     def kv_media_for(latents) -> torch.Tensor:

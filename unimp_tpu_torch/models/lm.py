@@ -97,6 +97,7 @@ class CausalLM(nn.Module):
         self.final_ln = make_norm(cfg.norm, cfg.hidden_size, cfg.layernorm_eps, dtype)
         if not cfg.tie_embeddings:
             self.lm_head = DenseWeights(cfg.hidden_size, cfg.vocab_size, use_bias=False)
+        self.zero = None  # a CausalLM runs on one device
 
     def blocks(self):
         return [getattr(self, f"block_{i}") for i in range(self.cfg.num_layers)]
@@ -104,8 +105,6 @@ class CausalLM(nn.Module):
     def forward(self, input_ids, *, kv_len=None, kv_start=None, positions=None,
                 return_kv: bool = False, decode_state: Optional[dict] = None,
                 latents=None, q_media=None, last_logit_only: bool = False):
-        from unimp_tpu_torch.ops.quant_matmul import quant_dot
-
         if latents is not None or q_media is not None:
             raise ValueError("CausalLM takes no media")
         x = self.embed(input_ids)
@@ -127,7 +126,7 @@ class CausalLM(nn.Module):
         if self.cfg.tie_embeddings:
             logits = (x @ self.embed.embedding.to(x.dtype).t()).float()
         else:
-            logits = quant_dot(x.to(self.compute_dtype), self.lm_head.kernel).float()
+            logits = self.lm_head(x.to(self.compute_dtype)).float()
         if return_kv:
             return logits, {"self": caches}
         if decode_state is not None:

@@ -187,6 +187,28 @@ def get_mesh() -> Mesh:
     return _MESH if _MESH is not None else Mesh()
 
 
+def lockstep_group(model):
+    """The ranks whose decode loops must step together over ``model``:
+    the world under ZeRO-3 (``model.zero``: every forward gathers over
+    fsdp, and under tp and dp too every rank then runs the same number of
+    steps), its tp group when sliced over tp alone, else None."""
+    if getattr(model, "zero", None) is not None:
+        return dist.group.WORLD
+    return getattr(model, "tp_group", None)
+
+
+def lockstep_calls(model, n: int) -> int:
+    """How many forward calls this rank makes where it has ``n`` of its
+    own (eval batches): under ZeRO-3 the most any rank of the world has
+    (a rank out of rows repeats a call and drops its result), else ``n``."""
+    if getattr(model, "zero", None) is None:
+        return n
+    dev = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    t = torch.tensor([n], dtype=torch.int64, device=dev)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return int(t.item())
+
+
 def all_ranks_true(flag: torch.Tensor, group=None) -> bool:
     """One decision over ``group``: True only if every rank's ``flag`` is
     (an all-reduce MIN); this rank's alone without a group."""

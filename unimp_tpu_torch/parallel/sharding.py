@@ -21,22 +21,28 @@ here each part is explicit:
   per-channel scale is sliced with its columns (column-parallel) and kept
   whole for a row-parallel kernel, whose contracted axis is sliced: the
   JAX package replicates every scale and XLA slices it.
-* fsdp (``ZeroShards``): each trainable tensor lives in one flat buffer
-  padded to a multiple of fsdp; this rank's optimizer updates its 1/fsdp
-  view of it, from gradients reduce-scattered over fsdp (and all-reduced
-  over dp), and the updated buffer is all-gathered back. The parameters
-  stay whole on every rank (the reference's DeepSpeed ZeRO-2), and so do
-  frozen tensors, int8 payloads included.
+* fsdp (``ZeroShards``, ZeRO-3): every tensor whose rule names fsdp on a
+  dimension the axis divides, trainable or frozen (an int8 payload by its
+  kernel's rule), keeps only this rank's flat 1/fsdp chunk resident; the
+  rest stays whole, as in JAX. A block's tensors are all-gathered just
+  before it runs and freed after; a trainable tensor's gradient is
+  reduce-scattered over fsdp (and all-reduced over dp) into its chunk by
+  the gather's own backward, and the optimizer updates the chunks.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import math
 import re
+import time
+import weakref
 from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
+import torch.utils.checkpoint as torch_checkpoint
 from torch import nn
 
 Spec = Tuple
@@ -334,69 +340,370 @@ def gather_tp(t: torch.Tensor, dim: int, group, device) -> torch.Tensor:
     return out.movedim(0, dim).cpu()
 
 
-# ---------------------------------------------------------------- ZeRO over fsdp
+# ---------------------------------------------------------------- ZeRO-3 over fsdp
+
+
+def fsdp_dim(path: str, shape, fsdp: int, tp: int = 1) -> Optional[int]:
+    """The dimension of a tensor (flat ``path``, whole ``shape``) that the
+    JAX table shards over fsdp, or None: its spec names no fsdp, or the
+    axes named on that dimension (fsdp, with tp for the token embedding)
+    do not divide it, which ``param_sharding``'s guard degrades to
+    replicated."""
+    spec = param_specs({path: tuple(shape)})[path]
+    for i, axis in enumerate(spec):
+        axes = axis if isinstance(axis, tuple) else (axis,)
+        if "fsdp" in axes:
+            size = math.prod({"fsdp": fsdp, "tp": tp}.get(a, 1) for a in axes)
+            return i if shape[i] % size == 0 else None
+    return None
+
+
+def _tensor_slots(model: nn.Module):
+    """(flat path, owner module, attribute) of every tensor of the model's
+    persistent state that a rule can name: parameters, and each int8
+    kernel's payload ``.../kernel/q`` (its scale is replicated)."""
+    from unimp_tpu_torch.utils.quant import QuantizedKernel
+
+    for name, mod in model.named_modules():
+        for attr, p in mod._parameters.items():
+            if p is not None:
+                yield _path(name, attr), mod, attr
+        if isinstance(mod, QuantizedKernel) and mod.persistent:
+            yield _path(name, "q"), mod, "q"
+
+
+@dataclasses.dataclass(eq=False)
+class _Shard:
+    """One fsdp-sharded tensor: ``owner.attr`` stores this rank's flat
+    ``chunk`` of the tensor of ``shape`` (its tp block), zero-padded to
+    ``chunk * fsdp`` elements of ``itemsize`` bytes."""
+
+    path: str
+    owner: nn.Module
+    attr: str
+    shape: torch.Size
+    chunk: int
+    itemsize: int
+
+    @property
+    def numel(self) -> int:
+        return math.prod(self.shape)
+
+    @property
+    def slots(self) -> dict:
+        """The owner's dict that holds the tensor (parameters or buffers)."""
+        owner = self.owner
+        return owner._parameters if self.attr in owner._parameters else owner._buffers
+
+
+class _GatherFsdp(torch.autograd.Function):
+    """All-gather of a trainable shard into its whole tensor; the backward
+    reduce-scatters the whole tensor's gradient into this rank's shard
+    (and all-reduces it over dp). It sits in autograd's graph, so the
+    reduction runs under ``.backward()`` and ``torch.autograd.grad``
+    alike, once for every gather (a tied embedding's two uses share one)."""
+
+    @staticmethod
+    def forward(ctx, shard, zero, entry):
+        ctx.zero, ctx.entry = zero, entry
+        return zero._all_gather(shard, entry)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.zero._reduce_scatter(g, ctx.entry), None, None
 
 
 class ZeroShards:
-    """Gradients and optimizer state of the trainable tensors sharded over
-    the mesh's fsdp axis.
+    """ZeRO-3 over the mesh's fsdp axis, placed by the JAX rule table.
 
-    Each parameter's data moves into a flat buffer padded to a multiple of
-    fsdp (the parameter becomes a view of it); ``shards`` holds, by name,
-    this rank's contiguous 1/fsdp view of each buffer as a leaf parameter,
-    which is what the optimizer is built over (its in-place update writes
-    the parameter's storage). ``reduce`` turns whole local gradients into
-    this rank's summed shard (reduce-scatter over fsdp, then all-reduce
-    over dp); ``gather_params`` all-gathers the updated buffers."""
+    Every tensor whose spec names fsdp on a dimension the axis divides
+    (``fsdp_dim``: the embedding and the LM head, q/k/v/o of every
+    attention, the MLPs' up / gate / down, the patch embedding; trainable
+    or frozen, an int8 payload by its kernel's rule) keeps only this rank's
+    flat chunk of its tp block resident: a trainable parameter's ``.data``
+    becomes the 1-D chunk (the optimizer is built over it, so its moments
+    are chunks too), an int8 payload's buffer likewise. Everything else
+    (norms, gates, biases, latents, position embeddings, int8 scales) stays
+    whole, as in JAX.
 
-    def __init__(self, params: Dict[str, nn.Parameter], mesh):
-        self.mesh = mesh
-        self.n = mesh.fsdp
-        self.rank = mesh.coords[1]
+    The tensors are gathered per unit: each ViT, perceiver, decoder and
+    x-attn block, the token embedding (the whole model when the head is
+    tied, so that its two uses share one gather and one reduce-scatter),
+    the untied head and the patch embedding. A unit's ``forward`` is
+    wrapped: it all-gathers the unit's tensors into their modules' slots,
+    runs, and puts the chunks back. Under autograd a trainable tensor is
+    gathered through ``_GatherFsdp``, whose backward reduce-scatters the
+    gradient; and a block runs under non-reentrant activation
+    checkpointing (already the case for decoder and x-attn blocks under
+    ``--remat``), so autograd keeps no gathered tensor for the backward:
+    the recompute gathers again. A decoder block's int8 q/k/v are fused
+    for decode after each gather (``utils/quant.py:fuse_decode_kernels``
+    leaves a sharded model unfused).
+
+    Counters: ``alive_bytes`` / ``peak_alive_bytes`` (gathered buffers not
+    yet freed, by weak references on their storages), ``gathered_bytes``
+    and ``gather_s`` (every gather), ``scattered_bytes`` (every gradient
+    reduce-scatter); ``reset_counters`` zeroes them."""
+
+    def __init__(self, model: nn.Module, mesh):
+        self.model = model
+        self.n, self.rank = mesh.fsdp, mesh.coords[1]
+        self.tp = mesh.tp
         self.group = mesh.group("fsdp")
-        self.shapes, self.numels, self.bufs, self.shards = {}, {}, {}, {}
-        for name, p in params.items():
-            numel = p.numel()
-            chunk = math.ceil(numel / self.n)
-            buf = torch.zeros(chunk * self.n, dtype=p.dtype, device=p.device)
-            with torch.no_grad():
-                buf[:numel].copy_(p.detach().reshape(-1))
-            p.data = buf[:numel].view(p.shape)
-            self.shapes[name], self.numels[name], self.bufs[name] = p.shape, numel, buf
-            self.shards[name] = nn.Parameter(buf[self.rank * chunk:(self.rank + 1) * chunk])
+        self.dp_group = mesh.group("dp") if mesh.dp > 1 else None
+        self.entries: Dict[str, _Shard] = {}
+        self.units: Dict[nn.Module, List[str]] = {}
+        self.held_units: set = set()
+        self.alive_bytes = 0
+        self.reset_counters()
+        for path, owner, attr in list(_tensor_slots(model)):
+            self.adopt(path, owner, attr)
 
-    def chunk(self, name: str) -> int:
-        return self.bufs[name].numel() // self.n
+    # -- placement
 
-    def reduce(self, name: str, grad: Optional[torch.Tensor]) -> torch.Tensor:
-        """This rank's shard of the gradient summed over the data axis."""
-        c = self.chunk(name)
-        flat = torch.zeros(c * self.n, dtype=self.bufs[name].dtype if grad is None
-                           else grad.dtype, device=self.bufs[name].device)
-        if grad is not None:
-            flat[: self.numels[name]] = grad.reshape(-1)
-        out = torch.empty(c, dtype=flat.dtype, device=flat.device)
-        dist.reduce_scatter_tensor(out, flat, group=self.group)
-        if self.mesh.dp > 1:
-            dist.all_reduce(out, group=self.mesh.group("dp"))
+    def _whole_shape(self, path: str, shape) -> Tuple[int, ...]:
+        """The whole (pre-tp) shape of a tensor of this rank's tp block."""
+        shape = list(shape)
+        dim = tensor_tp_dim(getattr(self.model, "tp_layout", {}) or {}, path)
+        if dim is not None:
+            shape[dim] *= self.tp
+        return tuple(shape)
+
+    def adopt(self, path: str, owner: nn.Module, attr: str) -> None:
+        """Shard ``owner.attr`` (at flat ``path``) if the table says so."""
+        t = getattr(owner, attr)
+        if fsdp_dim(path, self._whole_shape(path, t.shape), self.n, self.tp) is None:
+            return
+        numel, shape = t.numel(), t.shape
+        chunk = math.ceil(numel / self.n)
+        lo, hi = min(self.rank * chunk, numel), min((self.rank + 1) * chunk, numel)
+        piece = torch.zeros(chunk, dtype=t.dtype, device=t.device)
+        with torch.no_grad():
+            piece[: hi - lo] = t.detach().reshape(-1)[lo:hi]
+        if isinstance(t, nn.Parameter):
+            t.data = piece
+        else:
+            owner._buffers[attr] = piece
+        self.entries[path] = _Shard(path, owner, attr, shape, chunk, t.element_size())
+        unit, recompute = self._unit_of(path)
+        if unit not in self.units:
+            self.units[unit] = []
+            self._wrap(unit, recompute)
+        self.units[unit].append(path)
+
+    def forget(self, path: str) -> None:
+        """Stop tracking ``path`` (its module's tensor is being replaced)."""
+        self.entries.pop(path)
+        for paths in self.units.values():
+            if path in paths:
+                paths.remove(path)
+
+    def _unit_of(self, path: str):
+        """(module whose forward gathers ``path``, whether it recomputes
+        under autograd)."""
+        from unimp_tpu_torch.models.flamingo import GatedCrossAttnBlock
+        from unimp_tpu_torch.models.lm import DecoderBlock
+        from unimp_tpu_torch.models.perceiver import ResamplerBlock
+        from unimp_tpu_torch.models.vit import ViTBlock
+        from unimp_tpu_torch.utils.quant import QuantizedKernel
+
+        model = self.model
+        parts = path.split("/")[:-1]
+        for i in range(len(parts), 0, -1):
+            mod = model.get_submodule(".".join(parts[:i]))
+            if isinstance(mod, (ViTBlock, ResamplerBlock)):
+                return mod, True
+            if isinstance(mod, (DecoderBlock, GatedCrossAttnBlock)):
+                # under --remat the model's forward checkpoints these already
+                return mod, not getattr(model.cfg, "remat", False)
+        lm = getattr(model.cfg, "lm", model.cfg)
+        if path == "embed/embedding" and lm.tie_embeddings:
+            return model, False
+        user = model.get_submodule(".".join(parts))
+        if isinstance(user, QuantizedKernel):
+            user = model.get_submodule(".".join(parts[:-1]))
+        return user, False
+
+    def _wrap(self, unit: nn.Module, recompute: bool) -> None:
+        inner = unit.forward
+
+        def gathered_forward(*args, **kw):
+            with self.gathered(unit):
+                return inner(*args, **kw)
+
+        def forward(*args, **kw):
+            if recompute and torch.is_grad_enabled():
+                return torch_checkpoint.checkpoint(gathered_forward, *args,
+                                                   use_reentrant=False, **kw)
+            return gathered_forward(*args, **kw)
+
+        unit.forward = forward
+
+    @contextlib.contextmanager
+    def gathered(self, unit: nn.Module):
+        """``unit``'s sharded tensors whole in their modules inside."""
+        from unimp_tpu_torch.models.lm import DecoderBlock
+        from unimp_tpu_torch.utils.quant import QuantizedKernel, concat_kernels_int8
+
+        if unit in self.held_units:
+            yield
+            return
+        entries = [self.entries[p] for p in self.units.get(unit, ())]
+        chunks = [e.slots[e.attr] for e in entries]
+        for e, c in zip(entries, chunks):
+            e.slots[e.attr] = self.gather(e, c)
+        fused = None
+        if isinstance(unit, DecoderBlock) and not torch.is_grad_enabled():
+            ks = [unit.attn.q_proj.kernel, unit.attn.k_proj.kernel, unit.attn.v_proj.kernel]
+            if all(isinstance(k, QuantizedKernel) for k in ks):
+                fused = unit.attn.qkv_int8 = concat_kernels_int8(ks)
+        try:
+            yield
+        finally:
+            for e, c in zip(entries, chunks):
+                e.slots[e.attr] = c
+            if fused is not None:
+                unit.attn.qkv_int8 = None
+
+    @contextlib.contextmanager
+    def held(self, module: nn.Module):
+        """Every unit inside ``module`` gathered once for a loop of forward
+        calls without gradients (the frozen tower's cache build), instead
+        of once a call."""
+        inside = {id(m) for m in module.modules()}
+        units = [u for u in self.units if id(u) in inside and u not in self.held_units]
+        with contextlib.ExitStack() as stack:
+            for u in units:
+                stack.enter_context(self.gathered(u))
+            self.held_units.update(units)
+            try:
+                yield
+            finally:
+                self.held_units.difference_update(units)
+
+    # -- collectives
+
+    def gather(self, e: _Shard, chunk: torch.Tensor) -> torch.Tensor:
+        """The whole tensor of ``e`` from this rank's ``chunk``: through
+        autograd for a trainable chunk with gradients on, else a plain
+        all-gather."""
+        if chunk.requires_grad and torch.is_grad_enabled():
+            return _GatherFsdp.apply(chunk, self, e)
+        return self._all_gather(chunk.detach(), e)
+
+    def _all_gather(self, shard: torch.Tensor, e: _Shard) -> torch.Tensor:
+        t0 = time.perf_counter()
+        out = self._gather_flat(shard, e)
+        nbytes = out.numel() * out.element_size()
+        whole = out[: e.numel].view(e.shape)
+        self.alive_bytes += nbytes
+        self.peak_alive_bytes = max(self.peak_alive_bytes, self.alive_bytes)
+        self.gathered_bytes += nbytes
+        self.gathers += 1
+        # on the storage: a view that autograd saves keeps it alive
+        weakref.finalize(out.untyped_storage(), self._freed, nbytes)
+        self.gather_s += time.perf_counter() - t0
+        return whole
+
+    def _freed(self, nbytes: int) -> None:
+        self.alive_bytes -= nbytes
+
+    def _gather_flat(self, shard: torch.Tensor, e: _Shard) -> torch.Tensor:
+        out = torch.empty(e.chunk * self.n, dtype=shard.dtype, device=shard.device)
+        dist.all_gather_into_tensor(out, shard.contiguous(), group=self.group)
         return out
 
-    @torch.no_grad()
-    def gather_params(self) -> None:
-        for name, buf in self.bufs.items():
-            dist.all_gather_into_tensor(buf, self.shards[name].detach().clone(),
-                                        group=self.group)
+    def _reduce_scatter(self, g: torch.Tensor, e: _Shard) -> torch.Tensor:
+        flat = torch.zeros(e.chunk * self.n, dtype=g.dtype, device=g.device)
+        flat[: e.numel] = g.reshape(-1)
+        out = torch.empty(e.chunk, dtype=g.dtype, device=g.device)
+        dist.reduce_scatter_tensor(out, flat, group=self.group)
+        if self.dp_group is not None:
+            dist.all_reduce(out, group=self.dp_group)
+        self.scattered_bytes += flat.numel() * flat.element_size()
+        return out
+
+    def reset_counters(self) -> None:
+        self.peak_alive_bytes = self.alive_bytes
+        self.gathered_bytes = self.scattered_bytes = self.gathers = 0
+        self.gather_s = 0.0
+
+    # -- whole tensors for the trainer and checkpoints
+
+    def sharded(self, name: str) -> bool:
+        """Whether the tensor at ``name`` (dotted or flat path) is sharded."""
+        return name.replace(".", "/") in self.entries
+
+    def shape(self, name: str) -> torch.Size:
+        return self.entries[name.replace(".", "/")].shape
+
+    def offset(self, name: str) -> int:
+        """Flat index of this rank's chunk's first element."""
+        return self.rank * self.entries[name.replace(".", "/")].chunk
 
     def full(self, name: str, shard: torch.Tensor) -> torch.Tensor:
-        """The whole tensor (the parameter's shape) of a shard-shaped state
-        tensor (a moment), all-gathered over fsdp."""
-        out = torch.empty(self.chunk(name) * self.n, dtype=shard.dtype, device=shard.device)
-        dist.all_gather_into_tensor(out, shard.contiguous(), group=self.group)
-        return out[: self.numels[name]].view(self.shapes[name])
+        """The whole tensor (the stored tensor's shape) of a chunk-shaped
+        one (a chunk of the tensor itself, or of a moment), all-gathered
+        over fsdp. Collective."""
+        e = self.entries[name.replace(".", "/")]
+        return self._gather_flat(shard, e)[: e.numel].view(e.shape)
 
     def local(self, name: str, whole: torch.Tensor) -> torch.Tensor:
-        """This rank's shard of a whole tensor of the parameter's shape."""
-        c = self.chunk(name)
-        flat = torch.zeros(c * self.n, dtype=whole.dtype, device=whole.device)
-        flat[: self.numels[name]] = whole.reshape(-1)
-        return flat[self.rank * c:(self.rank + 1) * c].clone()
+        """This rank's chunk of a whole tensor of the stored tensor's shape."""
+        e = self.entries[name.replace(".", "/")]
+        lo, hi = min(self.rank * e.chunk, e.numel), min((self.rank + 1) * e.chunk, e.numel)
+        piece = torch.zeros(e.chunk, dtype=whole.dtype, device=whole.device)
+        piece[: hi - lo] = whole.reshape(-1)[lo:hi]
+        return piece
+
+    def unit_bytes(self) -> Dict[str, int]:
+        """{unit's module name: bytes of its gathered (padded) tensors}."""
+        names = {mod: name for name, mod in self.model.named_modules()}
+        return {names[unit] or "<model>": sum(
+            self.entries[p].chunk * self.n * self.entries[p].itemsize
+            for p in paths) for unit, paths in self.units.items() if paths}
+
+
+def shard_model_fsdp(model: nn.Module, mesh) -> nn.Module:
+    """ZeRO-3 over fsdp (``ZeroShards``), in place, after any tp slicing
+    and quantization; sets ``model.zero`` (None when fsdp is 1)."""
+    model.zero = ZeroShards(model, mesh) if mesh is not None and mesh.fsdp > 1 else None
+    return model
+
+
+def whole_like(model: nn.Module, params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """``params`` with each ZeRO-3 chunk as a meta tensor of its whole
+    shape (what ``train/optimizer.py:decay_mask`` reads)."""
+    zero = getattr(model, "zero", None)
+    return {n: torch.empty(zero.shape(n), dtype=p.dtype, device="meta")
+            if zero is not None and zero.sharded(n) else p for n, p in params.items()}
+
+
+def resident_bytes(model: nn.Module) -> Dict[str, int]:
+    """{"sharded", "replicated"}: device bytes of the model's persistent
+    state this rank holds (``ZeroShards`` chunks, and whole tensors)."""
+    zero = getattr(model, "zero", None)
+    out = {"sharded": 0, "replicated": 0}
+    for name, t in model.state_dict().items():
+        key = "sharded" if zero is not None and zero.sharded(name) else "replicated"
+        out[key] += t.numel() * t.element_size()
+    return out
+
+
+def predicted_resident_bytes(shapes: Dict[str, Tuple[Tuple[int, ...], int]], fsdp: int,
+                             tp: int = 1, layout: Optional[Dict[str, int]] = None
+                             ) -> Dict[str, int]:
+    """What ``resident_bytes`` should read, from the whole tensors' shapes
+    alone: ``shapes`` is {flat path: (whole shape, bytes an element)};
+    ``layout`` the model's tp layout. A tensor the table shards over fsdp
+    keeps 1/fsdp of its tp block, the rest the whole block."""
+    out = {"sharded": 0, "replicated": 0}
+    for path, (shape, size) in shapes.items():
+        numel = math.prod(shape)
+        if tensor_tp_dim(layout or {}, path) is not None:
+            numel //= tp
+        if fsdp > 1 and fsdp_dim(path, shape, fsdp, tp) is not None:
+            out["sharded"] += numel // fsdp * size
+        else:
+            out["replicated"] += numel * size
+    return out

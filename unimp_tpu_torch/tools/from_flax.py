@@ -29,7 +29,7 @@ from unimp_tpu_torch.device import resolve_device
 from unimp_tpu_torch.models.config import LMConfig, UniMPConfig
 from unimp_tpu_torch.models.flamingo import UniMPModel
 from unimp_tpu_torch.models.lm import CausalLM
-from unimp_tpu_torch.parallel.sharding import shard_model_tp, shard_tree_tp
+from unimp_tpu_torch.parallel.sharding import shard_model_fsdp, shard_model_tp, shard_tree_tp
 from unimp_tpu_torch.train.partition import backbone_trainable_mask, freeze
 from unimp_tpu_torch.utils.inference import cast_params_for_inference
 from unimp_tpu_torch.utils.quant import (
@@ -59,23 +59,53 @@ def flatten_tree(tree: Mapping, prefix: str = "") -> dict:
     return out
 
 
-def _match_quantized(model: nn.Module, flat: Mapping[str, np.ndarray]) -> None:
+def _match_quantized(model: nn.Module, flat: Mapping[str, np.ndarray]) -> list:
     """Make each kernel int8 where the tree's is (``.../kernel/q`` and
-    ``.../kernel/scale`` leaves), float where the tree's is float."""
+    ``.../kernel/scale`` leaves), float where the tree's is float; returns
+    (flat path, owner, attribute) of each tensor it put in place whole (a
+    ZeRO-3 model shards them once they are loaded)."""
+    zero = getattr(model, "zero", None)
+    made = []
     for name, mod in list(model.named_modules()):
         k = getattr(mod, "kernel", None)
         if k is None:
             continue
         path = f"{name.replace('.', '/')}/kernel" if name else "kernel"
         if f"{path}/q" in flat and not isinstance(k, QuantizedKernel):
+            if zero is not None and zero.sharded(path):
+                zero.forget(path)
             mod._parameters.pop("kernel")
             mod.kernel = QuantizedKernel(  # filled by the load
                 torch.zeros(np.shape(flat[f"{path}/q"]), dtype=torch.int8, device=k.device),
                 torch.zeros(np.shape(flat[f"{path}/scale"]), device=k.device),
                 model.compute_dtype)
+            made.append((f"{path}/q", mod.kernel, "q"))
         elif path in flat and isinstance(k, QuantizedKernel):
             del mod.kernel
             mod.kernel = nn.Parameter(torch.zeros(k.shape, device=k.q.device))
+            made.append((path, mod, "kernel"))
+    return made
+
+
+def _requantize(model: nn.Module, flat: Mapping) -> dict:
+    """``flat`` with each float kernel that the (ZeRO-3) model holds as int8
+    quantized as ``quantize_params_int8`` quantizes it, from the whole
+    tensor: a float checkpoint of an int8 frozen backbone lands in its
+    chunks without a whole float kernel on the device (the model's own
+    ``apply_frozen_storage`` after the load then has nothing to do)."""
+    from unimp_tpu_torch.utils.quant import _quantize_leaf
+
+    flat = dict(flat)
+    for name, mod in model.named_modules():
+        k = mod._modules.get("kernel")
+        path = f"{name.replace('.', '/')}/kernel"
+        if isinstance(k, QuantizedKernel) and k.persistent and path in flat:
+            w = flat.pop(path)
+            w = (w if isinstance(w, torch.Tensor) else torch.from_numpy(np.array(w))).to(
+                k.scale.device)
+            n_in = w.dim() - k.scale.dim()
+            flat[f"{path}/q"], flat[f"{path}/scale"] = _quantize_leaf(w, n_in)
+    return flat
 
 
 def load_flax_params(model: nn.Module, flat: Mapping) -> None:
@@ -88,11 +118,16 @@ def load_flax_params(model: nn.Module, flat: Mapping) -> None:
     tensor must be covered; raises otherwise. Kernels follow the tree:
     int8 where it is quantized, float where it is not. A model sliced over
     tp (``parallel/sharding.py:shard_model_tp``) takes its rank's block of
-    each whole tensor of the tree (an int8 scale with its columns).
+    each whole tensor of the tree (an int8 scale with its columns). A
+    ZeRO-3 model (``model.zero``) takes its chunk of each sharded tensor,
+    and quantizes a float kernel that it holds as int8 (``_requantize``).
     """
+    zero = getattr(model, "zero", None)
+    if zero is not None:
+        flat = _requantize(model, flat)
     if getattr(model, "tp_layout", None):
         flat = shard_tree_tp(flat, model.tp_layout, model.tp_rank, model.tp_size)
-    _match_quantized(model, flat)
+    made = _match_quantized(model, flat)
     state = model.state_dict(keep_vars=True)
     want = {name.replace(".", "/") for name in state}
     have = set(flat)
@@ -101,15 +136,22 @@ def load_flax_params(model: nn.Module, flat: Mapping) -> None:
                        f"unexpected {sorted(have - want)[:8]}")
     with torch.no_grad():
         for name, p in state.items():
-            val = flat[name.replace(".", "/")]
+            path = name.replace(".", "/")
+            val = flat[path]
             if not isinstance(val, torch.Tensor):
                 val = torch.from_numpy(np.array(val))
-            if tuple(val.shape) != tuple(p.shape):
+            sharded = zero is not None and zero.sharded(path)
+            shape = zero.shape(path) if sharded else p.shape
+            if tuple(val.shape) != tuple(shape):
                 raise ValueError(f"{name}: flax shape {tuple(val.shape)} != port "
-                                 f"{tuple(p.shape)}")
+                                 f"{tuple(shape)}")
             # a transposed host view (a converted kernel) crosses as it lies
             # in memory and is transposed on the device
-            p.copy_(val.to(p.device))
+            val = val.to(p.device)
+            p.copy_(zero.local(path, val) if sharded else val)
+    if zero is not None:
+        for path, owner, attr in made:
+            zero.adopt(path, owner, attr)
     fuse_decode_kernels(model)
 
 
@@ -167,9 +209,10 @@ def build_model(cfg: UniMPConfig | LMConfig, *, device="cuda", seed: int = 0,
     with ``requires_grad=False`` stored in ``frozen_dtype`` when given
     (a float dtype, or "int8": frozen kernels quantized, ``train/
     partition.py:freeze``), ``.train()``. ``load_flax_params`` loads a Flax tree into either build.
-    ``mesh`` (``parallel/mesh.py``) with tp > 1: the whole model is built,
-    loaded, frozen or cast and quantized as above, on every rank alike,
-    then sliced to this rank's tp block (``shard_model_tp``).
+    ``mesh`` (``parallel/mesh.py``): the whole model is built, loaded,
+    frozen or cast and quantized as above, on every rank alike, then
+    sliced to this rank's tp block (``shard_model_tp``, tp > 1) and
+    sharded over fsdp (``shard_model_fsdp``, ZeRO-3, fsdp > 1).
     """
     if eval_param_dtype not in EVAL_PARAM_DTYPES:
         raise ValueError(f"eval_param_dtype {eval_param_dtype!r} not in "
@@ -202,4 +245,5 @@ def build_model(cfg: UniMPConfig | LMConfig, *, device="cuda", seed: int = 0,
         model.eval()
     if mesh is not None:
         shard_model_tp(model, mesh)
+        shard_model_fsdp(model, mesh)
     return model

@@ -21,12 +21,14 @@ convert_torch.py``). ``merge_with_growth`` grafts a restored
 tree onto a model whose vocabulary grew since (the transfer entry).
 
 Over several ranks (``parallel/mesh.py``) a checkpoint holds whole
-tensors, whatever the mesh: the tp blocks of a tensor are all-gathered
-(``full_model_tree``), the fsdp shards of the optimizer state too
-(``Trainer.optimizer_state``), and rank 0 alone writes, with a barrier
-after; a restore reads the whole tree on every rank and each takes its
-block (``load_flax_params``, ``Trainer.load_optimizer_state``), so a
-checkpoint resumes on any world size and mesh.
+tensors, whatever the mesh: the ZeRO-3 chunks of a tensor are
+all-gathered over fsdp and its tp blocks over tp, one tensor at a time,
+each copied to the host before the next (``full_model_tree``), the
+optimizer state likewise (``Trainer.optimizer_state``), and rank 0 alone
+writes, with a barrier after; a restore reads the whole tree on every
+rank and each takes its chunk of its block (``load_flax_params``,
+``Trainer.load_optimizer_state``), so a checkpoint resumes on any world
+size and mesh.
 """
 
 from __future__ import annotations
@@ -39,7 +41,8 @@ import torch.distributed as dist
 
 from unimp_tpu_torch.parallel.mesh import barrier, is_distributed
 from unimp_tpu_torch.parallel.sharding import gather_tp, tensor_tp_dim
-from unimp_tpu_torch.utils.quant import count_quantized, dequantize_params_host
+from unimp_tpu_torch.utils.quant import (abstract_dequantized, count_quantized,
+                                         dequantize_params_host)
 
 PARAMS_FILE = "params.pt"
 STATE_FILE = "train_state.pt"
@@ -57,19 +60,54 @@ def model_tree(model) -> dict:
     return {name.replace(".", "/"): t.detach() for name, t in model.state_dict().items()}
 
 
-def full_model_tree(model) -> dict:
-    """``model_tree`` with each tp-sharded tensor whole (all-gathered over
-    the model's tp group; host tensors). Collective under tp."""
-    tree = model_tree(model)
-    layout = model.tp_layout
-    if not layout:
-        return tree
-    dev = "cuda" if dist.get_backend(model.tp_group) == "nccl" else "cpu"
-    for path, t in tree.items():
+def full_model_tree(model, keep: bool = True) -> dict:
+    """``model_tree`` with every tensor whole: a ZeRO-3 chunk all-gathered
+    over fsdp (``model.zero``), an int8 payload then dequantized, a tp
+    block all-gathered over the model's tp group; one tensor at a time,
+    each gathered one copied to the host before the next is gathered.
+    Collective under fsdp and tp. ``keep=False`` (the ranks that do not
+    write) takes part in the gathers and returns an empty tree."""
+    zero, layout = getattr(model, "zero", None), model.tp_layout
+    if zero is None and not layout:
+        return model_tree(model) if keep else {}
+    dev = "cuda" if layout and dist.get_backend(model.tp_group) == "nccl" else "cpu"
+    state = model.state_dict()
+    tree = {}
+    for name, t in state.items():
+        path = name.replace(".", "/")
+        if path.endswith("kernel/scale"):
+            continue
+        gathered = zero is not None and zero.sharded(path)
+        if gathered:
+            t = zero.full(path, t)
+        if path.endswith("kernel/q"):
+            scale = state[name[: -len("q")] + "scale"]
+            t = t.to(torch.float32) * scale.to(torch.float32)
+            path, gathered = path[: -len("/q")], True
         dim = tensor_tp_dim(layout, path)
         if dim is not None:
-            tree[path] = gather_tp(t, dim, model.tp_group, dev)
+            t = gather_tp(t, dim, model.tp_group, dev)
+        elif gathered:
+            t = t.cpu()
+        if keep:
+            tree[path] = t.detach()
     return tree
+
+
+def abstract_tree(model) -> dict:
+    """{flat Flax path: meta tensor} of the tree ``model_tree`` gives for
+    this rank's tp block (int8 kernels as float32), with ZeRO-3 chunks at
+    their whole shapes: what a checkpoint holds, less the tp gather."""
+    like = abstract_dequantized(model)
+    zero = getattr(model, "zero", None)
+    if zero is None:
+        return like
+    for path, t in like.items():
+        for key in (path + "/q", path):
+            if zero.sharded(key):
+                like[path] = torch.empty(zero.shape(key), dtype=t.dtype, device="meta")
+                break
+    return like
 
 
 def is_writer() -> bool:
@@ -110,7 +148,7 @@ def save_params(save_dir: str, model, name: str = "final_weights") -> str:
     """Write the model's tensors under ``save_dir/name`` (rank 0; every
     rank calls it); returns the path."""
     path = os.path.join(os.path.abspath(save_dir), name)
-    tree = full_model_tree(model)
+    tree = full_model_tree(model, keep=is_writer())
     if is_writer():
         os.makedirs(path, exist_ok=True)
         _write(os.path.join(path, PARAMS_FILE), tree)

@@ -357,8 +357,9 @@ def make_optimizer(params: dict, *, learning_rate: float = 1e-4,
     and the moments exist only for them. ``moment_dtype`` (bfloat16 under
     ``--bf16_opt_state``: the JAX ``mu_dtype`` and ``nu_dtype``) gives a
     ``ClippedAdamWCast``; by default a ``ClippedAdamW``. ``decay`` ({name:
-    decayed}) overrides ``decay_mask(params)``: a sharded optimizer's
-    ``params`` are 1-D shards (``parallel/sharding.py:ZeroShards``)."""
+    decayed}) overrides ``decay_mask(params)``: a ZeRO-3 model's sharded
+    parameters are 1-D chunks (``parallel/sharding.py:ZeroShards``), so
+    its mask comes from the whole shapes (``sharding.whole_like``)."""
     schedule = make_schedule(lr_scheduler, learning_rate, total_steps, warmup_steps)
     kw = dict(schedule=schedule, weight_decay=weight_decay, max_grad_norm=max_grad_norm,
               b1=b1, b2=b2, eps=eps, decay=decay)
@@ -367,18 +368,26 @@ def make_optimizer(params: dict, *, learning_rate: float = 1e-4,
     return ClippedAdamW(params, **kw)
 
 
-def embedding_row_mask_update(grads: dict, answer_token_id: int, vocab_start: int = 0) -> None:
+def embedding_row_mask_update(grads: dict, answer_token_id: int, vocab_start: int = 0,
+                              zero=None) -> None:
     """--mask_lm_head (mmrec.py:218-233): keep only the <answer> row of the
     token embedding's gradient and the <answer> column of the lm head's,
     in place (a multiply by a one-hot, as the JAX package does); ``grads``
     is {parameter name: gradient or None}. Under tp both hold the
     vocabulary block from ``vocab_start``: a block without <answer> keeps
-    nothing."""
+    nothing. A ZeRO-3 chunk (``zero``, ``parallel/sharding.py:ZeroShards``)
+    keeps the entries of its flat range that lie in that row or column."""
     idx = answer_token_id - vocab_start
     for name, g in grads.items():
         if g is None:
             continue
-        if name.endswith("embed.embedding"):
+        head = name.endswith("lm_head.kernel")
+        if zero is not None and zero.sharded(name) and (head or name.endswith("embed.embedding")):
+            shape = zero.shape(name)
+            pos = zero.offset(name) + torch.arange(g.numel(), device=g.device)
+            coord = pos % shape[1] if head else pos // shape[1]
+            g.mul_(((coord == idx) & (pos < shape.numel())).to(g.dtype))
+        elif name.endswith("embed.embedding"):
             row = torch.zeros(g.shape[0], dtype=g.dtype, device=g.device)
             if 0 <= idx < g.shape[0]:
                 row[idx] = 1.0

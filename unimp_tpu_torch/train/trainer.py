@@ -43,9 +43,12 @@ the step the JAX step on the global batch
     after the micro-batches (float32), or under ``grad_dtype`` an
     all-reduce of each micro-batch's float32 gradient before its cast (the
     JAX order of rounding: the global float32 gradient, then bfloat16);
-    under fsdp > 1 a reduce-scatter over fsdp (and an all-reduce over dp)
-    into this rank's shard (``parallel/sharding.py:ZeroShards``; the
-    optimizer holds shards and the updated shards are all-gathered);
+    under fsdp > 1 each tensor the JAX table shards over fsdp is ZeRO-3
+    (``parallel/sharding.py:ZeroShards``, ``model.zero``): the model holds
+    this rank's chunk, the backward of its gather reduce-scatters the
+    gradient over fsdp (and all-reduces it over dp) into the chunk, one
+    micro-batch at a time, and the optimizer updates the chunk; the next
+    forward gathers it again;
   * the loss is reduced before the non-finite check, and the norm of the
     whole gradient (``optimizer.norm_reduce`` over fsdp and tp) feeds the
     clip: every rank takes the same decision;
@@ -89,7 +92,7 @@ class Trainer:
                  endofchunk_id: int, pad_id: int, gamma: float = 2.0,
                  use_reweight: bool = False, mask_lm_head: bool = False,
                  accum_steps: int = 1, device="cuda", vision_cache=None,
-                 grad_dtype=None, mesh=None, zero=None):
+                 grad_dtype=None, mesh=None):
         self.device = resolve_device(device)
         for name, p in model.named_parameters():
             if p.device.type != self.device.type:
@@ -106,8 +109,8 @@ class Trainer:
         self.grad_dtype = grad_dtype
         self.step = 0
         # several ranks: the data group (None: one process, no group) and,
-        # under fsdp, the ZeroShards the optimizer was built over
-        self.mesh, self.zero = mesh, zero
+        # under fsdp, the model's ZeRO-3 shards (the optimizer holds chunks)
+        self.mesh, self.zero = mesh, getattr(model, "zero", None)
         self.data_group = mesh.group("data") if mesh is not None else None
         if self._sharded():
             getattr(optimizer, "inner", optimizer).norm_reduce = self._norm_reduce
@@ -156,9 +159,6 @@ class Trainer:
                 # cast (and add) one tensor at a time: the float32 gradient
                 # tree is released as it goes
                 grads = list(torch.autograd.grad(loss, params, materialize_grads=True))
-                if self.mask_lm_head and self.zero is not None:
-                    # the row mask needs the whole tensor: before the shard
-                    self._mask_lm_head(dict(zip(names, grads)))
                 for i, g in enumerate(grads):
                     grads[i] = None
                     g = self._reduce(names[i], g).to(self.grad_dtype)
@@ -170,22 +170,16 @@ class Trainer:
             loss_sum = loss_sum + loss.detach()
             aux_sum = {k: aux_sum.get(k, 0) + v for k, v in aux.items()}
         if self.grad_dtype is None:
-            full = {name: p.grad for name, p in self.params.items()}
+            for name, p in self.params.items():
+                self._reduce(name, p.grad)
             if self.mask_lm_head:
-                self._mask_lm_head(full)
-            if self.zero is not None:
-                for name, p in self.params.items():
-                    self.zero.shards[name].grad = self._reduce(name, p.grad)
-                    p.grad = None
-            else:
-                for name, g in full.items():
-                    self._reduce(name, g)
+                self._mask_lm_head({name: p.grad for name, p in self.params.items()})
         else:
             if self.accum_steps > 1:
                 for g in gsum:
                     g.mul_(inv)
             grads = dict(zip(names, gsum))
-            if self.mask_lm_head and self.zero is None:
+            if self.mask_lm_head:
                 self._mask_lm_head(grads)
             self.optimizer.set_grads(grads)
         loss, aux = loss_sum * inv, {k: v * inv for k, v in aux_sum.items()}
@@ -200,13 +194,14 @@ class Trainer:
     def _mask_lm_head(self, grads: dict) -> None:
         embed = self.model.embed
         start = embed.vocab_start if embed.tp_group is not None else 0
-        embedding_row_mask_update(grads, self.ids["answer"], start)
+        embedding_row_mask_update(grads, self.ids["answer"], start, zero=self.zero)
 
     def _reduce(self, name: str, g):
-        """A whole local gradient summed over the data axis: in place (dp),
-        or this rank's shard of it (fsdp); unchanged with one process."""
-        if self.zero is not None:
-            return self.zero.reduce(name, g)
+        """A local gradient summed over the data axis, in place; a ZeRO-3
+        chunk's arrives summed (its gather's backward); unchanged with one
+        process."""
+        if self.zero is not None and self.zero.sharded(name):
+            return g
         if self.data_group is not None:
             if g is None:
                 g = torch.zeros_like(self.params[name])
@@ -216,19 +211,17 @@ class Trainer:
 
     def _norm_reduce(self, sq: torch.Tensor) -> torch.Tensor:
         """Per-tensor sums of squares of this rank's blocks -> the whole
-        tensors': summed over tp for the tp-sharded tensors, then over fsdp
-        (every tensor is sharded there)."""
+        tensors': summed over tp for the tp-sharded tensors and over fsdp
+        for the ZeRO-3 chunks; a tensor whole on every rank of an axis is
+        counted once."""
         mesh = self.mesh
-        if mesh.tp > 1:
-            layout = self.model.tp_layout
-            sharded = torch.tensor([n.replace(".", "/") in layout for n in self.params],
-                                   device=sq.device)
-            part = torch.where(sharded, sq, 0.0)
-            dist.all_reduce(part, group=mesh.group("tp"))
-            sq = torch.where(sharded, part, sq)
-        if mesh.fsdp > 1:
-            sq = sq.clone()
-            dist.all_reduce(sq, group=mesh.group("fsdp"))
+        for axis, sharded in (("tp", lambda n: n.replace(".", "/") in self.model.tp_layout),
+                              ("fsdp", lambda n: self.zero.sharded(n))):
+            if mesh.size(axis) > 1 and (axis == "tp" or self.zero is not None):
+                mask = torch.tensor([sharded(n) for n in self.params], device=sq.device)
+                part = torch.where(mask, sq, 0.0)
+                dist.all_reduce(part, group=mesh.group(axis))
+                sq = torch.where(mask, part, sq)
         return sq
 
     def train_step(self, batch: dict) -> dict:
@@ -239,8 +232,6 @@ class Trainer:
         ok = torch.isfinite(loss) & torch.isfinite(gnorm)
         if bool(ok):  # the step's one device->host read
             self.optimizer.step(gnorm)
-            if self.zero is not None:
-                self.zero.gather_params()
         self.step += 1
         return {"loss": loss, "grad_norm": gnorm,
                 "skipped_nonfinite": (~ok).to(torch.int32), **aux}
@@ -260,7 +251,7 @@ class Trainer:
         for key in STATE_TREES:
             whole = {}
             for name, t in state.get(key, {}).items():
-                if self.zero is not None:
+                if self.zero is not None and self.zero.sharded(name):
                     t = self.zero.full(name, t)
                 dim = layout.get(name.replace(".", "/"))
                 if dim is not None:
@@ -285,7 +276,7 @@ class Trainer:
                     if model.tp_layout:
                         t = shard_tree_tp({path: t}, model.tp_layout, model.tp_rank,
                                           model.tp_size)[path]
-                    if self.zero is not None:
+                    if self.zero is not None and self.zero.sharded(name):
                         t = self.zero.local(name, t.to(self.device))
                     local[name] = t
                 state[key] = local

@@ -16,6 +16,7 @@ at 224 px in bfloat16 is 256 x 1024 x 2 B = 524 KB an item.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable
 
 import numpy as np
@@ -55,9 +56,12 @@ def build_tower_cache(model, get_image: Callable[[int], np.ndarray], n_items: in
     device = next(model.parameters()).device
     cache = torch.empty((n_items, cfg.vision.num_patches, cfg.vision.hidden_size),
                         dtype=cfg.compute_dtype, device=device)
-    for start in range(0, n_items, chunk):
-        stop = min(start + chunk, n_items)
-        imgs = torch.from_numpy(np.stack([get_image(i) for i in range(start, stop)]))
-        pixels = normalize_on_device(imgs.to(device)[:, None], cfg.compute_dtype)
-        cache[start:stop] = model.encode_vision_tower(pixels)[:, 0]
+    zero = getattr(model, "zero", None)
+    # a ZeRO-3 tower is gathered once for the whole loop, not once a chunk
+    with zero.held(model.vision) if zero is not None else contextlib.nullcontext():
+        for start in range(0, n_items, chunk):
+            stop = min(start + chunk, n_items)
+            imgs = torch.from_numpy(np.stack([get_image(i) for i in range(start, stop)]))
+            pixels = normalize_on_device(imgs.to(device)[:, None], cfg.compute_dtype)
+            cache[start:stop] = model.encode_vision_tower(pixels)[:, 0]
     return cache

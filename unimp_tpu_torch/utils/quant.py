@@ -121,14 +121,17 @@ def fuse_decode_kernels(model: nn.Module) -> nn.Module:
     """Give every decoder block's self-attention (the one that decodes)
     whose q/k/v projections are all quantized its fused int8 QKV
     (``Attention.qkv_int8``), concatenated once here rather than at every
-    decode step; drop stale ones."""
+    decode step; drop stale ones. A ZeRO-3 model (``model.zero``) holds
+    chunks of the payloads: it fuses them after each gather instead
+    (``parallel/sharding.py:ZeroShards.gathered``)."""
     from unimp_tpu_torch.models.lm import DecoderBlock
 
+    sharded = getattr(model, "zero", None) is not None
     for block in model.modules():
         if isinstance(block, DecoderBlock):
             attn = block.attn
             ks = [attn.q_proj.kernel, attn.k_proj.kernel, attn.v_proj.kernel]
-            fused = all(isinstance(k, QuantizedKernel) for k in ks)
+            fused = not sharded and all(isinstance(k, QuantizedKernel) for k in ks)
             attn.qkv_int8 = concat_kernels_int8(ks) if fused else None
     return model
 
