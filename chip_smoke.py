@@ -6,7 +6,8 @@
 Phases (any failure exits non-zero):
   1. card check: needs CUDA; prints the card's name and power limit;
   2. build: compiles every CUDA kernel of the port from ``csrc/`` (one
-     nvcc per source, all at once) and prints the build seconds;
+     nvcc per source) and the host Zstandard decoder (``zstd_host.cc``,
+     the host c++), all at once, and prints the build seconds;
   3. kernels vs plain: the flash-attention forward (K1), its backward
      dK/dV (K2) and dQ (K3), split-cache beam decode (K4) and single-query
      media read (K5), each of K4/K5 also with int8 KV caches, and the int8
@@ -214,6 +215,23 @@ Phases (any failure exits non-zero):
      K6 4 times a layer a step plus the head, and ``small``'s LM gives the
      same tokens on the card and the CPU, logits within 1e-4; prints
      tokens/s and the peak memory.
+ 17. the JAX package's Orbax checkpoints (``phase_orbax``, after phase 8):
+     (a) phase 8's seeded 4b-instruct (bf16, all 32 LM layers) evaluated
+     over 24 users, its tree laid out as an Orbax checkpoint on the run's
+     tmpfs by ``write_orbax_checkpoint`` (this script's writer: the card's
+     machine has no JAX, Orbax or tensorstore), then ``mmrec_eval.main
+     --load_weights_name`` on it; (b) every Zstandard-framed value of the
+     committed JAX-written checkpoint (``tests/data/orbax``) through the C++
+     decoder and ``data/zstd.py``, then the records decoded again and again
+     to 256 MB; (c) that checkpoint's ``checkpoint_0`` resumed through
+     ``mmrec.main`` for one update on the card and on the CPU. Fails unless
+     the restored tree equals the source bit for bit, the beams equal the
+     direct run's, K1 / K4 / K5 ran in the eval and K1 / K2 / K3 in the
+     resume, the records decode equal, and the card's resume is within
+     1e-5 (losses), ``SMALL_GRAD_TOL`` (moments) and 1e-2 LR (weights
+     where the averaged gradient exceeds 1e-5; 2.01 LR elsewhere) of the
+     CPU's; prints the write and restore GiB/s, items/s, the decoder's
+     MB/s and thread count and the phase's seconds.
 Phases 9 and 10 run 4b-instruct at 16 of its 32 LM layers (``lm_layers``).
 Every path is host-bound, so some phases run in spawned processes of their
 own (``PhaseProcess``) beside the main line, which waits for each before
@@ -237,6 +255,7 @@ import os
 import re
 import shutil
 import signal
+import struct
 import subprocess
 import sys
 import tempfile
@@ -247,6 +266,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from unimp_tpu_torch.data import zstd_host
 from unimp_tpu_torch.decode import GenerationConfig, Generator
 from unimp_tpu_torch.decode.streaming import StreamingGenerator
 from unimp_tpu_torch.evals.latent_cache import ItemLatentCache
@@ -272,7 +292,8 @@ from unimp_tpu_torch.ops.flash_attention import (
     flash_bwd_dkv_cuda,
     flash_bwd_dq_cuda,
 )
-from unimp_tpu_torch.ops.quant_matmul import QuantMatmulFn, quant_matmul_cuda, quant_matmul_ref
+from unimp_tpu_torch.ops.quant_matmul import (QuantMatmulFn, default_max_rows, quant_matmul_cuda,
+                                              quant_matmul_ref)
 from unimp_tpu_torch.tools.from_flax import build_model
 from unimp_tpu_torch.train.optimizer import ClippedAdamWCast, _square_sums, make_optimizer
 from unimp_tpu_torch.train.partition import trainable_params
@@ -2621,7 +2642,7 @@ def k6_prefill_launches(cfg, slots: int, t: int, media: int) -> int:
     per ViT block q, k, v, o, up, down at slots * media * (P + 1) rows (its
     patch embedding never streams)."""
     def fits(rows):
-        return int(rows <= 512)
+        return int(rows <= default_max_rows())
 
     lm = cfg.lm
     n_xattn = -(-lm.num_layers // cfg.cross_attn_every_n)
@@ -4677,7 +4698,7 @@ def phase_causal_lm(dev, gpu_line) -> dict:
         per_layer = k6_per_decode_step(model)
         head = int(isinstance(getattr(model, "lm_head", None) and model.lm_head.kernel,
                               QuantizedKernel))
-        prefill = (per_layer if LM_PROMPTS * LM_PROMPT_LEN <= 512 else 0) + head
+        prefill = (per_layer if LM_PROMPTS * LM_PROMPT_LEN <= default_max_rows() else 0) + head
         want = {"flash_fwd": lm.num_layers, k4: lm.num_layers * LM_NEW,
                 "quant_matmul": LM_NEW * (per_layer + head) + prefill}
         if int8 and per_layer != K6_PER_LM_STEP * lm.num_layers:
@@ -4716,6 +4737,434 @@ def phase_causal_lm(dev, gpu_line) -> dict:
     if agree != 1.0 or diff > 1e-4:
         raise AssertionError("[lm] small float32 CausalLM on the card differs from the CPU")
     return out
+
+
+# ------------------------------------------------------------ phase 17
+
+ORBAX_FIXTURE = Path(__file__).resolve().parent / "tests" / "data" / "orbax"
+ORBAX_USERS = 24  # one eval batch
+ORBAX_DECODE_MB = 256  # the decoder's rate is read over at least this much content
+
+
+def _varint(n: int) -> bytes:
+    out = bytearray()
+    while True:
+        out.append((n & 0x7F) | (0x80 if n > 0x7F else 0))
+        n >>= 7
+        if not n:
+            return bytes(out)
+
+
+ZSTD_BLOCK = 1 << 17  # a block's largest content
+
+
+def zstd_raw_frame_size(n: int) -> int:
+    return 4 + 1 + 8 + 3 * max(1, -(-n // ZSTD_BLOCK)) + n
+
+
+def write_zstd_raw_frame(f, payload) -> None:
+    """One Zstandard frame of ``payload`` (a bytes-like) in raw blocks: a
+    single-segment header with the 8-byte content size, no checksum. It is
+    what a writer with no encoder can give; any decoder reads it."""
+    mv = memoryview(payload).cast("B")
+    n = len(mv)
+    f.write(struct.pack("<IBQ", 0xFD2FB528, 0xE0, n))
+    starts = range(0, n, ZSTD_BLOCK) if n else [0]
+    for i, start in enumerate(starts):
+        size = min(ZSTD_BLOCK, n - start)
+        last = i == len(starts) - 1
+        f.write(struct.pack("<I", (size << 3) | int(last))[:3])
+        f.write(mv[start:start + size])
+
+
+def _ocdbt_file(magic: int, body: bytes) -> bytes:
+    """An OCDBT manifest or node: magic, length, version 0, Zstandard
+    compression (one raw-block frame), the body, CRC-32C."""
+    import io
+
+    frame = io.BytesIO()
+    write_zstd_raw_frame(frame, body)
+    head = struct.pack(">I", magic)
+    rest = _varint(0) + _varint(1) + frame.getvalue()
+    total = len(head) + 8 + len(rest) + 4
+    out = head + struct.pack("<Q", total) + rest
+    return out + struct.pack("<I", zstd_host.crc32c(out))
+
+
+def _file_table(paths) -> bytes:
+    out = _varint(len(paths))
+    out += b"".join(_varint(0) for _ in paths[1:])  # no shared prefixes
+    out += b"".join(_varint(len(p)) for p in paths)
+    out += b"".join(_varint(0) for _ in paths)  # no base paths
+    return out + b"".join(p.encode() for p in paths)
+
+
+ZARR_DTYPES = {torch.float32: "<f4", torch.bfloat16: "bfloat16", torch.float16: "<f2",
+               torch.int32: "<i4", torch.int64: "<i8", torch.int8: "|i1", torch.uint8: "|u1",
+               torch.bool: "|b1"}
+
+
+def write_orbax_checkpoint(tree: dict, path, scalars: dict = None, seed: int = 0) -> int:
+    """Write ``tree`` ({flat path "a/b": tensor}, any device; copied to the
+    host one tensor at a time) and ``scalars`` ({path: Python number}) as
+    ``ocp.StandardCheckpointer`` lays a checkpoint out: ``_METADATA``,
+    ``_CHECKPOINT_METADATA``, ``array_metadatas/process_0``, ``_sharding``,
+    and an OCDBT database whose manifest points at one B-tree leaf holding
+    each array's zarr v2 ``.zarray`` inline and a reference to each chunk
+    (the whole array, one Zstandard frame of raw blocks) in one data file.
+    The card's machine has no JAX, Orbax or tensorstore; this is the
+    fixture writer. Returns the bytes written."""
+    import base64
+    import uuid
+
+    path = Path(path)
+    (path / "d").mkdir(parents=True, exist_ok=True)
+    (path / "array_metadatas").mkdir(exist_ok=True)
+    rng = np.random.default_rng(seed)
+    data_name = "d/" + rng.bytes(16).hex()
+    node_name = "d/" + rng.bytes(16).hex()
+    scalars = scalars or {}
+    entries, tree_meta, array_meta, sharding = [], {}, [], {}
+    offset = 0
+    with open(path / data_name, "wb") as f:
+        for key, t in list(tree.items()) + [(k, torch.tensor(v)) for k, v in scalars.items()]:
+            keys = key.split("/")
+            name = ".".join(keys)
+            host = t.detach().to("cpu").contiguous()
+            shape = list(host.shape)
+            zarray = {"chunks": shape, "compressor": {"id": "zstd", "level": 1},
+                      "dimension_separator": ".", "dtype": ZARR_DTYPES[host.dtype],
+                      "fill_value": None, "filters": None, "order": "C", "shape": shape,
+                      "zarr_format": 2}
+            entries.append(((name + "/.zarray").encode(),
+                            json.dumps(zarray, separators=(",", ":")).encode()))
+            raw = host.reshape(-1).view(torch.uint8).numpy() if host.numel() else b""
+            write_zstd_raw_frame(f, raw)
+            size = zstd_raw_frame_size(host.numel() * host.element_size())
+            entries.append(((name + "/" + (".".join("0" for _ in shape) or "0")).encode(),
+                            (offset, size)))
+            offset += size
+            scalar = key in scalars
+            tree_meta[str(tuple(keys))] = {
+                "key_metadata": [{"key": k, "key_type": 2} for k in keys],
+                "value_metadata": ({"value_type": "scalar", "skip_deserialize": False}
+                                   if scalar else
+                                   {"value_type": "jax.Array", "skip_deserialize": False,
+                                    "write_shape": shape})}
+            if not scalar:
+                array_meta.append({"array_metadata": {"param_name": name, "write_shape": shape,
+                                                      "chunk_shape": shape,
+                                                      "ext_metadata": None}})
+                sharding[base64.b64encode(name.encode()).decode()] = json.dumps(
+                    {"sharding_type": "SingleDeviceSharding", "device_str": "TFRT_CPU_0"})
+            del host, raw
+    entries.sort(key=lambda e: e[0])
+    kinds = [int(isinstance(v, tuple)) for _, v in entries]
+    refs = [v for _, v in entries if isinstance(v, tuple)]
+    node = (bytes([0]) + _file_table([data_name]) + _varint(len(entries))
+            + b"".join(_varint(0) for _ in entries[1:])
+            + b"".join(_varint(len(k)) for k, _ in entries) + b"".join(k for k, _ in entries)
+            + b"".join(_varint(v[1] if isinstance(v, tuple) else len(v)) for _, v in entries)
+            + b"".join(_varint(k) for k in kinds)
+            + b"".join(_varint(0) for _ in refs) + b"".join(_varint(o) for o, _ in refs)
+            + b"".join(v for _, v in entries if not isinstance(v, tuple)))
+    node_file = _ocdbt_file(0x0CDB20DE, node)
+    (path / node_name).write_bytes(node_file)
+    now = time.time_ns()
+    manifest = (uuid.UUID(bytes=rng.bytes(16)).bytes + _varint(0) + _varint(1024)
+                + _varint(100_000_000) + bytes([4]) + _varint(1) + _varint(0)
+                + _varint(0) * 3 + _file_table([node_name])
+                + _varint(1) + _varint(1) + bytes([0]) + _varint(0) + _varint(0)
+                + _varint(len(node_file)) + _varint(len(entries)) + _varint(len(node_file))
+                + _varint(offset) + struct.pack("<Q", now) + _varint(0))
+    (path / "manifest.ocdbt").write_bytes(_ocdbt_file(0x0CDB3A2A, manifest))
+    (path / "_METADATA").write_text(json.dumps({
+        "tree_metadata": tree_meta, "use_ocdbt": True, "use_zarr3": False,
+        "store_array_data_equal_to_fill_value": True, "custom_metadata": None}))
+    (path / "array_metadatas" / "process_0").write_text(json.dumps(
+        {"array_metadatas": array_meta}))
+    (path / "_sharding").write_text(json.dumps(sharding))
+    (path / "_CHECKPOINT_METADATA").write_text(json.dumps({
+        "item_handlers": "orbax.checkpoint._src.handlers.standard_checkpoint_handler."
+                         "StandardCheckpointHandler",
+        "metrics": {}, "performance_metrics": {}, "init_timestamp_nsecs": now,
+        "commit_timestamp_nsecs": now, "custom_metadata": {}}))
+    return sum(p.stat().st_size for p in path.rglob("*") if p.is_file())
+
+
+ORBAX_SPEC = json.loads((ORBAX_FIXTURE / "config.json").read_text()) \
+    if (ORBAX_FIXTURE / "config.json").exists() else None
+ORBAX_LR = 1e-4  # the fixture's learning rate (the CLI's default)
+ORBAX_B1 = 0.9  # AdamW's first-moment decay (the CLI's default)
+
+
+@contextlib.contextmanager
+def orbax_fixture_config():
+    """The CLIs' variant lookup gives the committed checkpoint's variant at
+    the widths of ``tests/data/orbax/config.json`` (debug cut to one layer,
+    head dim 64, so the card's kernels take it)."""
+    from unimp_tpu_torch.cli import common
+
+    orig = common.get_config
+
+    def get(name, **kw):
+        cfg = orig(name, **kw)
+        if name == ORBAX_SPEC["base"]:
+            cfg = cfg.replace(**{k: dataclasses.replace(getattr(cfg, k), **ORBAX_SPEC[k])
+                                 for k in ("vision", "resampler", "lm")},
+                              cross_attn_every_n=ORBAX_SPEC["cross_attn_every_n"])
+        return cfg
+
+    common.get_config = get
+    try:
+        yield
+    finally:
+        common.get_config = orig
+
+
+def orbax_resume_side(device: str, data, run_dir) -> dict:
+    """``mmrec.main --resume_from_checkpoint`` from the committed JAX
+    ``checkpoint_0`` (the JAX CLI's command line, epoch 1 of 2) on
+    ``device``, stopped after its first update (two micro-batches, MultiSteps
+    over 2): the losses, the weights and both moments then."""
+    from unimp_tpu_torch.cli import mmrec
+    from unimp_tpu_torch.train import checkpoint as ckpt
+
+    run = Path(run_dir) / device / "resume"
+    run.mkdir(parents=True)
+    shutil.copytree(ORBAX_FIXTURE / "checkpoint_0", run / "checkpoint_0")
+    argv = ["--mmrec_path", str(data), "--external_save_dir", str(run.parent), "--run_name",
+            "resume", "--pretrained_model_name_or_path", ORBAX_SPEC["base"], "--subset",
+            "beauty", "--task", "rec", "--single_task", "--n_items", "40", "--history_len",
+            "5", "--patch-image-size", "28", "--batch_size", "2",
+            "--gradient_accumulation_steps", "2", "--eval_batch_size", "4", "--num_epochs", "2",
+            "--logging_steps", "1", "--warmup_steps", "0", "--workers", "0", "--num_beams", "3",
+            "--max_records", "8", "--precision", "fp32", "--use_reweight",
+            "--resume_from_checkpoint", "--device", device]
+    seen = {"losses": []}
+    orig = Trainer.train_step
+
+    def step(self, batch):
+        metrics = orig(self, batch)
+        seen["losses"].append(float(metrics["loss"]))
+        if len(seen["losses"]) == 2:
+            seen["trainer"] = self
+            raise StopRun
+        return metrics
+
+    Trainer.train_step = step
+    try:
+        with orbax_fixture_config():
+            try:
+                mmrec.main(argv)
+            except StopRun:
+                pass
+    finally:
+        Trainer.train_step = orig
+    tr = seen["trainer"]
+    opt = tr.optimizer.state_dict()
+    out = {"losses": seen["losses"], "step": tr.step,
+           "params": {k: t.detach().float().cpu() for k, t in ckpt.model_tree(tr.model).items()}}
+    for m in ("mu", "nu"):
+        out[m] = {n: t.detach().float().cpu() for n, t in opt[m].items()}
+    return out
+
+
+def orbax_update_gap(card: dict, cpu: dict):
+    """How far one resumed update differs between two sides of
+    ``orbax_resume_side``: (max |d weights| over the entries whose averaged
+    gradient, from the CPU's new mu and the checkpoint's, exceeds 1e-5; the
+    count of those entries; max |d weights| over all). The first is held
+    at 1e-2 LR, as tests/test_torch_train.py holds the port to JAX."""
+    from unimp_tpu_torch.train import checkpoint as ckpt
+
+    mu0 = ckpt.restore_train_state(str(ORBAX_FIXTURE), "checkpoint_0")["opt_state"]["mu"]
+    sure_d, n_sure, moved = 0.0, 0, 0.0
+    for k, t in cpu["params"].items():
+        d = (card["params"][k] - t).abs()
+        moved = max(moved, float(d.max()))
+        name = k.replace("/", ".")
+        if name in mu0:
+            grad = (cpu["mu"][name] - ORBAX_B1 * mu0[name].float()) / (1 - ORBAX_B1)
+            sure = grad.abs() > 1e-5
+            n_sure += int(sure.sum())
+            if sure.any():
+                sure_d = max(sure_d, float(d[sure].max()))
+    return sure_d, n_sure, moved
+
+
+def phase_orbax(dev, gpu_line, data, run_dir) -> dict:
+    """The JAX package's Orbax checkpoints through the port (phase 17).
+    (a) 4b-instruct at full width and depth, seeded, bf16: the 10-beam rec
+    eval of phase 8 over 24 users, its model's tree laid out by
+    ``write_orbax_checkpoint`` on the run's tmpfs, then ``mmrec_eval.main
+    --load_weights_name`` on it: the restored tree equals the source bit for
+    bit and the beams equal the direct run's; the directory is deleted at
+    once. (b) Every Zstandard record of the committed JAX-written
+    checkpoint's values (``tests/data/orbax``) through the C++ decoder and
+    ``data/zstd.py``, equal; then its records decoded over and over, to
+    ``ORBAX_DECODE_MB`` of content, for the decoder's rate. (c) The
+    committed ``checkpoint_0`` resumed through ``mmrec.main`` for one update
+    on the card and on the CPU: losses within 1e-5 relative, moments within
+    ``SMALL_GRAD_TOL`` of their largest entry, weights within 1e-2 LR where
+    the averaged gradient exceeds 1e-5 and within 2.01 LR elsewhere."""
+    from unimp_tpu_torch.cli import common, mmrec_eval
+    from unimp_tpu_torch.data import zstd
+    from unimp_tpu_torch.evals import evaluators
+    from unimp_tpu_torch.tools import synth_data
+    from unimp_tpu_torch.train import checkpoint as ckpt
+    from unimp_tpu_torch.train import orbax
+
+    t_phase = time.perf_counter()
+    run_dir = Path(run_dir)
+    run_dir.mkdir(parents=True, exist_ok=True)
+    log(f"[orbax] {host_memory_line(run_dir)}")
+    # (a) full width
+    answers = {"direct": [], "orbax": []}
+    seen = {}
+    orig_batches, orig_build = evaluators._generate_batches, common.build_model
+    orig_restore = ckpt.restore_params
+
+    def batches(*args, **kw):
+        for rows, batch, ips in orig_batches(*args, **kw):
+            answers[seen["side"]].append(rows)
+            seen.setdefault("ips", {})[seen["side"]] = ips
+            yield rows, batch, ips
+
+    def build(args, tokenizer, **kw):
+        model = orig_build(args, tokenizer, **kw)
+        if seen["side"] == "direct":
+            seen["model"] = model
+        return model
+
+    def restore(save_dir, name):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tree = orig_restore(save_dir, name)
+        seen["restore_s"] = time.perf_counter() - t0
+        source = ckpt.model_tree(seen.pop("model"))
+        bad = sorted(set(tree) ^ set(source))
+        for path, t in tree.items():
+            src = source.get(path)
+            if src is None or t.dtype != src.dtype or t.shape != src.shape or \
+                    not torch.equal(t.to(src.device), src):
+                bad.append(path)
+        if bad:
+            raise AssertionError(f"[orbax] restored tree differs from the source: {bad[:8]}")
+        seen["restored_bytes"] = sum(t.numel() * t.element_size() for t in tree.values())
+        seen["tensors"] = len(tree)
+        del source
+        return tree
+
+    argv = ["--mmrec_path", str(data), "--external_save_dir", str(run_dir),
+            "--pretrained_model_name_or_path", "4b-instruct",
+            "--subset", "beauty", "--task", "rec", "--single_task",
+            "--n_items", str(N_ITEM_TOKENS), "--history_len", "5",
+            "--patch-image-size", "224", "--eval_batch_size", str(ORBAX_USERS),
+            "--num_beams", "10", "--max_records", str(ORBAX_USERS), "--workers", "2",
+            "--do_test", "--device", "cuda"]
+    ck_dir = run_dir / "orbax_4b"
+    evaluators._generate_batches, common.build_model = batches, build
+    ckpt.restore_params = restore
+    try:
+        seen["side"] = "direct"
+        t0 = time.perf_counter()
+        mmrec_eval.main(argv + ["--run_name", "direct"])
+        direct_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nbytes = write_orbax_checkpoint(ckpt.model_tree(seen["model"]), ck_dir)
+        write_s = time.perf_counter() - t0
+        seen["side"] = "orbax"
+        t0 = time.perf_counter()
+        kernel_lib.reset_launches()  # the main path starts here
+        results = mmrec_eval.main(argv + ["--run_name", "orbax", "--load_dir", str(run_dir),
+                                          "--load_weights_name", ck_dir.name])
+        eval_launches = counts()  # the main path ends here
+        orbax_s = time.perf_counter() - t0
+    finally:
+        evaluators._generate_batches, common.build_model = orig_batches, orig_build
+        ckpt.restore_params = orig_restore
+        seen.pop("model", None)
+        shutil.rmtree(ck_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    if answers["orbax"] != answers["direct"] or len(answers["orbax"]) != 1:
+        raise AssertionError("[orbax] the beams from the Orbax checkpoint differ from the "
+                             "direct load's")
+    missing = [k for k in EVAL_KERNELS if eval_launches[k] <= 0]
+    if missing or results["rec"]["n_users"] != ORBAX_USERS:
+        raise AssertionError(f"[orbax] eval: kernels not launched {missing}; {results}")
+    gib = nbytes / 2**30
+    log(f"[orbax] 4b-instruct bf16 tree, {seen['tensors']} tensors, "
+        f"{seen['restored_bytes'] / 2**30:.3f} GiB: write {write_s:.2f} s "
+        f"({gib / write_s:.3f} GiB/s, {gib:.3f} GiB on disk, raw-block frames), restore "
+        f"{seen['restore_s']:.2f} s ({gib / seen['restore_s']:.3f} GiB/s, "
+        f"{zstd_host.default_threads()} decoder threads); equal to the source bit for bit")
+    log(f"[orbax] eval from Orbax: {orbax_s:.2f} s (restore, build, encode, generate), "
+        f"items/s {seen['ips']['orbax']:.3f} (direct load {seen['ips']['direct']:.3f}, run "
+        f"{direct_s:.2f} s); beams equal the direct load's over {ORBAX_USERS} users; "
+        f"launches {json.dumps(eval_launches)} on {gpu_line}")
+
+    # (b) the committed JAX-written checkpoint's records
+    records = []
+    for name in ("final_weights", "checkpoint_0"):
+        records += orbax.zstd_records(str(ORBAX_FIXTURE / name))
+    t0 = time.perf_counter()
+    plain = [zstd.decompress(r) for r in records]
+    plain_s = time.perf_counter() - t0
+    native = zstd_host.decompress_batch([(r, 0, len(r)) for r in records])
+    if native != plain:
+        bad = [i for i, (a, b) in enumerate(zip(native, plain)) if a != b]
+        raise AssertionError(f"[orbax] records decode differently in C++ and Python: {bad[:8]}")
+    content = sum(map(len, plain))
+    reps = -(-ORBAX_DECODE_MB * 10**6 // content)
+    batch = [(r, 0, len(r)) for r in records] * reps
+    threads = zstd_host.default_threads()
+    t0 = time.perf_counter()
+    zstd_host.decompress_batch(batch, threads=threads)
+    native_s = time.perf_counter() - t0
+    log(f"[orbax] committed checkpoint: {len(records)} Zstandard records "
+        f"({sum(map(len, records))} bytes -> {content}) equal through C++ and data/zstd.py; "
+        f"C++ {reps * content / native_s / 1e6:.1f} MB/s of content over "
+        f"{reps * content / 1e6:.1f} MB on {threads} threads ({len(batch)} records); "
+        f"data/zstd.py {content / plain_s / 1e6:.3f} MB/s (one thread)")
+
+    # (c) the committed checkpoint_0 resumed, card vs CPU
+    fx_data = run_dir / "fixture_data"
+    synth_data.generate(str(fx_data), n_items=40, n_users=48, image_size=28, seed=0)
+    t0 = time.perf_counter()
+    cpu = orbax_resume_side("cpu", fx_data, run_dir)
+    cpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    kernel_lib.reset_launches()  # the main path starts here
+    card = orbax_resume_side("cuda", fx_data, run_dir)
+    resume_launches = counts()  # the main path ends here
+    card_s = time.perf_counter() - t0
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(card["losses"], cpu["losses"]))
+    worst = {}
+    for m in ("mu", "nu"):
+        if set(card[m]) != set(cpu[m]) or not cpu[m]:
+            raise AssertionError(f"[orbax] resumed {m} names differ card vs CPU")
+        worst[m] = max(float((card[m][n] - t).abs().max()) / max(float(t.abs().max()), 1e-30)
+                       for n, t in cpu[m].items())
+    sure_d, n_sure, moved = orbax_update_gap(card, cpu)
+    missing = [k for k in TRAIN_KERNELS if resume_launches[k] <= 0]
+    log(f"[orbax] resume of the committed checkpoint_0, one update: losses card "
+        f"{card['losses']} vs CPU {cpu['losses']} (rel {loss_rel:.2e}, limit 1e-5); worst "
+        f"moment mu {worst['mu']:.2e}, nu {worst['nu']:.2e} of max (limit {SMALL_GRAD_TOL:g}); "
+        f"weights max|d| {sure_d:.2e} over the {n_sure} entries with |g| > 1e-5 (limit "
+        f"{1e-2 * ORBAX_LR:g}), {moved:.2e} over all (limit {2.01 * ORBAX_LR:g}); step "
+        f"{card['step']} vs {cpu['step']}; card {card_s:.2f} s, CPU {cpu_s:.2f} s; launches "
+        f"{json.dumps(resume_launches)}")
+    if not (loss_rel <= 1e-5 and max(worst.values()) <= SMALL_GRAD_TOL and n_sure > 0
+            and sure_d <= 1e-2 * ORBAX_LR and moved <= 2.01 * ORBAX_LR
+            and card["step"] == cpu["step"] == 6) or missing:
+        raise AssertionError(f"[orbax] the card's resume disagrees with the CPU's "
+                             f"(kernels not launched: {missing})")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    log(f"[orbax] phase 17 done in {time.perf_counter() - t_phase:.1f} s")
+    return {"eval": eval_launches, "resume": resume_launches}
 
 
 def kernel_name(ptxas_line: str) -> str:
@@ -4883,6 +5332,9 @@ def run_phases(dev, gpu_line, apart) -> int:
         log(f"[cli] done in {time.perf_counter() - t0:.1f} s")
         gc.collect()  # the CLI's eval model is gone: give its memory back
         torch.cuda.empty_cache()
+        orbax_launches = phase_orbax(dev, gpu_line, data, Path(tmp) / "orbax")
+        gc.collect()  # phase 17's models are gone: give their memory back
+        torch.cuda.empty_cache()
         # phases 15-16 apart, beside phases 9-10 (peak card memory 15.5 + 36.1
         # GiB at most)
         late = PhaseProcess("[harness+lm] phases 15-16", phases_15_16, dev, gpu_line, data,
@@ -4957,7 +5409,9 @@ def run_phases(dev, gpu_line, apart) -> int:
             ("harness", harness_launches, EVAL_KERNELS),
             ("causal_lm", lm_launches["bf16"], ("flash_fwd", "decode_attn")),
             ("causal_lm_int8", lm_launches["int8"], ("flash_fwd", "decode_attn_int8",
-                                                     "quant_matmul")))
+                                                     "quant_matmul")),
+            ("orbax_eval", orbax_launches["eval"], EVAL_KERNELS),
+            ("orbax_resume", orbax_launches["resume"], TRAIN_KERNELS))
             if name in kernels}
         row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                "launches": sum(by_path.values()), "launches_by_path": by_path,

@@ -11,6 +11,7 @@ machinery is not ported raises.
 
 import dataclasses
 import json
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -172,13 +173,15 @@ def test_cli_writes_what_jax_writes(data, tmp_path):
 @pytest.mark.parametrize("extra", [
     ["--mesh_fsdp", "2"], ["--mesh_tp", "2"], ["--seq_shard"], ["--report_to_wandb"],
 ])
-def test_cli_unported_flags_raise(data, tmp_path, extra):
-    """The flags the port lacks raise. The multi-GPU ones run since they
-    were ported: in one process ``--mesh_fsdp 2`` / ``--mesh_tp 2`` raise
+def test_cli_unported_flags_raise(data, tmp_path, monkeypatch, capsys, extra):
+    """The flags the port lacked, each run now that it is ported. The
+    multi-GPU ones: in one process ``--mesh_fsdp 2`` / ``--mesh_tp 2`` raise
     ``make_mesh``'s error naming the sizes, and ``--seq_shard`` (no causal
     self-attention is routed in an eval, whose prefill has a window start)
-    gives the run's results without it. ``--load_weights_name *.pt`` runs
-    since the converter was ported (``tests/test_torch_tools_cli.py``)."""
+    gives the run's results without it. ``--report_to_wandb`` where wandb
+    is missing prints the JAX logger's one line and gives the run's results
+    and JSONL without it. ``--load_weights_name *.pt`` runs since the
+    converter was ported (``tests/test_torch_tools_cli.py``)."""
     argv = _argv(data, str(tmp_path), ["--device", "cpu"]) + extra
     if extra[0] in ("--mesh_fsdp", "--mesh_tp"):
         with pytest.raises(ValueError, match="does not divide world 1"):
@@ -196,8 +199,22 @@ def test_cli_unported_flags_raise(data, tmp_path, extra):
             if key != "items_per_sec":
                 assert got["rec"][key] == val, key
     else:
-        with pytest.raises(NotImplementedError):
-            mmrec_eval.main(argv)
+        from unimp_tpu.utils.logging import MetricLogger as JMetricLogger
+
+        monkeypatch.setitem(sys.modules, "wandb", None)  # an import of wandb fails
+        capsys.readouterr()
+        JMetricLogger(str(tmp_path / "jax_log"), "cli_eval", use_wandb=True)
+        line = capsys.readouterr().out
+        assert line.startswith("[logging] wandb unavailable (")
+        got = mmrec_eval.main(argv)
+        assert line in capsys.readouterr().out
+        want = mmrec_eval.main(_argv(data, str(tmp_path / "plain"), ["--device", "cpu"]))
+        for key, val in want["rec"].items():
+            if key != "items_per_sec":
+                assert got["rec"][key] == val, key
+        logs = [[sorted(json.loads(r)) for r in (root / "cli" / "cli_eval_metrics.jsonl")
+                 .read_text().splitlines()] for root in (tmp_path, tmp_path / "plain")]
+        assert logs[0] == logs[1] and logs[0]
 
 
 @pytest.mark.parametrize("extra", [

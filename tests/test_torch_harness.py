@@ -10,7 +10,8 @@ forward) on ``debug`` in float32, the JAX weights loaded into the port
 count: the same decoded tokens, CIDEr, accuracy and argmax classes.
 ``cli/evaluate.main`` end to end (COCO, OK-VQA, ImageNet; two trial
 seeds) on a port checkpoint against the JAX ``main`` on an Orbax
-checkpoint of the same weights: the same results JSON. Prompts are built
+checkpoint of the same weights, and on that Orbax checkpoint itself: the
+same results JSON. Prompts are built
 so that every record of a loop has one length (one JAX compile a loop).
 """
 
@@ -274,16 +275,29 @@ def test_evaluate_cli_matches_jax(harness, tmp_path):
 
 
 def test_evaluate_cli_refuses_orbax_and_runs_on_the_card_by_default(harness, tmp_path):
-    h = harness
+    """The port's ``main`` on the JAX package's Orbax checkpoint
+    (``train/orbax.py``) writes the JAX ``main``'s results on the same
+    directory; without ``--device`` it runs on the card, and raises where
+    there is none."""
+    h, m = harness, _manifests(harness, tmp_path)
     j_save_params(str(tmp_path / "orbax"), h["params"], name="final_weights")
+    classes = tmp_path / "classes.json"
+    classes.write_text(json.dumps(m["classes"]))
+    cls = tmp_path / "cls.json"
+    cls.write_text(json.dumps([{"image": p, "label": i % 3}
+                               for i, p in enumerate(h["images"][:3])]))
     args = ["--checkpoint_dir", str(tmp_path / "orbax"), "--tokenizer_path", h["tok_path"],
             "--variant", "debug", "--precision", "fp32", "--image_size", str(h["img"])]
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        t_cli.main(args + ["--device", "cpu"])
+    bench = ["--shots", "1", "--trial_seeds", "7", "--num_samples", "2", "--eval_ok_vqa",
+             "--ok_vqa_manifest", m["vqa"], "--eval_imagenet", "--imagenet_manifest", str(cls),
+             "--imagenet_classes", str(classes)]
+    want = j_cli.main(args + bench + ["--results_file", str(tmp_path / "jax.json")])
+    got = t_cli.main(args + bench + ["--device", "cpu",
+                                     "--results_file", str(tmp_path / "port.json")])
+    assert got == want and len(got) == 2
+    assert (tmp_path / "port.json").read_text() == (tmp_path / "jax.json").read_text()
     assert t_cli.build_parser().parse_args(args).device == "cuda"
     if not torch.cuda.is_available():
-        save_params(str(tmp_path / "port"), h["tmodel"], name="final_weights")
-        args[1] = str(tmp_path / "port")
         with pytest.raises(RuntimeError, match="no CUDA device"):
             t_cli.main(args)
 

@@ -1449,22 +1449,43 @@ def test_cut_progressive_jpeg_is_block_smoothed(tmp_path, name, frac):
 # random cuts (one draw) of the four progressive files that still differ
 # from the JAX package's native pipe after block smoothing and the black
 # image of a cut table: (file, length) -> max |Δ| at 28 and 64 px
-PROGRESSIVE_CUTS_UNEQUAL = {("jpeg_progressive", 1695): 15,
-                            ("jpeg_progressive_optimized", 1850): 14,
-                            ("jpeg_progressive_restart", 1020): 99,
-                            ("jpeg_progressive_restart", 1430): 91,
-                            ("jpeg_gray_progressive", 377): 226}
+PROGRESSIVE_CUTS_UNEQUAL = {("jpeg_gray_progressive", 377): 226}
+
+
+def _jax_pipe_c_path(paths, sizes=(28, 64)) -> list:
+    """The JAX package's ``load_resized_uint8`` of each path at each size
+    with libjpeg-turbo's SIMD off (``JSIMD_FORCENONE``, read when the
+    library loads: a process of its own)."""
+    import pickle
+    import subprocess
+
+    script = ("import sys, pickle\n"
+              "from unimp_tpu.data import transforms\n"
+              "paths, sizes = pickle.load(sys.stdin.buffer)\n"
+              "out = [[transforms.load_resized_uint8(p, s) for s in sizes] for p in paths]\n"
+              "sys.stdout.buffer.write(pickle.dumps(out))\n")
+    root = Path(__file__).resolve().parents[1]
+    out = subprocess.run([sys.executable, "-c", script], input=pickle.dumps((paths, sizes)),
+                         capture_output=True, check=True, cwd=str(root),
+                         env={**os.environ, "JSIMD_FORCENONE": "1", "JAX_PLATFORMS": "cpu",
+                              "PYTHONPATH": str(root)})
+    return pickle.loads(out.stdout)
 
 
 def test_cut_progressive_jpeg_random_cuts(tmp_path):
     """87 random cuts of the four progressive files against the JAX
     package's ``load_resized_uint8`` (its native pipe: libjpeg-turbo with
-    a fake EOI): 82 equal; the 5 in ``PROGRESSIVE_CUTS_UNEQUAL`` (all
-    inside a scan's data) differ by the amounts recorded there, the cause
-    untraced (ROADMAP.md §3, fault 5). Cuts inside a later table or scan
-    header are equal (``test_cut_inside_a_later_table_or_scan_header_is_black``)."""
+    a fake EOI): 86 equal. Traced and repaired: a refinement scan's new
+    coefficient past the band's end goes where libjpeg's natural order
+    runs on to (its entry 63, ``jdphuff.c decode_mcu_AC_refine``), and
+    where the data ends with a whole restart interval libjpeg reads the
+    next interval's first MCU from zero bits (the fake EOI stands for its
+    RSTn). The one in ``PROGRESSIVE_CUTS_UNEQUAL`` equals the pipe with its
+    SIMD off: its smoothed block saturates in the AVX2 IDCT's 16-bit lanes
+    (ROADMAP.md §3, fault 5). Cuts inside a later table or scan header are
+    equal (``test_cut_inside_a_later_table_or_scan_header_is_black``)."""
     rng = np.random.default_rng(0)
-    unequal = {}
+    unequal, paths = {}, {}
     for name in ("jpeg_progressive", "jpeg_progressive_optimized", "jpeg_progressive_restart",
                  "jpeg_gray_progressive"):
         data = FILES[name]
@@ -1477,7 +1498,11 @@ def test_cut_progressive_jpeg_random_cuts(tmp_path):
                         for size in (28, 64))
             if worst:
                 unequal[name, n] = worst
+                paths[name, n] = str(path)
     assert unequal == PROGRESSIVE_CUTS_UNEQUAL
+    for key, want in zip(paths, _jax_pipe_c_path(list(paths.values()))):
+        for size, w in zip((28, 64), want):
+            np.testing.assert_array_equal(transforms.load_resized_uint8(paths[key], size), w)
 
 
 def _marker_after_first_scan(data: bytes, marker: bytes) -> int:
@@ -1610,17 +1635,30 @@ def test_cut_arithmetic_jpeg_equals_libjpeg(name):
         np.testing.assert_array_equal(transforms.decode_image(cut), want, err_msg=str(k))
 
 
-def test_cut_arithmetic_progressive_420_jpeg_differs_by_at_most_19():
+def test_cut_arithmetic_progressive_420_jpeg_differs_by_at_most_19(tmp_path):
     """The 4:2:0 progressive arithmetic file, cut at every 5th byte of its
-    scans, still differs from libjpeg-turbo's C decoder at most cuts, by
-    up to 19 in its second iMCU row (rows 16-31). Traced so far: not the
-    good-row rule (rows 0-15 and 32-34 equal), not the 16-bit coefficient
-    stores, not the SIMD IDCT; the cause is open (ROADMAP.md §3, fault 5).
-    The figures below are those measured."""
+    scans, equals the JAX package's ``load_resized_uint8`` with its SIMD off
+    at every cut (28 and 64 px). The differences in its second iMCU row,
+    up to 19, were against PIL's decode of the cut file (an incremental
+    feed, which libjpeg cannot suspend inside an arithmetic scan), not the
+    JAX package's one-shot read of its bytes. With the SIMD IDCT, the JAX
+    package differs at the 4 cuts below, whose zero bytes decode to
+    coefficients that the AVX2 IDCT saturates in 16-bit lanes (ROADMAP.md
+    §3, fault 5)."""
     cuts = _scan_cuts(FILES["jpeg_arith_progressive_ycc420"], 5)
-    diffs = np.array([int(np.abs(transforms.decode_image(c).astype(int) - w).max())
-                      for c, w in zip(cuts, _libjpeg_c_path(cuts))])
-    assert diffs.max() <= 19 and (diffs == 0).mean() >= 0.42, diffs
+    paths = []
+    for k, cut in enumerate(cuts):
+        paths.append(str(tmp_path / f"{k}.jpg"))
+        Path(paths[-1]).write_bytes(cut)
+    simd = {}
+    for k, (path, want) in enumerate(zip(paths, _jax_pipe_c_path(paths))):
+        for size, w in zip((28, 64), want):
+            got = transforms.load_resized_uint8(path, size)
+            np.testing.assert_array_equal(got, w, err_msg=str(k))
+            d = int(np.abs(got.astype(int) - j_transforms.load_resized_uint8(path, size)).max())
+            if d:
+                simd[k] = max(simd.get(k, 0), d)
+    assert len(cuts) == 154 and simd == {4: 255, 52: 242, 83: 254, 135: 202}
 
 
 @pytest.mark.parametrize("name", ["webp_lossy_q80", "webp_lossless", "webp_lossy_alpha"])

@@ -317,11 +317,12 @@ def _port_python_files():
 
 def test_port_imports_no_jax():
     """No module of the port, and not chip_smoke.py, imports jax, flax,
-    optax, orbax or the JAX package, nor ``tokenizers``, PIL or
+    optax, orbax, tensorstore or the JAX package, nor ``tokenizers``, PIL or
     ``requests``, which the card's machine lacks; the training CLI's,
     the serving, the multi-GPU and the tools' modules (and the multi-GPU
     tests' rank worker) are among those walked."""
-    banned = ("jax", "flax", "optax", "orbax", "unimp_tpu", "tokenizers", "PIL", "requests")
+    banned = ("jax", "flax", "optax", "orbax", "tensorstore", "unimp_tpu", "tokenizers", "PIL",
+              "requests")
     bad = []
     for path in _port_python_files():
         tree = ast.parse(path.read_text(), filename=str(path))
@@ -344,6 +345,6 @@ def test_port_imports_no_jax():
         "parallel/seq_shard", "ops/ring_attention", "evals/dist", "tools/convert_torch",
         "tools/export_torch", "tools/vqgan", "tools/vqgan_decoder", "tools/features",
         "tools/preprocess", "tools/task_data", "tools/misc_converters", "data/gif",
-        "data/bmp")} | {
+        "data/bmp", "data/zstd_host", "train/orbax")} | {
         "tests/torch_parallel_worker.py"} <= walked
     assert not bad, bad

@@ -216,6 +216,46 @@ def test_quant_dot_matches_jax(layer, rows):
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOL[np.float32])
 
 
+@pytest.mark.parametrize("setting", [None, "1024"])
+def test_quant_dot_reads_the_row_threshold_like_jax(monkeypatch, setting):
+    """600 rows, between 512 and a larger ``UNIMP_QMM_MAX_ROWS``: unset, both
+    packages take the dequantized matmul; at 1024 both stream through the
+    int8 kernel (K6's plain version here, the Pallas kernel on the JAX
+    side), with the JAX numbers at 1e-5."""
+    import unimp_tpu.ops.quant_matmul as j_qmm
+    import unimp_tpu_torch.ops.quant_matmul as t_qmm
+
+    if setting is None:
+        monkeypatch.delenv("UNIMP_QMM_MAX_ROWS", raising=False)
+    else:
+        monkeypatch.setenv("UNIMP_QMM_MAX_ROWS", setting)
+    calls = {"jax": 0, "port": 0}
+    j_orig, t_orig = j_qmm.quant_matmul, t_qmm.QuantMatmulFn.apply
+
+    def j_spy(*args, **kw):
+        calls["jax"] += 1
+        return j_orig(*args, **kw)
+
+    def t_spy(*args, **kw):
+        calls["port"] += 1
+        return t_orig(*args, **kw)
+
+    monkeypatch.setattr(j_qmm, "quant_matmul", j_spy)
+    monkeypatch.setattr(t_qmm.QuantMatmulFn, "apply", t_spy)
+    rng = np.random.default_rng(600)
+    w = rng.normal(size=KERNELS["dense"]).astype(np.float32)
+    jk = jq.quantize_params_int8({"dense": {"kernel": jnp.asarray(w)}}, min_size=1,
+                                 dtype=jnp.float32)["dense"]
+    port = quantize_params_int8(_port_layer("dense", w), min_size=1,
+                                dtype=torch.float32)["dense"]
+    x = rng.normal(size=(600, w.shape[0])).astype(np.float32)
+    want = j_qmm.quant_dot(jnp.asarray(x), jk["kernel"])
+    got = port(_t(x))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOL[np.float32])
+    assert calls == ({"jax": 0, "port": 0} if setting is None else {"jax": 1, "port": 1})
+    assert t_qmm.default_max_rows() == (512 if setting is None else 1024)
+
+
 def _int8_decode_case(seed, b, kb, t, g, h, hkv, d):
     """int8 caches quantized by the JAX package, as numpy."""
     rng = np.random.default_rng(seed)

@@ -556,7 +556,8 @@ def test_reload_eval(data, runs, tmp_path, monkeypatch, dtype):
     ["--save_checkpoints_to_wandb"],
 ])
 def test_unported_flags_raise_before_any_work(data, tmp_path, monkeypatch, extra):
-    """Each raises before the tokenizer is built. (``--frozen_int8``,
+    """Each raises before the tokenizer is built, or passes the checks now
+    that it is ported. (``--frozen_int8``,
     ``--bf16_opt_state``, ``--remat`` and ``--remat_policy`` run now:
     ``tests/test_torch_train_flags.py`` holds them to the JAX CLI.) The
     multi-GPU flags run since they were ported: in one process a mesh
@@ -564,7 +565,9 @@ def test_unported_flags_raise_before_any_work(data, tmp_path, monkeypatch, extra
     and ``--seq_shard`` passes the checks and sets the ring-attention
     context (``tests/test_torch_parallel.py`` runs them over ranks).
     ``--load_from_original_checkpoint`` and ``--save_hf_model`` run too:
-    ``tests/test_torch_tools_cli.py`` holds them to the JAX CLI."""
+    ``tests/test_torch_tools_cli.py`` holds them to the JAX CLI, and
+    ``--save_checkpoints_to_wandb`` passes the checks (the upload itself:
+    ``test_wandb_calls_match_jax``)."""
     def no_work(*args, **kw):
         raise AssertionError("work started before the check")
 
@@ -583,7 +586,7 @@ def test_unported_flags_raise_before_any_work(data, tmp_path, monkeypatch, extra
             set_sequence_sharding(None)
             set_mesh(None)
     else:
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(AssertionError, match="work started"):
             mmrec.main(argv)
 
 
@@ -655,13 +658,42 @@ def test_task_runs_match_jax(data, tmp_path, monkeypatch, extra):
             assert sorted(u) == sorted(w) and all(abs(u[k] - w[k]) <= 1e-12 for k in w)
 
 
-def test_reload_of_a_jax_checkpoint_or_a_pt_name_raises(data, runs, tmp_path):
-    """An Orbax directory of the JAX package raises (its converter is not
-    ported); a ``.pt`` name goes to the torch converter, which raises on a
-    file that is not there (``tests/test_torch_tools_cli.py`` loads one)."""
+def test_reload_of_a_jax_checkpoint_or_a_pt_name_raises(data, runs, tmp_path, monkeypatch):
+    """``mmrec_eval --load_weights_name final_weights`` on the JAX run's
+    Orbax directory (``train/orbax.py``): the JAX ``mmrec_eval``'s answers
+    on the same directory user for user, the same dumps and metrics within
+    1e-12. A ``.pt`` name still goes to the torch converter, which raises
+    on a file that is not there (``tests/test_torch_tools_cli.py`` loads
+    one)."""
+    from unimp_tpu.cli import mmrec_eval as j_mmrec_eval
+
     jax_dir = str(runs["root"] / "jax" / "cli")
-    with pytest.raises(NotImplementedError, match="Orbax"):
-        mmrec_eval.main(_eval_argv(data, str(tmp_path), "--load_dir", jax_dir))
+    answers = {"jax": [], "port": []}
+    for side, mod in (("jax", j_evaluators), ("port", evaluators)):
+        orig = mod._generate_batches
+
+        def spy(*args, _orig=orig, _side=side, **kw):
+            for rows, batch, ips in _orig(*args, **kw):
+                answers[_side].append(rows)
+                yield rows, batch, ips
+
+        monkeypatch.setattr(mod, "_generate_batches", spy)
+    monkeypatch.setattr(j_common, "build_mesh", lambda args: None)
+    argv = _eval_argv(data, str(tmp_path / "port"), "--load_dir", jax_dir)
+    got = mmrec_eval.main(argv)
+    j_argv = [a for a in argv if a not in ("--device", "cpu")]
+    j_argv[j_argv.index(str(tmp_path / "port"))] = str(tmp_path / "jax")
+    want = j_mmrec_eval.main(j_argv)
+    assert answers["port"] == answers["jax"] and len(answers["port"]) == 2
+    assert sorted(got) == sorted(want) and got["rec"]["n_users"] == want["rec"]["n_users"] == 8
+    for key, val in want["rec"].items():
+        if key != "items_per_sec":
+            assert abs(got["rec"][key] - val) <= 1e-12, key
+    dump = "results/cli_rec_test_epoch_0_rank_0.json"
+    a, b = (json.loads((tmp_path / side / "cli" / dump).read_text()) for side in ("port", "jax"))
+    assert len(a) == len(b) == 8
+    for u, w in zip(a, b):
+        assert sorted(u) == sorted(w) and all(abs(u[k] - w[k]) <= 1e-12 for k in w)
     with pytest.raises(FileNotFoundError, match="final_weights.pt"):
         argv = _eval_argv(data, str(tmp_path), "--load_dir", jax_dir)
         argv[argv.index("--load_weights_name") + 1] = "final_weights.pt"

@@ -4,7 +4,8 @@
 25% subsamples of the first three), then ``mmrec_prefix.main`` (the
 ``item_domain_{i}`` vocabulary growth, everything but the resampler and
 the gated cross-attention trainable, a rec epoch and its test pass, then
-``--only_test``) on the JAX run's final weights, on both packages: the
+``--only_test``) on the JAX run's final weights (the port reads the JAX
+run's Orbax directory itself), on both packages: the
 same data (the synth writer, seed 0, 8 users), the same initial weights
 (the JAX init, carried across by ``tools/from_flax.py``), float32,
 micro-batch 2 with ``MultiSteps`` over 2. Per-step losses agree within
@@ -16,6 +17,7 @@ is also held to the JAX one on its own.
 
 import json
 import os
+import shutil
 from pathlib import Path
 
 import numpy as np
@@ -131,11 +133,10 @@ def runs(data, tmp_path_factory):
         j_only = j_mmrec_prefix.main(xfer + ["--only_test"])
     multi_init, xfer_init, only_init = seen["inits"]
 
-    # the JAX run's final weights as a port checkpoint
+    # the JAX run's final weights, its Orbax directory as it is (train/orbax.py)
     final = _flat(j_ckpt.restore_params(os.path.join(jax_dir, "multi"), "final_weights"))
-    src = Path(port_dir) / "multi" / "final_weights"
-    src.mkdir(parents=True)
-    torch.save({k: torch.from_numpy(np.array(v)) for k, v in final.items()}, src / ckpt.PARAMS_FILE)
+    shutil.copytree(os.path.join(jax_dir, "multi", "final_weights"),
+                    Path(port_dir) / "multi" / "final_weights")
 
     inits = iter([multi_init, xfer_init, only_init])
     models = []

@@ -3,8 +3,8 @@
 Flags mirror the reference's mmrec.py:307-459 plus the live subset of
 pipeline/mm_utils/arguments.py; the port adds one, ``--device`` (default
 ``cuda``: the entry points run on the card unless asked for the CPU).
-Flags whose machinery the port lacks raise ``NotImplementedError`` in
-``cli/common.py:check_ported``, never silently do nothing.
+Flags that cannot go together are refused in
+``cli/common.py:check_ported``, before any work.
 """
 
 from __future__ import annotations

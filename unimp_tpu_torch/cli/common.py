@@ -32,19 +32,10 @@ from unimp_tpu_torch.parallel.seq_shard import set_sequence_sharding
 from unimp_tpu_torch.tools import from_flax
 
 ALL_EVAL_TASKS = ["rec", "exp", "img_sel", "search"]  # run_evals' multi-task default
-# flag -> (what it needs, its ROADMAP.md §1 item)
-UNPORTED = {
-    "save_checkpoints_to_wandb": ("--save_checkpoints_to_wandb: wandb artifacts",
-                                  "where the port logs JSONL only"),
-}
 
 
 def check_ported(args, *, train: bool = False) -> None:
-    """Raise, before any work, on a flag whose machinery the port does not
-    have yet."""
-    for flag, (what, item) in UNPORTED.items():
-        if getattr(args, flag, False):
-            raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md §1, {item})")
+    """Refuse, before any work, flags that cannot go together."""
     if train and args.cache_vision_latents and args.unfreeze_backbone:
         raise SystemExit("--cache_vision_latents requires the frozen tower "
                          "(drop --unfreeze_backbone)")

@@ -3,9 +3,9 @@
 Counterpart of ``unimp_tpu/cli/evaluate.py`` (the inherited OpenFlamingo
 harness entry, UniMP's pipeline/eval/evaluate.py:28-120 flags and its
 main: per-benchmark switches, shot counts, trial seeds, a results file).
-The model is a checkpoint of the port's own (``train/checkpoint.py``: a
-directory that ``mmrec`` wrote, e.g. ``final_weights``); a JAX Orbax
-directory raises (ROADMAP.md §1, item 8b). Datasets are JSON manifests
+The model is a checkpoint directory (``train/checkpoint.py``: one that the
+port's ``mmrec`` wrote, e.g. ``final_weights``, or the JAX package's Orbax
+directory of the same name). Datasets are JSON manifests
 (``evals/benchmark_harness.py``). Runs on the card unless ``--device cpu``.
 Under ``torchrun`` with ``--mesh_fsdp N`` the model is ZeRO-3 over fsdp
 (``parallel/sharding.py:ZeroShards``: each rank keeps its chunk of every

@@ -284,6 +284,9 @@ def main(argv=None):
             if os.path.isdir(prev):
                 shutil.rmtree(prev)
     ckpt.save_params(save_dir, model, "final_weights")
+    if args.save_checkpoints_to_wandb:
+        logger.log_artifact(os.path.join(save_dir, "final_weights"),
+                            name=f"{args.run_name}_final_weights")
     if args.save_hf_model:
         # the decoder's naming follows the variant, as the JAX CLI picks it
         out = save_torch_checkpoint(model, os.path.join(save_dir, "final_weights_torch.pt"),

@@ -458,8 +458,8 @@ def _read_ac_refine(win, mcus, flat, dc, ac, preds, al, ss, se, nbits):
                         if r < 0:
                             break
                     k += 1
-                if s and k <= se:
-                    out[base + k] = s
+                if s:  # past the band too, as libjpeg writes it: its natural
+                    out[base + min(k, 63)] = s  # order table gives 63 past 63
                 k += 1
         if eobrun:
             while k <= se:  # the rest of the band: correction bits only
@@ -842,18 +842,26 @@ def _read_scan(data, end, frame, coefs, huff, seg, progressive, restart, strict=
     except KeyError as e:
         raise ValueError(f"corrupt JPEG: Huffman table {e} is not defined") from None
     read = _READERS[kind]
+    if cut:
+        # where the data ends with a whole restart interval, libjpeg takes
+        # the fake EOI for the next RSTn and reads that interval's first
+        # MCU from zero bits (``jdhuff.c process_restart`` leaves its
+        # out-of-data flag clear): an empty segment stands for it
+        segments = segments + [np.zeros(0, np.uint8)]
     for s, seg_bytes in enumerate(segments):
         chunk = mcus[s * per:(s + 1) * per]
         if not chunk:
             break
-        last = cut and s == len(segments) - 1
+        last = cut and s >= len(segments) - 2
         win = _windows(seg_bytes, _ZERO_TAIL if last else 8)
         try:
             ran_out = read(win, chunk, flat, dc, ac, [0] * ns, al, ss, se, 8 * seg_bytes.size)
         except IndexError:
             raise ValueError("corrupt JPEG: scan data ended early") from None
-        if last and ran_out is not None and trace is not None:
-            trace["cut"] = (scan_comps, s * per + ran_out)
+        if last and ran_out is not None:
+            if trace is not None:
+                trace["cut"] = (scan_comps, s * per + ran_out)
+            break  # libjpeg reads nothing more of the scan
     return after
 
 

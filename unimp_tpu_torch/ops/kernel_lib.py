@@ -4,7 +4,11 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into
 ``build/lib<name>.so`` (a plain C interface, no PyTorch headers) the first
 time a wrapper launches it, and is loaded with ``ctypes``. The library
 file name carries a hash of the sources and flags, so an edited source
-rebuilds. Nothing here runs at import: the CPU tests import every module.
+rebuilds. Host code (``csrc/<name>.cc``) builds the same way with the host
+C++ compiler (``build_host``), its hash taking in the compiler's version.
+A build writes a file of its own and renames it into place, so processes
+that build at once do not race. Nothing here runs at import: the CPU
+tests import every module.
 
 ``LAUNCHES`` counts kernel launches per kernel; each wrapper adds one
 where it launches, and nowhere else.
@@ -28,6 +32,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+HOST_FLAGS = ["-std=c++17", "-O3", "-shared", "-fPIC", "-pthread"]
 
 # kernel library -> its C functions' argument types (the last is always
 # the CUDA stream)
@@ -121,11 +126,43 @@ def build(name: str) -> Path:
     return out
 
 
+def _host_cxx() -> str:
+    for cand in (os.environ.get("CXX"), "c++", "g++"):
+        found = cand and shutil.which(cand)
+        if found:
+            return found
+    raise RuntimeError("no host C++ compiler (c++ or g++) found")
+
+
+def build_host(name: str) -> Path:
+    """Compile ``csrc/<name>.cc`` with the host C++ compiler unless its
+    library is already built; raises if the compiler fails."""
+    cxx = _host_cxx()
+    src = CSRC_DIR / f"{name}.cc"
+    version = subprocess.run([cxx, "--version"], capture_output=True, text=True).stdout
+    h = hashlib.sha256(" ".join(HOST_FLAGS).encode() + version.encode() + src.read_bytes())
+    out = BUILD_DIR / f"lib{name}_{h.hexdigest()[:12]}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    proc = subprocess.run([cxx, *HOST_FLAGS, "-o", str(tmp), str(src)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{cxx} failed for {name}:\n{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+HOST_LIBS = ("zstd_host",)  # csrc/<name>.cc, built with the host compiler
+
+
 def build_all() -> dict:
-    """Build every kernel library at once (one nvcc per source, in
-    parallel); returns {name: library path}."""
-    with concurrent.futures.ThreadPoolExecutor(len(SIGNATURES)) as ex:
+    """Build every kernel library and host library at once (one compiler
+    per source, in parallel); returns {name: library path}."""
+    with concurrent.futures.ThreadPoolExecutor(len(SIGNATURES) + len(HOST_LIBS)) as ex:
         futures = {name: ex.submit(build, name) for name in SIGNATURES}
+        futures.update({name: ex.submit(build_host, name) for name in HOST_LIBS})
         return {name: f.result() for name, f in futures.items()}
 
 

@@ -13,6 +13,7 @@ custom VJP's backward (the int8 frozen backbone under autograd).
 from __future__ import annotations
 
 import functools
+import os
 
 import torch
 
@@ -132,7 +133,14 @@ class QuantMatmulFn(torch.autograd.Function):
         return (gs.float() @ q.float().t()).to(g.dtype), None, None
 
 
-def quant_dot(x, kernel, *, max_rows: int = 512):
+def default_max_rows() -> int:
+    """The row count up to which an int8 matmul streams through K6:
+    ``UNIMP_QMM_MAX_ROWS``, 512 where it is unset, as the JAX package reads
+    it (``unimp_tpu/ops/quant_matmul.py:88-89``)."""
+    return int(os.environ.get("UNIMP_QMM_MAX_ROWS", "512"))
+
+
+def quant_dot(x, kernel, *, max_rows: int = None):
     """x [..., in] @ kernel, contracting x's last dim with the kernel's
     leading axes (Dense [in, N], Proj [in, H, d], o_proj [H, d, out] with
     x flattened to H*d); returns [..., N].
@@ -143,8 +151,11 @@ def quant_dot(x, kernel, *, max_rows: int = 512):
     the dequantized matmul x @ (q * scale in x.dtype), whose autograd
     reaches x only, as the JAX package does (``unimp_tpu/ops/
     quant_matmul.py:75-96``). The threshold decides which arithmetic runs,
-    so it stays the JAX package's 512 for parity; a float kernel is a
-    plain matmul."""
+    so it is the JAX package's: ``max_rows``, else ``default_max_rows()``
+    (``UNIMP_QMM_MAX_ROWS``, 512 unset); a float kernel is a plain
+    matmul."""
+    if max_rows is None:
+        max_rows = default_max_rows()
     in_dim = x.shape[-1]
     if isinstance(kernel, QuantizedKernel):
         q, scale = kernel.flat(in_dim)

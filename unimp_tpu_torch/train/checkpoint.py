@@ -15,10 +15,12 @@ serves the port's checkpoints and trees carried over from JAX;
 storage at a time, so a save never stages a whole host copy of the model;
 a restore maps the file (``torch.load(mmap=True)``) and hands back host
 tensors that ``tools/from_flax.py:load_flax_params`` copies onto the
-model. An Orbax directory of the JAX package raises (ROADMAP.md §1, item
-8b); its weights come over as a reference ``.pt`` (``tools/
-convert_torch.py``). ``merge_with_growth`` grafts a restored
-tree onto a model whose vocabulary grew since (the transfer entry).
+model. A directory the JAX package wrote (Orbax, told apart by
+``ORBAX_MARKERS``) is read by ``train/orbax.py`` into the same flat tree,
+and a JAX ``checkpoint_{e}``'s optax state into the port optimizer's
+``state_dict()``; the port writes no Orbax. ``merge_with_growth`` grafts a
+restored tree onto a model whose vocabulary grew since (the transfer
+entry).
 
 Over several ranks (``parallel/mesh.py``) a checkpoint holds whole
 tensors, whatever the mesh: the ZeRO-3 chunks of a tensor are
@@ -41,6 +43,7 @@ import torch.distributed as dist
 
 from unimp_tpu_torch.parallel.mesh import barrier, is_distributed
 from unimp_tpu_torch.parallel.sharding import gather_tp, tensor_tp_dim
+from unimp_tpu_torch.train import orbax
 from unimp_tpu_torch.utils.quant import (abstract_dequantized, count_quantized,
                                          dequantize_params_host)
 
@@ -133,15 +136,17 @@ def _read(path: str):
     return torch.load(path, map_location="cpu", weights_only=True, mmap=True)
 
 
-def _checkpoint_dir(save_dir: str, name: str) -> str:
-    path = os.path.join(os.path.abspath(save_dir), name)
-    if not os.path.exists(os.path.join(path, PARAMS_FILE)) and any(
-            os.path.exists(os.path.join(path, m)) for m in ORBAX_MARKERS):
-        raise NotImplementedError(f"{path} is an Orbax checkpoint of the JAX package, which "
-                                  "the port does not read (ROADMAP.md §1, item 8b): write it as "
-                                  "a .pt with the JAX CLI's --save_hf_model and pass that to "
-                                  "--load_weights_name or --load_from_original_checkpoint")
-    return path
+def is_orbax(path: str) -> bool:
+    """A checkpoint directory the JAX package wrote (no ``params.pt``, an
+    Orbax marker)."""
+    return not os.path.exists(os.path.join(path, PARAMS_FILE)) and any(
+        os.path.exists(os.path.join(path, m)) for m in ORBAX_MARKERS)
+
+
+def _is_train_state(path: str) -> bool:
+    """An Orbax ``checkpoint_{e}``: {params, opt_state, step, epoch}."""
+    tops = {keys[0] for keys in orbax.leaf_paths(path)}
+    return {"params", "opt_state", "step"} <= tops
 
 
 def save_params(save_dir: str, model, name: str = "final_weights") -> str:
@@ -159,8 +164,15 @@ def save_params(save_dir: str, model, name: str = "final_weights") -> str:
 
 def restore_params(save_dir: str, name: str) -> dict:
     """{flat Flax path: host tensor} of ``save_dir/name`` (any of the three
-    kinds), mapped from the file."""
-    return _read(os.path.join(_checkpoint_dir(save_dir, name), PARAMS_FILE))
+    kinds, the port's mapped from its file, or the JAX package's Orbax
+    directory read whole)."""
+    path = os.path.join(os.path.abspath(save_dir), name)
+    if not is_orbax(path):
+        return _read(os.path.join(path, PARAMS_FILE))
+    if _is_train_state(path):
+        tree = orbax.read_tree(path, keep=lambda keys: keys[0] == "params")
+        return {k[len("params/"):]: v for k, v in tree.items()}
+    return orbax.read_tree(path)
 
 
 def merge_with_growth(restored: dict, target: dict) -> dict:
@@ -213,8 +225,14 @@ def save_train_state(save_dir: str, trainer, epoch: int) -> str:
 
 def restore_train_state(save_dir: str, name: str) -> dict:
     """{"opt_state", "step", "epoch"} of ``save_dir/name`` (a
-    ``checkpoint_{e}``); its weights come from ``restore_params``."""
-    return _read(os.path.join(_checkpoint_dir(save_dir, name), STATE_FILE))
+    ``checkpoint_{e}``; of the JAX package's, its optax state mapped by
+    ``orbax.opt_state_dict``); its weights come from ``restore_params``."""
+    path = os.path.join(os.path.abspath(save_dir), name)
+    if not is_orbax(path):
+        return _read(os.path.join(path, STATE_FILE))
+    tree = orbax.read_tree(path, keep=lambda keys: keys[0] != "params")
+    return {"opt_state": orbax.opt_state_dict(tree), "step": int(tree["step"]),
+            "epoch": int(tree["epoch"])}
 
 
 def latest_checkpoint(save_dir: str) -> Optional[str]:

@@ -1,8 +1,9 @@
 """Metric logging: console + JSONL (counterpart of ``unimp_tpu/utils/logging.py``).
 
 Keeps the reference's metric names and writes a local JSONL so runs are
-inspectable offline. wandb is not ported: asking for it, or for an
-artifact upload, raises.
+inspectable offline; with ``use_wandb`` rank 0 also reports to wandb, and
+where wandb is missing or fails it prints one line and keeps the JSONL, as
+the JAX package's logger does (wandb is imported only when asked for).
 """
 
 from __future__ import annotations
@@ -39,14 +40,22 @@ class MetricLogger:
                  wandb_project: Optional[str] = None,
                  wandb_entity: Optional[str] = None, config: Optional[dict] = None,
                  rank: int = 0):
-        if use_wandb:
-            raise NotImplementedError("wandb reporting is not ported (the port logs JSONL only)")
         self.rank = rank
         self.path = None
+        self._wandb = None
         if rank != 0:
             return
         os.makedirs(run_dir, exist_ok=True)
         self.path = os.path.join(run_dir, f"{run_name}_metrics.jsonl")
+        if use_wandb:
+            try:
+                import wandb
+
+                wandb.init(project=wandb_project, entity=wandb_entity,
+                           name=run_name, config=config or {})
+                self._wandb = wandb
+            except Exception as e:  # offline / not installed: JSONL still works
+                print(f"[logging] wandb unavailable ({e}); JSONL only")
 
     def log(self, metrics: dict, step: Optional[int] = None):
         if self.rank != 0:
@@ -56,10 +65,26 @@ class MetricLogger:
                   for k, v in metrics.items()}}
         with open(self.path, "a") as f:
             f.write(json.dumps(rec) + "\n")
+        if self._wandb is not None:
+            self._wandb.log(metrics, step=step)
 
     def print(self, msg: str):
         if self.rank == 0:
             print(msg, flush=True)
 
     def log_artifact(self, path: str, name: str, type: str = "checkpoint"):
-        raise NotImplementedError("wandb artifacts are not ported (the port logs JSONL only)")
+        """Upload a checkpoint directory or file as a wandb artifact (the
+        reference uploads the final weights under
+        ``--save_checkpoints_to_wandb``, mmrec.py:893-894); nothing without
+        wandb."""
+        if self.rank != 0 or self._wandb is None:
+            return
+        try:
+            art = self._wandb.Artifact(name, type=type)
+            if os.path.isdir(path):
+                art.add_dir(path)
+            else:
+                art.add_file(path)
+            self._wandb.log_artifact(art)
+        except Exception as e:
+            print(f"[logging] wandb artifact upload failed ({e})")
