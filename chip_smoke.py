@@ -31,7 +31,11 @@ Phases (any failure exits non-zero):
      1,000-row ImageNet forward and its x-attn, K4 / K5 at the 3-beam
      captioning decode; phase 16's ``CausalLM``: K4 at 24 prompts of 128,
      K6 at M = 24 on the fused QKV, o, MLP up, down and the 2560 x 50432
-     head; and
+     head; phase 18's 9b (32 heads of 128, ALiBi, width 4096): K1 at its
+     prefill, x-attn prefill and training forward, K2 / K3 at its
+     training shapes, K4 / K5 (bf16 and int8 KV) at its 10-beam decode, K6
+     at its decode widths at 240 and 120 rows (timed) and 24 rows and the
+     4096 x 8576 head (checked); and
      ``QuantMatmulFn``'s backward (the int8 frozen backbone's dx) against
      the gradient through the dequantized weight), in bfloat16 and
      float32, with the tolerances below; times each kernel (CUDA events)
@@ -52,8 +56,9 @@ Phases (any failure exits non-zero):
      the other tasks'
      decodes (exp 5 beams to 256, img_sel 2 beams over 9 images, img_gen
      greedy to 600; token agreement); the CPU sides run in a spawned
-     process of their own (``SmallCpuSides``, half the host's cores) from
-     the start of the run, and the card sides after phase 7;
+     process of their own (``small_cpu_sides``, half the host's cores) from
+     the start of the run, with phase 18 (d)'s, and the card sides after
+     phase 17;
   5. the ``4b-instruct`` 10-beam rec eval at full width (random seeded
      weights, gates opened): a 256-item catalogue encoded once by the item
      latent cache, two batches of 24 prompts (T=128, 4 images each), beam
@@ -164,7 +169,7 @@ Phases (any failure exits non-zero):
      launches per update, checkpoint bytes and seconds, and the peak
      memory of (a), (c) and (d);
  13. multi-GPU (``phase_multi_gpu``): phase 12's configuration with the
-     train split cut to 24 users, ``mmrec.main`` in
+     train split cut to 24 users and 12 of its 24 LM layers, ``mmrec.main`` in
      ranks launched by ``python -m torch.distributed.run`` (this script's
      rank mode, the parent holding no model): (a) one rank over NCCL at
      micro-batch 6 x accum 2 (2 updates, the test pass and
@@ -178,8 +183,12 @@ Phases (any failure exits non-zero):
      after every update, (b)'s and fsdp 2's losses are within 1e-4 of
      (a)'s (tp 2's within 1e-3) and their grad norms within one bfloat16
      step, (b)'s test pass covers (a)'s 24 users, and (c)'s state equals
-     (b)'s saved one; prints update ms, losses, the logged and the float32
-     grad norms, peak memory a rank and the run walls.
+     (b)'s saved one, and each fsdp 2 rank's build peak (the model made
+     tensor by tensor into its chunks; reset before the build, read after
+     it) is at most its resident bytes plus its largest whole float32
+     tensor plus ``BUILD_SLACK_GIB``; prints update ms, losses, the logged
+     and the float32 grad norms, peak memory a rank, each rank's build
+     peak and the run walls.
  14. the tools (``phase_tools``, after phase 13, on phase 8's files):
      (b) seeded 3b-mpt exported by ``tools/export_torch.py`` (float32,
      "mpt" names), then ``mmrec.main --load_from_original_checkpoint``
@@ -232,12 +241,30 @@ Phases (any failure exits non-zero):
      where the averaged gradient exceeds 1e-5; 2.01 LR elsewhere) of the
      CPU's; prints the write and restore GiB/s, items/s, the decoder's
      MB/s and thread count and the phase's seconds.
-Phases 9 and 10 run 4b-instruct at 16 of its 32 LM layers (``lm_layers``).
+ 18. 9b (CLIP ViT-L/14 + MPT-7B, ``openflamingo/OpenFlamingo-9B-vitl-mpt7b``
+     through the CLIs) at full width and depth, seeded, vocab 8,576, on
+     phase 8's files (``phase_9b``, in a process of its own beside phases
+     5-8, 17 and 4): (d) its structure cut to 4 LM layers and 2 ViT
+     layers, float32, card (kernels) vs CPU (plain versions): the 10-beam
+     eval of 2 prompts of 64 (token agreement >= 0.9, prefill logits
+     within 2e-3) and one ``Trainer`` step (losses within 1e-5, gradients
+     and the norm within ``SMALL_GRAD_TOL``), and in bf16 the beam eval
+     through K4 / K5 against the plain decode attention; (a)
+     ``mmrec_eval.main`` bf16 and (b) int8 weights + int8 KV over 2 x 24
+     users, 10 beams / 10 returned / 50 new tokens, launches as
+     ``phase_cli`` and ``int8_launches`` count them; (c) ``mmrec.main``
+     with phase 12's levers and the vision cache, 2 updates and the
+     10-beam test pass over 12 users, no checkpoint (``phase_9b_train``),
+     once the main line is past phase 6. Prints items/s, the build's and
+     the eval's peaks, step ms, samples/s, MFU, losses, grad norms and
+     launches; its gates are raised after its readings.
+Phases 9 and 10 run 4b-instruct at 16 of its 32 LM layers, phase 13
+3b-mpt at 12 of its 24 (``lm_layers``).
 Every path is host-bound, so some phases run in spawned processes of their
 own (``PhaseProcess``) beside the main line, which waits for each before
 it needs the card's memory back: phase 4's CPU sides from the start of the
-run, phases 15-16 beside phases 9-10, phase 14 beside phase 11; each
-counts its own launches.
+run, phase 18 beside phases 5-8, 17 and 4, phases 15-16 beside phases
+9-10, phase 14 beside phase 11; each counts its own launches.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -259,6 +286,7 @@ import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -390,6 +418,13 @@ K6_SERVE_PREFILL = {"lm_qkvo_2560x2560": (2560, 2560), "up_2560x10240": (2560, 1
 K6_MPT_DECODE = {"qkv_2048x6144": (2048, 6144), "o_2048x2048": (2048, 2048),
                  "up_2048x8192": (2048, 8192), "down_8192x2048": (8192, 2048)}
 # QuantMatmulFn's backward at MPT-1B's q and MLP down projections, 256 rows
+# phase 18's 9b (MPT-7B backbone, width 4096, 32 layers, x-attn every 4):
+# the int8 matmuls of a decode step, (K, N): the LM blocks' fused QKV, o
+# (the x-attn blocks' q and o too), MLP up, down (the x-attn blocks' too);
+# the test pass of (c) runs the LM blocks' only. 9b's tied head is a
+# bfloat16 matmul: its 4096 x 8576 shape is checked, not timed
+K6_9B_DECODE = {"qkv_4096x12288": (4096, 12288), "o_4096x4096": (4096, 4096),
+                "up_4096x16384": (4096, 16384), "down_16384x4096": (16384, 4096)}
 QMM_GRAD_CASES = {"mpt_q_m256_2048x2048": (256, 2048, 2048),
                   "mpt_down_m256_8192x2048": (256, 8192, 2048)}
 
@@ -503,6 +538,24 @@ def flash_cases(dev):
                   dict(causal=True)))
     qm, km = media_index(dev, 1000, 8, 1, 64, 0, 8)
     cases.append(("cls_xattn_1000x8x64_d80_immediate", True, *qkv(1000, 8, 64, 32, 32, 80),
+                  dict(q_media=qm, kv_media=km, media_mode="immediate")))
+    # phase 18's 9b (MPT-7B: 32 heads, d128, ALiBi): the eval's LM prefill
+    # (causal, left-padding window) and x-attn prefill over 4 media, and
+    # (c)'s training forward (3 x 256, right padding; 6 images)
+    kv_start = torch.randint(0, 29, (24,), generator=g, device=dev)
+    cases.append(("9b_lm_prefill_128_d128_causal_window_alibi", True,
+                  *qkv(24, 128, 128, 32, 32, 128),
+                  dict(causal=True, kv_start=kv_start, alibi_slopes=alibi_slopes(32).to(dev))))
+    qm, km = media(24, 128, 4, 64, 10)
+    cases.append(("9b_xattn_128x256_d128_immediate", True, *qkv(24, 128, 256, 32, 32, 128),
+                  dict(q_media=qm, kv_media=km, media_mode="immediate")))
+    cases.append(("9b_train_3x256_d128_causal_alibi_kvlen", True,
+                  *qkv(3, 256, 256, 32, 32, 128),
+                  dict(causal=True, alibi_slopes=alibi_slopes(32).to(dev),
+                       kv_len=torch.tensor([256, 231, 204], device=dev))))
+    qm, km = media_index(dev, 3, 256, 6, 64, 4, 31)
+    cases.append(("9b_xattn_train_3x256x384_d128_immediate", True,
+                  *qkv(3, 256, 384, 32, 32, 128),
                   dict(q_media=qm, kv_media=km, media_mode="immediate")))
     # extras
     cases.append(("mpt_256_d128_alibi_causal", False, *qkv(2, 256, 256, 16, 16, 128),
@@ -620,6 +673,15 @@ def bwd_cases(dev):
                        kv_len=torch.tensor([256, 231, 204], device=dev))))
     cases.append(("mpt_xattn_train_3x256x384_d128_immediate", True,
                   *qkvo(3, 256, 384, 16, 16, 128),
+                  dict(q_media=qm, kv_media=km, media_mode="immediate")))
+    # phase 18 (c)'s 9b training (32 heads, d128): the LM's causal ALiBi
+    # self-attention and the x-attn over 6 x 64 latents
+    cases.append(("9b_train_3x256_d128_causal_alibi_kvlen", True,
+                  *qkvo(3, 256, 256, 32, 32, 128),
+                  dict(causal=True, alibi_slopes=alibi_slopes(32).to(dev),
+                       kv_len=torch.tensor([256, 231, 204], device=dev))))
+    cases.append(("9b_xattn_train_3x256x384_d128_immediate", True,
+                  *qkvo(3, 256, 384, 32, 32, 128),
                   dict(q_media=qm, kv_media=km, media_mode="immediate")))
     # the x-attn case with its latents interleaved (key j of image 1 + j %
     # 6): the same number of allowed pairs, but every 64-key tile holds
@@ -792,6 +854,9 @@ K4_SPECS = [
     # to 32
     ("harness_b1_k3_t64_g24_d80", True, (1, 3, 64, 24, 32, 32, 80), dict(share=4), False),
     ("lm_b24_k1_t128_g32_d80", True, (24, 1, 128, 32, 32, 32, 80), {}, True),
+    # phase 18's 9b rec eval: 24 prompts of 128, 10 beams, 32 heads of 128,
+    # ALiBi, step 50
+    ("9b_b24_k10_d128_alibi", True, (24, 10, 128, 50, 32, 32, 128), dict(alibi=True), True),
 ]
 # (name, main path, (b, kb, s, h, hkv, d), mask, int8 too): the 4b x-attn
 # decode read (4 media x 64 latents, "immediate": one 64-latent tile in four
@@ -814,6 +879,8 @@ K5_SPECS = [
      True),
     # phase 15's captioning read: 5 images (4 shots and the query), 3 beams
     ("harness_b1_k3_s320_d80", True, (1, 3, 320, 32, 32, 80), "immediate", False),
+    # phase 18's 9b x-attn read: 4 media x 64 latents, 32 heads of 128
+    ("9b_b24_k10_s256_d128", True, (24, 10, 256, 32, 32, 128), "immediate", True),
 ]
 
 
@@ -971,6 +1038,13 @@ def k6_cases():
               for name, (k, n) in K6_MPT_DECODE.items()]
     cases += [(f"lm_decode_m24_{name}", True, 24, k, n, None)
               for name, ((k, n), _) in K6_DECODE.items() if not name.startswith("head")]
+    # phase 18's 9b: every decode shape (M = 240 beam rows) and (c)'s test
+    # pass over 12 users (M = 120, the int8 backbone); checked, not timed,
+    # off its path: M = 24 (its prefill rows go above quant_dot's 512) and
+    # the 4096 x 8576 head at 240 and 24 rows (tied: bfloat16)
+    cases += [(f"9b_decode_m{m}_{name}", m != 24, m, k, n, None)
+              for m in (240, 120, 24) for name, (k, n) in K6_9B_DECODE.items()]
+    cases += [(f"9b_head_m{m}_4096x8576", False, m, 4096, 8576, None) for m in (240, 24)]
     cases += [("lm_head_m24_2560x50432", True, 24, 2560, 50432, None),
               ("4b_prefill_head_m24_2560x54656", True, 24, 2560, 54656, None),
               ("greedy_m1_2560x7680", False, 1, 2560, 7680, None),
@@ -1175,14 +1249,16 @@ def phase_small(dev, cpu_side, int8: bool = False):
         raise AssertionError(f"{tag} small-variant path on the card disagrees with the CPU path")
 
 
-def phase_small_bf16(dev):
+def phase_small_bf16(dev, cfg=None, media_id=SMALL_MEDIA_ID, tag="[small-bf16]"):
     """small variant, bf16 weights and compute, gates open, on the card: the
     beam eval through K4 / K5 and again with the model's decode attention
     pointed at their plain versions (on the card too): the first check of
-    the tensor-core decode kernels under a real beam_sel."""
+    the tensor-core decode kernels under a real beam_sel. ``cfg``: another
+    model (phase 18 (d)'s 9b structure), whose items follow ``media_id``.
+    Returns the token agreement and the launches."""
     from unimp_tpu_torch.models import layers
 
-    cfg = get_config("small")
+    cfg = cfg or get_config("small")
     model = build_model(cfg, device=dev, seed=1, eval_param_dtype="bf16")
     open_gates(model)
     rng = np.random.default_rng(1)
@@ -1191,10 +1267,9 @@ def phase_small_bf16(dev):
     cache = ItemLatentCache(model, lambda i: images[i], 16, chunk=8, device=dev)
     gen = Generator(model, GenerationConfig(max_new_tokens=20, eos_id=EOS_ID, pad_id=EOS_ID,
                                             num_beams=10, num_return_sequences=10),
-                    media_id=SMALL_MEDIA_ID)
+                    media_id=media_id)
     rng = np.random.default_rng(2)
-    batches = [prompts(rng, 2, 64, 4, 16, 48, SMALL_MEDIA_ID, SMALL_MEDIA_ID + 1)
-               for _ in range(2)]
+    batches = [prompts(rng, 2, 64, 4, 16, 48, media_id, media_id + 1) for _ in range(2)]
     lat = [cache.gather(image_ids) for _, _, image_ids, _ in batches]
 
     def run():
@@ -1213,11 +1288,12 @@ def phase_small_bf16(dev):
     finally:
         layers.decode_attention, layers.single_query_attention = saved
     agree = float((toks == plain).float().mean())
-    log(f"[small-bf16] card, kernels vs plain decode attention: token agreement={agree:.4f} "
+    log(f"{tag} card, kernels vs plain decode attention: token agreement={agree:.4f} "
         f"(limit >= 0.9); launches {json.dumps(launches)}")
     if not (agree >= 0.9 and min(launches.values()) > 0):
-        raise AssertionError("[small-bf16] beam search through K4 / K5 disagrees with the plain "
+        raise AssertionError(f"{tag} beam search through K4 / K5 disagrees with the plain "
                              "decode attention on the card")
+    return agree, launches
 
 
 # each task's decode (beams, new tokens) and media a prompt: exp 5 beams to 256,
@@ -1345,19 +1421,27 @@ def phase_4b(dev, gpu_line, int8: bool = False, timings=()):
     return launches
 
 
+def int8_launches(cfg, steps: int, n_batches: int) -> dict:
+    """The int8 eval path's launches over ``steps`` decode steps: K4 int8
+    once per LM layer a step, K5 int8 once per x-attn layer a step, K6 four
+    times an LM block and an x-attn block a step, and for an untied head
+    once more a step and once a batch at the prefill (193 a step at
+    4b-instruct's depth; 160 at 9b's, whose tied head is a bfloat16
+    matmul), and none of the float decode kernels."""
+    lm = cfg.lm
+    n_xattn = -(-lm.num_layers // cfg.cross_attn_every_n)
+    head = 0 if lm.tie_embeddings else 1
+    per_step = 4 * lm.num_layers + 4 * n_xattn + head
+    return {"decode_attn_int8": steps * lm.num_layers, "single_query_attn_int8": steps * n_xattn,
+            "quant_matmul": steps * per_step + head * n_batches,
+            "decode_attn": 0, "single_query_attn": 0}
+
+
 def check_int8_launches(cfg, launches, n_batches, tag="[4b-int8]") -> None:
     """On the int8 path: the decode steps that ran, read from K4's int8
-    launches (one per LM layer a step); then K5 int8 once per x-attn layer
-    a step, K6 four times an LM block and an x-attn block a step and once
-    for the head (193 at 4b-instruct's depth), plus the prefill head once a
-    batch, and none of the float decode kernels."""
-    lm = cfg.lm
-    steps, rest = divmod(launches["decode_attn_int8"], lm.num_layers)
-    n_xattn = -(-lm.num_layers // cfg.cross_attn_every_n)
-    per_step = 4 * lm.num_layers + 4 * n_xattn + 1
-    want = {"decode_attn_int8": steps * lm.num_layers, "single_query_attn_int8": steps * n_xattn,
-            "quant_matmul": steps * per_step + n_batches,
-            "decode_attn": 0, "single_query_attn": 0}
+    launches (one per LM layer a step), and ``int8_launches`` of them."""
+    steps, rest = divmod(launches["decode_attn_int8"], cfg.lm.num_layers)
+    want = int8_launches(cfg, steps, n_batches)
     log(f"{tag} {steps} decode steps over {n_batches} batches; expected launches "
         f"{json.dumps(want)}")
     bad = {k: (launches[k], n) for k, n in want.items() if launches[k] != n}
@@ -1483,14 +1567,17 @@ def phase_small_train_flags(dev, cpu_sides):
                                  "with the CPU")
 
 
-def small_cpu_sides() -> dict:
-    """The CPU side of every card-vs-CPU check of phase 4 (run apart, in a
-    ``PhaseProcess``), tensors as numpy arrays."""
+def small_cpu_sides(out_dir) -> dict:
+    """The CPU side of every card-vs-CPU check of phase 4 and of phase 18
+    (d) (run apart, in a ``PhaseProcess``; (d)'s gradients saved under
+    ``out_dir``), tensors as numpy arrays."""
     cpu = torch.device("cpu")
     sides = {"eval": small_eval_side(cpu), "eval_int8": small_eval_side(cpu, int8=True),
              "train": small_train_side(cpu),
              "flags": {label: small_flag_side(label, cpu) for label in SMALL_FLAGS},
-             "tasks": small_tasks_side(cpu)}
+             "tasks": small_tasks_side(cpu),
+             "9b": nine_b_side(cpu, Path(out_dir) / "9b_weights.pt",
+                               Path(out_dir) / "9b_cpu_grads.pt", draw=False)}
     return _tree_map(lambda t: t.numpy() if isinstance(t, torch.Tensor) else t, sides)
 
 
@@ -1670,14 +1757,18 @@ def write_cli_data(data) -> float:
     return time.perf_counter() - t0
 
 
-def phase_cli(dev, gpu_line, data, run_dir, write_s):
+def phase_cli(dev, gpu_line, data, run_dir, write_s, variant="4b-instruct", extra=(),
+              tag="[cli]", profile=True):
     """The 4b-instruct rec eval from files through the port's own CLI:
     ``unimp_tpu_torch.cli.mmrec_eval.main`` on ``write_cli_data``'s files
     tokenizes, builds prompts, batches, encodes the referenced catalogue
     once and runs the 10-beam search over 2 x 24 test users, bf16, seeded
     weights (gates closed, as an init leaves them). Spies around the
     evaluator's batches, the latent cache and the generator read the
-    timings and the decode steps; the launch counts are the kernels'."""
+    timings and the decode steps; the launch counts are the kernels'.
+    ``variant`` and ``extra`` (more CLI flags; ``--eval_param_dtype int8
+    --kv_int8`` checks the int8 path's launches) serve phase 18's 9b, which
+    profiles no batch (``profile``)."""
     from unimp_tpu_torch.cli import common, mmrec_eval
     from unimp_tpu_torch.data.tokenizer import UniMPTokenizer
     from unimp_tpu_torch.evals import evaluators
@@ -1717,16 +1808,18 @@ def phase_cli(dev, gpu_line, data, run_dir, write_s):
         seen["model"], seen["tokenizer"] = orig_build_model(args, tokenizer, **kw), tokenizer
         torch.cuda.synchronize()  # the eval's peak memory starts after the build's
         seen["build_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        seen["build_alloc_gib"] = torch.cuda.memory_allocated() / 2**30
         torch.cuda.reset_peak_memory_stats()
         return seen["model"]
 
     argv = ["--mmrec_path", str(data), "--external_save_dir", str(run_dir),
-            "--run_name", "cli", "--pretrained_model_name_or_path", "4b-instruct",
+            "--run_name", "cli", "--pretrained_model_name_or_path", variant,
             "--subset", "beauty", "--task", "rec", "--single_task",
             "--n_items", str(N_ITEM_TOKENS), "--history_len", "5",
             "--patch-image-size", "224", "--eval_batch_size", str(CLI_BATCH),
             "--num_beams", "10", "--max_records", str(CLI_USERS), "--workers", "2",
-            "--do_test", "--device", "cuda"]
+            "--do_test", "--device", "cuda", *extra]
+    int8 = "--kv_int8" in extra
     evaluators._generate_batches, ItemLatentCache._ensure = batches, ensure
     Generator.generate, Generator._decode_step = generate, decode_step
     common.build_model = build_model_spy
@@ -1751,44 +1844,52 @@ def phase_cli(dev, gpu_line, data, run_dir, write_s):
 
     metrics = results["rec"]
     rank = {k: v for k, v in metrics.items() if k.split("@")[0] in ("hr", "ndcg", "mrr")}
-    if len(rank) != 9 or not all(0.0 <= v <= 1.0 for v in rank.values()):
-        raise AssertionError(f"[cli] rec metrics missing or out of range: {metrics}")
-    if metrics["n_users"] != CLI_USERS or not metrics["items_per_sec"] > 0 \
-            or len(dump) != CLI_USERS:
-        raise AssertionError(f"[cli] want {CLI_USERS} users scored and items/s > 0: "
-                             f"{metrics}, {len(dump)} dump entries")
     cfg = seen["model"].cfg
     lm = cfg.lm
     n_xattn = -(-lm.num_layers // cfg.cross_attn_every_n)
     steps = seen["steps"]
     want = {"decode_attn": lm.num_layers * steps, "single_query_attn": n_xattn * steps}
+    if int8:
+        want = int8_launches(cfg, steps, len(seen["batches"]))
+    shapes = [shape for shape, _ in seen["batches"]]
+    batch_s = [shape[0] / ips for shape, ips in seen["batches"]]
+    n_params = sum(t.numel() for t in seen["model"].state_dict().values())
+    log(f"{tag} {variant}: {n_params / 1e9:.3f} B weights ({'int8 + int8 KV' if int8 else 'bf16'})"
+        f"; vocab: base {base_vocab} (corpus), extended {len(seen['tokenizer'])}, "
+        f"LM {lm.vocab_size} (padded to 128); prompt T {[s[1] for s in shapes]} (collate), "
+        f"batches {[s[0] for s in shapes]}")
+    log(f"{tag} data write {write_s:.2f} s (synth_data, {N_ITEM_TOKENS} JPEGs of 64 px); "
+        f"main {main_s:.2f} s; catalogue encode {seen['encode_s']:.2f} s "
+        f"(latent cache misses, decode + resize + ViT + perceiver)")
+    log(f"{tag} batch seconds {batch_s} (fetch + encode misses + generate); generate seconds "
+        f"{seen['generate_s']}; {steps} decode steps")
+    log(f"{tag} items/s: evaluator {metrics['items_per_sec']:.3f} (mean over batches, the first "
+        f"with its misses), second batch {CLI_BATCH / batch_s[1]:.3f}; peak_mem={peak_gib:.2f} "
+        f"GiB (the eval, after the build; the build, made tensor by tensor, "
+        f"{seen['build_peak_gib']:.2f} GiB for {seen['build_alloc_gib']:.2f} GiB allocated after "
+        f"it: {quantized_bytes(seen['model']) / 2**30:.2f} GiB of weights, the rest the fused "
+        f"int8 decode QKV) on {gpu_line}")
+    log(f"{tag} metrics {json.dumps(rank)}")
+    log(f"{tag} launches {json.dumps(launches)}; expected {json.dumps(want)}")
+    # the gates, after the readings
+    if len(rank) != 9 or not all(0.0 <= v <= 1.0 for v in rank.values()):
+        raise AssertionError(f"{tag} rec metrics missing or out of range: {metrics}")
+    if metrics["n_users"] != CLI_USERS or not metrics["items_per_sec"] > 0 \
+            or len(dump) != CLI_USERS:
+        raise AssertionError(f"{tag} want {CLI_USERS} users scored and items/s > 0: "
+                             f"{metrics}, {len(dump)} dump entries")
     bad = {k: (launches[k], n) for k, n in want.items() if launches[k] != n}
     if launches["flash_fwd"] <= 0 or bad or not 0 < steps <= 50 * len(seen["batches"]):
-        raise AssertionError(f"[cli] launches differ (got, expected): {bad}; K1 "
+        raise AssertionError(f"{tag} launches differ (got, expected): {bad}; K1 "
                              f"{launches['flash_fwd']}; {steps} decode steps")
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("PIL", "tokenizers"))
     if loaded:
-        raise AssertionError(f"[cli] modules the card's machine lacks were imported: {loaded}")
-    shapes = [shape for shape, _ in seen["batches"]]
-    batch_s = [shape[0] / ips for shape, ips in seen["batches"]]
-    log(f"[cli] vocab: base {base_vocab} (corpus), extended {len(seen['tokenizer'])}, "
-        f"LM {lm.vocab_size} (padded to 128); prompt T {[s[1] for s in shapes]} (collate), "
-        f"batches {[s[0] for s in shapes]}")
-    log(f"[cli] data write {write_s:.2f} s (synth_data, {N_ITEM_TOKENS} JPEGs of 64 px); "
-        f"main {main_s:.2f} s; catalogue encode {seen['encode_s']:.2f} s "
-        f"(latent cache misses, decode + resize + ViT + perceiver)")
-    log(f"[cli] batch seconds {batch_s} (fetch + encode misses + generate); generate seconds "
-        f"{seen['generate_s']}; {steps} decode steps")
-    log(f"[cli] items/s: evaluator {metrics['items_per_sec']:.3f} (mean over batches, the first "
-        f"with its misses), second batch {CLI_BATCH / batch_s[1]:.3f}; peak_mem={peak_gib:.2f} "
-        f"GiB (the eval, after the build; the build, a float32 init then the bf16 cast, "
-        f"{seen['build_peak_gib']:.2f} GiB) on {gpu_line}; not comparable to phase 5 (vocab "
-        f"{lm.vocab_size} not 54,656, real prompts)")
-    log(f"[cli] metrics {json.dumps(rank)}")
-    log(f"[cli] launches {json.dumps(launches)}; expected {json.dumps(want)}; "
-        f"PIL / tokenizers not imported")
-    gen, args = seen["last"]
-    profile_run("[cli] batch 2 generate", lambda: gen.generate(*args), seen["generate_s"][-1])
+        raise AssertionError(f"{tag} modules the card's machine lacks were imported: {loaded}")
+    log(f"{tag} launches as expected; PIL / tokenizers not imported")
+    if profile:
+        gen, args = seen["last"]
+        profile_run(f"{tag} batch 2 generate", lambda: gen.generate(*args),
+                    seen["generate_s"][-1])
     return launches
 
 
@@ -1801,8 +1902,8 @@ LM_LAYERS_9_10 = 16
 
 
 @contextlib.contextmanager
-def lm_layers(n: int):
-    """The CLIs' variant lookup (``cli/common.py``) gives 4b-instruct with
+def lm_layers(n: int, variant: str = "4b-instruct"):
+    """The CLIs' variant lookup (``cli/common.py``) gives ``variant`` with
     its first ``n`` LM layers: depth cut, width kept."""
     from unimp_tpu_torch.cli import common
 
@@ -1810,7 +1911,7 @@ def lm_layers(n: int):
 
     def cut(name, **kw):
         cfg = orig(name, **kw)
-        if name == "4b-instruct":
+        if name == variant:
             cfg = cfg.replace(lm=dataclasses.replace(cfg.lm, num_layers=n))
         return cfg
 
@@ -1858,28 +1959,51 @@ def unread_checkpoints(names):
         ckpt.save_params, ckpt.save_train_state = orig["params"], orig["state"]
 
 
+def start_item_memo(data, size: int = 224):
+    """Starts decoding and resizing to ``size`` every item of phase 8's
+    files that ``ITEM_IMAGES`` lacks, by one process a host core; returns
+    the function that waits for them and fills the memo."""
+    import multiprocessing
+
+    from unimp_tpu_torch.data.transforms import load_resized_uint8
+
+    keys = [(os.path.join(str(data), "beauty", f"{i}.jpg"), size)
+            for i in range(N_ITEM_TOKENS)]
+    todo = [k for k in keys if k not in ITEM_IMAGES]
+    if not todo:
+        return lambda: None
+    t0 = time.perf_counter()
+    workers = min(8, os.cpu_count() or 1)
+    pool = multiprocessing.get_context("spawn").Pool(workers)
+    pending = pool.starmap_async(load_resized_uint8, todo, chunksize=32)
+
+    def finish():
+        try:
+            for key, img in zip(todo, pending.get()):
+                ITEM_IMAGES[key] = img
+        finally:
+            pool.terminate()
+            pool.join()
+        log(f"[memo] {len(todo)} item images decoded and resized to {size} px in "
+            f"{time.perf_counter() - t0:.2f} s on {workers} host processes")
+    return finish
+
+
+def fill_item_memo(data, size: int = 224) -> None:
+    """``ITEM_IMAGES`` filled with every item of phase 8's files (as
+    ``start_item_memo``), waiting for them."""
+    start_item_memo(data, size)()
+
+
 @contextlib.contextmanager
 def item_decode_memo(data, size: int = 224):
     """The datasets' item decode memoized in ``ITEM_IMAGES`` (the same file
     and size give the same image), so phases 9-14 decode the catalogue of
     phase 8's files once; the memo is filled first, by one process a host
     core (phase 9's vision cache then reads decoded items)."""
-    import multiprocessing
-
     from unimp_tpu_torch.data import dataset as dataset_mod
-    from unimp_tpu_torch.data.transforms import load_resized_uint8
 
-    keys = [(os.path.join(str(data), "beauty", f"{i}.jpg"), size)
-            for i in range(N_ITEM_TOKENS)]
-    todo = [k for k in keys if k not in ITEM_IMAGES]
-    if todo:
-        t0 = time.perf_counter()
-        workers = min(8, os.cpu_count() or 1)
-        with multiprocessing.get_context("spawn").Pool(workers) as pool:
-            for key, img in zip(todo, pool.starmap(load_resized_uint8, todo, chunksize=32)):
-                ITEM_IMAGES[key] = img
-        log(f"[memo] {len(todo)} item images decoded and resized to {size} px in "
-            f"{time.perf_counter() - t0:.2f} s on {workers} host processes")
+    fill_item_memo(data, size)
     orig = dataset_mod.load_resized_uint8
 
     def image(path, size):
@@ -3294,6 +3418,9 @@ def phase_headline_train(gpu_line, data, run_dir):
 
 
 MULTI_RECORDS = 24     # train users: 2 updates of global batch 12; test users: 2 x 12
+# phase 13 runs 3b-mpt at full width and 12 of its 24 LM layers (all 24
+# until phase 18 took its time; 198-270 s a call at 24)
+LM_LAYERS_13 = 12
 MULTI_UPDATES = MULTI_RECORDS // 12
 SHARDED_UPDATES = 1    # fsdp 2 / tp 2 runs (depth: one update each)
 # (b)'s and fsdp 2's losses vs (a)'s: each micro-batch's float32 gradient is
@@ -3400,6 +3527,8 @@ def rank_main(spec_path: str) -> int:
     # spies below wrap the skipping versions)
     stack = contextlib.ExitStack()
     stack.enter_context(unread_checkpoints(spec.get("unread", ())))
+    if spec.get("lm_layers"):
+        stack.enter_context(lm_layers(spec["lm_layers"], "3b-mpt"))
     orig = {"step": Trainer.train_step, "state": ckpt.save_train_state,
             "params": ckpt.save_params, "evals": mmrec.run_evals,
             "epoch": mmrec.train_one_epoch, "norm": ClippedAdamWCast.grad_norm}
@@ -3531,6 +3660,29 @@ def rank_main(spec_path: str) -> int:
             out["failures"].append(f"resumed state differs: {differ[:8]}")
         raise StopRun("resumed")
 
+    from unimp_tpu_torch.cli import common
+    from unimp_tpu_torch.models import UniMPModel
+
+    orig_build = common.build_model
+
+    def build(args, tokenizer, **kw):
+        # the build's own peak: the model made tensor by tensor, each rank's
+        # straight into its chunks; beside it what the rank keeps and the
+        # largest whole float32 tensor of the model
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        model = orig_build(args, tokenizer, **kw)
+        torch.cuda.synchronize()
+        with torch.device("meta"):
+            whole = UniMPModel(model.cfg)
+        out["build"] = {
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "resident_gib": sum(t.numel() * t.element_size()
+                                for t in model.state_dict().values()) / 2**30,
+            "largest_f32_gib": max(p.numel() for p in whole.parameters()) * 4 / 2**30}
+        return model
+
+    common.build_model = build
     orig_trainer_init = Trainer.__init__
 
     def trainer_init(self, *args, **kw):
@@ -3728,13 +3880,21 @@ def check_test_pass(tag, rep, n_users) -> dict:
     return rec
 
 
+# a rank's build peak may pass its resident bytes and the largest whole
+# float32 tensor by this much: the tensor's tp block and fsdp chunk copies,
+# a cast chunk, the quantizer's column blocks and the allocator's rounding
+BUILD_SLACK_GIB = 0.25
+
+
 def check_zero(reps, b_reps, gpu_line) -> None:
     """fsdp 2's ZeRO-3 gates, each rank: resident parameter bytes equal to
     what the table predicts from the shapes (the sharded ones within the
     padding, at most fsdp - 1 elements a tensor), the gathered whole
     tensors alive at once at or under the two largest units' bytes in every
-    update, and a peak below every rank of (b) (dp 2, the same rows a
-    rank) in the same call. Prints the readings first."""
+    update, a peak below every rank of (b) (dp 2, the same rows a rank) in
+    the same call, and a build peak at most the rank's resident bytes plus
+    its largest whole float32 tensor plus ``BUILD_SLACK_GIB``. Prints the
+    readings first."""
     b_peak = min(rep["peak_gib"] for rep in b_reps)
     failed = []
     for rep in reps:
@@ -3763,6 +3923,11 @@ def check_zero(reps, b_reps, gpu_line) -> None:
         if not rep["peak_gib"] < b_peak:
             failed.append(f"rank {rep['rank']} peak {rep['peak_gib']:.2f} GiB not below (b)'s "
                           f"{b_peak:.2f} GiB")
+        bld = rep["build"]
+        if bld["peak_gib"] > bld["resident_gib"] + bld["largest_f32_gib"] + BUILD_SLACK_GIB:
+            failed.append(f"rank {rep['rank']} build peak {bld['peak_gib']:.3f} GiB above "
+                          f"{bld['resident_gib']:.3f} resident + {bld['largest_f32_gib']:.3f} "
+                          f"(the largest whole float32 tensor) + {BUILD_SLACK_GIB} GiB")
     if failed:
         raise AssertionError(f"[multi-gpu] (fsdp2) ZeRO-3: {failed}")
 
@@ -3821,7 +3986,7 @@ def phase_multi_gpu(gpu_line, data, run_dir) -> dict:
             "--gradient_accumulation_steps", "2", "--fused_accumulation", "--use_reweight",
             "--gamma", "2", "--cache_vision_latents", "--logging_steps", "1",
             "--num_epochs", "1", *HEADLINE_LEVERS]
-    common = {"image_memo": str(memo_path)}
+    common = {"image_memo": str(memo_path), "lm_layers": LM_LAYERS_13}
     walls, reports = {}, {}
 
     def start(tag, nproc, argv, **spec):
@@ -3937,6 +4102,12 @@ def phase_multi_gpu(gpu_line, data, run_dir) -> dict:
                 f"{[u.get('replicas_equal') for u in ups]} ({ups[0].get('compared') if ups else 0}"
                 f" tensors), peak {rep.get('peak_gib', 0):.2f} GiB, wall {rep['wall_s']:.1f} s"
                 f", checkpoint {rep.get('checkpoint', {}).get('s', 0):.2f} s on {gpu_line}")
+            bld = rep.get("build")
+            if bld:
+                log(f"[multi-gpu] ({tag}) rank {rep['rank']} build: peak {bld['peak_gib']:.3f} "
+                    f"GiB (reset before the build, read after it) for {bld['resident_gib']:.3f} "
+                    f"GiB resident, largest whole float32 tensor {bld['largest_f32_gib']:.3f} GiB"
+                    f"; the update's peak {rep.get('peak_gib', 0):.2f} GiB on {gpu_line}")
     rel = [abs(x - y) / abs(y) for x, y in zip(losses_b[0], losses_a)]
     norms_b = [u["grad_norm"] for u in b[0]["updates"]]
     log(f"[multi-gpu] losses (a) {losses_a} vs (b) {losses_b[0]}: rel {rel} (limit "
@@ -5167,6 +5338,308 @@ def phase_orbax(dev, gpu_line, data, run_dir) -> dict:
     return {"eval": eval_launches, "resume": resume_launches}
 
 
+# ------------------------------------------------------------ phase 18
+
+NINE_B = "openflamingo/OpenFlamingo-9B-vitl-mpt7b"  # the CLI name of 9b
+NINE_B_RECORDS = 12  # (c): train users, 2 updates of 3 x 2; test users, one batch
+# (d): 9b's structure at full width, vocab 8,576; items follow <image>
+NINE_B_MEDIA_ID, NINE_B_ANSWER_ID, NINE_B_EOC_ID = 8000, 7999, 7998
+
+
+def nine_b_structure():
+    """9b at full width (CLIP ViT-L/14, the perceiver, MPT-7B: 4096 wide, 32
+    heads of 128, ALiBi, x-attn every 4 layers) with its LM cut to 4 layers
+    (one x-attn block), its ViT to 2, its vocabulary to 8,576; float32."""
+    cfg = get_config("9b", dtype="float32")
+    return cfg.replace(vision=dataclasses.replace(cfg.vision, num_layers=2),
+                       lm=dataclasses.replace(cfg.lm, num_layers=4, vocab_size=8576))
+
+
+def nine_b_side(device, weights_path, grads_path, draw: bool) -> dict:
+    """One side of phase 18 (d) (card: kernels; CPU: plain versions; the
+    CPU side in ``small_cpu_sides``' process): ``nine_b_structure`` built
+    for training, gates open, on ``device``: with ``draw`` (the card side)
+    drawn there from seed 1 and its tree written to ``weights_path``,
+    else built from that file once it is there, so both sides hold the
+    same weights and neither draws 1.1 B numbers on the host. Then the 10-beam eval of
+    2 prompts of 64 tokens (2 images, 8 new tokens) and its prefill
+    logits; one ``Trainer`` gradient (accum 1, the same 2 rows as a rec
+    batch): its loss, the optimizer's gradient norm and every trainable
+    gradient, saved to ``grads_path`` (a file is read in a moment where a
+    pipe takes tens of seconds for 287 M entries)."""
+    cfg = nine_b_structure()
+    img = cfg.vision.image_size
+    rng = np.random.default_rng(18)
+    images = rng.integers(0, 256, size=(8, img, img, 3), dtype=np.uint8)
+    ids, seq_len, image_ids, _ = prompts(rng, 2, 64, 2, 8, 48, NINE_B_MEDIA_ID,
+                                         NINE_B_MEDIA_ID + 1)
+    weights_path = Path(weights_path)
+    if draw:
+        model = build_model(cfg, device=device, seed=1, train=True)
+        open_gates(model)
+        tmp = weights_path.with_suffix(".tmp")
+        torch.save({n.replace(".", "/"): t.detach().cpu() for n, t in model.state_dict().items()},
+                   tmp)
+        tmp.rename(weights_path)
+    else:
+        t0 = time.perf_counter()
+        while not weights_path.exists():
+            if time.perf_counter() - t0 > RANK_WAIT_S:
+                raise TimeoutError(f"[9b-parity] no {weights_path} after {RANK_WAIT_S} s")
+            time.sleep(0.5)
+        model = build_model(cfg, device=device, train=True,
+                            weights=torch.load(weights_path, mmap=True))
+        weights_path.unlink()
+    model.eval()
+    cache = ItemLatentCache(model, lambda i: images[i], 8, chunk=8, device=device)
+    gen = Generator(model, GenerationConfig(max_new_tokens=8, eos_id=EOS_ID, pad_id=EOS_ID,
+                                            num_beams=10, num_return_sequences=10),
+                    media_id=NINE_B_MEDIA_ID)
+    t_ids = torch.from_numpy(ids).to(device)
+    lat = cache.gather(image_ids)
+    tok, _ = gen.generate(t_ids, torch.from_numpy(seq_len).to(device), lat)
+    with torch.no_grad():
+        logits, _ = model(t_ids, latents=lat, q_media=compute_q_media(t_ids, NINE_B_MEDIA_ID))
+    out = {"tokens": tok.cpu(), "prefill": logits.float().cpu()}
+    del cache, gen, lat, logits
+    model.train()
+    params = trainable_params(model)
+    trainer = Trainer(model, make_optimizer(params), media_id=NINE_B_MEDIA_ID,
+                      answer_id=NINE_B_ANSWER_ID, endofchunk_id=NINE_B_EOC_ID, pad_id=EOS_ID,
+                      gamma=2.0, use_reweight=True, accum_steps=1, device=device)
+    batch = train_batch(np.random.default_rng(19), 2, 64, 2, 8, img, 48, NINE_B_MEDIA_ID,
+                        NINE_B_MEDIA_ID + 1, NINE_B_ANSWER_ID, NINE_B_EOC_ID)
+    loss, _ = trainer.compute_grads(batch)
+    norm = trainer.optimizer.grad_norm()
+    torch.save({n: p.grad.detach().cpu() for n, p in params.items()}, grads_path)
+    out["train"] = (float(loss), str(grads_path), float(norm),
+                    int(not (torch.isfinite(loss) and torch.isfinite(norm))))
+    return out
+
+
+def phase_9b_parity(card: dict, cpu: dict) -> None:
+    """Phase 18 (d), card against CPU at 9b's structure: phase 4's bars
+    (token agreement >= 0.9, prefill logits within 2e-3; the loss within
+    1e-5 relative and each trainable gradient within ``SMALL_GRAD_TOL`` of
+    its largest entry, the gradient norm within the same)."""
+    agree = float((card["tokens"] == cpu["tokens"]).float().mean())
+    diff = float((card["prefill"] - cpu["prefill"]).abs().max())
+    (l_card, g_card, n_card, k_card), (l_cpu, g_cpu, n_cpu, k_cpu) = card["train"], cpu["train"]
+    g_card, g_cpu = (torch.load(p, mmap=True) for p in (g_card, g_cpu))
+    loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
+    norm_rel = abs(n_card - n_cpu) / max(abs(n_cpu), 1e-30)
+    worst, worst_name = 0.0, None
+    for name, g in g_cpu.items():
+        rel = float((g_card[name] - g).abs().max()) / max(float(g.abs().max()), 1e-30)
+        if rel > worst:
+            worst, worst_name = rel, name
+    n_grad = sum(g.numel() for g in g_cpu.values())
+    log(f"[9b-parity] card vs cpu, 9b structure (width 4096, 32 heads of 128, ALiBi, 4 LM "
+        f"layers, one x-attn block, 2 ViT layers), float32: token agreement={agree:.4f} over "
+        f"{tuple(card['tokens'].shape)}, prefill max_abs_logit_diff={diff:.3e} (limits >= 0.9, "
+        f"<= 2e-3)")
+    log(f"[9b-parity] gradient: loss {l_card:.6f} vs {l_cpu:.6f} (rel {loss_rel:.2e}, limit "
+        f"1e-5); grad norm {n_card:.6f} vs {n_cpu:.6f} (rel {norm_rel:.2e}); worst gradient "
+        f"{worst_name} max|d|/max|g|={worst:.2e} over {len(g_cpu)} tensors, {n_grad / 1e6:.1f} M "
+        f"entries (limit {SMALL_GRAD_TOL:g}); not finite {k_card} vs {k_cpu}")
+    for path in (card["train"][1], cpu["train"][1]):
+        Path(path).unlink()
+    if not (agree >= 0.9 and diff <= 2e-3):
+        raise AssertionError("[9b-parity] the 9b structure's eval on the card disagrees with the "
+                             "CPU's")
+    if not (loss_rel <= 1e-5 and worst <= SMALL_GRAD_TOL and norm_rel <= SMALL_GRAD_TOL
+            and k_card == k_cpu == 0):
+        raise AssertionError("[9b-parity] the 9b structure's gradient on the card "
+                             "disagrees with the CPU's")
+
+
+def phase_9b_train(gpu_line, data, run_dir) -> dict:
+    """Phase 18 (c): ``mmrec.main`` on 9b at full width and depth (8.27 B
+    parameters at vocab 8,576), seeded, on phase 8's files, with README's
+    headline levers as phase 12 passes them (``--frozen_int8
+    --bf16_opt_state --remat --remat_policy dots --cache_vision_latents``)
+    at phase 12's shape (micro-batch 3 x accum 2 fused, 256 tokens and 6
+    images a sample; no warm-up, so that the first update moves the
+    weights): 2 updates and the 10-beam test pass over 12 users; no
+    checkpoint is written (``unread_checkpoints``). Fails unless each
+    update's loss and gradient norm are finite, the norm above zero, no
+    update skipped, the gates and the embedding changed by each update,
+    K1 / K2 / K3 launched what the code counts, and K4 / K5 / K6 what the
+    test pass' decode steps give. Returns the launches."""
+    from unimp_tpu_torch.cli import common, mmrec
+    from unimp_tpu_torch.utils.flops import vision_forward_flops
+
+    seen = {"steps": [], "decode_steps": 0}
+    orig = {"build": common.build_model, "epoch": mmrec.train_one_epoch,
+            "evals": mmrec.run_evals, "step": Trainer.train_step,
+            "decode_step": Generator._decode_step}
+
+    def build(args, tokenizer, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = orig["build"](args, tokenizer, **kw)
+        torch.cuda.synchronize()
+        seen["build"] = (time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**30,
+                         torch.cuda.memory_allocated() / 2**30, quantized_bytes(model) / 2**30)
+        return model
+
+    def epoch(*args, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            orig["epoch"](*args, **kw)
+        finally:
+            seen["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+
+    def step(self, batch):
+        digests = {n: replica_digest(p) for n, p in self.params.items()}
+        before, t0 = counts(), time.perf_counter()
+        metrics = orig["step"](self, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        changed = {n for n, p in self.params.items() if not torch.equal(replica_digest(p),
+                                                                         digests[n])}
+        seen["cfg"] = self.model.cfg
+        seen["trainable"] = (len(self.params), sum(p.numel() for p in self.params.values()))
+        seen["steps"].append(dict(
+            ms=ms, loss=float(metrics["loss"]), grad_norm=float(metrics["grad_norm"]),
+            skipped=int(metrics["skipped_nonfinite"]), launches=between(before),
+            changed=len(changed), rows=tuple(np.shape(batch["input_ids"])),
+            images=tuple(np.shape(batch["image_ids"])),
+            unchanged_must=sorted(n for n in self.params if (n.endswith("_gate") or n ==
+                                  "embed.embedding") and n not in changed)))
+        return metrics
+
+    def evals(args_, model, *args, **kw):
+        seen["k6_per_step"] = k6_per_decode_step(model)
+        before, steps, t0 = counts(), seen["decode_steps"], time.perf_counter()
+        out = orig["evals"](args_, model, *args, **kw)
+        seen["eval"] = (time.perf_counter() - t0, between(before),
+                        seen["decode_steps"] - steps, out)
+        return out
+
+    def decode_step(self, *args, **kw):
+        seen["decode_steps"] += 1
+        return orig["decode_step"](self, *args, **kw)
+
+    argv = ["--mmrec_path", str(data), "--external_save_dir", str(run_dir),
+            "--pretrained_model_name_or_path", NINE_B, "--run_name", "9b_train", "--subset",
+            "beauty", "--task", "rec", "--single_task", "--n_items", str(N_ITEM_TOKENS),
+            "--history_len", "6", "--use_semantic", "--patch-image-size", "224",
+            "--max_records", str(NINE_B_RECORDS), "--eval_batch_size", str(NINE_B_RECORDS),
+            "--num_beams", "10", "--workers", "2", "--device", "cuda", "--batch_size", "3",
+            "--gradient_accumulation_steps", "2", "--fused_accumulation", "--use_reweight",
+            "--gamma", "2", "--cache_vision_latents", "--logging_steps", "1", "--num_epochs",
+            "1", "--warmup_steps", "0", "--do_test", *HEADLINE_LEVERS]
+    (common.build_model, mmrec.train_one_epoch, mmrec.run_evals, Trainer.train_step,
+     Generator._decode_step) = (build, epoch, evals, step, decode_step)
+    try:
+        t0 = time.perf_counter()
+        kernel_lib.reset_launches()          # the main path starts here
+        with unread_checkpoints(("weights_epoch_0", "checkpoint_0", "final_weights")) as unread:
+            mmrec.main(argv)
+        launches = counts()                  # the main path ends here
+        wall = time.perf_counter() - t0
+    finally:
+        (common.build_model, mmrec.train_one_epoch, mmrec.run_evals, Trainer.train_step,
+         Generator._decode_step) = (orig["build"], orig["epoch"], orig["evals"], orig["step"],
+                                    orig["decode_step"])
+    shutil.rmtree(run_dir, ignore_errors=True)
+
+    cfg, steps = seen["cfg"], seen["steps"]
+    lm = cfg.lm
+    n_xattn = -(-lm.num_layers // cfg.cross_attn_every_n)
+    fwd = cfg.resampler.depth + n_xattn + lm.num_layers      # K1 / K2 / K3 a micro-batch
+    want = {"flash_fwd": 2 * (fwd + n_xattn + lm.num_layers),  # with the blocks' recompute
+            "flash_bwd_dkv": 2 * fwd, "flash_bwd_dq": 2 * fwd, "quant_matmul": 0}
+    t = steps[0]["rows"][1]
+    flops = train_step_flops(cfg, 6, t, 6, frozen_backbone=True) - vision_forward_flops(cfg, 36)
+    step_s = steps[-1]["ms"] / 1e3
+    build_s, build_peak, build_alloc, weights_gib = seen["build"]
+    eval_s, eval_launches, eval_steps, eval_out = seen["eval"]
+    k6_step = seen["k6_per_step"]
+    n_tensors, n_trainable = seen["trainable"]
+    log(f"[9b-train] 9b ({NINE_B}), vocab {lm.vocab_size}, T {t}, 6 images a sample, "
+        f"micro-batch 3 x accum 2 fused, {' '.join(HEADLINE_LEVERS)} --cache_vision_latents: "
+        f"build {build_s:.1f} s, peak {build_peak:.2f} GiB for {build_alloc:.2f} GiB allocated "
+        f"after it ({weights_gib:.2f} GiB of weights, the rest the fused int8 decode QKV; "
+        f"{n_trainable / 1e9:.3f} B trainable in {n_tensors} tensors); wall {wall:.1f} s "
+        f"({unread['unwritten']} checkpoints not written) on {gpu_line}")
+    log(f"[9b-train] step ms {[round(x['ms'], 1) for x in steps]}; the second: "
+        f"{6 / step_s:.3f} samples/s, MFU {100 * flops / step_s / PEAK_FLOPS[torch.bfloat16]:.2f}% "
+        f"({flops / 1e12:.3f} TFLOP a step from utils/flops.py without the cached tower's "
+        f"forward, against 989 TFLOP/s); peak device memory over the updates "
+        f"{seen['peak_gib']:.2f} GiB on {gpu_line}")
+    log(f"[9b-train] losses {[round(x['loss'], 6) for x in steps]}, grad norms "
+        f"{[x['grad_norm'] for x in steps]}, tensors changed {[x['changed'] for x in steps]} of "
+        f"{n_tensors}; launches an update {json.dumps(steps[-1]['launches'])}, expected "
+        f"{json.dumps(want)}")
+    log(f"[9b-train] test pass: {eval_s:.1f} s, {eval_steps} decode steps ({k6_step} K6 a step: "
+        f"the int8 backbone), rec "
+        f"{ {k: v for k, v in eval_out['rec'].items() if isinstance(v, (int, float))} }; "
+        f"launches {json.dumps(eval_launches)} on {gpu_line}")
+    # the gates, after the readings
+    if len(steps) != NINE_B_RECORDS // 6:
+        raise AssertionError(f"[9b-train] {len(steps)} updates, want {NINE_B_RECORDS // 6}")
+    for i, x in enumerate(steps):
+        if x["skipped"] or not (np.isfinite(x["loss"]) and np.isfinite(x["grad_norm"])
+                                and x["grad_norm"] > 0) or x["unchanged_must"]:
+            raise AssertionError(f"[9b-train] update {i}: loss {x['loss']}, grad norm "
+                                 f"{x['grad_norm']}, skipped {x['skipped']}, unchanged "
+                                 f"{x['unchanged_must'][:4]}")
+        got = {k: x["launches"][k] for k in want}
+        if got != want or x["rows"] != (6, 256) or x["images"] != (6, 6):
+            raise AssertionError(f"[9b-train] update {i}: launches {got}, expected {want}; "
+                                 f"batch {x['rows']}, images {x['images']}")
+    if not 0 < eval_steps <= 50 or eval_launches["quant_matmul"] != k6_step * eval_steps or \
+            eval_launches["decode_attn"] != lm.num_layers * eval_steps or \
+            eval_launches["single_query_attn"] != n_xattn * eval_steps or k6_step <= 0:
+        raise AssertionError(f"[9b-train] test pass launches {eval_launches} over {eval_steps} "
+                             f"decode steps ({k6_step} int8 matmuls a step)")
+    return launches
+
+
+def phase_9b(dev, gpu_line, data, run_dir, write_s, memo_path, go) -> dict:
+    """Phase 18, run apart (a ``PhaseProcess``): 9b through the port's own
+    entry points at full width and depth, seeded, on phase 8's files: (d)'s
+    card side (``nine_b_side``; the main line compares it with the CPU's)
+    and its bf16 beam eval through K4 / K5 against the plain decode
+    attention; (a) ``mmrec_eval.main`` bf16 and (b) int8 weights + int8 KV,
+    2 x 24 users, 10 beams / 10 returned / 50 new tokens; then, once the
+    main line has set ``go`` (its training phase is over, so the two peaks
+    do not meet), (c) ``phase_9b_train``. The item decodes come from the
+    main line's memo (``memo_path``)."""
+    t0 = time.perf_counter()
+    card = nine_b_side(dev, run_dir.parent / "9b_weights.pt", run_dir.parent / "9b_card_grads.pt",
+                       draw=True)
+    card["bf16"] = phase_small_bf16(dev, nine_b_structure().replace(dtype="bfloat16"),
+                                    NINE_B_MEDIA_ID, "[9b-bf16]")
+    log(f"[9b-parity] card side in {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    ITEM_IMAGES.update(torch.load(memo_path, weights_only=False))
+    out = {"parity": _tree_map(lambda t: t.numpy() if isinstance(t, torch.Tensor) else t, card)}
+    with item_decode_memo(data):
+        for key, tag, extra in (("eval", "[9b]", ()),
+                                ("eval_int8", "[9b-int8]", ("--eval_param_dtype", "int8",
+                                                            "--kv_int8"))):
+            t0 = time.perf_counter()
+            out[key] = phase_cli(dev, gpu_line, data, run_dir / key, write_s, NINE_B, extra, tag,
+                                 profile=False)
+            log(f"{tag} done in {time.perf_counter() - t0:.1f} s")
+            gc.collect()
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        if not go.wait(RANK_WAIT_S):
+            raise TimeoutError(f"[9b-train] the main line did not signal in {RANK_WAIT_S} s")
+        waited = time.perf_counter() - t0
+        out["train"] = phase_9b_train(gpu_line, data, run_dir / "train")
+        log(f"[9b-train] done in {time.perf_counter() - t0:.1f} s ({waited:.1f} s waiting for "
+            f"the main line)")
+    return out
+
+
 def kernel_name(ptxas_line: str) -> str:
     """The kernel's name and its mangled template arguments, as in
     'flash_fwd_mma_kernel ILi80ELb1EE' (80, true), from ptxas's
@@ -5254,7 +5727,8 @@ def main() -> int:
     # exit of the run
     apart = []
     try:
-        return run_phases(dev, gpu_line, apart)
+        with run_tree() as tmp:
+            return run_phases(dev, gpu_line, apart, tmp)
     finally:
         for proc in apart:
             proc.close()
@@ -5276,14 +5750,35 @@ def phase_tools_apart(dev, gpu_line, data, run_dir, memo_path) -> dict:
         return phase_tools(dev, gpu_line, data, run_dir)
 
 
-def run_phases(dev, gpu_line, apart) -> int:
+def run_phases(dev, gpu_line, apart, tmp) -> int:
+    import multiprocessing
+
     half = max(1, (os.cpu_count() or 2) // 2)
-    # phase 4's CPU sides from here, while the card builds and runs phases 3
-    # and 5-7
-    small_cpu = PhaseProcess("[small] CPU sides", small_cpu_sides, threads=half)
+    # phase 4's CPU sides (and phase 18 (d)'s) from here, while the card
+    # builds and runs phases 3, 5-8 and 17
+    small_cpu = PhaseProcess("[small] CPU sides", small_cpu_sides, tmp, threads=half)
     apart.append(small_cpu)
+    # phase 8's files are written while nvcc builds (the main thread only
+    # waits for its processes), and the catalogue is decoded while phase 3
+    # runs (its processes beside phase 3's device-timed checks)
+    data, written = Path(tmp) / "data", {}
+
+    def write():
+        try:
+            written["s"] = write_cli_data(data)
+        except BaseException as err:  # raised again on the main thread
+            written["error"] = err
+
+    writer = threading.Thread(target=write)
+    writer.start()
     t0 = time.perf_counter()
-    libs = kernel_lib.build_all()
+    try:
+        libs = kernel_lib.build_all()
+    finally:
+        writer.join()
+    if "error" in written:
+        raise written["error"]
+    write_s = written["s"]
     log(f"[build] {len(libs)} libraries in {time.perf_counter() - t0:.1f} s: "
         + ", ".join(p.name for p in libs.values()))
     for name in libs:
@@ -5296,9 +5791,20 @@ def run_phases(dev, gpu_line, apart) -> int:
                 elif "registers" in line or "spill" in line:
                     log(f"[ptxas] {name}: {fn}: {line.replace('ptxas info    :', '').strip()}")
 
+    finish_memo = start_item_memo(data)  # phases 9-14 and 18 decode the catalogue once
     t0 = time.perf_counter()
     results, timings = phase_kernels(dev)
     log(f"[kernels] checked in {time.perf_counter() - t0:.1f} s")
+    finish_memo()
+    memo_path = Path(tmp) / "item_images.pt"
+    torch.save(dict(ITEM_IMAGES), memo_path)
+    # phase 18 apart, beside phases 5-8, 17 and 4 (peak card memory:
+    # 9b's eval about 25 GiB beside phase 6's 34; its training, up to 45
+    # GiB, starts once ``after_training`` is set, beside phases up to 15)
+    after_training = multiprocessing.get_context("spawn").Event()
+    nine_b = PhaseProcess("[9b] phase 18", phase_9b, dev, gpu_line, data, Path(tmp) / "9b",
+                          write_s, memo_path, after_training, threads=half)
+    apart.append(nine_b)
     t0 = time.perf_counter()
     eval_launches = phase_4b(dev, gpu_line)
     log(f"[4b] done in {time.perf_counter() - t0:.1f} s")
@@ -5309,10 +5815,19 @@ def run_phases(dev, gpu_line, apart) -> int:
     log(f"[4b-train] done in {time.perf_counter() - t0:.1f} s")
     gc.collect()  # the training model is gone: give its memory back
     torch.cuda.empty_cache()
+    after_training.set()
     t0 = time.perf_counter()
     int8_launches = phase_4b(dev, gpu_line, int8=True, timings=timings)
     log(f"[4b-int8] done in {time.perf_counter() - t0:.1f} s")
     gc.collect()  # the int8 model is gone: give its memory back
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cli_launches = phase_cli(dev, gpu_line, data, Path(tmp) / "runs", write_s)
+    log(f"[cli] done in {time.perf_counter() - t0:.1f} s")
+    gc.collect()  # the CLI's eval model is gone: give its memory back
+    torch.cuda.empty_cache()
+    orbax_launches = phase_orbax(dev, gpu_line, data, Path(tmp) / "orbax")
+    gc.collect()  # phase 17's models are gone: give their memory back
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     phase_small_bf16(dev)
@@ -5324,59 +5839,52 @@ def run_phases(dev, gpu_line, apart) -> int:
     phase_small_train_flags(dev, cpu_sides["flags"])
     phase_small_tasks(dev, cpu_sides["tasks"])
     log(f"[small] done in {time.perf_counter() - t0:.1f} s")
-    with run_tree() as tmp:
-        data = Path(tmp) / "data"
-        write_s = write_cli_data(data)
+    nine_b_out = _tree_map(lambda a: torch.from_numpy(a) if isinstance(a, np.ndarray) else a,
+                           nine_b.get())
+    phase_9b_parity(nine_b_out["parity"], cpu_sides.pop("9b"))
+    del cpu_sides
+    gc.collect()
+    # phases 15-16 apart, beside phases 9-10 (peak card memory 15.5 + 36.1
+    # GiB at most)
+    late = PhaseProcess("[harness+lm] phases 15-16", phases_15_16, dev, gpu_line, data,
+                        Path(tmp) / "harness", threads=half)
+    apart.append(late)
+    with item_decode_memo(data):  # phases 9-14 decode the catalogue once
         t0 = time.perf_counter()
-        cli_launches = phase_cli(dev, gpu_line, data, Path(tmp) / "runs", write_s)
-        log(f"[cli] done in {time.perf_counter() - t0:.1f} s")
-        gc.collect()  # the CLI's eval model is gone: give its memory back
+        with lm_layers(LM_LAYERS_9_10):
+            train_cli_launches = phase_train_cli(dev, gpu_line, data, Path(tmp) / "train")
+        log(f"[train-cli] done in {time.perf_counter() - t0:.1f} s")
+        gc.collect()  # the training CLI's models are gone: give their memory back
         torch.cuda.empty_cache()
-        orbax_launches = phase_orbax(dev, gpu_line, data, Path(tmp) / "orbax")
-        gc.collect()  # phase 17's models are gone: give their memory back
+        t0 = time.perf_counter()
+        with lm_layers(LM_LAYERS_9_10):
+            task_launches = phase_tasks(dev, gpu_line, data, Path(tmp) / "tasks")
+        log(f"[tasks] phase 10 done in {time.perf_counter() - t0:.1f} s")
+        gc.collect()  # phase 10's models are gone: give their memory back
         torch.cuda.empty_cache()
-        # phases 15-16 apart, beside phases 9-10 (peak card memory 15.5 + 36.1
-        # GiB at most)
-        late = PhaseProcess("[harness+lm] phases 15-16", phases_15_16, dev, gpu_line, data,
-                            Path(tmp) / "harness", threads=half)
-        apart.append(late)
-        with item_decode_memo(data):  # phases 9-14 decode the catalogue once
-            t0 = time.perf_counter()
-            with lm_layers(LM_LAYERS_9_10):
-                train_cli_launches = phase_train_cli(dev, gpu_line, data, Path(tmp) / "train")
-            log(f"[train-cli] done in {time.perf_counter() - t0:.1f} s")
-            gc.collect()  # the training CLI's models are gone: give their memory back
-            torch.cuda.empty_cache()
-            t0 = time.perf_counter()
-            with lm_layers(LM_LAYERS_9_10):
-                task_launches = phase_tasks(dev, gpu_line, data, Path(tmp) / "tasks")
-            log(f"[tasks] phase 10 done in {time.perf_counter() - t0:.1f} s")
-            gc.collect()  # phase 10's models are gone: give their memory back
-            torch.cuda.empty_cache()
-            late_launches = late.get()
-            # phase 14 apart (after phase 10: it decodes phase 10's img_gen
-            # dump), beside phase 11 (peak card memory 19.9 + 7.9 GiB)
-            memo_path = Path(tmp) / "item_images.pt"
-            torch.save(dict(ITEM_IMAGES), memo_path)
-            tools = PhaseProcess("[tools] phase 14", phase_tools_apart, dev, gpu_line, data,
-                                 Path(tmp) / "tools", memo_path, threads=half)
-            apart.append(tools)
-            t0 = time.perf_counter()
-            serve_launches = phase_serve(dev, gpu_line, data)
-            log(f"[serve] phase 11 done in {time.perf_counter() - t0:.1f} s")
-            gc.collect()  # the workers are gone: give their memory back
-            torch.cuda.empty_cache()
-            tools_launches = tools.get()
-            memo_path.unlink()
-            t0 = time.perf_counter()
-            headline_launches = phase_headline_train(gpu_line, data, Path(tmp) / "headline")
-            log(f"[headline] phase 12 done in {time.perf_counter() - t0:.1f} s")
-            gc.collect()  # phase 12's models are gone: the ranks get the card
-            torch.cuda.empty_cache()
-            t0 = time.perf_counter()
-            multi_launches = phase_multi_gpu(gpu_line, data, Path(tmp) / "multi")
-            log(f"[multi-gpu] phase 13 done in {time.perf_counter() - t0:.1f} s")
-        ITEM_IMAGES.clear()
+        late_launches = late.get()
+        # phase 14 apart (after phase 10: it decodes phase 10's img_gen
+        # dump), beside phase 11 (peak card memory 19.9 + 7.9 GiB)
+        torch.save(dict(ITEM_IMAGES), memo_path)
+        tools = PhaseProcess("[tools] phase 14", phase_tools_apart, dev, gpu_line, data,
+                             Path(tmp) / "tools", memo_path, threads=half)
+        apart.append(tools)
+        t0 = time.perf_counter()
+        serve_launches = phase_serve(dev, gpu_line, data)
+        log(f"[serve] phase 11 done in {time.perf_counter() - t0:.1f} s")
+        gc.collect()  # the workers are gone: give their memory back
+        torch.cuda.empty_cache()
+        tools_launches = tools.get()
+        memo_path.unlink()
+        t0 = time.perf_counter()
+        headline_launches = phase_headline_train(gpu_line, data, Path(tmp) / "headline")
+        log(f"[headline] phase 12 done in {time.perf_counter() - t0:.1f} s")
+        gc.collect()  # phase 12's models are gone: the ranks get the card
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        multi_launches = phase_multi_gpu(gpu_line, data, Path(tmp) / "multi")
+        log(f"[multi-gpu] phase 13 done in {time.perf_counter() - t0:.1f} s")
+    ITEM_IMAGES.clear()
     harness_launches, lm_launches = late_launches["harness"], late_launches["lm"]
 
     # one headline shape per kernel: LM prefill, the LM self-attention
@@ -5411,7 +5919,10 @@ def run_phases(dev, gpu_line, apart) -> int:
             ("causal_lm_int8", lm_launches["int8"], ("flash_fwd", "decode_attn_int8",
                                                      "quant_matmul")),
             ("orbax_eval", orbax_launches["eval"], EVAL_KERNELS),
-            ("orbax_resume", orbax_launches["resume"], TRAIN_KERNELS))
+            ("orbax_resume", orbax_launches["resume"], TRAIN_KERNELS),
+            ("9b_eval", nine_b_out["eval"], EVAL_KERNELS),
+            ("9b_eval_int8", nine_b_out["eval_int8"], INT8_KERNELS),
+            ("9b_train", nine_b_out["train"], TASK_KERNELS + ("quant_matmul",)))
             if name in kernels}
         row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                "launches": sum(by_path.values()), "launches_by_path": by_path,

@@ -33,6 +33,7 @@ bytes or ROADMAP.md's fault 5 lists them. The committed fixtures under
 """
 
 import base64
+import contextlib
 import functools
 import io
 import os
@@ -1449,7 +1450,22 @@ def test_cut_progressive_jpeg_is_block_smoothed(tmp_path, name, frac):
 # random cuts (one draw) of the four progressive files that still differ
 # from the JAX package's native pipe after block smoothing and the black
 # image of a cut table: (file, length) -> max |Δ| at 28 and 64 px
-PROGRESSIVE_CUTS_UNEQUAL = {("jpeg_gray_progressive", 377): 226}
+PROGRESSIVE_CUTS_UNEQUAL = {}
+# the cuts of that draw where libjpeg-turbo's SIMD IDCT saturates a block's
+# 16-bit lanes, so that its C path (``JSIMD_FORCENONE``) gives other pixels
+SIMD_SATURATED_CUTS = {("jpeg_gray_progressive", 377)}
+
+
+@contextlib.contextmanager
+def _c_idct_decoder():
+    """The port with libjpeg's C islow IDCT (32-bit, its range-limit table)
+    in place of the SIMD one."""
+    simd = jpeg.idct_blocks
+    jpeg.idct_blocks = lambda coef, quant: jpeg.idct_islow(coef * quant)
+    try:
+        yield
+    finally:
+        jpeg.idct_blocks = simd
 
 
 def _jax_pipe_c_path(paths, sizes=(28, 64)) -> list:
@@ -1480,10 +1496,12 @@ def test_cut_progressive_jpeg_random_cuts(tmp_path):
     runs on to (its entry 63, ``jdphuff.c decode_mcu_AC_refine``), and
     where the data ends with a whole restart interval libjpeg reads the
     next interval's first MCU from zero bits (the fake EOI stands for its
-    RSTn). The one in ``PROGRESSIVE_CUTS_UNEQUAL`` equals the pipe with its
-    SIMD off: its smoothed block saturates in the AVX2 IDCT's 16-bit lanes
-    (ROADMAP.md §3, fault 5). Cuts inside a later table or scan header are
-    equal (``test_cut_inside_a_later_table_or_scan_header_is_black``)."""
+    RSTn). The cut of ``SIMD_SATURATED_CUTS`` has a smoothed block that
+    saturates libjpeg-turbo's SIMD IDCT in its 16-bit lanes: the port's
+    emulation of that IDCT equals the pipe there (all 87 equal), and the
+    port with libjpeg's C IDCT equals the pipe with its SIMD off and differs
+    from the SIMD pipe. Cuts inside a later table or scan header are equal
+    (``test_cut_inside_a_later_table_or_scan_header_is_black``)."""
     rng = np.random.default_rng(0)
     unequal, paths = {}, {}
     for name in ("jpeg_progressive", "jpeg_progressive_optimized", "jpeg_progressive_restart",
@@ -1498,11 +1516,14 @@ def test_cut_progressive_jpeg_random_cuts(tmp_path):
                         for size in (28, 64))
             if worst:
                 unequal[name, n] = worst
+            if (name, n) in SIMD_SATURATED_CUTS:
                 paths[name, n] = str(path)
-    assert unequal == PROGRESSIVE_CUTS_UNEQUAL
+    assert unequal == PROGRESSIVE_CUTS_UNEQUAL and set(paths) == SIMD_SATURATED_CUTS
     for key, want in zip(paths, _jax_pipe_c_path(list(paths.values()))):
         for size, w in zip((28, 64), want):
-            np.testing.assert_array_equal(transforms.load_resized_uint8(paths[key], size), w)
+            with _c_idct_decoder():
+                np.testing.assert_array_equal(transforms.load_resized_uint8(paths[key], size), w)
+            assert not np.array_equal(transforms.load_resized_uint8(paths[key], size), w)
 
 
 def _marker_after_first_scan(data: bytes, marker: bytes) -> int:
@@ -1575,11 +1596,11 @@ def test_cut_uncompressed_tiff_keeps_whole_rows(tmp_path, mode, frac):
                 j_transforms.load_resized_uint8(str(path), size)
 
 
-def _libjpeg_c_path(datas) -> list:
-    """PIL's decodes of ``datas`` with libjpeg-turbo's SIMD off
-    (``JSIMD_FORCENONE``, read when the library loads: a process of its
-    own), each with a fake EOI after it as the JAX package's pipe gives
-    libjpeg one."""
+def _libjpeg_c_path(datas, simd: str = "NONE") -> list:
+    """PIL's decodes of ``datas`` with libjpeg-turbo's SIMD level forced
+    (``JSIMD_FORCE{simd}``, read when the library loads: a process of its
+    own; ``NONE`` is its C path), each with a fake EOI after it as the JAX
+    package's pipe gives libjpeg one."""
     import subprocess
 
     import pickle
@@ -1595,7 +1616,8 @@ def _libjpeg_c_path(datas) -> list:
 
     out = subprocess.run([sys.executable, "-c", script], input=pickle.dumps(list(datas)),
                          capture_output=True, check=True,
-                         env={**os.environ, "JSIMD_FORCENONE": "1"})
+                         env={**{k: v for k, v in os.environ.items()
+                                  if not k.startswith("JSIMD_")}, f"JSIMD_FORCE{simd}": "1"})
     return pickle.loads(out.stdout)
 
 
@@ -1611,40 +1633,54 @@ ARITH_CUT_EQUAL = ["jpeg_arith_seq_ycc420", "jpeg_arith_seq_ycc420_per_component
                    "jpeg_arith_progressive_gray_restart"]
 
 
+# cuts at every 7th byte of each file's scans where libjpeg-turbo's SIMD
+# and C IDCTs give other pixels (33 of 419 over the sequential files)
+ARITH_SIMD_SATURATED = {"jpeg_arith_seq_ycc420": 12, "jpeg_arith_seq_ycc420_per_component": 7,
+                        "jpeg_arith_seq_restart": 7, "jpeg_arith_seq_dac": 5,
+                        "jpeg_arith_seq_gray": 2, "jpeg_arith_progressive_gray_restart": 0}
+
+
 @pytest.mark.parametrize("name", ARITH_CUT_EQUAL)
 def test_cut_arithmetic_jpeg_equals_libjpeg(name):
-    """An arithmetic-coded JPEG cut at every 5th byte of its scans: the QM
-    decoder reads zero bytes past the cut, a bad code (an overflow) ends
-    its restart interval as ``jdarith.c`` sets ``ct = -1``, the intervals
-    after the cut are read from zero bytes with fresh statistics, and a
-    progressive file is block-smoothed (a cut arithmetic scan is no
-    "insufficient data" to libjpeg: every row counts as good). Equal at
-    every cut to libjpeg-turbo's C decoder.
+    """An arithmetic-coded JPEG cut at every 5th and every 7th byte of its
+    scans: the QM decoder reads zero bytes past the cut, a bad code (an
+    overflow) ends its restart interval as ``jdarith.c`` sets ``ct = -1``,
+    the intervals after the cut are read from zero bytes with fresh
+    statistics, and a progressive file is block-smoothed (a cut arithmetic
+    scan is no "insufficient data" to libjpeg: every row counts as good).
+    Equal at every cut to libjpeg-turbo as PIL and the JAX package run it
+    (its AVX2 IDCT; its SSE2 IDCT gives the same pixels), and, with the
+    port's C IDCT, to libjpeg-turbo's C path.
 
-    Against libjpeg-turbo as PIL and the JAX package run it (its SIMD
-    IDCT) some cuts differ by up to 255: 12 of 106, 7 of 96, 7 of 129, 5
-    of 57 and 2 of 31 of the sequential files' cuts at every 7th byte, 0
-    of 50 of the progressive one's. Traced: the zero bytes decode to
-    coefficients in the thousands (6,190 at one cut of the 4:2:0 file),
-    which the AVX2 islow IDCT saturates in 16-bit lanes where the C IDCT
-    does not. PIL's incremental feed besides cannot suspend an arithmetic
-    scan (``JERR_CANT_SUSPEND``: a black or partial image), so the C path
-    is the oracle here."""
-    cuts = _scan_cuts(FILES[name], 5)
-    for k, (cut, want) in enumerate(zip(cuts, _libjpeg_c_path(cuts))):
+    The zero bytes decode to coefficients in the thousands (6,190 at one
+    cut of the 4:2:0 file), which the SIMD islow IDCT saturates in 16-bit
+    lanes where the C IDCT wraps: ``ARITH_SIMD_SATURATED`` counts the cuts
+    at every 7th byte where the two libjpeg paths differ. PIL's incremental
+    feed cannot suspend an arithmetic scan (``JERR_CANT_SUSPEND``: a black
+    or partial image), so the oracle gets each cut with a fake EOI."""
+    cuts = _scan_cuts(FILES[name], 5) + _scan_cuts(FILES[name], 7)
+    n5 = len(_scan_cuts(FILES[name], 5))
+    simd, sse2, c_path = (_libjpeg_c_path(cuts, level) for level in ("AVX2", "SSE2", "NONE"))
+    for k, (cut, want) in enumerate(zip(cuts, simd)):
         np.testing.assert_array_equal(transforms.decode_image(cut), want, err_msg=str(k))
+        np.testing.assert_array_equal(sse2[k], want, err_msg=str(k))
+    with _c_idct_decoder():
+        for k, (cut, want) in enumerate(zip(cuts, c_path)):
+            np.testing.assert_array_equal(transforms.decode_image(cut), want, err_msg=str(k))
+    saturated = sum(not np.array_equal(a, b) for a, b in zip(simd[n5:], c_path[n5:]))
+    assert saturated == ARITH_SIMD_SATURATED[name]
 
 
 def test_cut_arithmetic_progressive_420_jpeg_differs_by_at_most_19(tmp_path):
     """The 4:2:0 progressive arithmetic file, cut at every 5th byte of its
-    scans, equals the JAX package's ``load_resized_uint8`` with its SIMD off
-    at every cut (28 and 64 px). The differences in its second iMCU row,
-    up to 19, were against PIL's decode of the cut file (an incremental
-    feed, which libjpeg cannot suspend inside an arithmetic scan), not the
-    JAX package's one-shot read of its bytes. With the SIMD IDCT, the JAX
-    package differs at the 4 cuts below, whose zero bytes decode to
-    coefficients that the AVX2 IDCT saturates in 16-bit lanes (ROADMAP.md
-    §3, fault 5)."""
+    scans, equals the JAX package's ``load_resized_uint8`` at every cut
+    (28 and 64 px), and, with the port's C IDCT, the same with libjpeg's
+    SIMD off. The differences in its second iMCU row, up to 19, were
+    against PIL's decode of the cut file (an incremental feed, which
+    libjpeg cannot suspend inside an arithmetic scan), not the JAX
+    package's one-shot read of its bytes. The JAX package's SIMD and C
+    paths differ at the 4 cuts below, whose zero bytes decode to
+    coefficients that the SIMD IDCT saturates in 16-bit lanes."""
     cuts = _scan_cuts(FILES["jpeg_arith_progressive_ycc420"], 5)
     paths = []
     for k, cut in enumerate(cuts):
@@ -1654,8 +1690,12 @@ def test_cut_arithmetic_progressive_420_jpeg_differs_by_at_most_19(tmp_path):
     for k, (path, want) in enumerate(zip(paths, _jax_pipe_c_path(paths))):
         for size, w in zip((28, 64), want):
             got = transforms.load_resized_uint8(path, size)
-            np.testing.assert_array_equal(got, w, err_msg=str(k))
-            d = int(np.abs(got.astype(int) - j_transforms.load_resized_uint8(path, size)).max())
+            np.testing.assert_array_equal(got, j_transforms.load_resized_uint8(path, size),
+                                          err_msg=str(k))
+            with _c_idct_decoder():
+                np.testing.assert_array_equal(transforms.load_resized_uint8(path, size), w,
+                                              err_msg=str(k))
+            d = int(np.abs(got.astype(int) - w).max())
             if d:
                 simd[k] = max(simd.get(k, 0), d)
     assert len(cuts) == 154 and simd == {4: 255, 52: 242, 83: 254, 135: 202}

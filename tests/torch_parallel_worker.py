@@ -233,6 +233,209 @@ def case_bridge_fsdp(inputs, rank):
             "whole_int8": ckpt.full_model_tree(int8), "whole_float": ckpt.full_model_tree(fp)}
 
 
+# ---------------------------------------------------------------- the build
+
+BUILD_KINDS = ("fp32", "bf16", "int8", "frozen_bf16", "frozen_int8", "unfrozen", "transfer")
+
+
+def build_kwargs(kind: str) -> dict:
+    """``build_model``'s arguments for a build kind: inference at each
+    ``--eval_param_dtype``; training with frozen bf16 / int8 storage,
+    float32 (``--unfreeze_backbone``, whose CLI then sets every tensor
+    trainable) and the transfer entry's ``frozen_mask``."""
+    from unimp_tpu_torch.cli.mmrec_prefix import frozen_mask
+
+    return {"fp32": {}, "bf16": {"eval_param_dtype": "bf16"},
+            "int8": {"eval_param_dtype": "int8"},
+            "frozen_bf16": {"train": True, "frozen_dtype": torch.bfloat16},
+            "frozen_int8": {"train": True, "frozen_dtype": "int8"},
+            "unfrozen": {"train": True},
+            "transfer": {"train": True, "trainable_mask": frozen_mask}}[kind]
+
+
+def build_weights(source: dict):
+    """``build_model``'s ``weights`` for a source: None (seeded), a flat
+    tree, the ``.pt`` converter's function of the seeded tree, or an Orbax
+    checkpoint's restored tree."""
+    from unimp_tpu_torch.tools.convert_torch import load_torch_checkpoint
+    from unimp_tpu_torch.train import checkpoint as ckpt
+
+    if source["kind"] == "flat":
+        return source["tree"]
+    if source["kind"] == "pt":
+        return lambda seeded: load_torch_checkpoint(source["path"], seeded)
+    if source["kind"] == "orbax":
+        return ckpt.restore_params(source["dir"], source["name"])
+    return None
+
+
+def whole_build(cfg, weights, seed=0, eval_param_dtype="fp32", train=False, frozen_dtype=None,
+                trainable_mask=None):
+    """The whole model as ``build_model`` made it on every rank before it
+    built tensor by tensor: made whole, seeded, loaded, then frozen, or
+    cast and quantized."""
+    from unimp_tpu_torch.models import UniMPModel
+    from unimp_tpu_torch.tools.from_flax import (EVAL_PARAM_DTYPES, init_params,
+                                                 load_flax_params)
+    from unimp_tpu_torch.train.partition import backbone_trainable_mask, freeze
+    from unimp_tpu_torch.utils.inference import cast_params_for_inference
+    from unimp_tpu_torch.utils.quant import quantize_params_int8
+
+    model = UniMPModel(cfg)
+    if weights is None or callable(weights):
+        init_params(model, torch.Generator().manual_seed(seed))
+    if callable(weights):
+        weights = weights({n.replace(".", "/"): t.detach() for n, t in model.state_dict().items()})
+    if weights is not None:
+        load_flax_params(model, weights)
+    if train:
+        freeze(model, (trainable_mask or backbone_trainable_mask)(model), frozen_dtype)
+        return model.train()
+    cast = EVAL_PARAM_DTYPES[eval_param_dtype]
+    if cast is not None:
+        cast_params_for_inference(model, cast)
+    if eval_param_dtype == "int8":
+        quantize_params_int8(model)
+    return model.eval()
+
+
+def sliced(model, mesh) -> dict:
+    """{name: tensor} a rank of ``mesh`` keeps of a whole model: its tp
+    block (``shard_model_tp``), then its fsdp chunk where the JAX table
+    shards the tensor."""
+    from unimp_tpu_torch.parallel.sharding import ZeroShards, fsdp_chunk, shard_model_tp
+
+    if mesh is None:
+        return dict(model.state_dict())
+    shard_model_tp(model, mesh)
+    zero = ZeroShards(model, mesh) if mesh.fsdp > 1 else None
+    out = {}
+    for name, t in model.state_dict().items():
+        if zero is not None and zero.placement(name.replace(".", "/"), t.shape) is not None:
+            t = fsdp_chunk(t, zero.rank, zero.n)
+        out[name] = t
+    return out
+
+
+class BuildSpy:
+    """Watches ``build_model``'s materializing step: a weak reference on
+    the storage of each whole tensor it makes. A whole tensor is transient
+    until it is freed, unless the model keeps it (an unsliced, uncast
+    tensor is its own parameter). Records the most transient whole tensors
+    alive when a tensor is made, and the build's live bytes (the model's
+    tensors placed so far plus the transient whole ones) just after."""
+
+    def __init__(self):
+        self.alive = {}  # key -> (storage's data pointer, bytes)
+        self.most_alive_before = self.peak_live = self.calls = 0
+
+    def _transient(self, model) -> list:
+        placed = {t.untyped_storage().data_ptr() for t in model.state_dict().values()
+                  if not t.is_meta}
+        return [(ptr, n) for ptr, n in self.alive.values() if ptr not in placed]
+
+    def __enter__(self):
+        import weakref
+
+        from unimp_tpu_torch.tools import from_flax
+
+        self.cls, self.orig = from_flax._Build, from_flax._Build.materialize
+        spy = self
+
+        def materialize(build, name, meta):
+            spy.most_alive_before = max(spy.most_alive_before, len(spy._transient(build.model)))
+            out = spy.orig(build, name, meta)
+            for t in out if isinstance(out, tuple) else (out,):
+                st = t.untyped_storage()
+                key = spy.calls = spy.calls + 1
+                spy.alive[key] = (st.data_ptr(), st.nbytes())
+                weakref.finalize(st, spy.alive.pop, key, None)
+            placed = sum(t.numel() * t.element_size() for t in build.model.state_dict().values()
+                         if not t.is_meta)
+            live = placed + sum(n for _, n in spy._transient(build.model))
+            spy.peak_live = max(spy.peak_live, live)
+            return out
+
+        self.cls.materialize = materialize
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.materialize = self.orig
+
+
+def build_report(cfg, source: dict, kind: str, mesh) -> dict:
+    """This rank's tensors from ``build_model(mesh=)`` against the whole
+    build sliced: the names that differ (bits, dtype, shape, trainable or
+    an int8 kernel's compute dtype) and the spy's readings."""
+    from unimp_tpu_torch.tools.from_flax import build_model
+    from unimp_tpu_torch.utils.quant import QuantizedKernel
+
+    kw = build_kwargs(kind)
+    with BuildSpy() as spy:
+        got = build_model(cfg, device="cpu", weights=build_weights(source), mesh=mesh, **kw)
+    whole = whole_build(cfg, build_weights(source), **kw)
+    largest = max([p.numel() for p in whole.parameters()]
+                  + [m.q.numel() for m in whole.modules() if isinstance(m, QuantizedKernel)]) * 4
+    want = sliced(whole, mesh)
+    have = dict(got.state_dict())
+    bad = sorted(set(have) ^ set(want))
+
+    def bits(t):
+        return t.detach().reshape(-1).contiguous().view(torch.uint8)
+
+    for name in set(have) & set(want):
+        a, b = have[name], want[name]
+        if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(bits(a), bits(b)):
+            bad.append(name)
+    grads = ({n: p.requires_grad for n, p in got.named_parameters()},
+             {n: p.requires_grad for n, p in whole.named_parameters()})
+    bad += [n for n in grads[0] if grads[0][n] != grads[1].get(n)]
+    qdt = [({n: m.dtype for n, m in mod.named_modules() if isinstance(m, QuantizedKernel)})
+           for mod in (got, whole)]
+    if qdt[0] != qdt[1]:
+        bad.append("QuantizedKernel.dtype")
+    resident = sum(t.numel() * t.element_size() for t in got.state_dict().values())
+    # the bytes the model's tensors hold: a tp block that is a view of its
+    # whole tensor would keep the whole storage
+    held = sum({t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+                for t in got.state_dict().values()}.values())
+    return {"bad": bad, "n": len(have), "resident": resident, "held": held,
+            "largest_f32": largest,
+            "peak_live": spy.peak_live, "most_alive_before": spy.most_alive_before,
+            "sharded": len(got.zero.entries) if got.zero is not None else 0,
+            "int8": sum(isinstance(m, QuantizedKernel) for m in got.modules())}
+
+
+def build_config(source: dict):
+    """debug in float32, at the source's vocabulary and widths."""
+    import dataclasses
+
+    from unimp_tpu_torch.models import get_config
+
+    cfg = get_config("debug", dtype="float32")
+    if "widths" in source:
+        w = source["widths"]
+        cfg = cfg.replace(**{k: dataclasses.replace(getattr(cfg, k), **w[k])
+                             for k in ("vision", "resampler", "lm")},
+                          cross_attn_every_n=w["cross_attn_every_n"])
+    return cfg.replace(lm=dataclasses.replace(cfg.lm, vocab_size=source["vocab"]))
+
+
+def case_build(inputs, rank):
+    """{(mesh, source, kind): ``build_report``} for every source and build
+    kind of ``inputs``, on tp 2 and on fsdp 2 in turn."""
+    out = {}
+    for dims in ((1, 1, 2), (1, 2, 1)):
+        mesh = make_mesh(*dims, device="cpu")
+        set_mesh(mesh)
+        name = "tp2" if dims[2] == 2 else "fsdp2"
+        for src_name, source in inputs["sources"].items():
+            for kind in BUILD_KINDS:
+                out[name, src_name, kind] = build_report(build_config(source), source, kind,
+                                                         mesh)
+    return out
+
+
 def case_probe(inputs, rank):
     """Which collectives gloo takes on CUDA tensors: {name: None or the
     error}."""

@@ -116,8 +116,8 @@ def build_model(args, tokenizer, *, train: bool = False, weights=None, trainable
     {parameter name: trainable}), that freezing with every tensor float32
     (the transfer entry's). ``--remat`` / ``--remat_policy`` set the
     config's activation checkpointing, as the JAX CLI does. ``mesh``:
-    each rank builds the whole model, then keeps its tp block
-    (``tools/from_flax.py:build_model``)."""
+    each rank makes its own tp block and fsdp chunk of every tensor, one
+    tensor at a time (``tools/from_flax.py:build_model``)."""
     if getattr(args, "config_json", None):
         cfg = config_from_json(args.config_json)
     else:

@@ -166,6 +166,61 @@ def idct_islow(coef: np.ndarray) -> np.ndarray:
     return _IDCT_LIMIT[out & 1023]
 
 
+def _wrap(x, bits):
+    """Two's-complement wrap of int64 values to ``bits`` bits."""
+    half = 1 << (bits - 1)
+    return ((x + half) & ((1 << bits) - 1)) - half
+
+
+def _idct_1d_simd(i0, i1, i2, i3, i4, i5, i6, i7, shift):
+    """One pass of ``jidctint-avx2.asm``'s ``dodct`` on int16 lanes: the
+    sums ``in0 ± in4``, ``in7 + in3`` and ``in5 + in1`` wrap in 16 bits
+    (``vpaddw``), the rotations are ``vpmaddwd`` pairs summed in 32 bits
+    (wrapping), the descale is an arithmetic shift and ``vpackssdw``
+    saturates each output to 16 bits."""
+    w16 = functools.partial(_wrap, bits=16)
+    tmp0, tmp1 = w16(i0 + i4) << _CB, w16(i0 - i4) << _CB
+    tmp3 = i2 * (F0_541 + F0_765) + i6 * F0_541
+    tmp2 = i2 * F0_541 + i6 * (F0_541 - F1_847)
+    tmp10, tmp13, tmp11, tmp12 = tmp0 + tmp3, tmp0 - tmp3, tmp1 + tmp2, tmp1 - tmp2
+    z3, z4 = w16(i7 + i3), w16(i5 + i1)
+    z3, z4 = z3 * (F1_175 - F1_961) + z4 * F1_175, z3 * F1_175 + z4 * (F1_175 - F0_390)
+    t0 = i7 * (F0_298 - F0_899) + i1 * -F0_899 + z3
+    t1 = i5 * (F2_053 - F2_562) + i3 * -F2_562 + z4
+    t2 = i5 * -F2_562 + i3 * (F3_072 - F2_562) + z3
+    t3 = i7 * -F0_899 + i1 * (F1_501 - F0_899) + z4
+    return [np.clip(_wrap(v + (1 << (shift - 1)), 32) >> shift, -32768, 32767)
+            for v in (tmp10 + t3, tmp11 + t2, tmp12 + t1, tmp13 + t0,
+                      tmp13 - t0, tmp12 - t1, tmp11 - t2, tmp10 - t3)]
+
+
+def idct_islow_simd(coef: np.ndarray, quant: np.ndarray) -> np.ndarray:
+    """Quantized coefficients [N, 8, 8] and their table [8, 8] (natural
+    order) -> uint8 samples [N, 8, 8]: libjpeg-turbo's x86 SIMD islow IDCT
+    (``jidctint-avx2.asm``; ``jidctint-sse2.asm`` computes the same), which
+    PIL and the JAX package's native pipe run on x86-64. It dequantizes with
+    a 16-bit ``vpmullw``, works in 16-bit lanes between its passes, and
+    ends with ``vpacksswb`` and a wrapping +128, where ``idct_islow``
+    (libjpeg's C path) works in 32 bits and wraps through its range-limit
+    table. A block whose AC coefficients are all zero takes the column
+    pass' shortcut: its dequantized DC shifted left in 16 bits, wrapping.
+    The two agree while a block's values stay in range."""
+    c = _wrap(coef.astype(np.int64), 16)
+    deq = _wrap(c * _wrap(np.asarray(quant, np.int64), 16), 16)
+    cols = _idct_1d_simd(*[deq[:, k, :] for k in range(8)], _CB - _P1)  # 8 x [N, 8(col)]
+    ws = np.stack(cols, axis=1)  # [N, row, col]
+    dc_only = ~c.reshape(-1, 64)[:, 8:].any(axis=1)
+    ws[dc_only] = _wrap(deq[dc_only, :1, :] << _P1, 16)
+    rows = _idct_1d_simd(*[ws[:, :, k] for k in range(8)], _CB + _P1 + 3)
+    out = np.clip(np.stack(rows, axis=2), -128, 127) + 128
+    return out.astype(np.uint8)
+
+
+def idct_blocks(coef: np.ndarray, quant: np.ndarray) -> np.ndarray:
+    """The IDCT the decoder runs: the SIMD one, as libjpeg-turbo on x86-64."""
+    return idct_islow_simd(coef, quant)
+
+
 def _fdct_1d(d, shift_even, descale_n):
     tmp0, tmp7 = d[0] + d[7], d[0] - d[7]
     tmp1, tmp6 = d[1] + d[6], d[1] - d[6]
@@ -1237,11 +1292,12 @@ def decode_jpeg(data: bytes, strict: bool = False, inverted_cmyk: bool = True) -
         if lossless:  # the samples themselves, in the buffer's first plane
             planes.append(c[:h, :w, 0])
             continue
-        deq = np.zeros(c.shape, np.int64)
+        nat, q = np.zeros(c.shape, np.int64), np.zeros(64, np.int64)
+        nat[..., ZIGZAG] = c
         if cid in latched:  # a component no scan reached stays zero
-            deq[..., ZIGZAG] = c * latched[cid]
+            q[ZIGZAG] = latched[cid]
         br, bc = c.shape[:2]
-        pix = idct_islow(deq.reshape(-1, 8, 8)).reshape(br, bc, 8, 8)
+        pix = idct_blocks(nat.reshape(-1, 8, 8), q.reshape(8, 8)).reshape(br, bc, 8, 8)
         plane = pix.transpose(0, 2, 1, 3).reshape(br * 8, bc * 8)
         plane = plane[:-(-h * vs // vmax), :-(-w * hs // hmax)]
         if hmax % hs or vmax % vs:

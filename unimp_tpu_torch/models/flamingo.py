@@ -172,7 +172,7 @@ class UniMPModel(nn.Module):
         # gathers the logits
         self.tp_layout, self.logits_tp_group = {}, None
         self.tp_group, self.tp_rank, self.tp_size = None, 0, 1
-        # ZeRO-3 over fsdp (``parallel/sharding.py:shard_model_fsdp``)
+        # ZeRO-3 over fsdp (``parallel/sharding.py:ZeroShards``)
         self.zero = None
 
     def _layers(self):

@@ -165,8 +165,11 @@ def gather_from_tp(x, group):
 
 
 def _narrow(t: torch.Tensor, dim: int, rank: int, n: int) -> torch.Tensor:
+    """This rank's block of ``dim``, a tensor of its own: a view (or a
+    ``contiguous`` one, which is a view for a block of the first dimension)
+    would keep the whole tensor's storage alive."""
     size = t.shape[dim] // n
-    return t.narrow(dim, rank * size, size).contiguous()
+    return t.narrow(dim, rank * size, size).clone(memory_format=torch.contiguous_format)
 
 
 def _slice_kernel(mod: nn.Module, dim: int, rank: int, n: int) -> None:
@@ -265,14 +268,18 @@ def tensor_tp_dim(layout: Dict[str, int], path: str, shape=None) -> Optional[int
     return None
 
 
-def shard_model_tp(model: nn.Module, mesh) -> nn.Module:
+def shard_model_tp(model: nn.Module, mesh, sliced: bool = False) -> nn.Module:
     """Slice ``model`` (whole weights, on every rank alike) to this rank's
     tp block, in place, and wire the tp collectives: each sharded module
     gets the group as ``tp_group``, the model its layout as ``tp_layout``
     (with ``tp_group``, ``tp_rank`` and ``tp_size``) and, when its head's
     matrix is sliced, ``logits_tp_group``. A mesh with
     tp 1 leaves the model as it is (``tp_layout`` empty). Call it after any
-    int8 quantization: the scales are those of the whole kernels."""
+    int8 quantization: the scales are those of the whole kernels.
+    ``sliced``: wire a model whose parameters are still to be placed
+    (``tools/from_flax.py:build_model``, on the meta device, slices each
+    tensor by ``tp_layout`` as it makes it); its shapes are the whole
+    ones."""
     from unimp_tpu_torch.utils.quant import fuse_decode_kernels
 
     n = mesh.tp
@@ -286,27 +293,30 @@ def shard_model_tp(model: nn.Module, mesh) -> nn.Module:
     for _, mod, kind in _tp_modules(model, n):
         kinds.add(kind)
         if kind == "attn":
-            for proj in (mod.q_proj, mod.k_proj, mod.v_proj):
-                _slice_kernel(proj, 1, rank, n)
-                _slice_param(proj.bias, 0, rank, n)
-            _slice_kernel(mod.o_proj, 0, rank, n)
+            if not sliced:
+                for proj in (mod.q_proj, mod.k_proj, mod.v_proj):
+                    _slice_kernel(proj, 1, rank, n)
+                    _slice_param(proj.bias, 0, rank, n)
+                _slice_kernel(mod.o_proj, 0, rank, n)
             mod.num_heads //= n
             mod.num_kv_heads //= n
             if mod.alibi is not None:
                 mod.alibi = _narrow(mod.alibi, 0, rank, n)
             mod.tp_group = mod.o_proj.tp_group = group
         elif kind == "mlp":
-            for col in ("gate", "up"):
-                if hasattr(mod, col):
-                    _slice_kernel(getattr(mod, col), 1, rank, n)
-                    _slice_param(getattr(mod, col).bias, 0, rank, n)
-            _slice_kernel(mod.down, 0, rank, n)
+            if not sliced:
+                for col in ("gate", "up"):
+                    if hasattr(mod, col):
+                        _slice_kernel(getattr(mod, col), 1, rank, n)
+                        _slice_param(getattr(mod, col).bias, 0, rank, n)
+                _slice_kernel(mod.down, 0, rank, n)
             mod.tp_group = mod.down.tp_group = group
         elif kind == "embed":
             mod.vocab_start = rank * (mod.embedding.shape[0] // n)
-            _slice_param(mod.embedding, 0, rank, n)
+            if not sliced:
+                _slice_param(mod.embedding, 0, rank, n)
             mod.tp_group = group
-        elif kind == "head":
+        elif kind == "head" and not sliced:
             _slice_kernel(mod.lm_head, 1, rank, n)
     # the logits are computed over this rank's vocabulary block when the
     # head's matrix is sliced: the tied embedding, or the untied lm_head
@@ -358,18 +368,16 @@ def fsdp_dim(path: str, shape, fsdp: int, tp: int = 1) -> Optional[int]:
     return None
 
 
-def _tensor_slots(model: nn.Module):
-    """(flat path, owner module, attribute) of every tensor of the model's
-    persistent state that a rule can name: parameters, and each int8
-    kernel's payload ``.../kernel/q`` (its scale is replicated)."""
-    from unimp_tpu_torch.utils.quant import QuantizedKernel
-
-    for name, mod in model.named_modules():
-        for attr, p in mod._parameters.items():
-            if p is not None:
-                yield _path(name, attr), mod, attr
-        if isinstance(mod, QuantizedKernel) and mod.persistent:
-            yield _path(name, "q"), mod, "q"
+def fsdp_chunk(t: torch.Tensor, rank: int, n: int) -> torch.Tensor:
+    """This rank's flat 1/n chunk of ``t`` (a new tensor), the last one
+    zero-padded to ``ceil(numel / n)`` elements."""
+    numel = t.numel()
+    chunk = math.ceil(numel / n)
+    lo, hi = min(rank * chunk, numel), min((rank + 1) * chunk, numel)
+    piece = torch.zeros(chunk, dtype=t.dtype, device=t.device)
+    with torch.no_grad():
+        piece[: hi - lo] = t.detach().reshape(-1)[lo:hi]
+    return piece
 
 
 @dataclasses.dataclass(eq=False)
@@ -424,7 +432,9 @@ class ZeroShards:
     becomes the 1-D chunk (the optimizer is built over it, so its moments
     are chunks too), an int8 payload's buffer likewise. Everything else
     (norms, gates, biases, latents, position embeddings, int8 scales) stays
-    whole, as in JAX.
+    whole, as in JAX. It is made empty; the build
+    (``tools/from_flax.py:build_model``) puts each chunk in its slot and
+    ``adopt``s it, so that no rank holds a whole model.
 
     The tensors are gathered per unit: each ViT, perceiver, decoder and
     x-attn block, the token embedding (the whole model when the head is
@@ -456,8 +466,6 @@ class ZeroShards:
         self.held_units: set = set()
         self.alive_bytes = 0
         self.reset_counters()
-        for path, owner, attr in list(_tensor_slots(model)):
-            self.adopt(path, owner, attr)
 
     # -- placement
 
@@ -469,22 +477,21 @@ class ZeroShards:
             shape[dim] *= self.tp
         return tuple(shape)
 
-    def adopt(self, path: str, owner: nn.Module, attr: str) -> None:
-        """Shard ``owner.attr`` (at flat ``path``) if the table says so."""
+    def placement(self, path: str, shape) -> Optional[int]:
+        """The chunk's length if the table shards the tensor at ``path``
+        whose tp block has ``shape``, else None."""
+        if fsdp_dim(path, self._whole_shape(path, shape), self.n, self.tp) is None:
+            return None
+        return math.ceil(math.prod(shape) / self.n)
+
+    def adopt(self, path: str, owner: nn.Module, attr: str, shape) -> None:
+        """Track ``owner.attr`` (at flat ``path``), which holds this rank's
+        chunk (``fsdp_chunk``) of a tensor of ``shape`` (its tp block)."""
         t = getattr(owner, attr)
-        if fsdp_dim(path, self._whole_shape(path, t.shape), self.n, self.tp) is None:
-            return
-        numel, shape = t.numel(), t.shape
-        chunk = math.ceil(numel / self.n)
-        lo, hi = min(self.rank * chunk, numel), min((self.rank + 1) * chunk, numel)
-        piece = torch.zeros(chunk, dtype=t.dtype, device=t.device)
-        with torch.no_grad():
-            piece[: hi - lo] = t.detach().reshape(-1)[lo:hi]
-        if isinstance(t, nn.Parameter):
-            t.data = piece
-        else:
-            owner._buffers[attr] = piece
-        self.entries[path] = _Shard(path, owner, attr, shape, chunk, t.element_size())
+        if t.shape != (self.placement(path, shape),):
+            raise ValueError(f"{path}: {tuple(t.shape)} is not a chunk of {tuple(shape)}")
+        self.entries[path] = _Shard(path, owner, attr, torch.Size(shape), t.numel(),
+                                    t.element_size())
         unit, recompute = self._unit_of(path)
         if unit not in self.units:
             self.units[unit] = []
@@ -651,10 +658,9 @@ class ZeroShards:
     def local(self, name: str, whole: torch.Tensor) -> torch.Tensor:
         """This rank's chunk of a whole tensor of the stored tensor's shape."""
         e = self.entries[name.replace(".", "/")]
-        lo, hi = min(self.rank * e.chunk, e.numel), min((self.rank + 1) * e.chunk, e.numel)
-        piece = torch.zeros(e.chunk, dtype=whole.dtype, device=whole.device)
-        piece[: hi - lo] = whole.reshape(-1)[lo:hi]
-        return piece
+        if whole.numel() != e.numel:
+            raise ValueError(f"{name}: {tuple(whole.shape)} is not {tuple(e.shape)}")
+        return fsdp_chunk(whole, self.rank, self.n)
 
     def unit_bytes(self) -> Dict[str, int]:
         """{unit's module name: bytes of its gathered (padded) tensors}."""
@@ -662,13 +668,6 @@ class ZeroShards:
         return {names[unit] or "<model>": sum(
             self.entries[p].chunk * self.n * self.entries[p].itemsize
             for p in paths) for unit, paths in self.units.items() if paths}
-
-
-def shard_model_fsdp(model: nn.Module, mesh) -> nn.Module:
-    """ZeRO-3 over fsdp (``ZeroShards``), in place, after any tp slicing
-    and quantization; sets ``model.zero`` (None when fsdp is 1)."""
-    model.zero = ZeroShards(model, mesh) if mesh is not None and mesh.fsdp > 1 else None
-    return model
 
 
 def whole_like(model: nn.Module, params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

@@ -29,6 +29,7 @@ load_flax_params``.
 
 from __future__ import annotations
 
+import functools
 import re
 import warnings
 from typing import Callable, Dict, List, Mapping, Optional, Tuple
@@ -193,10 +194,18 @@ def _host(x) -> torch.Tensor:
         return torch.from_numpy(np.asarray(x))
 
 
-def _fit_value(path: str, val: np.ndarray, target) -> Optional[torch.Tensor]:
+def _grow(val: np.ndarray, base: torch.Tensor) -> torch.Tensor:
+    """``base`` with ``val`` in its leading block, in place."""
+    base[tuple(slice(0, d) for d in val.shape)] = _host(val).to(base.dtype)
+    return base
+
+
+def _fit_value(path: str, val: np.ndarray, target):
     """The torch tensor in the target's layout and dtype: kernels
     transposed (a conv patch embedding flattened), a reshape where the
-    sizes agree, an embedding grown; None when it does not fit."""
+    sizes agree, an embedding grown; None when it does not fit. A meta
+    target (``tools/from_flax.py:build_model``'s seeded tree, made later
+    one tensor at a time) is grown by a function of its seeded tensor."""
     shape = tuple(target.shape)
     if path.endswith("/kernel") and val.ndim >= 2:
         if val.ndim == 4:  # conv patch embed [out, in, kh, kw]
@@ -207,9 +216,9 @@ def _fit_value(path: str, val: np.ndarray, target) -> Optional[torch.Tensor]:
         if val.size == int(np.prod(shape)):
             val = val.reshape(shape)
         elif val.ndim == len(shape) and all(v <= s for v, s in zip(val.shape, shape)):
-            grown = _host(target).clone()
-            grown[tuple(slice(0, d) for d in val.shape)] = _host(val).to(grown.dtype)
-            return grown
+            if isinstance(target, torch.Tensor) and target.is_meta:
+                return functools.partial(_grow, val)
+            return _grow(val, _host(target).clone())
         else:
             return None
     return _host(val).to(_dtype(target))
@@ -236,8 +245,8 @@ def convert_state_dict(state_dict: Mapping, target: Mapping) -> Tuple[Dict, Dict
     """Map a torch state dict ({name: numpy array}) onto ``target`` (a
     flat {"a/b/c": tensor or array} tree, or a nested one); returns the
     flat tree (every target path: converted host tensors, the target's own
-    values where nothing mapped) and the report {"matched", "missed",
-    "skipped"}."""
+    values where nothing mapped, a grown meta target's function of its
+    seeded tensor) and the report {"matched", "missed", "skipped"}."""
     target_flat = flatten_tree(target)
     out = dict(target_flat)
     matched, missed, skipped = [], [], []

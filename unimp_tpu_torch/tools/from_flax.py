@@ -29,14 +29,16 @@ from unimp_tpu_torch.device import resolve_device
 from unimp_tpu_torch.models.config import LMConfig, UniMPConfig
 from unimp_tpu_torch.models.flamingo import UniMPModel
 from unimp_tpu_torch.models.lm import CausalLM
-from unimp_tpu_torch.parallel.sharding import shard_model_fsdp, shard_model_tp, shard_tree_tp
-from unimp_tpu_torch.train.partition import backbone_trainable_mask, freeze
-from unimp_tpu_torch.utils.inference import cast_params_for_inference
-from unimp_tpu_torch.utils.quant import (
-    QuantizedKernel,
-    fuse_decode_kernels,
-    quantize_params_int8,
+from unimp_tpu_torch.ops.attention_ref import alibi_slopes
+from unimp_tpu_torch.parallel.sharding import (
+    ZeroShards,
+    _narrow,
+    fsdp_chunk,
+    shard_model_tp,
+    shard_tree_tp,
 )
+from unimp_tpu_torch.train.partition import backbone_trainable_mask
+from unimp_tpu_torch.utils.quant import QuantizedKernel, fuse_decode_kernels, quantize_kernel
 
 # the cast of each eval_param_dtype (``unimp_tpu/cli/arguments.py``'s
 # --eval_param_dtype); int8 casts to bfloat16 and then quantizes
@@ -59,13 +61,23 @@ def flatten_tree(tree: Mapping, prefix: str = "") -> dict:
     return out
 
 
-def _match_quantized(model: nn.Module, flat: Mapping[str, np.ndarray]) -> list:
+def _match_quantized(model: nn.Module, flat: Mapping[str, np.ndarray]) -> None:
     """Make each kernel int8 where the tree's is (``.../kernel/q`` and
-    ``.../kernel/scale`` leaves), float where the tree's is float; returns
-    (flat path, owner, attribute) of each tensor it put in place whole (a
-    ZeRO-3 model shards them once they are loaded)."""
+    ``.../kernel/scale`` leaves), float where the tree's is float, zeros
+    for the load to fill; a ZeRO-3 model (``model.zero``) gets the new
+    tensor's chunk where the table shards it."""
     zero = getattr(model, "zero", None)
-    made = []
+
+    def put(path, owner, attr, shape, dtype, device):
+        chunk = zero.placement(path, shape) if zero is not None else None
+        t = torch.zeros(shape if chunk is None else chunk, dtype=dtype, device=device)
+        if attr in owner._buffers:
+            owner._buffers[attr] = t
+        else:
+            setattr(owner, attr, nn.Parameter(t))
+        if chunk is not None:
+            zero.adopt(path, owner, attr, shape)
+
     for name, mod in list(model.named_modules()):
         k = getattr(mod, "kernel", None)
         if k is None:
@@ -74,17 +86,19 @@ def _match_quantized(model: nn.Module, flat: Mapping[str, np.ndarray]) -> list:
         if f"{path}/q" in flat and not isinstance(k, QuantizedKernel):
             if zero is not None and zero.sharded(path):
                 zero.forget(path)
+            shape = np.shape(flat[f"{path}/q"])
             mod._parameters.pop("kernel")
-            mod.kernel = QuantizedKernel(  # filled by the load
-                torch.zeros(np.shape(flat[f"{path}/q"]), dtype=torch.int8, device=k.device),
+            mod.kernel = QuantizedKernel(
+                torch.empty(shape, dtype=torch.int8, device="meta"),
                 torch.zeros(np.shape(flat[f"{path}/scale"]), device=k.device),
                 model.compute_dtype)
-            made.append((f"{path}/q", mod.kernel, "q"))
+            put(f"{path}/q", mod.kernel, "q", shape, torch.int8, k.device)
         elif path in flat and isinstance(k, QuantizedKernel):
+            if zero is not None and zero.sharded(f"{path}/q"):
+                zero.forget(f"{path}/q")
+            shape, device = k.shape, k.scale.device
             del mod.kernel
-            mod.kernel = nn.Parameter(torch.zeros(k.shape, device=k.q.device))
-            made.append((path, mod, "kernel"))
-    return made
+            put(path, mod, "kernel", shape, torch.float32, device)
 
 
 def _requantize(model: nn.Module, flat: Mapping) -> dict:
@@ -127,7 +141,7 @@ def load_flax_params(model: nn.Module, flat: Mapping) -> None:
         flat = _requantize(model, flat)
     if getattr(model, "tp_layout", None):
         flat = shard_tree_tp(flat, model.tp_layout, model.tp_rank, model.tp_size)
-    made = _match_quantized(model, flat)
+    _match_quantized(model, flat)
     state = model.state_dict(keep_vars=True)
     want = {name.replace(".", "/") for name in state}
     have = set(flat)
@@ -149,9 +163,6 @@ def load_flax_params(model: nn.Module, flat: Mapping) -> None:
             # in memory and is transposed on the device
             val = val.to(p.device)
             p.copy_(zero.local(path, val) if sharded else val)
-    if zero is not None:
-        for path, owner, attr in made:
-            zero.adopt(path, owner, attr)
     fuse_decode_kernels(model)
 
 
@@ -162,23 +173,170 @@ def _lecun_normal_(p: torch.Tensor, gen: torch.Generator) -> None:
     nn.init.trunc_normal_(p, 0.0, std, -2.0 * std, 2.0 * std, generator=gen)
 
 
+def init_tensor(name: str, p: torch.Tensor, generator: torch.Generator) -> None:
+    """Seeded init of the parameter ``name`` in place, with Flax's
+    distribution for its leaf name."""
+    leaf = name.rsplit(".", 1)[-1]
+    with torch.no_grad():
+        if leaf in ("attn_gate", "ff_gate", "bias"):
+            p.zero_()
+        elif leaf == "scale":
+            p.fill_(1.0)
+        elif leaf == "kernel":
+            _lecun_normal_(p, generator)
+        elif leaf == "embedding":  # flax nn.Embed: variance 1 / dim
+            p.normal_(0.0, 1.0 / math.sqrt(p.shape[-1]), generator=generator)
+        elif leaf in ("cls_token", "pos_embed", "latents"):
+            p.normal_(0.0, 0.02, generator=generator)
+        else:
+            raise KeyError(f"no initializer for parameter {name}")
+
+
 def init_params(model: nn.Module, generator: torch.Generator) -> None:
     """Seeded init of every parameter, in place, with Flax's distributions."""
+    for name, p in model.named_parameters():
+        init_tensor(name, p, generator)
+
+
+def _materialize_buffers(model: nn.Module, device: torch.device) -> None:
+    """The buffers that a model made on the meta device computed at
+    construction, made again on ``device``: each attention's ALiBi slopes."""
+    for name, mod in model.named_modules():
+        for key, buf in mod._buffers.items():
+            if buf is not None and buf.is_meta:
+                if key != "alibi":
+                    raise ValueError(f"no rule to materialize the buffer {name}.{key}")
+                with device:
+                    mod._buffers[key] = alibi_slopes(mod.num_heads)
+
+
+def _check_tree(model: nn.Module, flat: Mapping) -> None:
+    """Raise as ``load_flax_params`` does where ``flat`` and the (meta)
+    model's parameters differ in names or shapes; an int8 kernel of the
+    tree (``.../kernel/q`` and ``.../kernel/scale``) stands for its float
+    kernel."""
+    want, shapes = set(), {}
+    for name, p in model.named_parameters():
+        path = name.replace(".", "/")
+        if name.endswith("kernel") and f"{path}/q" in flat:
+            want.update((f"{path}/q", f"{path}/scale"))
+            path = f"{path}/q"
+        else:
+            want.add(path)
+        shapes[path] = p.shape
+    have = set(flat)
+    if want != have:
+        raise KeyError(f"flax tree and model differ: missing {sorted(want - have)[:8]}, "
+                       f"unexpected {sorted(have - want)[:8]}")
+    for path, shape in shapes.items():
+        val = flat[path]
+        if not callable(val) and tuple(val.shape) != tuple(shape):
+            raise ValueError(f"{path.replace('/', '.')}: flax shape {tuple(val.shape)} != "
+                             f"port {tuple(shape)}")
+
+
+def _on_device(val, shape, dtype, device) -> torch.Tensor:
+    """A new tensor on ``device`` holding ``val`` (a host array or tensor)
+    cast to ``dtype``, as ``load_flax_params`` copies a leaf into its
+    tensor."""
+    if not isinstance(val, torch.Tensor):
+        val = torch.from_numpy(np.array(val))
+    out = torch.empty(tuple(shape), dtype=dtype, device=device)
     with torch.no_grad():
-        for name, p in model.named_parameters():
-            leaf = name.rsplit(".", 1)[-1]
-            if leaf in ("attn_gate", "ff_gate", "bias"):
-                p.zero_()
-            elif leaf == "scale":
-                p.fill_(1.0)
-            elif leaf == "kernel":
-                _lecun_normal_(p, generator)
-            elif leaf == "embedding":  # flax nn.Embed: variance 1 / dim
-                p.normal_(0.0, 1.0 / math.sqrt(p.shape[-1]), generator=generator)
-            elif leaf in ("cls_token", "pos_embed", "latents"):
-                p.normal_(0.0, 0.02, generator=generator)
-            else:
-                raise KeyError(f"no initializer for parameter {name}")
+        out.copy_(val.to(device))
+    return out
+
+
+class _Build:
+    """``build_model``'s steps for one tensor at a time, on a model made on
+    the meta device (tp wired and ``model.zero`` set by then)."""
+
+    def __init__(self, model, device, gen, weights, *, train, mask, frozen_dtype, cast, int8):
+        self.model, self.device, self.gen, self.weights = model, device, gen, weights
+        self.train, self.mask, self.frozen_dtype = train, mask, frozen_dtype
+        self.cast, self.int8 = cast, int8
+        self.layout = getattr(model, "tp_layout", None) or {}
+        self.tp_rank, self.tp = getattr(model, "tp_rank", 0), getattr(model, "tp_size", 1)
+        self.zero = getattr(model, "zero", None)
+
+    def materialize(self, name: str, meta: torch.Tensor):
+        """The whole tensor of ``name`` on the device, float32: its seeded
+        draw or its value in ``weights``; for an int8 kernel of
+        ``weights``, its (q, scale)."""
+        path = name.replace(".", "/")
+        w = None
+        if self.gen is not None:  # every tensor is drawn: the stream keeps its order
+            w = torch.empty_like(meta, device=self.device)
+            init_tensor(name, w, self.gen)
+        if self.weights is None:
+            return w
+        if f"{path}/q" in self.weights:
+            q, scale = self.weights[f"{path}/q"], self.weights[f"{path}/scale"]
+            return (_on_device(q, q.shape, torch.int8, self.device),
+                    _on_device(scale, scale.shape, torch.float32, self.device))
+        val = self.weights[path]
+        if callable(val):  # a function of the seeded tensor (a grown embedding)
+            return val(w)
+        if isinstance(val, torch.Tensor) and val.is_meta:  # the seeded value kept
+            return w
+        return _on_device(val, meta.shape, meta.dtype, self.device)
+
+    def _tp_block(self, t: torch.Tensor, dim) -> torch.Tensor:
+        return t if dim is None else _narrow(t, dim, self.tp_rank, self.tp)
+
+    def _chunk(self, path: str, t: torch.Tensor):
+        """``t`` (a tp block), or this rank's fsdp chunk of it where the
+        table shards it; and whether it was cut."""
+        if self.zero is None or self.zero.placement(path, t.shape) is None:
+            return t, False
+        return fsdp_chunk(t, self.zero.rank, self.zero.n), True
+
+    def place(self, name: str, meta: torch.Tensor) -> None:
+        """Make ``name``'s tensor and put this rank's part of it in its
+        module, frozen, cast or quantized in the order the whole build
+        applied them: quantized over the whole tensor (an int8 inference
+        kernel from its bfloat16 cast), then sliced and chunked."""
+        path = name.replace(".", "/")
+        owner_name, _, attr = name.rpartition(".")
+        owner = self.model.get_submodule(owner_name)
+        trainable = self.mask[name] if self.train else True
+        frozen = self.train and not trainable
+        n_in = 2 if owner_name.rsplit(".", 1)[-1] == "o_proj" and meta.dim() == 3 else 1
+        big_kernel = attr == "kernel" and meta.dim() >= 2 and meta.numel() >= 1 << 16
+        w = self.materialize(name, meta)
+        if isinstance(w, tuple):  # an int8 kernel of the tree
+            (q, scale), qdtype = w, self.model.compute_dtype
+        elif frozen and self.frozen_dtype == "int8" and big_kernel:
+            (q, scale), qdtype = quantize_kernel(w, n_in), self.model.cfg.compute_dtype
+        elif not self.train and self.int8 and big_kernel:
+            (q, scale), qdtype = quantize_kernel(w, n_in, self.cast), torch.bfloat16
+        else:
+            cast = None
+            if frozen and self.frozen_dtype not in (None, "int8") and w.is_floating_point():
+                cast = self.frozen_dtype
+            elif not self.train and w.dim() >= 2 and w.dtype == torch.float32:
+                cast = self.cast
+            w = self._tp_block(w, self.layout.get(path))
+            shape = w.shape
+            w, cut = self._chunk(path, w)
+            # a cast rounds each element alone: on the chunk it gives the same bits
+            owner._parameters[attr] = nn.Parameter(w if cast is None else w.to(cast),
+                                                   requires_grad=trainable)
+            if cut:
+                self.zero.adopt(path, owner, attr, shape)
+            return
+        del w
+        dim = self.layout.get(path)
+        q = self._tp_block(q, dim)
+        if dim is not None and dim >= q.dim() - scale.dim():
+            scale = _narrow(scale, dim - (q.dim() - scale.dim()), self.tp_rank, self.tp)
+        kernel = QuantizedKernel(q, scale, qdtype)
+        chunk, cut = self._chunk(f"{path}/q", q)
+        owner._parameters.pop(attr)
+        setattr(owner, attr, kernel)
+        if cut:
+            kernel._buffers["q"] = chunk
+            self.zero.adopt(f"{path}/q", kernel, "q", q.shape)
 
 
 def build_model(cfg: UniMPConfig | LMConfig, *, device="cuda", seed: int = 0,
@@ -189,14 +347,14 @@ def build_model(cfg: UniMPConfig | LMConfig, *, device="cuda", seed: int = 0,
     """A UniMPModel on ``device`` (a ``CausalLM`` when ``cfg`` is an
     ``LMConfig``: inference only, no mesh, computing in ``dtype``, default
     bfloat16; a UniMPConfig carries its own, ``cfg.dtype``, and a ``dtype``
-    given with one raises) with seeded
-    weights (``init_params``), or
-    with ``weights`` (a flat float tree, {"a/b/c": tensor or array}, e.g.
-    ``train/checkpoint.py:restore_params``) loaded in their place before
-    anything is cast or quantized. ``weights`` may also be a function of
-    the seeded model's flat tree that returns the tree to load (the
-    ``.pt`` converter, which keeps the seeded value of a tensor its file
-    does not map).
+    given with one raises) with seeded weights (``init_params``' draws), or
+    with ``weights`` (a flat tree, {"a/b/c": tensor or array}, e.g.
+    ``train/checkpoint.py:restore_params``; float, or with a kernel as the
+    JAX int8 ``.../kernel/q`` and ``.../kernel/scale``) in their place
+    before anything is cast or quantized. ``weights`` may also be a
+    function of the seeded tree that returns the tree to load (the ``.pt``
+    converter): it gets meta tensors, and a value it returns may be a meta
+    tensor (keep the seeded one) or a function of the seeded tensor.
 
     Inference (default): ``.eval()``, parameters as ``eval_param_dtype``
     says, in the order ``unimp_tpu/cli/mmrec_eval.py`` applies them:
@@ -208,11 +366,19 @@ def build_model(cfg: UniMPConfig | LMConfig, *, device="cuda", seed: int = 0,
     ``train/partition.py``): float32 trainable masters, frozen tensors
     with ``requires_grad=False`` stored in ``frozen_dtype`` when given
     (a float dtype, or "int8": frozen kernels quantized, ``train/
-    partition.py:freeze``), ``.train()``. ``load_flax_params`` loads a Flax tree into either build.
-    ``mesh`` (``parallel/mesh.py``): the whole model is built, loaded,
-    frozen or cast and quantized as above, on every rank alike, then
-    sliced to this rank's tp block (``shard_model_tp``, tp > 1) and
-    sharded over fsdp (``shard_model_fsdp``, ZeRO-3, fsdp > 1).
+    partition.py:freeze``), ``.train()``.
+
+    The model is made on the meta device and its tensors one at a time,
+    in ``named_parameters()`` order: each is made whole in float32 on
+    ``device`` (drawn from the one generator, or read from ``weights``),
+    frozen, cast or quantized (over the whole tensor), sliced to this
+    rank's tp block (``mesh``, tp > 1) and cut to this rank's fsdp chunk
+    (ZeRO-3, fsdp > 1, ``parallel/sharding.py:ZeroShards``), as the JAX
+    trainer makes its parameters already sharded; the whole tensor is
+    freed before the next. The device so holds at most the model's
+    resident bytes and one whole float32 tensor (and the copies of its
+    block and chunk), and every rank's tensors equal, bit for bit, the
+    whole model built, loaded, frozen or cast and then sliced.
     """
     if eval_param_dtype not in EVAL_PARAM_DTYPES:
         raise ValueError(f"eval_param_dtype {eval_param_dtype!r} not in "
@@ -225,25 +391,24 @@ def build_model(cfg: UniMPConfig | LMConfig, *, device="cuda", seed: int = 0,
     if not is_lm and dtype is not None:
         raise ValueError("a UniMPConfig sets its compute dtype itself (cfg.dtype)")
     device = resolve_device(device)
-    with device:
+    with torch.device("meta"):
         model = CausalLM(cfg, dtype or torch.bfloat16) if is_lm else UniMPModel(cfg)
-    if weights is None or callable(weights):
-        init_params(model, torch.Generator(device).manual_seed(seed))
-    if callable(weights):
-        weights = weights({n.replace(".", "/"): t.detach() for n, t in model.state_dict().items()})
-    if weights is not None:
-        load_flax_params(model, weights)
-    if train:
-        freeze(model, trainable_mask(model), frozen_dtype)
-        model.train()
-    else:
-        cast = EVAL_PARAM_DTYPES[eval_param_dtype]
-        if cast is not None:
-            cast_params_for_inference(model, cast)
-        if eval_param_dtype == "int8":
-            quantize_params_int8(model)
-        model.eval()
+    _materialize_buffers(model, device)
     if mesh is not None:
-        shard_model_tp(model, mesh)
-        shard_model_fsdp(model, mesh)
-    return model
+        shard_model_tp(model, mesh, sliced=True)
+        model.zero = ZeroShards(model, mesh) if mesh.fsdp > 1 else None
+    gen = None
+    if weights is None or callable(weights):
+        gen = torch.Generator(device).manual_seed(seed)
+    if callable(weights):
+        weights = weights({n.replace(".", "/"): p for n, p in model.named_parameters()})
+    if weights is not None:
+        _check_tree(model, weights)
+    build = _Build(model, device, gen, weights, train=train,
+                   mask=trainable_mask(model) if train else None, frozen_dtype=frozen_dtype,
+                   cast=None if train else EVAL_PARAM_DTYPES[eval_param_dtype],
+                   int8=not train and eval_param_dtype == "int8")
+    for name, meta in list(model.named_parameters()):
+        build.place(name, meta)
+    fuse_decode_kernels(model)
+    return model.train() if train else model.eval()

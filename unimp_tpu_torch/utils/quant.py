@@ -21,6 +21,8 @@ a restore is checked against.
 
 from __future__ import annotations
 
+import math
+
 import torch
 from torch import nn
 
@@ -93,6 +95,23 @@ def _quantize_leaf(w: torch.Tensor, n_in_axes: int = 1, group=None):
     scale = _absmax_scale(amax)
     q = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
     return q, scale
+
+
+def quantize_kernel(w: torch.Tensor, n_in_axes: int = 1, cast=None, block: int = 1 << 22):
+    """``_quantize_leaf(w.to(cast), n_in_axes)`` of a whole kernel, bit for
+    bit, without a whole temporary: the scale of a column depends on that
+    column alone, so the output columns go through in blocks of about
+    ``block`` elements (each cast to ``cast`` first when given)."""
+    rows = math.prod(w.shape[:n_in_axes])
+    w2 = w.detach().reshape(rows, -1)
+    q = torch.empty(w2.shape, dtype=torch.int8, device=w.device)
+    scale = torch.empty(w2.shape[1], dtype=torch.float32, device=w.device)
+    step = max(1, block // rows)
+    for j in range(0, w2.shape[1], step):
+        part = w2[:, j: j + step]
+        q[:, j: j + step], scale[j: j + step] = _quantize_leaf(
+            part if cast is None else part.to(cast), 1)
+    return q.view(w.shape), scale.view(w.shape[n_in_axes:])
 
 
 def quantize_kv(t: torch.Tensor):
