@@ -1781,9 +1781,9 @@ def phase_cli(dev, gpu_line, data, run_dir, write_s, variant="4b-instruct", extr
     orig_build_model = common.build_model
 
     def batches(*args, **kw):
-        for answers, batch, ips in orig_batches(*args, **kw):
-            seen["batches"].append((batch["input_ids"].shape, ips))
-            yield answers, batch, ips
+        for answers, batch, wall in orig_batches(*args, **kw):
+            seen["batches"].append((batch["input_ids"].shape, wall))
+            yield answers, batch, wall
 
     def ensure(self, ids):
         torch.cuda.synchronize()
@@ -1852,7 +1852,9 @@ def phase_cli(dev, gpu_line, data, run_dir, write_s, variant="4b-instruct", extr
     if int8:
         want = int8_launches(cfg, steps, len(seen["batches"]))
     shapes = [shape for shape, _ in seen["batches"]]
-    batch_s = [shape[0] / ips for shape, ips in seen["batches"]]
+    # the evaluator's wall at each batch's end, from the first batch's fetch
+    wall = [w for _, w in seen["batches"]]
+    batch_s = [b - a for a, b in zip([0.0] + wall[:-1], wall)]
     n_params = sum(t.numel() for t in seen["model"].state_dict().values())
     log(f"{tag} {variant}: {n_params / 1e9:.3f} B weights ({'int8 + int8 KV' if int8 else 'bf16'})"
         f"; vocab: base {base_vocab} (corpus), extended {len(seen['tokenizer'])}, "
@@ -1863,9 +1865,9 @@ def phase_cli(dev, gpu_line, data, run_dir, write_s, variant="4b-instruct", extr
         f"(latent cache misses, decode + resize + ViT + perceiver)")
     log(f"{tag} batch seconds {batch_s} (fetch + encode misses + generate); generate seconds "
         f"{seen['generate_s']}; {steps} decode steps")
-    log(f"{tag} items/s: evaluator {metrics['items_per_sec']:.3f} (mean over batches, the first "
-        f"with its misses), second batch {CLI_BATCH / batch_s[1]:.3f}; peak_mem={peak_gib:.2f} "
-        f"GiB (the eval, after the build; the build, made tensor by tensor, "
+    log(f"{tag} items/s: evaluator {metrics['items_per_sec']:.3f} (users over the loop's wall, "
+        f"the first batch's misses included), second batch {CLI_BATCH / batch_s[1]:.3f}; "
+        f"peak_mem={peak_gib:.2f} GiB (the eval, after the build; the build, made tensor by tensor, "
         f"{seen['build_peak_gib']:.2f} GiB for {seen['build_alloc_gib']:.2f} GiB allocated after "
         f"it: {quantized_bytes(seen['model']) / 2**30:.2f} GiB of weights, the rest the fused "
         f"int8 decode QKV) on {gpu_line}")
@@ -5197,10 +5199,11 @@ def phase_orbax(dev, gpu_line, data, run_dir) -> dict:
     orig_restore = ckpt.restore_params
 
     def batches(*args, **kw):
-        for rows, batch, ips in orig_batches(*args, **kw):
+        for rows, batch, wall in orig_batches(*args, **kw):
             answers[seen["side"]].append(rows)
-            seen.setdefault("ips", {})[seen["side"]] = ips
-            yield rows, batch, ips
+            users = sum(len(r) for r in answers[seen["side"]])
+            seen.setdefault("ips", {})[seen["side"]] = users / wall
+            yield rows, batch, wall
 
     def build(args, tokenizer, **kw):
         model = orig_build(args, tokenizer, **kw)

@@ -143,7 +143,9 @@ def build_parser(eval_only: bool = False) -> argparse.ArgumentParser:
     p.add_argument("--max_records", type=int, default=None,
                    help="truncate datasets (smoke runs)")
     p.add_argument("--trace_dir", type=str, default=None,
-                   help="capture a profiler trace of training steps")
+                   help="capture a profiler trace of the first epoch's training "
+                        "and evals (mmrec_eval: the evals), the program's spans "
+                        "among its events")
     p.add_argument("--num_beams", type=int, default=10)
     p.add_argument("--kv_int8", default=False, action="store_true",
                    help="int8 decode KV caches (prompt + latent + "

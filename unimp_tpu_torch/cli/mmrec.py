@@ -266,17 +266,18 @@ def main(argv=None):
             tasks = common.curriculum_tasks(epoch, args.num_epochs)
             train_ds = common.make_dataset(args, tokenizer, "train", task=tasks)
             train_loader = common.make_loader(args, train_ds, tokenizer, train=True)
+        # --trace_dir: the first epoch's training and evals
         with maybe_trace(args.trace_dir if epoch == resume_epoch else None):
             train_one_epoch(args, trainer, train_loader, epoch, logger, timer)
-        # the reference's separate eval-split and test-split passes
-        # (mmrec.py:606-608, 775-871); one latent cache serves both
-        epoch_cache = {}
-        if args.do_eval:
-            run_evals(args, model, tokenizer, logger, epoch, split="eval",
-                      cache_holder=epoch_cache)
-        if args.do_test:
-            run_evals(args, model, tokenizer, logger, epoch, split="test",
-                      cache_holder=epoch_cache)
+            # the reference's separate eval-split and test-split passes
+            # (mmrec.py:606-608, 775-871); one latent cache serves both
+            epoch_cache = {}
+            if args.do_eval:
+                run_evals(args, model, tokenizer, logger, epoch, split="eval",
+                          cache_holder=epoch_cache)
+            if args.do_test:
+                run_evals(args, model, tokenizer, logger, epoch, split="test",
+                          cache_holder=epoch_cache)
         ckpt.save_epoch(save_dir, model, epoch)
         ckpt.save_train_state(save_dir, trainer, epoch)
         if args.delete_previous_checkpoint and epoch > 0 and ckpt.is_writer():

@@ -14,9 +14,11 @@ cast, or quantized to int8 after the cast, as ``--eval_param_dtype``
 says (restore first, then quantize, as the JAX package does). It then
 evaluates the test split (and the eval split with ``--do_eval``): per-user
 metric dumps under ``{external_save_dir}/{run_name}/results/`` and
-``eval_results.json``. Under ``torchrun`` each rank evaluates its shard
-of the users (the metrics are joined over ranks; rank 0 writes
-``eval_results.json``), with the model sliced over ``--mesh_tp``.
+``eval_results.json``; ``--trace_dir`` records the evals
+(``utils/profiling.py:maybe_trace``). Under ``torchrun`` each rank
+evaluates its shard of the users (the metrics are joined over ranks;
+rank 0 writes ``eval_results.json``), with the model sliced over
+``--mesh_tp``.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from unimp_tpu_torch.cli.mmrec import run_evals
 from unimp_tpu_torch.tools.convert_torch import load_torch_checkpoint
 from unimp_tpu_torch.train import checkpoint as ckpt
 from unimp_tpu_torch.utils.logging import MetricLogger
+from unimp_tpu_torch.utils.profiling import maybe_trace
 
 
 def main(argv=None):
@@ -53,12 +56,13 @@ def main(argv=None):
     tasks = [args.task] if args.single_task else None
     results = {}
     shared_cache = {}  # one latent cache across both splits
-    if args.do_eval:
-        results["eval"] = run_evals(args, model, tokenizer, logger, epoch=0, tasks=tasks,
-                                    split="eval", cache_holder=shared_cache)
-    if args.do_test or not args.do_eval:
-        results.update(run_evals(args, model, tokenizer, logger, epoch=0, tasks=tasks,
-                                 split="test", cache_holder=shared_cache))
+    with maybe_trace(args.trace_dir):
+        if args.do_eval:
+            results["eval"] = run_evals(args, model, tokenizer, logger, epoch=0, tasks=tasks,
+                                        split="eval", cache_holder=shared_cache)
+        if args.do_test or not args.do_eval:
+            results.update(run_evals(args, model, tokenizer, logger, epoch=0, tasks=tasks,
+                                     split="test", cache_holder=shared_cache))
     out = os.path.join(save_dir, "eval_results.json")
     if ckpt.is_writer():
         with open(out, "w") as f:

@@ -14,7 +14,8 @@ or run_name)}/{load_weights_name}`` onto it with growth
 the fresh init), then fine-tunes it with the Trainer, schedule and
 accumulation of ``cli/mmrec.py``, writing ``weights_epoch_{e}`` and
 ``final_weights`` under ``{external_save_dir}/{run_name}_{domain}``.
-``--only_test`` evaluates the restored weights instead. ``--remat`` /
+``--only_test`` evaluates the restored weights instead. ``--trace_dir``
+records the first epoch (or the ``--only_test`` evals). ``--remat`` /
 ``--remat_policy`` apply (the model's config); ``--frozen_int8`` and
 ``--bf16_opt_state`` leave this entry's float32 tensors, gradients and
 moments as they are, as the JAX entry does (its Trainer and optimizer get
@@ -36,7 +37,7 @@ from unimp_tpu_torch.train.partition import trainable_params
 from unimp_tpu_torch.train.trainer import Trainer
 from unimp_tpu_torch.train.vision_cache import build_tower_cache
 from unimp_tpu_torch.utils.logging import MetricLogger
-from unimp_tpu_torch.utils.profiling import StepTimer
+from unimp_tpu_torch.utils.profiling import StepTimer, maybe_trace
 
 
 def frozen_mask(model) -> dict:
@@ -84,7 +85,8 @@ def main(argv=None):
         load_flax_params(model, ckpt.merge_with_growth(restored, ckpt.full_model_tree(model)))
         del restored  # release the file's mapping
     if args.only_test:
-        return run_evals(args, model, tokenizer, logger, epoch=0, tasks=[args.task])
+        with maybe_trace(args.trace_dir):
+            return run_evals(args, model, tokenizer, logger, epoch=0, tasks=[args.task])
 
     accum = args.gradient_accumulation_steps
     total_steps = common.min_over_ranks(len(train_loader), mesh) * args.num_epochs
@@ -117,14 +119,16 @@ def main(argv=None):
     timer = StepTimer()
     epoch = -1
     for epoch in range(args.num_epochs):
-        train_one_epoch(args, trainer, train_loader, epoch, logger, timer)
-        epoch_cache = {}
-        if args.do_eval:
-            run_evals(args, model, tokenizer, logger, epoch, tasks=[args.task], split="eval",
-                      cache_holder=epoch_cache)
-        if args.do_test:
-            run_evals(args, model, tokenizer, logger, epoch, tasks=[args.task], split="test",
-                      cache_holder=epoch_cache)
+        # --trace_dir: the first epoch's training and evals
+        with maybe_trace(args.trace_dir if epoch == 0 else None):
+            train_one_epoch(args, trainer, train_loader, epoch, logger, timer)
+            epoch_cache = {}
+            if args.do_eval:
+                run_evals(args, model, tokenizer, logger, epoch, tasks=[args.task],
+                          split="eval", cache_holder=epoch_cache)
+            if args.do_test:
+                run_evals(args, model, tokenizer, logger, epoch, tasks=[args.task],
+                          split="test", cache_holder=epoch_cache)
         ckpt.save_epoch(save_dir, model, epoch)
     ckpt.save_params(save_dir, model, "final_weights")
     return trainer, {"step": trainer.step, "epoch": epoch}

@@ -30,6 +30,13 @@ pick takes ``log_softmax`` in the logits' dtype, step by step as
 ``jax.nn.log_softmax`` does, so bf16 logits round (and near-ties break)
 as in JAX.
 
+Spans (``utils/profiling.py``): ``generate.prefill`` (the prefill and
+the KV quantisation), then a ``generate.step`` a loop iteration holding
+the ``read.done`` check, ``generate.select`` (the pick or the beam
+bookkeeping, with its ``read.top_k`` reads) and ``generate.decode`` (the
+model call); a loop that stops before ``max_new_tokens`` ends in a
+``generate.step`` that holds only the check.
+
 Sampling (``temperature`` > 0, greedy loop only): ``sample_filter`` gives
 the temperature-scaled, top-k and nucleus-cut logits that JAX's
 ``Generator._sample_from`` hands to ``jax.random.categorical``, element
@@ -57,6 +64,7 @@ import torch
 
 from unimp_tpu_torch.models.flamingo import compute_q_media
 from unimp_tpu_torch.parallel.mesh import all_ranks_true, lockstep_group
+from unimp_tpu_torch.utils import profiling
 from unimp_tpu_torch.utils.quant import quantize_kv
 
 NEG_INF = -1.0e9
@@ -128,7 +136,8 @@ def top_k(x: torch.Tensor, k: int):
     tied = x == kth
     need = k - above.sum(dim=-1, keepdim=True)
     take = above | (tied & (torch.cumsum(tied.to(torch.int32), dim=-1) <= need))
-    idx = take.nonzero()[:, -1].reshape(*x.shape[:-1], k)  # ascending index
+    with profiling.read("top_k"):
+        idx = take.nonzero()[:, -1].reshape(*x.shape[:-1], k)  # ascending index
     vals = torch.gather(x, -1, idx)
     order = torch.sort(vals, dim=-1, descending=True, stable=True).indices
     return torch.gather(vals, -1, order), torch.gather(idx, -1, order)
@@ -189,6 +198,7 @@ class Generator:
         cfg = self.cfg
         if cfg.temperature > 0.0 and generator is None:
             raise ValueError("sampling (temperature > 0) needs a torch.Generator")
+        profiling.request("generate")
         b, t = input_ids.shape
         dev = input_ids.device
         ids, start = left_align(input_ids, seq_len, cfg.pad_id)
@@ -198,14 +208,15 @@ class Generator:
             q_media = compute_q_media(ids, self.media_id)
             n_media = q_media[:, -1]
             kv_media = self.model.kv_media_for(latents)
-        logits, kv = self.model(
-            ids, latents=latents, q_media=q_media, kv_start=start,
-            positions=positions, return_kv=True, last_logit_only=True,
-        )
-        self_kv, xattn_kv = kv["self"], kv.get("xattn", [])  # none from a CausalLM
-        if cfg.kv_int8:
-            self_kv = [quantize_kv_cache(c) for c in self_kv]
-            xattn_kv = [quantize_kv_cache(c) for c in xattn_kv]
+        with profiling.span("generate.prefill"):
+            logits, kv = self.model(
+                ids, latents=latents, q_media=q_media, kv_start=start,
+                positions=positions, return_kv=True, last_logit_only=True,
+            )
+            self_kv, xattn_kv = kv["self"], kv.get("xattn", [])  # none from a CausalLM
+            if cfg.kv_int8:
+                self_kv = [quantize_kv_cache(c) for c in self_kv]
+                xattn_kv = [quantize_kv_cache(c) for c in xattn_kv]
         state = {
             "self": self_kv,
             "xattn": xattn_kv,
@@ -220,7 +231,8 @@ class Generator:
 
     def _decode_step(self, tokens, state, gen, step, positions, gen_index=None):
         ds = dict(state, gen=gen, step=step, gen_index=gen_index)
-        return self.model(tokens, positions=positions, decode_state=ds)
+        with profiling.span("generate.decode"):
+            return self.model(tokens, positions=positions, decode_state=ds)
 
     def _greedy_loop(self, last_logits, state, start, t, generator=None):
         cfg = self.cfg
@@ -232,22 +244,27 @@ class Generator:
         scores = torch.zeros(b, dtype=torch.float32, device=dev)
         logits = last_logits
         step = 0
-        while step < cfg.max_new_tokens and not all_ranks_true(done.all(),
-                                                               self.lockstep_group):
-            logp = log_softmax_like_jax(logits)
-            if cfg.temperature > 0.0:
-                nxt = sample_draw(sample_filter(logits, cfg), generator)
-            else:
-                nxt = torch.argmax(logp, dim=-1)  # first maximum, as jnp.argmax
-            nxt = torch.where(done, cfg.pad_id, nxt)
-            picked = torch.gather(logp, 1, nxt[:, None])[:, 0]
-            scores = scores + torch.where(done, 0.0, picked)
-            tokens[:, step] = nxt
-            done = done | (nxt == cfg.eos_id)
-            pos = (t + step - start)[:, None]
-            new_logits, gen = self._decode_step(nxt[:, None], state, gen, step, pos)
-            logits = new_logits[:, 0]
-            step += 1
+        while step < cfg.max_new_tokens:
+            with profiling.span("generate.step"):
+                with profiling.read("done"):
+                    finished = all_ranks_true(done.all(), self.lockstep_group)
+                if finished:
+                    break
+                with profiling.span("generate.select"):
+                    logp = log_softmax_like_jax(logits)
+                    if cfg.temperature > 0.0:
+                        nxt = sample_draw(sample_filter(logits, cfg), generator)
+                    else:
+                        nxt = torch.argmax(logp, dim=-1)  # first maximum, as jnp.argmax
+                    nxt = torch.where(done, cfg.pad_id, nxt)
+                    picked = torch.gather(logp, 1, nxt[:, None])[:, 0]
+                    scores = scores + torch.where(done, 0.0, picked)
+                    tokens[:, step] = nxt
+                    done = done | (nxt == cfg.eos_id)
+                    pos = (t + step - start)[:, None]
+                new_logits, gen = self._decode_step(nxt[:, None], state, gen, step, pos)
+                logits = new_logits[:, 0]
+                step += 1
         return tokens[:, None, :], scores[:, None]
 
     def _beam_loop(self, last_logits, state, start, t, seq_len):
@@ -281,67 +298,74 @@ class Generator:
         rank = torch.arange(2 * k, device=dev)[None, :]
 
         step = 0
-        while step < max_new and not all_ranks_true(done.all(), self.lockstep_group):
-            logp = torch.log_softmax(logits.float(), dim=-1)
-            cand = alive_scores[:, :, None] + logp  # [B, K, V]
-            top_vals, top_idx = top_k(cand.reshape(b, k * v), 2 * k)
-            src_beam = top_idx // v
-            tok = top_idx % v
-            is_eos = tok == cfg.eos_id
+        while step < max_new:
+            with profiling.span("generate.step"):
+                with profiling.read("done"):
+                    finished = all_ranks_true(done.all(), self.lockstep_group)
+                if finished:
+                    break
+                with profiling.span("generate.select"):
+                    logp = torch.log_softmax(logits.float(), dim=-1)
+                    cand = alive_scores[:, :, None] + logp  # [B, K, V]
+                    top_vals, top_idx = top_k(cand.reshape(b, k * v), 2 * k)
+                    src_beam = top_idx // v
+                    tok = top_idx % v
+                    is_eos = tok == cfg.eos_id
 
-            # retire EOS candidates with rank < K to the finished set
-            if norm_gen:
-                hyp_len = torch.full((b, 1), step + 1.0, device=dev)
-            else:
-                hyp_len = (seq_len_f + step)[:, None]
-            cand_fin_score = torch.where(
-                is_eos & (rank < k) & ~done[:, None], top_vals / hyp_len**lp,
-                torch.full_like(top_vals, NEG_INF))
-            cand_seq = torch.gather(
-                alive_tok, 1, src_beam[:, :, None].expand(b, 2 * k, max_new))
-            all_scores = torch.cat([fin_scores, cand_fin_score], dim=1)
-            all_seq = torch.cat([fin_tok, cand_seq], dim=1)
-            new_fin_scores, keep_idx = top_k(all_scores, k)
-            new_fin_tok = torch.gather(all_seq, 1, keep_idx[:, :, None].expand(b, k, max_new))
-            new_fin_count = torch.clamp(
-                fin_count + (cand_fin_score > NEG_INF / 2).sum(dim=1), max=k)
+                    # retire EOS candidates with rank < K to the finished set
+                    if norm_gen:
+                        hyp_len = torch.full((b, 1), step + 1.0, device=dev)
+                    else:
+                        hyp_len = (seq_len_f + step)[:, None]
+                    cand_fin_score = torch.where(
+                        is_eos & (rank < k) & ~done[:, None], top_vals / hyp_len**lp,
+                        torch.full_like(top_vals, NEG_INF))
+                    cand_seq = torch.gather(
+                        alive_tok, 1, src_beam[:, :, None].expand(b, 2 * k, max_new))
+                    all_scores = torch.cat([fin_scores, cand_fin_score], dim=1)
+                    all_seq = torch.cat([fin_tok, cand_seq], dim=1)
+                    new_fin_scores, keep_idx = top_k(all_scores, k)
+                    new_fin_tok = torch.gather(
+                        all_seq, 1, keep_idx[:, :, None].expand(b, k, max_new))
+                    new_fin_count = torch.clamp(
+                        fin_count + (cand_fin_score > NEG_INF / 2).sum(dim=1), max=k)
 
-            # new alive: top K non-EOS candidates
-            alive_vals = torch.where(is_eos, torch.full_like(top_vals, NEG_INF), top_vals)
-            a_vals, a_idx = top_k(alive_vals, k)
-            a_src = torch.gather(src_beam, 1, a_idx)
-            a_tok = torch.gather(tok, 1, a_idx)
-            new_alive_tok = torch.gather(
-                alive_tok, 1, a_src[:, :, None].expand(b, k, max_new)).clone()
-            new_alive_tok[:, :, step] = a_tok
-            # freeze rows that were already done
-            new_alive_tok = torch.where(done[:, None, None], alive_tok, new_alive_tok)
-            new_alive_scores = torch.where(done[:, None], alive_scores, a_vals)
-            new_fin_scores = torch.where(done[:, None], fin_scores, new_fin_scores)
-            new_fin_tok = torch.where(done[:, None, None], fin_tok, new_fin_tok)
-            new_fin_count = torch.where(done, fin_count, new_fin_count)
+                    # new alive: top K non-EOS candidates
+                    alive_vals = torch.where(is_eos, torch.full_like(top_vals, NEG_INF), top_vals)
+                    a_vals, a_idx = top_k(alive_vals, k)
+                    a_src = torch.gather(src_beam, 1, a_idx)
+                    a_tok = torch.gather(tok, 1, a_idx)
+                    new_alive_tok = torch.gather(
+                        alive_tok, 1, a_src[:, :, None].expand(b, k, max_new)).clone()
+                    new_alive_tok[:, :, step] = a_tok
+                    # freeze rows that were already done
+                    new_alive_tok = torch.where(done[:, None, None], alive_tok, new_alive_tok)
+                    new_alive_scores = torch.where(done[:, None], alive_scores, a_vals)
+                    new_fin_scores = torch.where(done[:, None], fin_scores, new_fin_scores)
+                    new_fin_tok = torch.where(done[:, None, None], fin_tok, new_fin_tok)
+                    new_fin_count = torch.where(done, fin_count, new_fin_count)
 
-            if cfg.early_stopping:
-                row_done = new_fin_count >= k
-            else:
-                heur_len = (torch.full((b,), step + 1.0, device=dev) if norm_gen
-                            else seq_len_f + step + 1)
-                best_running = new_alive_scores.amax(dim=1) / heur_len**lp
-                worst_fin = new_fin_scores.amin(dim=1)
-                row_done = (new_fin_count >= k) & (worst_fin >= best_running)
-            done = done | row_done
-            alive_tok, alive_scores = new_alive_tok, new_alive_scores
-            fin_tok, fin_scores, fin_count = new_fin_tok, new_fin_scores, new_fin_count
+                    if cfg.early_stopping:
+                        row_done = new_fin_count >= k
+                    else:
+                        heur_len = (torch.full((b,), step + 1.0, device=dev) if norm_gen
+                                    else seq_len_f + step + 1)
+                        best_running = new_alive_scores.amax(dim=1) / heur_len**lp
+                        worst_fin = new_fin_scores.amin(dim=1)
+                        row_done = (new_fin_count >= k) & (worst_fin >= best_running)
+                    done = done | row_done
+                    alive_tok, alive_scores = new_alive_tok, new_alive_scores
+                    fin_tok, fin_scores, fin_count = new_fin_tok, new_fin_scores, new_fin_count
 
-            # ancestry update instead of a cache reorder: beam j inherits
-            # parent a_src[j]'s rows and writes its own KV at column step
-            anc = anc[(row_base + a_src).reshape(b * k)]
-            anc[:, step] = own_rows
-            pos = (t + step - start_k)[:, None]
-            new_logits, gen = self._decode_step(
-                a_tok.reshape(b * k, 1), state, gen, step, pos, gen_index=anc)
-            logits = new_logits.reshape(b, k, v)
-            step += 1
+                    # ancestry update instead of a cache reorder: beam j inherits
+                    # parent a_src[j]'s rows and writes its own KV at column step
+                    anc = anc[(row_base + a_src).reshape(b * k)]
+                    anc[:, step] = own_rows
+                    pos = (t + step - start_k)[:, None]
+                new_logits, gen = self._decode_step(
+                    a_tok.reshape(b * k, 1), state, gen, step, pos, gen_index=anc)
+                logits = new_logits.reshape(b, k, v)
+                step += 1
 
         # finalize: running beams of rows not done compete with the banked
         # set by normalized score; done rows keep their banked set

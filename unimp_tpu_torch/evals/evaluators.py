@@ -23,11 +23,12 @@ catalogue image is encoded once; batches that carry pixels go through
 ``encode_vision``.
 
 One generation is in flight at a time. The port's ``Generator`` runs its
-decode loop on the host and returns once the batch is decoded, so a
-batch is timed from its fetch to its tokens on the host; the loader's
-worker threads build the next batches meanwhile. ``items_per_sec`` is the
-mean of the per-batch rows per second, the first batch including its
-catalogue misses, as in the JAX package.
+decode loop on the host and returns once the batch is decoded; the
+loader's worker threads build the next batches meanwhile.
+``items_per_sec`` is the rows over the loop's wall, from the first
+batch's fetch to the last batch's tokens on the host, the first batch's
+catalogue misses included (the JAX package's is the mean of the
+per-batch rates, which counts a short last batch as much as a full one).
 
 Several ranks (``parallel/mesh.py``): each evaluates the users of its
 data-axis shard (the loader's) and ``evals/dist.py`` joins the per-user
@@ -73,8 +74,9 @@ def _answers(tokenizer, tokens: np.ndarray):
 
 
 def _generate_batches(model, loader, tokenizer, gen_cfg, cache_holder=None):
-    """Yield (answers, batch, items_per_sec) over the eval loader, on the
-    model's device."""
+    """Yield (answers, batch, seconds) over the eval loader, on the model's
+    device; seconds is the wall from the first batch's fetch to this
+    batch's tokens on the host."""
     device = next(model.parameters()).device
     gen = Generator(model, gen_cfg, media_id=tokenizer.media_token_id)
     # shared across evaluator calls of one run (same weights): the
@@ -107,14 +109,17 @@ def _generate_batches(model, loader, tokenizer, gen_cfg, cache_holder=None):
     for batch in loader:
         tokens = generate(batch)
         calls -= 1
-        dt = time.perf_counter() - t0
-        yield _answers(tokenizer, tokens), batch, len(tokens) / dt
-        t0 = time.perf_counter()
+        yield _answers(tokenizer, tokens), batch, time.perf_counter() - t0
     if calls > 0 and batch is None:
         raise ValueError("a rank with no eval rows cannot keep step with a ZeRO-3 model's "
                          "other ranks")
     for _ in range(calls):
         generate(batch)
+
+
+def _per_second(rows: int, seconds: float) -> float:
+    """``items_per_sec``: the rows over the loop's wall (0.0 without rows)."""
+    return rows / seconds if seconds > 0 else 0.0
 
 
 def _rank_eval(model, loader, tokenizer, *, max_new_tokens, ks=(3, 5, 10), num_beams=10,
@@ -126,16 +131,15 @@ def _rank_eval(model, loader, tokenizer, *, max_new_tokens, ks=(3, 5, 10), num_b
         num_return_sequences=num_beams, kv_int8=kv_int8, length_norm=length_norm,
     )
     per_user = []
-    throughput = []
-    for answers, batch, ips in _generate_batches(model, loader, tokenizer, gen_cfg,
-                                                 cache_holder=cache_holder):
-        throughput.append(ips)
+    seconds = 0.0
+    for answers, batch, seconds in _generate_batches(model, loader, tokenizer, gen_cfg,
+                                                     cache_holder=cache_holder):
         for row, target in zip(answers, batch["targets"]):
             hits = np.array([_norm(a) == _norm(target) for a in row], dtype=int)
             per_user.append(rank_metrics_for_hits(hits, ks=ks, len_gt=1))
     keys = per_user[0].keys() if per_user else []
     metrics = {k: float(np.mean(gather_metric_lists([u[k] for u in per_user]))) for k in keys}
-    metrics["items_per_sec"] = float(np.mean(throughput)) if throughput else 0.0
+    metrics["items_per_sec"] = _per_second(len(per_user), seconds)
     metrics["n_users"] = int(gather_metric_lists([float(len(per_user))]).sum())
     if dump_path:
         os.makedirs(os.path.dirname(dump_path) or ".", exist_ok=True)
@@ -168,10 +172,9 @@ def evaluate_exp(model, loader, tokenizer, *, max_new_tokens=256, num_beams=5,
     gen_cfg = _one_return_config(tokenizer, max_new_tokens, num_beams, kv_int8)
     abs_err, sq_err = [], []
     gen_exps, real_exps = [], []
-    throughput = []
-    for answers, batch, ips in _generate_batches(model, loader, tokenizer, gen_cfg,
-                                                 cache_holder=cache_holder):
-        throughput.append(ips)
+    seconds = 0.0
+    for answers, batch, seconds in _generate_batches(model, loader, tokenizer, gen_cfg,
+                                                     cache_holder=cache_holder):
         for row, target in zip(answers, batch["targets"]):
             words = row[0].split()
             try:
@@ -191,7 +194,7 @@ def evaluate_exp(model, loader, tokenizer, *, max_new_tokens=256, num_beams=5,
         "rouge2": text_metrics.rouge_n(gen_exps, real_exps, 2),
         "rougeL": text_metrics.rouge_l(gen_exps, real_exps),
         "meteor": text_metrics.meteor(gen_exps, real_exps),
-        "items_per_sec": float(np.mean(throughput)) if throughput else 0.0,
+        "items_per_sec": _per_second(len(gen_exps), seconds),
         "n_users": len(gen_exps),
     }
     if bertscore_fn is not None:
@@ -209,10 +212,9 @@ def evaluate_img_sel(model, loader, tokenizer, *, max_new_tokens=40, num_beams=2
                      kv_int8=False, cache_holder=None):
     gen_cfg = _one_return_config(tokenizer, max_new_tokens, num_beams, kv_int8)
     recalls, precisions, f1s = [], [], []
-    throughput = []
-    for answers, batch, ips in _generate_batches(model, loader, tokenizer, gen_cfg,
-                                                 cache_holder=cache_holder):
-        throughput.append(ips)
+    seconds = 0.0
+    for answers, batch, seconds in _generate_batches(model, loader, tokenizer, gen_cfg,
+                                                     cache_holder=cache_holder):
         for row, target in zip(answers, batch["targets"]):
             gen_ids = set(row[0].split())
             gts = [f"s_{i}" for i in target]
@@ -226,7 +228,7 @@ def evaluate_img_sel(model, loader, tokenizer, *, max_new_tokens=40, num_beams=2
         "recall": float(np.mean(recalls)),
         "precision": float(np.mean(precisions)),
         "f1": float(np.mean(f1s)),
-        "items_per_sec": float(np.mean(throughput)) if throughput else 0.0,
+        "items_per_sec": _per_second(len(recalls), seconds),
         "n_users": len(recalls),
     }
 
@@ -236,10 +238,9 @@ def evaluate_img_gen(model, loader, tokenizer, *, max_new_tokens=600,
                      run_name: str = "run", kv_int8=False, cache_holder=None):
     gen_cfg = _one_return_config(tokenizer, max_new_tokens, 1, kv_int8)
     generations = []
-    throughput = []
-    for answers, batch, ips in _generate_batches(model, loader, tokenizer, gen_cfg,
-                                                 cache_holder=cache_holder):
-        throughput.append(ips)
+    seconds = 0.0
+    for answers, batch, seconds in _generate_batches(model, loader, tokenizer, gen_cfg,
+                                                     cache_holder=cache_holder):
         for row, target, extra in zip(answers, batch["targets"],
                                       batch.get("extras", [None] * len(answers))):
             generations.append({"generated": row[0], "target": target,
@@ -253,7 +254,7 @@ def evaluate_img_gen(model, loader, tokenizer, *, max_new_tokens=600,
     return {
         "n_generated": len(generations),
         "dump_path": dump_path,
-        "items_per_sec": float(np.mean(throughput)) if throughput else 0.0,
+        "items_per_sec": _per_second(len(generations), seconds),
     }
 
 

@@ -24,6 +24,12 @@ with gradients on runs each decoder block and each x-attn block under
 JAX's ``dots_with_no_batch_dims_saveable``. The attention kernels sit in
 their own autograd function, so the backward recomputes their forward (K1
 launches again) as it does the Pallas call in JAX.
+
+Spans (``utils/profiling.py``): ``model.embed``, ``model.block`` (each
+decoder block), ``model.xattn`` (each gated cross-attention block),
+``model.logits`` (final norm and head), ``vision.tower`` and
+``vision.perceiver``. Under remat the block spans sit inside the
+checkpointed function, so the backward's recomputation records them again.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from unimp_tpu_torch.models.perceiver import PerceiverResampler
 from unimp_tpu_torch.models.vit import VisionTower
 from unimp_tpu_torch.ops import AttnMask
 from unimp_tpu_torch.parallel.sharding import copy_to_tp, gather_from_tp, reduce_from_tp
+from unimp_tpu_torch.utils import profiling
 
 
 def compute_q_media(input_ids: torch.Tensor, media_token_id: int) -> torch.Tensor:
@@ -189,29 +196,33 @@ class UniMPModel(nn.Module):
         the tower frozen these are constants of training
         (``train/vision_cache.py`` encodes each item once)."""
         b, m = vision_x.shape[:2]
-        feats = self.vision(vision_x.reshape((b * m,) + vision_x.shape[2:]))
+        with profiling.span("vision.tower"):
+            feats = self.vision(vision_x.reshape((b * m,) + vision_x.shape[2:]))
         return feats.reshape(b, m, feats.shape[1], feats.shape[2])
 
     def resample_tower(self, tower_feats: torch.Tensor) -> torch.Tensor:
         """The trainable half: tower features [B, M, P, Dv] -> media latents
         [B, M, L, Dv]."""
         b, m = tower_feats.shape[:2]
-        lat = self.resampler(tower_feats.reshape((b * m,) + tower_feats.shape[2:]))
+        with profiling.span("vision.perceiver"):
+            lat = self.resampler(tower_feats.reshape((b * m,) + tower_feats.shape[2:]))
         return lat.reshape(b, m, lat.shape[1], lat.shape[2])
 
     def _logits(self, x):
-        x = self.final_ln(x)
-        # under tp the head's matrix holds this rank's vocabulary block: the
-        # block's logits are all-gathered
-        group = self.logits_tp_group
-        x = copy_to_tp(x, group)
-        if self.cfg.lm.tie_embeddings:
-            # f32 logits, as the JAX package's f32-accumulating dot
-            return gather_from_tp((x @ self.embed.embedding.to(x.dtype).t()).float(), group)
-        # untied head: logits in the compute dtype; an int8 head streams
-        # through K6 at decode rows and at the prefill's last position
-        # (called as a module, so that ZeRO-3 gathers its kernel)
-        return gather_from_tp(self.lm_head(x), group)
+        with profiling.span("model.logits"):
+            x = self.final_ln(x)
+            # under tp the head's matrix holds this rank's vocabulary block: the
+            # block's logits are all-gathered
+            group = self.logits_tp_group
+            x = copy_to_tp(x, group)
+            if self.cfg.lm.tie_embeddings:
+                # f32 logits, as the JAX package's f32-accumulating dot
+                return gather_from_tp((x @ self.embed.embedding.to(x.dtype).t()).float(),
+                                      group)
+            # untied head: logits in the compute dtype; an int8 head streams
+            # through K6 at decode rows and at the prefill's last position
+            # (called as a module, so that ZeRO-3 gathers its kernel)
+            return gather_from_tp(self.lm_head(x), group)
 
     @staticmethod
     def kv_media_for(latents) -> torch.Tensor:
@@ -233,7 +244,8 @@ class UniMPModel(nn.Module):
         """
         cfg = self.cfg
         if decode_state is not None:
-            x = self.embed(input_ids)
+            with profiling.span("model.embed"):
+                x = self.embed(input_ids)
             allowed = None
             if decode_state.get("kv_media") is not None:
                 allowed = media_allowed(decode_state["kv_media"],
@@ -243,8 +255,9 @@ class UniMPModel(nn.Module):
             for i, (block, xattn) in enumerate(self._layers()):
                 if xattn is not None:
                     if allowed is not None:
-                        x, _ = xattn(x, xattn_cache=decode_state["xattn"][xi],
-                                     allowed=allowed)
+                        with profiling.span("model.xattn"):
+                            x, _ = xattn(x, xattn_cache=decode_state["xattn"][xi],
+                                         allowed=allowed)
                     xi += 1
                 layer_ds = {
                     "prompt": decode_state["self"][i],
@@ -253,7 +266,8 @@ class UniMPModel(nn.Module):
                     "kv_start": decode_state.get("kv_start"),
                     "gen_index": decode_state.get("gen_index"),
                 }
-                x, gc = block(x, positions=positions, decode_state=layer_ds)
+                with profiling.span("model.block"):
+                    x, gc = block(x, positions=positions, decode_state=layer_ds)
                 new_gen.append(gc)
             return self._logits(x), new_gen
 
@@ -271,7 +285,8 @@ class UniMPModel(nn.Module):
             if q_media is None:
                 raise ValueError("q_media required when media is present")
 
-        x = self.embed(input_ids)
+        with profiling.span("model.embed"):
+            x = self.embed(input_ids)
         causal = input_ids.shape[1] > 1
         self_caches, xattn_caches = [], []
         # the training forward only: a prefill keeps its caches and an
@@ -279,11 +294,13 @@ class UniMPModel(nn.Module):
         use_remat = cfg.remat and not return_kv and torch.is_grad_enabled()
 
         def run_block(mdl, h):
-            return mdl(h, kv_len=kv_len, kv_start=kv_start, positions=positions,
-                       causal=causal)[0]
+            with profiling.span("model.block"):
+                return mdl(h, kv_len=kv_len, kv_start=kv_start, positions=positions,
+                           causal=causal)[0]
 
         def run_xattn(mdl, h):
-            return mdl(h, latents_flat, q_media, kv_media)[0]
+            with profiling.span("model.xattn"):
+                return mdl(h, latents_flat, q_media, kv_media)[0]
 
         if use_remat:
             run_block = remat(run_block, cfg.remat_policy)
@@ -291,13 +308,15 @@ class UniMPModel(nn.Module):
         for block, xattn in self._layers():
             if xattn is not None and latents_flat is not None:
                 if return_kv:
-                    x, xc = xattn(x, latents_flat, q_media, kv_media, return_cache=True)
+                    with profiling.span("model.xattn"):
+                        x, xc = xattn(x, latents_flat, q_media, kv_media, return_cache=True)
                     xattn_caches.append(xc)
                 else:
                     x = run_xattn(xattn, x)
             if return_kv:
-                x, sc = block(x, kv_len=kv_len, kv_start=kv_start, positions=positions,
-                              causal=causal, return_cache=True)
+                with profiling.span("model.block"):
+                    x, sc = block(x, kv_len=kv_len, kv_start=kv_start, positions=positions,
+                                  causal=causal, return_cache=True)
             else:
                 x, sc = run_block(block, x), None
             self_caches.append(sc)

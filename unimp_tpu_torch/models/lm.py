@@ -17,6 +17,7 @@ from torch import nn
 from unimp_tpu_torch.models.config import LMConfig
 from unimp_tpu_torch.models.layers import Attention, Mlp, make_norm
 from unimp_tpu_torch.ops import AttnMask
+from unimp_tpu_torch.utils import profiling
 
 
 class DecoderBlock(nn.Module):
@@ -83,6 +84,8 @@ class CausalLM(nn.Module):
     Logits are float32. It also takes the keywords ``decode/sampler.py``'s
     ``Generator`` passes (``latents`` / ``q_media`` must be None;
     ``last_logit_only``), so the Generator decodes it greedily or by beams.
+    Spans, as ``UniMPModel``'s: ``model.embed``, ``model.block``,
+    ``model.logits``.
     """
 
     def __init__(self, cfg: LMConfig, dtype=torch.bfloat16):
@@ -107,7 +110,8 @@ class CausalLM(nn.Module):
                 latents=None, q_media=None, last_logit_only: bool = False):
         if latents is not None or q_media is not None:
             raise ValueError("CausalLM takes no media")
-        x = self.embed(input_ids)
+        with profiling.span("model.embed"):
+            x = self.embed(input_ids)
         caches = []
         for i, block in enumerate(self.blocks()):
             layer_ds = None
@@ -116,17 +120,19 @@ class CausalLM(nn.Module):
                             "step": decode_state["step"],
                             "kv_start": decode_state.get("kv_start"),
                             "gen_index": decode_state.get("gen_index")}
-            x, cache = block(x, kv_len=kv_len, kv_start=kv_start, positions=positions,
-                             causal=input_ids.shape[1] > 1, return_cache=return_kv,
-                             decode_state=layer_ds)
+            with profiling.span("model.block"):
+                x, cache = block(x, kv_len=kv_len, kv_start=kv_start, positions=positions,
+                                 causal=input_ids.shape[1] > 1, return_cache=return_kv,
+                                 decode_state=layer_ds)
             caches.append(cache)
         if last_logit_only:
             x = x[:, -1:]
-        x = self.final_ln(x)
-        if self.cfg.tie_embeddings:
-            logits = (x @ self.embed.embedding.to(x.dtype).t()).float()
-        else:
-            logits = self.lm_head(x.to(self.compute_dtype)).float()
+        with profiling.span("model.logits"):
+            x = self.final_ln(x)
+            if self.cfg.tie_embeddings:
+                logits = (x @ self.embed.embedding.to(x.dtype).t()).float()
+            else:
+                logits = self.lm_head(x.to(self.compute_dtype)).float()
         if return_kv:
             return logits, {"self": caches}
         if decode_state is not None:

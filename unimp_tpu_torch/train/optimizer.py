@@ -31,6 +31,8 @@ from typing import Callable
 
 import torch
 
+from unimp_tpu_torch.utils import profiling
+
 SCHEDULES = ("linear", "cosine", "constant")
 
 
@@ -82,6 +84,8 @@ class ClippedAdamW:
     optax chain(scale_by_adam, add_decayed_weights, scale_by_learning_rate),
     which subtracts lr * (m_hat/(sqrt(v_hat) + eps) + wd*p).
     """
+
+    starts_update = True  # every ``step`` call is a whole update
 
     def __init__(self, params: dict, *, schedule: Callable[[int], float],
                  weight_decay: float, max_grad_norm: float, b1: float, b2: float,
@@ -210,6 +214,8 @@ class ClippedAdamWCast:
     gradients' dtype); ``step`` clips by the norm accumulated in float32,
     scales in float32 and casts back to each gradient's dtype."""
 
+    starts_update = True  # every ``step`` call is a whole update
+
     def __init__(self, params: dict, *, schedule: Callable[[int], float],
                  weight_decay: float, max_grad_norm: float, b1: float, b2: float,
                  eps: float, mu_dtype=torch.bfloat16, nu_dtype=torch.bfloat16,
@@ -303,13 +309,20 @@ class MultiSteps:
     mean is kept in the parameters' dtype (float32) whatever the
     gradients' dtype, as optax's is (``zeros_like`` of the parameters;
     ``acc + (g - acc) / (n + 1)`` promotes a bfloat16 g); ``inner`` may be
-    a ``ClippedAdamW`` or a ``ClippedAdamWCast``."""
+    a ``ClippedAdamW`` or a ``ClippedAdamWCast``. Spans
+    (``utils/profiling.py``): ``optimizer.accumulate`` every call,
+    ``optimizer.apply`` (the inner update) every k-th."""
 
     def __init__(self, inner, k: int):
         self.inner, self.k = inner, k
         self.acc = {name: torch.zeros_like(p) for name, p in inner.named.items()}
         self.mini_step = 0
         self.gradient_step = 0
+
+    @property
+    def starts_update(self) -> bool:
+        """Whether the next ``step`` call is the first of an update's k."""
+        return self.mini_step == 0
 
     def grad_norm(self) -> torch.Tensor:
         return self.inner.grad_norm()
@@ -324,17 +337,19 @@ class MultiSteps:
         """Fold the parameters' ``.grad`` into the mean; on every k-th call
         update with it (``grad_norm``, the current gradient's, is unused)."""
         n = self.mini_step
-        grads = self.inner.named_grads()
-        for name, acc in self.acc.items():
-            g = grads[name] if grads[name] is not None else torch.zeros_like(acc)
-            acc.add_((g - acc) / (n + 1))
+        with profiling.span("optimizer.accumulate"):
+            grads = self.inner.named_grads()
+            for name, acc in self.acc.items():
+                g = grads[name] if grads[name] is not None else torch.zeros_like(acc)
+                acc.add_((g - acc) / (n + 1))
         if n < self.k - 1:
             self.mini_step += 1
             return
-        self.inner.set_grads({name: acc.clone() for name, acc in self.acc.items()})
-        self.inner.step(self.inner.grad_norm())
-        for acc in self.acc.values():
-            acc.zero_()
+        with profiling.span("optimizer.apply"):
+            self.inner.set_grads({name: acc.clone() for name, acc in self.acc.items()})
+            self.inner.step(self.inner.grad_norm())
+            for acc in self.acc.values():
+                acc.zero_()
         self.mini_step = 0
         self.gradient_step += 1
 

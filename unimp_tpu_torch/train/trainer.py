@@ -56,6 +56,13 @@ the step the JAX step on the global batch
     block of the tp-sharded tensors (their gradients need no reduction
     over tp; the model's collectives make them whole-model gradients).
 With one rank the step is the one-process step, collectives included.
+
+Spans (``utils/profiling.py``): ``train.step`` (one ``train_step``) holds
+``train.forward`` (``loss_fn``: labels, the model, the loss),
+``train.backward`` (``backward()``, or ``autograd.grad`` with its casts
+and sums), ``train.grad_norm``, ``read.finite`` (the non-finite read) and
+``train.optimizer`` (the optimizer's ``step``); each update, the first of
+its micro-batches, starts a request.
 """
 
 from __future__ import annotations
@@ -72,6 +79,7 @@ from unimp_tpu_torch.parallel.sharding import gather_tp, shard_tree_tp
 from unimp_tpu_torch.train.loss import masked_focal_loss
 from unimp_tpu_torch.train.optimizer import embedding_row_mask_update
 from unimp_tpu_torch.train.partition import trainable_params
+from unimp_tpu_torch.utils import profiling
 
 BATCH_KEYS = ("input_ids", "seq_len", "weights", "images", "image_ids")
 STATE_TREES = ("mu", "nu", "acc")  # the optimizer state's {name: tensor} entries
@@ -152,21 +160,23 @@ class Trainer:
         loss_sum, aux_sum, gsum = 0.0, {}, None
         for mb in range(self.accum_steps):
             part = {k: v.chunk(self.accum_steps)[mb] for k, v in batch.items()}
-            loss, aux = self.loss_fn(part)
-            if self.grad_dtype is None:
-                (loss * inv).backward()
-            else:
-                # cast (and add) one tensor at a time: the float32 gradient
-                # tree is released as it goes
-                grads = list(torch.autograd.grad(loss, params, materialize_grads=True))
-                for i, g in enumerate(grads):
-                    grads[i] = None
-                    g = self._reduce(names[i], g).to(self.grad_dtype)
-                    if gsum is None:
-                        grads[i] = g
-                    else:
-                        gsum[i].add_(g)
-                gsum = grads if gsum is None else gsum
+            with profiling.span("train.forward"):
+                loss, aux = self.loss_fn(part)
+            with profiling.span("train.backward"):
+                if self.grad_dtype is None:
+                    (loss * inv).backward()
+                else:
+                    # cast (and add) one tensor at a time: the float32 gradient
+                    # tree is released as it goes
+                    grads = list(torch.autograd.grad(loss, params, materialize_grads=True))
+                    for i, g in enumerate(grads):
+                        grads[i] = None
+                        g = self._reduce(names[i], g).to(self.grad_dtype)
+                        if gsum is None:
+                            grads[i] = g
+                        else:
+                            gsum[i].add_(g)
+                    gsum = grads if gsum is None else gsum
             loss_sum = loss_sum + loss.detach()
             aux_sum = {k: aux_sum.get(k, 0) + v for k, v in aux.items()}
         if self.grad_dtype is None:
@@ -227,11 +237,18 @@ class Trainer:
     def train_step(self, batch: dict) -> dict:
         """One optimizer step; returns device scalars {"loss", "grad_norm",
         "skipped_nonfinite", "ce", "n_answer_tokens", "accuracy"}."""
-        loss, aux = self.compute_grads(batch)
-        gnorm = self.optimizer.grad_norm()
-        ok = torch.isfinite(loss) & torch.isfinite(gnorm)
-        if bool(ok):  # the step's one device->host read
-            self.optimizer.step(gnorm)
+        if self.optimizer.starts_update:
+            profiling.request("update")
+        with profiling.span("train.step"):
+            loss, aux = self.compute_grads(batch)
+            with profiling.span("train.grad_norm"):
+                gnorm = self.optimizer.grad_norm()
+            ok = torch.isfinite(loss) & torch.isfinite(gnorm)
+            with profiling.read("finite"):  # the step's one device->host read
+                finite = bool(ok)
+            if finite:
+                with profiling.span("train.optimizer"):
+                    self.optimizer.step(gnorm)
         self.step += 1
         return {"loss": loss, "grad_norm": gnorm,
                 "skipped_nonfinite": (~ok).to(torch.int32), **aux}
