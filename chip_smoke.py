@@ -959,9 +959,11 @@ def phase_decode_kernels(dev, dtype, results, timings):
             if not main:
                 continue
             b_ms, b_by = bound(by, fl, dtype)
+            # timed with the step on the device, as the model passes it
+            n_gen = torch.full((1,), step, dtype=torch.int32, device=dev)
             timings.append(dict(
                 kernel=kernel, case=f"{name}_step{step}{tag}",
-                ms=cuda_ms(lambda: decode_attention_cuda(*args, step=step, **kws)),
+                ms=cuda_ms(lambda: decode_attention_cuda(*args, step=n_gen, **kws)),
                 plain_ms=cuda_ms(lambda: decode_attention_ref(*args, step=step, **kws), iters=5),
                 library_ms=None, bound_ms=b_ms, bound_by=b_by))
 

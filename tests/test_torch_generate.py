@@ -370,3 +370,43 @@ def test_rank_metrics_match_jax():
             p, r = tm.precision_at_k(hits, k), tm.recall_at_k(hits, k, 2)
             assert (p, r) == (jm.precision_at_k(hits, k), jm.recall_at_k(hits, k, 2))
             assert tm.f1_score(p, r) == jm.f1_score(p, r)
+
+
+@pytest.mark.parametrize("beams", [1, 4])
+def test_cpu_generate_decodes_eagerly(models, beams):
+    """A CPU model takes the eager path: every decode step counts as
+    ``eager``, none as a capture or a replay."""
+    from unimp_tpu_torch.decode import sampler
+
+    _, _, tmodel = models
+    ids, seq_len, _ = _prompts(tmodel.cfg, seed=8)
+    gen = Generator(tmodel, GenerationConfig(max_new_tokens=5, eos_id=3, pad_id=0,
+                                             num_beams=beams, num_return_sequences=beams),
+                    media_id=MEDIA_ID)
+    steps, real = [0], gen._decode_step
+
+    def counted(*args, **kwargs):
+        steps[0] += 1
+        return real(*args, **kwargs)
+
+    gen._decode_step = counted
+    sampler.reset_decode_steps()
+    gen.generate(torch.from_numpy(ids).long(), torch.from_numpy(seq_len).long())
+    assert steps[0] > 0
+    assert sampler.DECODE_STEPS == {"captures": 0, "replays": 0, "eager": steps[0]}
+    assert gen._graph is None
+
+
+@pytest.mark.parametrize("device,tp_group,graph", [
+    ("cuda", None, True),
+    ("cuda", "tp", False),  # a model sliced over tp: its forwards hold collectives
+    ("cpu", None, False),
+])
+def test_decode_graph_is_chosen_from_device_and_lockstep_group(device, tp_group, graph):
+    """The decode step runs as a CUDA graph only on the card and only where
+    no other rank steps with this one; nothing else chooses it."""
+    from types import SimpleNamespace
+
+    model = SimpleNamespace(tp_group=tp_group, zero=None)
+    gen = Generator(model, GenerationConfig(max_new_tokens=2, eos_id=3, pad_id=0), MEDIA_ID)
+    assert gen._takes_graph(torch.device(device)) is graph

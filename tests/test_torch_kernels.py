@@ -42,6 +42,7 @@ from unimp_tpu_torch.ops.quant_matmul import (
     split_k_plan,
     split_k_scratch,
 )
+from unimp_tpu_torch.ops import kernel_lib
 from unimp_tpu_torch.utils.quant import quantize_kv
 
 torch.set_num_threads(2)  # six test workers share the cores
@@ -540,6 +541,201 @@ def test_decode_kernel_bf16_matches_plain_on_card(cuda_device, case, kv):
         assert got.dtype == torch.bfloat16 and torch.isfinite(got.float()).all()
         torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
     assert torch.equal(got, decode_attention_cuda(*args, step=g, **kw))
+
+
+# ------------------------------------------- the decode step on the device
+
+
+def _decode_inputs(rng, int8, b=2, kb=3, t=12, g=8, h=4, hkv=2, d=64):
+    """q, caches and keywords of a split-cache decode: float32 q, float32
+    or int8 caches (with their scales), ragged prompt windows, ALiBi and a
+    random ancestry table."""
+    def kv(*shape):
+        x = _randn(rng, *shape)
+        return quantize_kv(x) if int8 else (x, None)
+
+    (pk, pks), (pv, pvs) = kv(b, hkv, t, d), kv(b, hkv, t, d)
+    (gk, gks), (gv, gvs) = kv(b * kb, hkv, g, d), kv(b * kb, hkv, g, d)
+    kw = dict(kv_start=torch.tensor([0, 3]), alibi=torch.linspace(0.1, 0.4, h),
+              beam_sel=torch.from_numpy(rng.integers(0, kb, size=(b * kb, g)).astype(np.int32)))
+    if int8:
+        kw.update(prompt_k_scale=pks, prompt_v_scale=pvs, gen_k_scale=gks, gen_v_scale=gvs)
+    return (_randn(rng, b * kb, h, d), pk, pv, gk, gv), kw
+
+
+@pytest.mark.parametrize("beam_sel", [True, False])
+@pytest.mark.parametrize("kv", ["float32", "int8"])
+def test_decode_attention_ref_takes_the_step_as_a_tensor(kv, beam_sel):
+    """The plain K4 given ``step`` as a one-element tensor (the model's
+    form) equals the int form bit for bit, at every step."""
+    args, kw = _decode_inputs(np.random.default_rng(11), kv == "int8")
+    if not beam_sel:
+        kw["beam_sel"] = None
+    for step in (1, 5, 8):
+        want = decode_attention_ref(*args, step=step, **kw)
+        for t in (torch.tensor([step], dtype=torch.int32), torch.tensor([step])):
+            assert torch.equal(decode_attention_ref(*args, step=t, **kw), want)
+
+
+@pytest.mark.parametrize("gen_index", [True, False])
+@pytest.mark.parametrize("kv", ["bfloat16", "int8"])
+def test_attention_decode_takes_the_step_as_a_tensor(kv, gen_index):
+    """``Attention``'s decode with ``step`` an int, a one-element int64
+    tensor, or with the model's ``step_tensors``: the same output and gen
+    caches bit for bit, this token's K/V (quantized with their scales in
+    an int8 cache) written at column ``step`` and nowhere else."""
+    from unimp_tpu_torch.models.layers import Attention, decode_step_tensors
+    from unimp_tpu_torch.models.lm import init_gen_cache
+    from unimp_tpu_torch.models.config import LMConfig
+
+    torch.manual_seed(0)
+    b, kb, t, g, step = 2, 3, 10, 6, 4
+    lm = LMConfig(vocab_size=64, hidden_size=128, num_layers=1, num_heads=2,
+                  positions="alibi" if kv == "int8" else "rope", use_bias=False)
+    attn = Attention(128, 2, 64, positions_mode=lm.positions, dtype=torch.bfloat16).eval()
+    with torch.no_grad():
+        for p in attn.parameters():
+            p.normal_(0.0, 0.05)
+    rng = np.random.default_rng(12)
+    x = _randn(rng, b * kb, 1, 128).to(torch.bfloat16)
+    prompt = {n: _randn(rng, b, 2, t, 64).to(torch.bfloat16) for n in ("k", "v")}
+    if kv == "int8":
+        prompt = {**dict(zip(("k", "k_scale"), quantize_kv(prompt["k"]))),
+                  **dict(zip(("v", "v_scale"), quantize_kv(prompt["v"])))}
+    anc = torch.from_numpy(rng.integers(0, b * kb, size=(b * kb, g)))
+    pos = torch.full((b * kb, 1), t + step)
+
+    def run(**step_kw):
+        gen = init_gen_cache(b * kb, g, lm, torch.bfloat16, "cpu", quantized=kv == "int8")
+        for c in gen.values():  # earlier steps' entries
+            c[:, :, :step] = torch.from_numpy(rng.normal(size=c[:, :, :step].shape)).to(c.dtype)
+        ds = dict(prompt=prompt, gen=gen, kv_start=torch.tensor([0, 2]),
+                  gen_index=anc if gen_index else None, **step_kw)
+        with torch.no_grad():
+            out, cache = attn(x, positions=pos, decode_state=ds)
+        return out, cache
+
+    rng_state = rng.bit_generator.state
+    want, want_gen = run(step=step)
+    for form in (dict(step=torch.tensor([step])),
+                 dict(step=step, step_tensors=decode_step_tensors(step, torch.device("cpu")))):
+        rng.bit_generator.state = rng_state  # the same earlier entries
+        got, got_gen = run(**form)
+        assert torch.equal(got, want)
+        assert all(torch.equal(got_gen[n], want_gen[n]) for n in want_gen)
+    # this token's K/V at column `step`, and nothing after it
+    with torch.no_grad():
+        k = attn.k_proj(x)
+        if lm.positions == "rope":
+            from unimp_tpu_torch.models.layers import apply_rope
+            k = apply_rope(k, pos, attn.rotary_pct, attn.rope_theta)
+    k = k[:, 0]
+    if kv == "int8":
+        k8, ks = quantize_kv(k)
+        assert torch.equal(want_gen["k"][:, :, step], k8)
+        assert torch.equal(want_gen["k_scale"][:, :, step], ks)
+    else:
+        assert torch.equal(want_gen["k"][:, :, step], k.to(torch.bfloat16))
+    assert not want_gen["k"][:, :, step + 1:].any()
+
+
+# the graph path's models (``debug`` widths, head dim 64): bf16 with
+# rotary positions, and int8 weights (every kernel) with int8 KV and ALiBi
+GRAPH_MODELS = {"bf16_rope": (dict(), False), "int8_alibi": (
+    dict(positions="alibi", norm="layernorm", act="gelu"), True)}
+GRAPH_MEDIA_ID = 7
+
+
+def _graph_model(kind, dev):
+    import dataclasses
+
+    from unimp_tpu_torch.models import get_config
+    from unimp_tpu_torch.tools.from_flax import build_model
+    from unimp_tpu_torch.utils.quant import quantize_params_int8
+
+    lm_kw, int8 = GRAPH_MODELS[kind]
+    cfg = get_config("debug", dtype="bfloat16")
+    cfg = cfg.replace(lm=dataclasses.replace(cfg.lm, **lm_kw))
+    model = build_model(cfg, device=dev, seed=3, eval_param_dtype="bf16")
+    if int8:
+        quantize_params_int8(model, min_size=1)
+    with torch.no_grad():  # the gates open, so the x-attn blocks count
+        for name, p in model.named_parameters():
+            if name.endswith(("attn_gate", "ff_gate")):
+                p.fill_(1.0)
+    return model, int8
+
+
+def _graph_batch(model, dev, b, t, seed):
+    """Right-padded prompts with two media tokens each, ragged lengths, and
+    seeded latents in place of the vision tower's."""
+    rng = np.random.default_rng(seed)
+    cfg = model.cfg
+    ids = rng.integers(10, cfg.lm.vocab_size, size=(b, t))
+    seq_len = t - rng.integers(0, t // 3, size=b)
+    seq_len[0] = t
+    ids[:, 1] = ids[:, 5] = GRAPH_MEDIA_ID
+    for r in range(b):
+        ids[r, seq_len[r]:] = 0
+    lat = rng.normal(size=(b, 2, cfg.resampler.num_latents, cfg.vision.hidden_size))
+    return (torch.from_numpy(ids).to(dev), torch.from_numpy(seq_len).to(dev),
+            torch.from_numpy(lat).to(dev, torch.bfloat16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("beams", [10, 1])
+@pytest.mark.parametrize("kind", list(GRAPH_MODELS))
+def test_decode_graph_matches_the_eager_loop_on_card(cuda_device, kind, beams):
+    """The decode step as a CUDA graph against the same loop calling the
+    model: equal tokens and scores bit for bit, for two consecutive batches
+    of different shapes through one ``Generator`` (a graph captured for
+    each) with an EOS that finishes rows early; ``LAUNCHES`` per kernel
+    equal to the eager loop's; the counters read one capture a batch and a
+    replay for every later step, and the graph is gone after the call."""
+    from unimp_tpu_torch.decode import sampler
+    from unimp_tpu_torch.decode.sampler import GenerationConfig, Generator
+
+    class EagerGenerator(Generator):
+        def _decode_step(self, tokens, state, gen, step, positions, gen_index=None):
+            ds = dict(state, gen=gen, step=step, gen_index=gen_index)
+            return self.model(tokens, positions=positions, decode_state=ds)
+
+    dev = cuda_device
+    model, int8 = _graph_model(kind, dev)
+
+    def run(cls, batch, eos):
+        gen = cls(model, GenerationConfig(max_new_tokens=12, eos_id=eos, pad_id=0,
+                                          num_beams=beams, num_return_sequences=beams,
+                                          kv_int8=int8), media_id=GRAPH_MEDIA_ID)
+        steps, real = [0], gen._decode_step
+
+        def counted(*args, **kwargs):
+            steps[0] += 1
+            return real(*args, **kwargs)
+
+        gen._decode_step = counted
+        kernel_lib.reset_launches()
+        sampler.reset_decode_steps()
+        tokens, scores = gen.generate(*batch)
+        assert gen._graph is None
+        return tokens, scores, dict(kernel_lib.LAUNCHES), dict(sampler.DECODE_STEPS), steps[0]
+
+    batches = [_graph_batch(model, dev, 3, 16, 1), _graph_batch(model, dev, 2, 24, 2)]
+    # an EOS the model emits: row 0's third token, or the commonest beam token
+    pilot = run(EagerGenerator, batches[0], eos=model.cfg.lm.vocab_size - 1)[0]
+    eos = int(pilot[0, 0, 2]) if beams == 1 else int(torch.mode(pilot[pilot > 0]).values)
+    run(Generator, batches[1], eos)  # the model's first graph step: its warm-up
+    ended_early = False
+    for batch in batches:
+        want_tok, want_sc, want_launches, eager, steps = run(EagerGenerator, batch, eos)
+        got_tok, got_sc, got_launches, counts, got_steps = run(Generator, batch, eos)
+        assert eager == {"captures": 0, "replays": 0, "eager": 0}
+        assert got_steps == steps
+        assert torch.equal(got_tok, want_tok) and torch.equal(got_sc, want_sc)
+        assert got_launches == want_launches
+        assert counts == {"captures": 1, "replays": steps - 1, "eager": 0}
+        ended_early |= bool((want_tok[..., -1] == 0).any())
+    assert ended_early, "no sequence ended before the last step (padded after it)"
 
 
 # K5 cases: (b, kb, s, h, hkv, d, mask); "immediate": the last of s / 64

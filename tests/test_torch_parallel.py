@@ -641,6 +641,11 @@ def test_evaluate_rec_two_ranks_matches_jax(eval_setup, mesh):
         for key in want:
             if key not in ("items_per_sec", "n_users"):
                 assert abs(got[key] - want[key]) <= METRIC_TOL, (key, got[key], want[key])
+        # every decode step eager: a CPU model, and (tp 2) one whose
+        # ranks decode in lockstep
+        steps = res[mesh]["decode_steps"]
+        assert steps["eager"] > 0 and steps["captures"] == steps["replays"] == 0, steps
+        assert res[mesh]["lockstep"] or mesh[2] == 1
     assert want["hr@3"] > 0
 
 

@@ -167,7 +167,13 @@ def _eval(inputs, mesh_dims):
             for batch in loader:
                 yield dict(batch, targets=[next(it) for _ in batch["targets"]])
 
-    return {"metrics": evaluators.evaluate_rec(model, Retarget(), tok, num_beams=3)}
+    from unimp_tpu_torch.decode import sampler
+    from unimp_tpu_torch.parallel.mesh import lockstep_group
+
+    sampler.reset_decode_steps()
+    metrics = evaluators.evaluate_rec(model, Retarget(), tok, num_beams=3)
+    return {"metrics": metrics, "decode_steps": dict(sampler.DECODE_STEPS),
+            "lockstep": lockstep_group(model) is not None}
 
 
 def _generate(model, inputs):

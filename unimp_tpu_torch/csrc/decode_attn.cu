@@ -8,7 +8,8 @@
 //   * the generated KV [B*K, Hkv, G, D], never reordered: beam k reads
 //     position g of its ancestor row b*K + beam_sel[bk, g], valid g < step;
 // with one online softmax over both segments and ALiBi taken at the
-// absolute query position T + step - 1.
+// absolute query position T + step - 1. step is read from device memory
+// (n_gen), so the launch's arguments do not change from step to step.
 //
 // single_query_attn replaces decode_attention_pallas.py:_prompt_only_kernel
 // (pallas_single_query_attention): one query per beam against the
@@ -146,9 +147,10 @@ decode_attn_kernel(const float* __restrict__ q, const TKV* __restrict__ pk,
                    const TKV* __restrict__ gv, Scales ps, Scales gs,
                    const int* __restrict__ beam_sel, const int* __restrict__ kv_start,
                    const int* __restrict__ prompt_len, const float* __restrict__ alibi,
-                   float* __restrict__ out, int K, int H, int Hkv, int Tp, int G, int step,
-                   float scale) {
+                   float* __restrict__ out, int K, int H, int Hkv, int Tp, int G,
+                   const int* __restrict__ n_gen, float scale) {
   constexpr int DPL = (D + 31) / 32;
+  const int step = *n_gen;
   constexpr bool kInt8 = sizeof(TKV) == 1;
   __shared__ float q_s[kMaxWarps][D];
   const int h = blockIdx.x, b = blockIdx.y;
@@ -539,8 +541,9 @@ decode_attn_mma_kernel(const bf16* __restrict__ q,
                        Scales ps, Scales gs, const int* __restrict__ beam_sel,
                        const int* __restrict__ kv_start, const int* __restrict__ prompt_len,
                        const float* __restrict__ alibi, bf16* __restrict__ out, int K, int H,
-                       int Hkv, int Tp, int G, int step, float scale) {
+                       int Hkv, int Tp, int G, const int* __restrict__ n_gen, float scale) {
   using L = Layout<D, kInt8>;
+  const int step = *n_gen;
   extern __shared__ __align__(16) char smem[];
   int* ent_a = reinterpret_cast<int*>(smem + L::extra);  // [1024] a listed row's ancestor
   int* ent_pm = ent_a + kGenSlots;  // [1024] its position in the pass << 16 | beams reading it
@@ -814,7 +817,7 @@ template <int D, bool kInt8>
 int launch_decode_mma(const void* q, const void* pk, const void* pv, const void* gk,
                       const void* gv, Scales ps, Scales gs, const int* beam_sel,
                       const int* kv_start, const int* prompt_len, const float* alibi, void* out,
-                      int B, int K, int H, int Hkv, int Tp, int G, int step, float scale,
+                      int B, int K, int H, int Hkv, int Tp, int G, const int* n_gen, float scale,
                       cudaStream_t s) {
   using KV = std::conditional_t<kInt8, int8_t, bf16>;
   constexpr int bytes = decode_smem_bytes<D, kInt8>();
@@ -823,7 +826,7 @@ int launch_decode_mma(const void* q, const void* pk, const void* pv, const void*
   decode_attn_mma_kernel<D, kInt8><<<dim3(H, B), kMmaThreads, bytes, s>>>(
       static_cast<const bf16*>(q), static_cast<const KV*>(pk), static_cast<const KV*>(pv),
       static_cast<const KV*>(gk), static_cast<const KV*>(gv), ps, gs, beam_sel, kv_start,
-      prompt_len, alibi, static_cast<bf16*>(out), K, H, Hkv, Tp, G, step, scale);
+      prompt_len, alibi, static_cast<bf16*>(out), K, H, Hkv, Tp, G, n_gen, scale);
   return 0;
 }
 
@@ -847,12 +850,12 @@ template <typename TKV, int D>
 void launch_decode(const void* q, const void* pk, const void* pv, const void* gk,
                    const void* gv, Scales ps, Scales gs, const int* beam_sel,
                    const int* kv_start, const int* prompt_len, const float* alibi, void* out,
-                   int B, int K, int H, int Hkv, int Tp, int G, int step, float scale,
+                   int B, int K, int H, int Hkv, int Tp, int G, const int* n_gen, float scale,
                    cudaStream_t s) {
   decode_attn_kernel<TKV, D><<<dim3(H, B), 32 * warps_for(K), 0, s>>>(
       static_cast<const float*>(q), static_cast<const TKV*>(pk), static_cast<const TKV*>(pv),
       static_cast<const TKV*>(gk), static_cast<const TKV*>(gv), ps, gs, beam_sel, kv_start,
-      prompt_len, alibi, static_cast<float*>(out), K, H, Hkv, Tp, G, step, scale);
+      prompt_len, alibi, static_cast<float*>(out), K, H, Hkv, Tp, G, n_gen, scale);
 }
 
 template <typename TKV, int D>
@@ -869,19 +872,19 @@ template <bool kInt8>
 int decode_dispatch(int dtype, int d, const void* q, const void* pk, const void* pv,
                     const void* gk, const void* gv, Scales ps, Scales gs, const int* beam_sel,
                     const int* kv_start, const int* prompt_len, const float* alibi, void* out,
-                    int B, int K, int H, int Hkv, int T, int G, int step, float scale,
+                    int B, int K, int H, int Hkv, int T, int G, const int* n_gen, float scale,
                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     using KV = std::conditional_t<kInt8, int8_t, float>;
     UNIMP_DISPATCH_D(d, (launch_decode<KV, D>(q, pk, pv, gk, gv, ps, gs, beam_sel, kv_start,
-                                              prompt_len, alibi, out, B, K, H, Hkv, T, G, step,
+                                              prompt_len, alibi, out, B, K, H, Hkv, T, G, n_gen,
                                               scale, s)))
   } else if (dtype == 1) {
     int err = 0;
     UNIMP_DISPATCH_D(d, err = (launch_decode_mma<D, kInt8>(q, pk, pv, gk, gv, ps, gs, beam_sel,
                                                            kv_start, prompt_len, alibi, out, B,
-                                                           K, H, Hkv, T, G, step, scale, s)))
+                                                           K, H, Hkv, T, G, n_gen, scale, s)))
     if (err != 0) return err;
   } else {
     return -1;
@@ -912,8 +915,10 @@ int single_dispatch(int dtype, int d, const void* q, const void* k, const void* 
 
 }  // namespace
 
-// dtype (of q and out): 0 = float32, 1 = bfloat16. step counts the
-// generated tokens including the current one. Null beam_sel: each beam
+// dtype (of q and out): 0 = float32, 1 = bfloat16. n_gen points to one
+// int in device memory: the generated tokens including the current one
+// (the "step" of the kernels), read by each block, so that a launch
+// captured into a CUDA graph serves every decode step. Null beam_sel: each beam
 // reads its own gen row; null kv_start / prompt_len / alibi switch those
 // off. Returns cudaGetLastError() after the launch, or -1 for an
 // unsupported dtype or head dim.
@@ -921,10 +926,10 @@ extern "C" int decode_attn(int dtype, int d, const void* q, const void* pk,
                            const void* pv, const void* gk, const void* gv,
                            const int* beam_sel, const int* kv_start,
                            const int* prompt_len, const float* alibi, void* out,
-                           int B, int K, int H, int Hkv, int T, int G, int step,
+                           int B, int K, int H, int Hkv, int T, int G, const int* n_gen,
                            float scale, void* stream) {
   return decode_dispatch<false>(dtype, d, q, pk, pv, gk, gv, Scales{}, Scales{}, beam_sel,
-                                kv_start, prompt_len, alibi, out, B, K, H, Hkv, T, G, step,
+                                kv_start, prompt_len, alibi, out, B, K, H, Hkv, T, G, n_gen,
                                 scale, stream);
 }
 
@@ -935,12 +940,12 @@ extern "C" int decode_attn_int8(int dtype, int d, const void* q, const void* pk,
                                 const float* pks, const float* pvs, const float* gks,
                                 const float* gvs, const int* beam_sel, const int* kv_start,
                                 const int* prompt_len, const float* alibi, void* out,
-                                int B, int K, int H, int Hkv, int T, int G, int step,
+                                int B, int K, int H, int Hkv, int T, int G, const int* n_gen,
                                 float scale, void* stream) {
   if (!pks || !pvs || !gks || !gvs) return -1;
   return decode_dispatch<true>(dtype, d, q, pk, pv, gk, gv, Scales{pks, pvs},
                                Scales{gks, gvs}, beam_sel, kv_start, prompt_len, alibi, out, B,
-                               K, H, Hkv, T, G, step, scale, stream);
+                               K, H, Hkv, T, G, n_gen, scale, stream);
 }
 
 extern "C" int single_query_attn(int dtype, int d, const void* q, const void* k,

@@ -21,8 +21,28 @@ max_new_tokens)``):
     with the best attainable running score.
 
 The loop runs on the host, one model call per step, and stops when every
-row is done. A greedy step reads the device once (``bool(done.all())``);
-a beam step four times: that check and one ``nonzero()`` in each of the
+row is done. On a CUDA model that decodes alone (no lockstep group: not
+sliced over tp, not under ZeRO-3, whose forwards hold collectives) the
+model call of a step is a CUDA graph (``_DecodeGraph``): captured at the
+first decode step of a ``generate()`` call over static copies of the
+step's inputs (tokens, positions, ancestry table, and ``step`` as a
+device scalar: the caches are written at a column indexed on the device,
+``models/layers.py:decode_step_tensors``), replayed for that step and
+every later one after the inputs are copied in; its static tensors go
+when the call returns. A model's first graph step in a process runs
+eagerly on the capture stream instead, to warm it up (cuBLAS' workspace,
+the kernels' modules and shared-memory settings). Beam selection stays
+eager, so the first read of a step waits for the replay. The graphs of
+one ``Generator`` are captured into one memory pool: a spent graph, never
+replayed again, is kept until the next capture has taken its pool over,
+so the pool's memory (one step's transient tensors, free between calls)
+is reused and not reserved anew each call; Python's garbage collector is
+off during a capture, which a graph destroyed inside it would void. A
+``Generator`` runs one ``generate()`` at a time. ``DECODE_STEPS`` counts the steps by path; a
+replay adds the launches its capture counted to ``kernel_lib.LAUNCHES``.
+
+A greedy step reads the device once (``bool(done.all())``); a beam step
+four times: that check and one ``nonzero()`` in each of the
 three ``top_k`` calls (candidates, the finished set, the alive set). The
 JAX loop is one ``lax.while_loop`` and reads nothing back. Ties in every
 top-k resolve to the lower index, as ``jax.lax.top_k`` does. The greedy
@@ -34,8 +54,10 @@ Spans (``utils/profiling.py``): ``generate.prefill`` (the prefill and
 the KV quantisation), then a ``generate.step`` a loop iteration holding
 the ``read.done`` check, ``generate.select`` (the pick or the beam
 bookkeeping, with its ``read.top_k`` reads) and ``generate.decode`` (the
-model call); a loop that stops before ``max_new_tokens`` ends in a
-``generate.step`` that holds only the check.
+model call, and in it ``generate.capture`` on a graph's first step, the
+capture and its first replay, or ``generate.replay`` on a later one); a
+loop that stops before ``max_new_tokens`` ends in a ``generate.step`` that
+holds only the check.
 
 Sampling (``temperature`` > 0, greedy loop only): ``sample_filter`` gives
 the temperature-scaled, top-k and nucleus-cut logits that JAX's
@@ -59,15 +81,31 @@ of an unsharded model decode on their own.
 from __future__ import annotations
 
 import dataclasses
+import gc
+import weakref
 
 import torch
 
 from unimp_tpu_torch.models.flamingo import compute_q_media
+from unimp_tpu_torch.ops import kernel_lib
 from unimp_tpu_torch.parallel.mesh import all_ranks_true, lockstep_group
 from unimp_tpu_torch.utils import profiling
 from unimp_tpu_torch.utils.quant import quantize_kv
 
 NEG_INF = -1.0e9
+
+# decode steps by path: "captures" (the step captured the model call into a
+# CUDA graph and replayed it once), "replays" (it replayed that graph),
+# "eager" (it called the model)
+DECODE_STEPS = {"captures": 0, "replays": 0, "eager": 0}
+
+_CAPTURE_STREAMS: dict = {}  # device -> the side stream graphs are captured on
+_WARMED = weakref.WeakSet()  # models whose decode step ran once on that stream
+
+
+def reset_decode_steps() -> None:
+    for name in DECODE_STEPS:
+        DECODE_STEPS[name] = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -176,6 +214,75 @@ def sample_draw(logits: torch.Tensor, generator: torch.Generator) -> torch.Tenso
     return torch.argmax(x - torch.log(race.clamp_min(torch.finfo(torch.float32).tiny)), dim=-1)
 
 
+class _DecodeGraph:
+    """One ``generate()`` call's decode step as a CUDA graph: the model call
+    captured over static copies of the step's inputs; ``replay`` copies a
+    step's inputs in and returns a copy of the logits (a later replay
+    overwrites the static ones) and the gen caches, which the graph writes
+    in place."""
+
+    def __init__(self, model, tokens, state, gen, step, positions, gen_index, pool):
+        dev = tokens.device
+        self.state = state
+        self.tokens, self.positions = tokens.clone(), positions.clone()
+        self.gen_index = None if gen_index is None else gen_index.clone()
+        self.step = torch.full((1,), step, dtype=torch.int64, device=dev)
+        ds = dict(state, gen=gen, step=self.step, gen_index=self.gen_index)
+        before = dict(kernel_lib.LAUNCHES)
+        self.graph = torch.cuda.CUDAGraph()
+        stream = _capture_stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        # no garbage collection during the capture: a collected Generator's
+        # spent graph, destroyed inside it, would void it
+        gc_on = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.stream(stream):
+                # thread_local: another thread's CUDA calls (a loader pinning
+                # memory) do not void the capture
+                self.graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+                try:
+                    self.logits, self.new_gen = model(self.tokens, positions=self.positions,
+                                                      decode_state=ds)
+                finally:
+                    self.graph.capture_end()
+        finally:
+            if gc_on:
+                gc.enable()
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        # the launches the capture counted, counted again at each replay
+        self.launches = {k: n - before[k] for k, n in kernel_lib.LAUNCHES.items()
+                         if n != before[k]}
+
+    def fits(self, tokens, state, gen, positions, gen_index) -> bool:
+        """Whether this step's inputs are the captured call's: the same
+        batch state and caches, the same shapes."""
+        return (state is self.state and len(gen) == len(self.new_gen)
+                and all(a is b for a, b in zip(gen, self.new_gen))
+                and tokens.shape == self.tokens.shape
+                and positions.shape == self.positions.shape
+                and (gen_index is None) == (self.gen_index is None)
+                and (gen_index is None or gen_index.shape == self.gen_index.shape))
+
+    def replay(self, tokens, step, positions, gen_index, count_launches: bool = True):
+        self.tokens.copy_(tokens)
+        self.positions.copy_(positions)
+        if gen_index is not None:
+            self.gen_index.copy_(gen_index)
+        self.step.fill_(step)
+        self.graph.replay()
+        if count_launches:
+            kernel_lib.add_launches(self.launches)
+        return self.logits.clone(), self.new_gen
+
+
+def _capture_stream(dev) -> torch.cuda.Stream:
+    stream = _CAPTURE_STREAMS.get(dev)
+    if stream is None:
+        stream = _CAPTURE_STREAMS[dev] = torch.cuda.Stream(dev)
+    return stream
+
+
 class Generator:
     """generate() over a UniMPModel (or an API-compatible model)."""
 
@@ -186,6 +293,12 @@ class Generator:
         # the ranks that decode together (a model sliced over tp, or ZeRO-3
         # over fsdp), or None
         self.lockstep_group = lockstep_group(model)
+        # this call's decode graph; the memory pool of this Generator's
+        # graphs (made at the first capture) and the last call's spent
+        # graph, which holds the pool until the next capture
+        self._graph = None
+        self._pool = None
+        self._spent = None
 
     @torch.no_grad()
     def generate(self, input_ids, seq_len, latents=None, generator=None):
@@ -225,14 +338,64 @@ class Generator:
             "kv_media": kv_media,
         }
         last_logits = logits[:, -1]
-        if cfg.num_beams == 1:
-            return self._greedy_loop(last_logits, state, start, t, generator)
-        return self._beam_loop(last_logits, state, start, t, seq_len)
+        try:
+            if cfg.num_beams == 1:
+                return self._greedy_loop(last_logits, state, start, t, generator)
+            return self._beam_loop(last_logits, state, start, t, seq_len)
+        finally:
+            if self._graph is not None:
+                # the last replay done before the static tensors go
+                torch.cuda.current_stream(dev).synchronize()
+                self._spent, self._graph = self._graph.graph, None
 
     def _decode_step(self, tokens, state, gen, step, positions, gen_index=None):
-        ds = dict(state, gen=gen, step=step, gen_index=gen_index)
+        """One decode step's model call (``step``, an int: the tokens
+        generated before this one): (logits [B*, 1, V], gen caches). A
+        CUDA model that decodes alone takes the CUDA graph (module doc)."""
         with profiling.span("generate.decode"):
-            return self.model(tokens, positions=positions, decode_state=ds)
+            if not self._takes_graph(tokens.device):
+                DECODE_STEPS["eager"] += 1
+                ds = dict(state, gen=gen, step=step, gen_index=gen_index)
+                return self.model(tokens, positions=positions, decode_state=ds)
+            graph = self._graph
+            if graph is not None and graph.fits(tokens, state, gen, positions, gen_index):
+                with profiling.span("generate.replay"):
+                    DECODE_STEPS["replays"] += 1
+                    return graph.replay(tokens, step, positions, gen_index)
+            if graph is not None:  # spent: it holds the pool until the next capture
+                self._spent, self._graph = graph.graph, None
+            if self.model not in _WARMED:
+                return self._warm_up(tokens, state, gen, step, positions, gen_index)
+            with profiling.span("generate.capture"):
+                DECODE_STEPS["captures"] += 1
+                if self._pool is None:
+                    self._pool = torch.cuda.graph_pool_handle()
+                self._graph = _DecodeGraph(self.model, tokens, state, gen, step, positions,
+                                           gen_index, self._pool)
+                self._spent = None
+                return self._graph.replay(tokens, step, positions, gen_index,
+                                          count_launches=False)
+
+    def _takes_graph(self, device: torch.device) -> bool:
+        """Whether a decode step on ``device`` runs as a CUDA graph: on the
+        card, where no other rank steps with this one (a lockstep group's
+        forwards hold collectives and ZeRO-3's gathers)."""
+        return device.type == "cuda" and self.lockstep_group is None
+
+    def _warm_up(self, tokens, state, gen, step, positions, gen_index):
+        """The model's first graph step in this process: the model call run
+        eagerly on the capture stream."""
+        DECODE_STEPS["eager"] += 1
+        dev = tokens.device
+        main, stream = torch.cuda.current_stream(dev), _capture_stream(dev)
+        stream.wait_stream(main)
+        with torch.cuda.stream(stream):
+            ds = dict(state, gen=gen, step=step, gen_index=gen_index)
+            logits, new_gen = self.model(tokens, positions=positions, decode_state=ds)
+        main.wait_stream(stream)
+        logits.record_stream(main)  # made on the side stream, read on this one
+        _WARMED.add(self.model)
+        return logits, new_gen
 
     def _greedy_loop(self, last_logits, state, start, t, generator=None):
         cfg = self.cfg

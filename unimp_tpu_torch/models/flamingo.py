@@ -44,7 +44,8 @@ import torch.utils.checkpoint as torch_checkpoint
 from torch import nn
 
 from unimp_tpu_torch.models.config import UniMPConfig
-from unimp_tpu_torch.models.layers import Attention, DenseWeights, LayerNorm, Mlp, make_norm
+from unimp_tpu_torch.models.layers import (Attention, DenseWeights, LayerNorm, Mlp,
+                                           decode_step_tensors, make_norm)
 from unimp_tpu_torch.models.lm import DecoderBlock, init_gen_cache
 from unimp_tpu_torch.models.perceiver import PerceiverResampler
 from unimp_tpu_torch.models.vit import VisionTower
@@ -250,6 +251,8 @@ class UniMPModel(nn.Module):
             if decode_state.get("kv_media") is not None:
                 allowed = media_allowed(decode_state["kv_media"],
                                         decode_state["n_media"], cfg.media_mode)
+            # the step on the device once for every layer
+            step_tensors = decode_step_tensors(decode_state["step"], x.device)
             new_gen = []
             xi = 0
             for i, (block, xattn) in enumerate(self._layers()):
@@ -263,6 +266,7 @@ class UniMPModel(nn.Module):
                     "prompt": decode_state["self"][i],
                     "gen": decode_state["gen"][i],
                     "step": decode_state["step"],
+                    "step_tensors": step_tensors,
                     "kv_start": decode_state.get("kv_start"),
                     "gen_index": decode_state.get("gen_index"),
                 }

@@ -102,6 +102,22 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, rotary_pct: float,
     return torch.cat([rotated.to(x.dtype), x[..., rot:]], dim=-1)
 
 
+def decode_step_tensors(step, device):
+    """A decode step's ``step`` (the tokens generated before this one: an
+    int, or a one-element int64 tensor on ``device``) as the two tensors
+    the layers read on the device: (the gen caches' column for this
+    token's K/V, [1] int64; the tokens generated including this one, [1]
+    int32, the decode kernel's ``step``). A model call makes them once for
+    all its layers. A tensor ``step`` is used in place, not copied, so
+    that the replays of a CUDA graph captured over the call read each
+    step's value (``decode/sampler.py``)."""
+    if isinstance(step, torch.Tensor):
+        col = step.reshape(1).to(device=device, dtype=torch.int64)
+    else:
+        col = torch.full((1,), int(step), dtype=torch.int64, device=device)
+    return col, (col + 1).to(torch.int32)
+
+
 class Proj(nn.Module):
     """DenseGeneral(features=(H, d)): kernel [in, H, d], bias [H, d]."""
 
@@ -227,9 +243,11 @@ class Attention(nn.Module):
         """Returns (out [B, S, in_dim], cache_or_None).
 
         decode_state (self-attention decode): {"prompt": {"k","v"}
-        [B,Hkv,T,D], "gen": {"k","v"} [BK,Hkv,G,D], "step": int tokens
-        generated so far (current excluded), "kv_start": [B], "gen_index":
-        [BK, G] ancestry table or None}. xattn_cache: {"k","v"}
+        [B,Hkv,T,D], "gen": {"k","v"} [BK,Hkv,G,D], "step": tokens
+        generated so far (current excluded; an int or a one-element int64
+        tensor), "step_tensors": ``decode_step_tensors(step)`` (made here
+        when absent), "kv_start": [B], "gen_index": [BK, G] ancestry table
+        or None}. xattn_cache: {"k","v"}
         [B,Hkv,S,D] projected latents; xattn_allowed: [B, S] mask. int8
         caches (prompt, gen, latents) also hold "k_scale" / "v_scale"
         [B*,Hkv,S] f32.
@@ -264,15 +282,17 @@ class Attention(nn.Module):
             k = apply_rope(k, positions, self.rotary_pct, self.rope_theta)
 
         if decode_state is not None:
-            step = int(decode_state["step"])
+            col, n_gen = (decode_state.get("step_tensors")
+                          or decode_step_tensors(decode_state["step"], x.device))
             gen = decode_state["gen"]
-            # heads-major cache; this token's K/V land at column `step`; an
-            # int8 cache takes them quantized per (row, head) with their
-            # scales, written at the same column
+            # heads-major cache; this token's K/V land at column `step`
+            # (indexed on the device); an int8 cache takes them quantized
+            # per (row, head) with their scales, written at the same column
             for name, t in (("k", k[:, 0]), ("v", v[:, 0])):
                 if gen[name].dtype == torch.int8:
-                    t, gen[name + "_scale"][:, :, step] = quantize_kv(t)
-                gen[name][:, :, step] = t.to(gen[name].dtype)
+                    t, t_scale = quantize_kv(t)
+                    gen[name + "_scale"].index_copy_(2, col, t_scale[:, :, None])
+                gen[name].index_copy_(2, col, t.to(gen[name].dtype)[:, :, None])
             prompt = decode_state["prompt"]
             gen_index = decode_state.get("gen_index")
             beam_sel = None
@@ -285,7 +305,7 @@ class Attention(nn.Module):
             # embedding copies it (ALiBi models): the kernel takes it dense
             out = decode_attention(
                 q[:, 0].contiguous(), prompt["k"], prompt["v"], gen["k"], gen["v"],
-                step=step + 1, kv_start=decode_state.get("kv_start"),
+                step=n_gen, kv_start=decode_state.get("kv_start"),
                 alibi=self.alibi, beam_sel=beam_sel,
                 prompt_k_scale=prompt.get("k_scale"), prompt_v_scale=prompt.get("v_scale"),
                 gen_k_scale=gen.get("k_scale"), gen_v_scale=gen.get("v_scale"),

@@ -15,7 +15,7 @@ import torch
 from torch import nn
 
 from unimp_tpu_torch.models.config import LMConfig
-from unimp_tpu_torch.models.layers import Attention, Mlp, make_norm
+from unimp_tpu_torch.models.layers import Attention, Mlp, decode_step_tensors, make_norm
 from unimp_tpu_torch.ops import AttnMask
 from unimp_tpu_torch.utils import profiling
 
@@ -113,11 +113,13 @@ class CausalLM(nn.Module):
         with profiling.span("model.embed"):
             x = self.embed(input_ids)
         caches = []
+        if decode_state is not None:  # the step on the device once for every layer
+            step_tensors = decode_step_tensors(decode_state["step"], x.device)
         for i, block in enumerate(self.blocks()):
             layer_ds = None
             if decode_state is not None:
                 layer_ds = {"prompt": decode_state["self"][i], "gen": decode_state["gen"][i],
-                            "step": decode_state["step"],
+                            "step": decode_state["step"], "step_tensors": step_tensors,
                             "kv_start": decode_state.get("kv_start"),
                             "gen_index": decode_state.get("gen_index")}
             with profiling.span("model.block"):

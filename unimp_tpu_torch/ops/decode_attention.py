@@ -92,7 +92,9 @@ def decode_attention_ref(q, prompt_k, prompt_v, gen_k, gen_v, *, step,
     """Plain split-cache decode attention; returns [BK, H, D] in q.dtype.
 
     step counts the generated tokens INCLUDING the current one (gen
-    positions g < step are valid). beam_sel [BK, G]: local ancestor beam
+    positions g < step are valid): an int, or a one-element integer tensor
+    on q's device (the model's form, ``models/layers.py:
+    decode_step_tensors``), with the same result. beam_sel [BK, G]: local ancestor beam
     of each gen position (None: each beam reads its own row). int8
     caches: prompt_k/v_scale [B, Hkv, T] and gen_k/v_scale [BK, Hkv, G],
     all four or none.

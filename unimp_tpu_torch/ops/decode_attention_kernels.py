@@ -59,7 +59,10 @@ def decode_attention_cuda(q, prompt_k, prompt_v, gen_k, gen_v, *, step,
     """Launch the split-cache decode kernel; returns [BK, H, D] in q.dtype.
 
     q [BK, H, D]; prompt_k/v [B, Hkv, T, D]; gen_k/v [BK, Hkv, G, D];
-    step: generated tokens including the current one (an int);
+    step: generated tokens including the current one, an int (checked
+    against G here) or a one-element int32 tensor on q's device, which
+    the kernel reads there (a CUDA graph's replays change it; the model
+    makes it once a decode step, ``models/layers.py:decode_step_tensors``);
     beam_sel [BK, G] local ancestor beam (None: own row). int8 caches:
     the four f32 scales prompt_k/v_scale [B, Hkv, T] and gen_k/v_scale
     [BK, Hkv, G].
@@ -76,10 +79,16 @@ def decode_attention_cuda(q, prompt_k, prompt_v, gen_k, gen_v, *, step,
     if prompt_v.shape != prompt_k.shape or gen_k.shape != (bk, hkv, g, d) \
             or gen_v.shape != gen_k.shape:
         raise ValueError("prompt/gen cache shapes disagree")
-    step = int(step)
-    if not 0 <= step <= g:
-        raise ValueError(f"step {step} outside [0, {g}]")
     dev = q.device
+    if isinstance(step, torch.Tensor):
+        if step.device != dev or step.dtype != torch.int32 or step.numel() != 1:
+            raise ValueError(f"step must be one int32 on {dev}, got {step.dtype} "
+                             f"{tuple(step.shape)} on {step.device}")
+    else:
+        step = int(step)
+        if not 0 <= step <= g:
+            raise ValueError(f"step {step} outside [0, {g}]")
+        step = torch.full((1,), step, dtype=torch.int32, device=dev)
     kv_start = kernel_lib.rows_i32("kv_start", kv_start, (b,), dev)
     prompt_len = kernel_lib.rows_i32("prompt_len", prompt_len, (b,), dev)
     beam_sel = kernel_lib.rows_i32("beam_sel", beam_sel, (bk, g), dev)
@@ -89,7 +98,7 @@ def decode_attention_cuda(q, prompt_k, prompt_v, gen_k, gen_v, *, step,
     out = torch.empty_like(q)
     P = kernel_lib.ptr
     tail = (P(beam_sel), P(kv_start), P(prompt_len), P(slopes), P(out),
-            b, bk // b, h, hkv, t, g, step, float(scale))
+            b, bk // b, h, hkv, t, g, P(step), float(scale))
     head = (kernel_lib.DTYPE_CODES[q.dtype], d, P(q), *map(P, caches))
     if int8:
         _check_scales(("prompt_k_scale", "prompt_v_scale", "gen_k_scale", "gen_v_scale"),

@@ -11,7 +11,8 @@ that build at once do not race. Nothing here runs at import: the CPU
 tests import every module.
 
 ``LAUNCHES`` counts kernel launches per kernel; each wrapper adds one
-where it launches, and nowhere else.
+where it launches, and a replayed CUDA graph adds the launches that were
+counted while it was captured (``add_launches``; ``decode/sampler.py``).
 """
 
 from __future__ import annotations
@@ -58,14 +59,15 @@ SIGNATURES = {
     },
     "decode_attn": {
         # dtype, d, q, pk, pv, gk, gv, beam_sel, kv_start, prompt_len,
-        # alibi, out, B, K, H, Hkv, T, G, step, scale, stream
+        # alibi, out, B, K, H, Hkv, T, G, n_gen (device int: step), scale,
+        # stream
         "decode_attn": [I, I, P, P, P, P, P, P, P, P, P, P,
-                        I, I, I, I, I, I, I, F, P],
+                        I, I, I, I, I, I, P, F, P],
         # dtype, d, q, pk, pv, gk, gv, pk_scale, pv_scale, gk_scale,
         # gv_scale, beam_sel, kv_start, prompt_len, alibi, out, B, K, H, Hkv,
-        # T, G, step, scale, stream
+        # T, G, n_gen, scale, stream
         "decode_attn_int8": [I, I, P, P, P, P, P, P, P, P, P, P, P, P, P, P,
-                             I, I, I, I, I, I, I, F, P],
+                             I, I, I, I, I, I, P, F, P],
         # dtype, d, q, k, v, allowed, out, B, K, H, Hkv, S, scale, stream
         "single_query_attn": [I, I, P, P, P, P, P, I, I, I, I, I, F, P],
         # dtype, d, q, k, v, k_scale, v_scale, allowed, out, B, K, H, Hkv, S,
@@ -90,6 +92,13 @@ _lock = threading.Lock()
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def add_launches(counts: dict) -> None:
+    """Count ``counts`` ({kernel: launches}) as launched again: a CUDA
+    graph's replay runs the launches its capture counted."""
+    for name, n in counts.items():
+        LAUNCHES[name] += n
 
 
 def _nvcc() -> str:
